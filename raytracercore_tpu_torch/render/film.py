@@ -1,0 +1,88 @@
+"""Progressive accumulation film (counterpart of
+``raytracercore_tpu.render.film``).
+
+Per-pixel color sum, hit-sample count and miss count, as a dataclass of
+tensors on the render device (the reference's ``SampleSet[,]`` grid,
+Raytracing/SampleSet.cs).  ``compensated=True`` keeps a Neumaier
+compensation term beside ``color_sum``, for runs of thousands of samples per
+pixel where plain f32 sums lose low-order contributions.  Films are values:
+every update returns a new :class:`Film`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from ..core.color import to_uint8, tonemap
+
+
+def _neumaier_add(s, c, x):
+    """One Neumaier compensated-sum step: returns (s', c') with the true sum
+    ≈ s' + c'.  Unlike classic Kahan this stays accurate when the increment
+    exceeds the running sum."""
+    t = s + x
+    lost = torch.where(torch.abs(s) >= torch.abs(x), (s - t) + x, (x - t) + s)
+    return t, c + lost
+
+
+@dataclasses.dataclass(frozen=True)
+class Film:
+    color_sum: torch.Tensor  # [H, W, 3]
+    samples: torch.Tensor    # [H, W] float (counts)
+    misses: torch.Tensor     # [H, W]
+    # Neumaier compensation for color_sum; None ⇒ plain summation.
+    color_c: Optional[torch.Tensor] = None
+
+    @classmethod
+    def create(cls, height: int, width: int, device="cpu",
+               dtype=torch.float32, compensated: bool = False):
+        def z(*shape):
+            return torch.zeros(shape, dtype=dtype, device=device)
+        return cls(color_sum=z(height, width, 3), samples=z(height, width),
+                   misses=z(height, width),
+                   color_c=z(height, width, 3) if compensated else None)
+
+    @property
+    def shape(self):
+        return tuple(self.samples.shape)
+
+    def add_full_frame(self, color, miss):
+        """Accumulate one sample for every pixel (row-major flat [H*W, 3]).
+
+        A miss sample contributes to ``misses`` only (the Placeholder path,
+        FullRaytracer.cs:334-337); hits add color + sample count.
+        """
+        h, w = self.shape
+        color = color.reshape(h, w, 3)
+        miss = miss.reshape(h, w)
+        hit = ~miss
+        contrib = torch.where(hit[..., None], color, torch.zeros_like(color))
+        if self.color_c is None:
+            cs, cc = self.color_sum + contrib, None
+        else:
+            cs, cc = _neumaier_add(self.color_sum, self.color_c, contrib)
+        return Film(
+            color_sum=cs,
+            samples=self.samples + hit.to(self.samples.dtype),
+            misses=self.misses + miss.to(self.misses.dtype),
+            color_c=cc,
+        )
+
+    @property
+    def corrected_sum(self):
+        """color_sum with the compensation folded in."""
+        if self.color_c is None:
+            return self.color_sum
+        return self.color_sum + self.color_c
+
+    def to_image(self, background_rgb, background_alpha, exposure=1.0):
+        """Tonemapped [0,1] image + alpha (SampleSet.GetOutput semantics)."""
+        return tonemap(self.corrected_sum, self.samples, self.misses,
+                       background_rgb, background_alpha, exposure)
+
+    def to_uint8(self, background_rgb, background_alpha, exposure=1.0):
+        rgb, alpha = self.to_image(background_rgb, background_alpha, exposure)
+        return to_uint8(rgb, alpha)
