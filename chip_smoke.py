@@ -6,10 +6,14 @@ Run from the repository root on a machine with one NVIDIA GPU::
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``raytracercore_tpu_torch/csrc``,
-holds each kernel against its plain PyTorch version on the card, drives the
-main path (the progressive forward render: ``Renderer`` → camera rays →
-uniforms → the whole-path megakernel → film → tonemapped image) on a
-Cornell-class scene at 700×700, recursion 10, and prints what it measured.
+holds each kernel against its plain PyTorch version on the card (the
+megakernel, the train path's uniforms kernel, the replay forward and
+backward kernels), drives the two main paths on a Cornell-class scene at
+700×700, recursion 10 — the progressive forward render (``Renderer`` →
+camera rays → uniforms → the whole-path megakernel → film → tonemapped
+image) and the material-gradient train step (uniforms kernel → megakernel
+recorder → replay backward kernel → L2 loss → ``torch.optim.Adam``) — and
+prints what it measured.
 The last two lines of standard output are a JSON object describing the
 kernels and a JSON object ``{"ok": true, "device": ...}``.  Any failed
 check exits non-zero before those lines.  Without a CUDA device it exits
@@ -135,7 +139,39 @@ trinormal 0 1 2
 trinormal 1 3 2
 """
 
-MAIN_PASSES = 16      # timed passes of the main path
+# The geometry of FUSED_TEST_SCENE with materials whose total luminance
+# exceeds 1, so the energy compensation max(total, 1) passes gradients to
+# Fresnel: IOR and shininess get real gradients (with total < 1
+# everywhere, as in the scenes above, those gradients are exactly 0).
+ROUGH_SCENE = """
+size 16 16
+recursion 4
+ambient color 0.05 0.05 0.05
+camera 0 1 4  0 1 0  0 1 0  60
+emission 6 6 6
+vertex -1 2.5 -1
+vertex 1 2.5 -1
+vertex -1 2.5 1
+tri 0 1 2 mirrored
+emission 0 0 0
+diffuse .7 .6 .5
+specular .5 .5 .5
+shininess 40
+twosided true
+plane -1  0 0 1
+diffuse .3 .3 .3
+specular .8 .8 .8
+shininess 30
+refraction .7 .7 .7, 1.5
+sphere -0.8 1 0.5 0.6
+refraction off
+diffuse .4 .4 .4
+specular .9 .9 .9
+shininess 60
+sphere 0.8 1 0.5 0.6
+"""
+
+MAIN_PASSES = 16      # timed passes of the forward render
 WARM_PASSES = 2       # untimed passes before them (first use loads the kernel)
 COMPARE_SIZE = 256    # image size of the kernel-vs-plain comparisons
 # Kernel vs plain tolerances (those of tests/test_fused.py): knife-edge f32
@@ -143,6 +179,26 @@ COMPARE_SIZE = 256    # image size of the kernel-vs-plain comparisons
 CLOSE_ATOL = CLOSE_RTOL = 1e-3
 MIN_CLOSE_FRAC = 0.97
 MEAN_TOL = 5e-3
+# Uniforms kernel vs plain: channel 3 (the raw draw) bit for bit, the
+# transcendental channels within 1e-6 abs + 4 ulp rel (CUDA's logf, cosf,
+# sinf, acosf against torch's calls of the same functions).
+UNI_ATOL, UNI_ULPS = 1e-6, 4
+# Replay kernels vs plain: same operations in f32, so colours agree to
+# 1e-6 abs + 1e-5 rel; gradients are sums over rays in another order (the
+# kernel adds with atomics), so each field within 1e-5 of its largest
+# plain gradient.
+REPLAY_ATOL, REPLAY_RTOL = 1e-6, 1e-5
+GRAD_TOL = 1e-5
+FIELD_COLS = {"emission": (0, 3), "diffuse": (3, 6), "specular": (6, 9),
+              "refraction": (9, 12), "refractive_index": (12, 13),
+              "shininess": (13, 14)}
+# The train path: target from the scene's own materials, start from every
+# non-emissive diffuse halved, Adam.
+TARGET_SPP = 32
+TRAIN_WARM, TRAIN_STEPS = 2, 20
+TRAIN_LR = 1e-2
+TRAIN_SEED = 2024
+PROFILE_STEPS = 4
 
 
 def check(cond, what):
@@ -258,6 +314,338 @@ def compare(label, arrays, ray_o, ray_d, uniforms):
     return cls["max_abs_err_same_path"]
 
 
+def device_busy(fn, n):
+    """Device busy share of ``n`` calls ``fn(i)`` under torch.profiler: the
+    union of the kernels' device intervals over the host span from the
+    first call to the final synchronize.  Returns (percent, the top kernels
+    by device time per call as text)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(n):
+            fn(i)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    # Device-side events that are kernels; a record_function range (such
+    # as Optimizer.step) also shows on the device timeline, spanning the
+    # idle gaps between its kernels, and is left out.
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    busy_us, end = 0.0, float("-inf")
+    for start, stop in sorted((e.time_range.start, e.time_range.end)
+                              for e in kernels):
+        busy_us += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    text = "; ".join(f"{name[:50]} {us / n:.1f}" for name, us in top)
+    check(busy_us > 0, "the profiler saw device time")
+    return 100.0 * busy_us / wall_us, text
+
+
+def compare_uniforms(dev, n, bounces):
+    """Uniforms kernel against its plain version at the train path's
+    shape; returns (max abs err, kernel ms, plain ms)."""
+    from raytracercore_tpu_torch.render import uniforms_kernel as uk
+
+    seed = 0x9E3779B97F4A7C15
+    got = uk.prepare_uniforms_kernel(seed, n, bounces, dev)
+    want = uk.prepare_uniforms_reference(seed, n, bounces, dev)
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    tol = UNI_ATOL + UNI_ULPS * torch.finfo(torch.float32).eps * want.abs()
+    per_ch = err.amax(dim=(0, 2)).tolist()
+    ch3_equal = torch.equal(got[:, 3], want[:, 3])
+    print(f"[uniforms] [{bounces},7,{n}] channel 3 bit-equal={ch3_equal} "
+          f"max abs err per channel="
+          f"{' '.join(f'{x:.3e}' for x in per_ch)} "
+          f"within tol={bool((err <= tol).all())}")
+    check(bool(torch.isfinite(got).all()), "uniforms kernel output finite")
+    check(ch3_equal, "uniforms channel 3 bit-equal to the plain Philox")
+    check(bool((err <= tol).all()),
+          f"uniforms within {UNI_ATOL} abs + {UNI_ULPS} ulp rel")
+    kernel_ms = cuda_ms(
+        lambda: uk.prepare_uniforms_kernel(seed, n, bounces, dev), 10)
+    plain_ms = cuda_ms(
+        lambda: uk.prepare_uniforms_reference(seed, n, bounces, dev), 3)
+    return float(err.max()), kernel_ms, plain_ms
+
+
+def compare_replay(label, arrays, ray_o, ray_d, uniforms):
+    """Replay forward and backward kernels against their plain versions
+    on a tape the megakernel records; returns (max abs colour err, max abs
+    gradient err)."""
+    from raytracercore_tpu_torch.render import fused
+    from raytracercore_tpu_torch.render import replay_kernel as rk
+
+    color_r, miss_r, tape = fused.trace_fused(arrays, ray_o, ray_d,
+                                              uniforms, want_tape=True)
+    matf, scf = rk.material_table(arrays)
+    aim = arrays.ambient_is_miss
+    ref_c, ref_m = rk.replay_fwd_reference(ray_d, uniforms, tape, matf, scf,
+                                           aim)
+    got_c, got_m = rk.replay_fwd(ray_d, uniforms, tape, matf, scf, aim)
+    torch.cuda.synchronize()
+    fwd_err = float((got_c - ref_c).abs().max())
+    fwd_ok = bool(((got_c - ref_c).abs()
+                   <= REPLAY_ATOL + REPLAY_RTOL * ref_c.abs()).all())
+    check(torch.equal(got_m, ref_m), f"{label}: replay miss equal")
+    check(fwd_ok, f"{label}: replay colour within {REPLAY_ATOL} abs + "
+          f"{REPLAY_RTOL} rel")
+
+    # dL/d(material table) of L = mean(where(miss, 0, colour)^2): autograd
+    # through the plain replay, the hand-written plain backward, the kernel.
+    m = matf.clone().requires_grad_(True)
+    c, mm = rk.replay_fwd_reference(ray_d, uniforms, tape, m, scf, aim)
+    loss = torch.mean(torch.where(mm[:, None], 0.0, c) ** 2)
+    ct, g_auto = torch.autograd.grad(loss, (c, m))
+    ct = ct.contiguous()
+    g_ref = rk.replay_bwd_reference(ray_d, uniforms, tape, matf, scf, aim, ct)
+    g_k = rk.replay_bwd(ray_d, uniforms, tape, matf, scf, aim, ct)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(g_k).all()), f"{label}: kernel grads finite")
+    worst = {}
+    for field, (a, b) in FIELD_COLS.items():
+        for name, plain in (("autograd", g_auto), ("hand", g_ref)):
+            err = float((g_k[:, a:b] - plain[:, a:b]).abs().max())
+            scale = float(plain[:, a:b].abs().max())
+            check(err <= GRAD_TOL * scale,
+                  f"{label}: {field} grad vs {name} plain: {err:.3e} > "
+                  f"{GRAD_TOL} * {scale:.3e}")
+            worst[f"{field}/{name}"] = (err, scale)
+    bwd_err = max(e for e, _ in worst.values())
+
+    # Record-as-primal: the recorder's colour comes back bit for bit.
+    p_c, p_m = rk.replay_fused(arrays, ray_o, ray_d, uniforms, tape,
+                               primal=(color_r, miss_r))
+    check(torch.equal(p_c, color_r) and torch.equal(p_m, miss_r),
+          f"{label}: record-as-primal colour bit-equal to the recorder's")
+    rec_err = float((color_r - got_c).abs().max())
+    nonzero = int((g_auto != 0).sum())
+    print(f"[replay] {label}: fwd max_abs_err={fwd_err:.3e} miss_equal=True "
+          f"bwd max_abs_err={bwd_err:.3e} nonzero_grads={nonzero} "
+          + " ".join(f"{k}={e:.2e}/{s:.2e}" for k, (e, s) in worst.items()
+                     if k.endswith("autograd"))
+          + f" recorder_vs_replay_colour_max_diff={rec_err:.3e} "
+          f"record_as_primal_bit_equal=True")
+    return fwd_err, bwd_err
+
+
+def train_step_on(trace, optimizer):
+    """The step of ``make_train_step(None, optimizer)`` with ``trace(scene,
+    ray_o, ray_d, path_seed) → (color, miss)`` in place of its
+    ``trace_replay``: the replay-forward route and the all-plain step."""
+    from raytracercore_tpu_torch.diff import with_material_params
+    from raytracercore_tpu_torch.parallel.shard import image_loss, step_rays
+
+    def step(params, scene, camera, target, seed):
+        h, w = target.shape[:2]
+        ray_o, ray_d, path_seed = step_rays(camera, h, w, seed)
+        color, miss = trace(with_material_params(scene, params), ray_o,
+                            ray_d, path_seed)
+        loss = image_loss(color, miss, target)
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return step
+
+
+def replay_forward_trace(scene, ray_o, ray_d, path_seed):
+    """``trace_replay`` on its replay-forward route: the forward kernel
+    recomputes the colour from the tape, so every kernel of the train path
+    launches once per step."""
+    from raytracercore_tpu_torch.render.replay import trace_replay
+
+    return trace_replay(scene, ray_o, ray_d, seed=path_seed,
+                        record_as_primal=False)
+
+
+def plain_trace(scene, ray_o, ray_d, path_seed):
+    """The train path's trace with every kernel replaced by its plain
+    version (for the timing comparison only)."""
+    from raytracercore_tpu_torch.render import fused
+    from raytracercore_tpu_torch.render.replay import replay
+    from raytracercore_tpu_torch.render.uniforms_kernel import \
+        prepare_uniforms_reference
+
+    u = prepare_uniforms_reference(path_seed, ray_o.shape[0],
+                                   scene.recursion + 1, ray_o.device)
+    with torch.no_grad():
+        _, _, tape = fused.trace_fused_reference(scene, ray_o, ray_d, u,
+                                                 want_tape=True)
+    return replay(scene, ray_o, ray_d, u, tape)
+
+
+def quartiles(ms):
+    return "/".join(f"{x:.3f}" for x in
+                    np.percentile(np.asarray(ms), [0, 25, 50, 75, 100]))
+
+
+def train_path(card, dev):
+    """Main path 2: the material-gradient train step at 700x700 rec10.
+    Returns {kernel name: launches} summed over both routes' timed steps,
+    and the stage times."""
+    from raytracercore_tpu_torch.diff import get_material_params
+    from raytracercore_tpu_torch.parallel import make_train_step
+    from raytracercore_tpu_torch.render import fused
+    from raytracercore_tpu_torch.render import replay_kernel as rk
+    from raytracercore_tpu_torch.render import uniforms_kernel as uk
+    from raytracercore_tpu_torch.render.renderer import Renderer, pass_seed
+    from raytracercore_tpu_torch.scene import loader
+
+    counters = {"trace_fused": fused.trace_fused,
+                "prepare_uniforms_kernel": uk.prepare_uniforms_kernel,
+                "replay_fwd": rk.replay_fwd, "replay_bwd": rk.replay_bwd}
+    host = loader.parse(CORNELL_SCENE)
+    r = Renderer(host, device=dev, seed=TRAIN_SEED)
+    r.step(TARGET_SPP)
+    film = r.film
+    target = film.color_sum / (film.samples + film.misses)[..., None]
+    check(bool(torch.isfinite(target).all()) and float(target.max()) > 0.1,
+          "train target finite and lit")
+    scene, camera = r.arrays, r.camera
+    h, w = target.shape[:2]
+    n_paths, n_bounces = h * w, scene.recursion + 1
+    truth = {k: v.detach() for k, v in get_material_params(scene).items()}
+    emissive = truth["emission"].sum(dim=1) > 0
+
+    def start_params():
+        p = get_material_params(scene)
+        with torch.no_grad():
+            p["diffuse"][~emissive] *= 0.5
+        return p
+
+    # Printed, not checked: the L2 loss of a one-sample render against a
+    # converged target has its expected minimum below the true albedo (at
+    # mean^2 / (mean^2 + variance) of it), so from a halved start the
+    # diffuse may move away from the truth while the loss falls.
+    def diffuse_err(p):
+        return float((p["diffuse"].detach() - truth["diffuse"])[~emissive]
+                     .abs().mean())
+
+    launches = dict.fromkeys(counters, 0)
+    step_ms = {}
+    routes = (("record-as-primal", lambda opt: make_train_step(None, opt)),
+              ("replay-forward",
+               lambda opt: train_step_on(replay_forward_trace, opt)))
+    for route, make_step in routes:
+        params = start_params()
+        adam = torch.optim.Adam(params.values(), lr=TRAIN_LR)
+        step = make_step(adam)
+        err0 = diffuse_err(params)
+        for i in range(TRAIN_WARM):
+            step(params, scene, camera, target, pass_seed(TRAIN_SEED, i))
+        torch.cuda.synchronize()
+        for f in counters.values():
+            f.launches = 0
+        losses, times = [], []
+        for i in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            loss = step(params, scene, camera, target,
+                        pass_seed(TRAIN_SEED, TRAIN_WARM + i))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss))
+        counts = {k: f.launches for k, f in counters.items()}
+        err1 = diffuse_err(params)
+        want = {"trace_fused": TRAIN_STEPS,
+                "prepare_uniforms_kernel": TRAIN_STEPS,
+                "replay_fwd": (TRAIN_STEPS if route == "replay-forward"
+                               else 0),
+                "replay_bwd": TRAIN_STEPS}
+        first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+        med = float(np.median(times))
+        step_ms[route] = med
+        print(f"[train] {route}: launches during {TRAIN_STEPS} steps "
+              f"{counts} (want {want})")
+        print(f"[train] {route}: cornell 700x700 rec10 Adam lr={TRAIN_LR}: "
+              f"ms/step min/p25/median/p75/max={quartiles(times)} "
+              f"fwd+bwd steps/sec={1e3 / med:.4f} "
+              f"wavefront rays/sec={n_paths * n_bounces / (med * 1e-3):.4e} "
+              f"loss first5={first:.6f} last5={last:.6f} "
+              f"diffuse mean abs err {err0:.5f} -> {err1:.5f} on {card}")
+        print(f"[train] {route}: losses "
+              + " ".join(f"{x:.6f}" for x in losses))
+        print(f"[train] {route}: ms of each step "
+              + " ".join(f"{x:.3f}" for x in times))
+        check(counts == want, f"{route}: each kernel once per step")
+        check(all(np.isfinite(losses)), f"{route}: every loss finite")
+        check(last < first, f"{route}: loss falls (mean of last 5 < first 5)")
+        for k, n in counts.items():
+            launches[k] += n
+
+    # --- where a step's time goes: each stage, kernel against plain -----
+    from raytracercore_tpu_torch.parallel.shard import step_rays
+
+    params = start_params()
+    adam = torch.optim.Adam(params.values(), lr=TRAIN_LR)
+    step = make_train_step(None, adam)
+    plain_step = train_step_on(plain_trace, adam)
+    step_seed = pass_seed(TRAIN_SEED, 99)
+    ray_o, ray_d, path_seed = step_rays(camera, h, w, step_seed)
+    u = uk.prepare_uniforms_kernel(path_seed, n_paths, n_bounces, dev)
+    _, _, tape = fused.trace_fused(scene, ray_o, ray_d, u, want_tape=True)
+    matf, scf = rk.material_table(scene)
+    aim = scene.ambient_is_miss
+    color, miss = rk.replay_fwd(ray_d, u, tape, matf, scf, aim)
+    ct = (torch.where(miss[:, None], 0.0, 2.0 * color)
+          / color.numel()).contiguous()
+
+    def autograd_bwd():
+        m = matf.clone().requires_grad_(True)
+        c, _ = rk.replay_fwd_reference(ray_d, u, tape, m, scf, aim)
+        torch.autograd.grad(c, m, ct)
+
+    stages = [
+        ("step rays (jitter + camera rays)",
+         lambda: step_rays(camera, h, w, step_seed), None, 20, 0),
+        ("uniforms", lambda: uk.prepare_uniforms_kernel(
+            path_seed, n_paths, n_bounces, dev),
+         lambda: uk.prepare_uniforms_reference(path_seed, n_paths, n_bounces,
+                                               dev), 20, 3),
+        ("record (megakernel, tape on)", lambda: fused.trace_fused(
+            scene, ray_o, ray_d, u, want_tape=True),
+         lambda: fused.trace_fused_reference(scene, ray_o, ray_d, u,
+                                             want_tape=True), 20, 2),
+        ("replay forward", lambda: rk.replay_fwd(ray_d, u, tape, matf, scf,
+                                                 aim),
+         lambda: rk.replay_fwd_reference(ray_d, u, tape, matf, scf, aim),
+         20, 3),
+        ("replay backward", lambda: rk.replay_bwd(ray_d, u, tape, matf, scf,
+                                                  aim, ct),
+         lambda: rk.replay_bwd_reference(ray_d, u, tape, matf, scf, aim, ct),
+         20, 3),
+        ("replay backward vs autograd plain", lambda: rk.replay_bwd(
+            ray_d, u, tape, matf, scf, aim, ct), autograd_bwd, 20, 3),
+        ("Adam step", adam.step, None, 20, 0),
+        ("whole step", lambda: step(params, scene, camera, target, 5),
+         lambda: plain_step(params, scene, camera, target, 7), 10, 2),
+    ]
+    times = {}
+    for name, kernel_fn, plain_fn, n_k, n_p in stages:
+        k_ms = cuda_ms(kernel_fn, n_k)
+        p_ms = cuda_ms(plain_fn, n_p) if plain_fn is not None else None
+        times[name] = (k_ms, p_ms)
+        print(f"[stage] {name}: kernel path ms={k_ms:.3f} plain ms="
+              + (f"{p_ms:.3f}" if p_ms is not None else "n/a")
+              + f" on {card}")
+
+    busy, top = device_busy(
+        lambda i: step(params, scene, camera, target, 100 + i), PROFILE_STEPS)
+    print(f"[profile] {PROFILE_STEPS} train steps: device busy {busy:.1f} % "
+          f"of the span on {card}")
+    print(f"[profile] top kernels, device us per step: {top}")
+    return launches, times, step_ms
+
+
 def main():
     # --- 1. device ---------------------------------------------------------
     if not torch.cuda.is_available():
@@ -290,16 +678,27 @@ def main():
 
     # --- 3. kernel vs plain on the card -----------------------------------
     max_err = 0.0
+    fwd_err = bwd_err = 0.0
     for name, text in (("test_fused", FUSED_TEST_SCENE),
                        ("smooth+ambient_miss", SMOOTH_SCENE),
-                       ("cornell", CORNELL_SCENE)):
+                       ("cornell", CORNELL_SCENE), ("rough", ROUGH_SCENE)):
         for rec in (4, 10):
             inputs = rays_and_uniforms(text, COMPARE_SIZE, rec, 1000 + rec,
                                        dev)
-            max_err = max(max_err, compare(
-                f"{name} {COMPARE_SIZE}x{COMPARE_SIZE} rec{rec}", *inputs))
+            label = f"{name} {COMPARE_SIZE}x{COMPARE_SIZE} rec{rec}"
+            if name != "rough":
+                max_err = max(max_err, compare(label, *inputs))
+            errs = compare_replay(label, *inputs)
+            fwd_err, bwd_err = max(fwd_err, errs[0]), max(bwd_err, errs[1])
+    inputs = rays_and_uniforms(CORNELL_SCENE, 700, 10, 17, dev)
+    errs = compare_replay("cornell 700x700 rec10", *inputs)
+    fwd_err, bwd_err = max(fwd_err, errs[0]), max(bwd_err, errs[1])
+    del inputs
+    uni_err, uni_ms, uni_plain_ms = compare_uniforms(dev, 700 * 700, 11)
+    print(f"[time] prepare_uniforms_kernel [11,7,490000]: kernel ms="
+          f"{uni_ms:.3f} plain ms={uni_plain_ms:.3f} on {card}")
 
-    # --- 4. main path: Renderer at 700x700, recursion 10 ------------------
+    # --- 4. main path 1: Renderer at 700x700, recursion 10 ----------------
     host = loader.parse(CORNELL_SCENE)
     check((host.width, host.height, host.recursion) == (700, 700, 10),
           "main-path scene is 700x700 rec10")
@@ -342,6 +741,10 @@ def main():
           f"mean={float(img[..., :3].mean()):.3f} on {card}")
     print("[main] ms of each pass: "
           + " ".join(f"{x * 1e3:.3f}" for x in pass_s))
+    busy, top = device_busy(lambda i: r.step(1), 4)
+    print(f"[profile] 4 render passes: device busy {busy:.1f} % of the span "
+          f"on {card}")
+    print(f"[profile] top kernels, device us per pass: {top}")
 
     # Kernel and plain version at the main path's shapes: same rays and
     # uniforms, compared, then timed with CUDA events.
@@ -372,18 +775,33 @@ def main():
           f"{plain_pass_ms:.3f} samples/px/sec={1e3 / plain_pass_ms:.4f} "
           f"on {card}")
 
-    # --- 5. result lines ---------------------------------------------------
+    # --- 5. main path 2: the train step at 700x700, recursion 10 ----------
+    train_launches, stage, _ = train_path(card, dev)
+
+    # --- 6. result lines ---------------------------------------------------
+    def entry(name, source, replaces, launched, err, ms, p_ms):
+        return {"name": name, "route": "cuda",
+                "source": f"raytracercore_tpu_torch/csrc/{source}",
+                "replaces": f"raytracercore_tpu/render/{replaces}",
+                "launches": launched, "max_abs_err": err, "ms": ms,
+                "plain_ms": p_ms}
+
     print(card)
-    print(json.dumps({"kernels": [{
-        "name": "trace_fused",
-        "route": "cuda",
-        "source": "raytracercore_tpu_torch/csrc/fused.cu",
-        "replaces": "raytracercore_tpu/render/fused.py:56",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-    }]}))
+    print(json.dumps({"kernels": [
+        entry("trace_fused", "fused.cu", "fused.py:56",
+              launches + train_launches["trace_fused"], max_err, kernel_ms,
+              plain_ms),
+        entry("prepare_uniforms_kernel", "uniforms.cu",
+              "uniforms_kernel.py:64",
+              train_launches["prepare_uniforms_kernel"], uni_err, uni_ms,
+              uni_plain_ms),
+        entry("replay_fwd", "replay.cu", "replay_kernel.py:163",
+              train_launches["replay_fwd"], fwd_err,
+              *stage["replay forward"]),
+        entry("replay_bwd", "replay.cu", "replay_kernel.py:193",
+              train_launches["replay_bwd"], bwd_err,
+              *stage["replay backward"]),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,5 +1,6 @@
 """Vector math on torch tensors (counterpart of
-``raytracercore_tpu.core.vecmath``), only what the forward render uses.
+``raytracercore_tpu.core.vecmath``), only what the forward render and the
+replay use.
 
 Two conventions, as in the JAX package: ``[..., 3]`` tensors at module
 boundaries, and component tuples ``(x, y, z)`` of ``[R]`` tensors inside
@@ -39,8 +40,10 @@ def normalize(a):
 
 
 def safe_sqrt(x, floor=1e-20):
-    """sqrt with the argument floored away from 0 (≤1e-10 change)."""
-    return torch.sqrt(torch.clamp(x, min=floor))
+    """sqrt with the argument floored away from 0 (≤1e-10 change).  Below
+    the floor the derivative is 0; at it, ``torch.maximum`` passes half, as
+    JAX's ``jnp.maximum`` does (``clamp`` would pass all of it)."""
+    return torch.sqrt(torch.maximum(x, x.new_tensor(floor)))
 
 
 def dot3(a, b):

@@ -40,29 +40,13 @@
 #include <math.h>
 
 #include "kernel_body.cuh"
+#include "shading.cuh"
 
 namespace rtc {
 
 constexpr int MAT_F = 14;  // emission(3) diffuse(3) specular(3) refraction(3) ior shin
 constexpr int SC_F = 4;    // air_ior, ambient r g b
 constexpr int BLOCK = 128;
-
-// BounceType codes and PathTape flag bits (render/integrator.py).
-enum Code : int {
-  SKIPPED = 0,
-  DIFFUSE = 1,
-  SPECULAR = 2,
-  SPECULAR_FAIL = 3,
-  TRANSMITTED = 4,
-  EMISSION = 5,
-  PURE_BLACK = 6,
-  RECURSION_COMPLETE = 7,
-  MISSED = 8,
-};
-constexpr int FLAG_INSIDE = 1 << 4;
-constexpr int FLAG_FLIVE = 1 << 5;
-
-constexpr float LUM_R = 0.299f, LUM_G = 0.587f, LUM_B = 0.114f;
 
 struct Params {
   const float* ray_o;  // [R,3]
@@ -86,31 +70,6 @@ struct Params {
   int R, T, S, P, N, n_bounces, recursion;
   float eps_behind, eps2;
 };
-
-__device__ __forceinline__ float lum(float r, float g, float b) {
-  return LUM_R * r + LUM_G * g + LUM_B * b;
-}
-
-// CreateHorizon (Vec4D.cs:52-58) with precomputed azimuth cos/sin: a point
-// on the cone of height z around the unit pole, rotated by the azimuth.
-__device__ __forceinline__ V3 create_horizon_cs(V3 p, float z, float ct,
-                                                float st) {
-  float cx = p.y, cy = -p.x;  // p x (0,0,1)
-  float sq = cx * cx + cy * cy;
-  bool good = sq > F32_TINY;
-  float inv = 1.f / sqrtf(good ? sq : 1.f);
-  float hx = good ? cx * inv : 1.f;
-  float hy = good ? cy * inv : 0.f;
-  float hz = 0.f;
-  float s = sqrtf(fmaxf(1.f - z * z, 1e-20f));
-  V3 b = {p.x * z + hx * s, p.y * z + hy * s, p.z * z + hz * s};
-  // Rodrigues rotation of b about p.
-  V3 kxv = {p.y * b.z - p.z * b.y, p.z * b.x - p.x * b.z,
-            p.x * b.y - p.y * b.x};
-  float kd = (p.x * b.x + p.y * b.y + p.z * b.z) * (1.f - ct);
-  return {b.x * ct + kxv.x * st + p.x * kd, b.y * ct + kxv.y * st + p.y * kd,
-          b.z * ct + kxv.z * st + p.z * kd};
-}
 
 template <bool WANT_TAPE>
 __device__ __forceinline__ void write_tape(const Params& p, int i, int r,

@@ -53,8 +53,15 @@ def pack_scene(scene: SceneArrays):
     ambient rgb)``.  Cached per scene as ``SceneArrays.fused_tables``."""
     scf = torch.cat([scene.air_refractive_index.reshape(1),
                      scene.ambient_rgb.reshape(3)]).to(torch.float32)
-    return tuple(t.contiguous() for t in (
+    return tuple(t.detach().contiguous() for t in (
         *kb.pack_tables(scene), pack_materials(scene.materials), scf))
+
+
+def with_material_rows(tables, materials):
+    """A :func:`pack_scene` tuple with its ``[N, 14]`` material rows packed
+    again from ``materials``; the geometry tables and ``scf`` carry over."""
+    *geometry, _, scf = tables
+    return (*geometry, pack_materials(materials).detach().contiguous(), scf)
 
 
 def fits(scene: SceneArrays) -> bool:

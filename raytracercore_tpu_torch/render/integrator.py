@@ -3,8 +3,9 @@
 :class:`PathTape` bit layout and the preprocessed-uniform channels that the
 megakernel (:mod:`.fused`) consumes.
 
-The differentiable ``trace`` and the dense ``closest_hit`` of the JAX
-package are not ported yet (ROADMAP.md, queue 1).
+:func:`_material_matrix` is the differentiable ``[N, 14]`` material
+packing the replay reads.  The differentiable ``trace`` and the dense
+``closest_hit`` of the JAX package are not ported yet (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -93,3 +94,17 @@ def prepare_uniforms(generator: torch.Generator, n: int, bounces: int,
     raw = torch.rand((bounces, 5, n), generator=generator, device=device,
                      dtype=dtype)
     return preprocess_uniforms(raw)
+
+
+def _material_matrix(mats):
+    """Materials packed ``[N, 14]``, differentiably: emission, diffuse,
+    specular, refraction (3 each), ior, shininess.  Infinite shininess is
+    clamped to the f32 maximum, as in JAX, so no backward meets ``0·inf``;
+    ``exp(ln U / 3.4e38)`` rounds to exactly 1, the value of the explicit
+    ``isinf`` branch."""
+    shin = mats.shininess
+    shin = torch.where(torch.isinf(shin), torch.finfo(torch.float32).max,
+                       shin)
+    return torch.cat([
+        mats.emission, mats.diffuse, mats.specular, mats.refraction,
+        mats.refractive_index[:, None], shin[:, None]], dim=1)

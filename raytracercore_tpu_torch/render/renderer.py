@@ -109,7 +109,7 @@ class Renderer:
                 f"({fused.MAX_PRIMS}) table rows or uses `debug geom`; "
                 "the port renders only megakernel-sized scenes so far "
                 "(larger scenes need the per-bounce select kernel and the "
-                "BVH: ROADMAP.md queue 1, items 8 and 9)")
+                "BVH: ROADMAP.md queue 1, items 1 and 3)")
         self.camera_index = camera_index
         self.reset()
 

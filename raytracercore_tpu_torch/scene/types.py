@@ -319,6 +319,18 @@ class SceneArrays(_Tensors):
         from ..render.fused import pack_scene
         return pack_scene(self)
 
+    def with_materials(self, materials: "Materials") -> "SceneArrays":
+        """The same scene with another material table.  The packed
+        geometry tables (built once for this scene) carry over and only the
+        ``[N, 14]`` material rows are packed again, so a train step that
+        swaps the materials on every step does not repack the geometry."""
+        from ..render.fused import with_material_rows
+
+        new = dataclasses.replace(self, materials=materials)
+        new.__dict__["fused_tables"] = with_material_rows(self.fused_tables,
+                                                          materials)
+        return new
+
 
 def _pad_to(n: int, pad: int) -> int:
     if n == 0:

@@ -3,11 +3,14 @@
 Subcommands:
   render    progressive-render a scene to PNG
   bench     throughput measurement (samples/px/sec, the reference's metric)
+  optimize  fit the material table to a target PNG (Adam on the train step)
 
 Usage:
   python -m raytracercore_tpu_torch.tools.cli render scene.txt -o out.png
   python -m raytracercore_tpu_torch.tools.cli bench scene.txt --spp 8
-Both run on ``--device cuda`` (the default) or ``--device cpu``.
+  python -m raytracercore_tpu_torch.tools.cli optimize scene.txt \
+      --target target.png --steps 100 -o materials.npz
+All run on ``--device cuda`` (the default) or ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -74,6 +77,36 @@ def cmd_bench(args):
     }))
 
 
+def cmd_optimize(args):
+    import numpy as np
+    import torch
+
+    from ..diff import get_material_params
+    from ..parallel import make_train_step
+    from ..render.renderer import _resolve_device, pass_seed
+    from ..scene.types import freeze_scene, init_camera
+    from .png import read_png
+
+    device = _resolve_device(args.device)
+    scene = _load(args)
+    arrays = freeze_scene(scene, device=device)
+    camera = init_camera(scene.cameras[args.camera], scene.width,
+                         scene.height, device=device)
+    target = read_png(args.target)[..., :3].astype(np.float32) / 255.0
+    target = torch.tensor(target, device=device) ** 2.2  # undo gamma
+
+    params = get_material_params(arrays)
+    optimizer = torch.optim.Adam(params.values(), lr=args.lr)
+    step = make_train_step(None, optimizer)
+    for i in range(args.steps):
+        loss = step(params, arrays, camera, target, pass_seed(args.seed, i))
+        if i % 10 == 0:
+            print(f"step {i} loss {float(loss):.6f}", file=sys.stderr)
+    np.savez(args.output, **{k: v.detach().cpu().numpy()
+                             for k, v in params.items()})
+    print(f"wrote {args.output}")
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="raytracercore_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -100,6 +133,14 @@ def main(argv=None):
     common(sp)
     sp.add_argument("--spp", type=int, default=8)
     sp.set_defaults(fn=cmd_bench)
+
+    sp = sub.add_parser("optimize")
+    common(sp)
+    sp.add_argument("--target", required=True, help="target PNG")
+    sp.add_argument("--steps", type=int, default=100)
+    sp.add_argument("--lr", type=float, default=1e-2)
+    sp.add_argument("-o", "--output", default="materials.npz")
+    sp.set_defaults(fn=cmd_optimize)
 
     args = p.parse_args(argv)
     args.fn(args)

@@ -36,6 +36,38 @@ cube 0 0 0  1 1 1 not -z
 sphere 0 0 2 .3
 """
 
+# The geometry of the JAX megakernel test's scene with materials whose total
+# luminance exceeds 1, so the energy compensation max(total, 1) passes
+# gradients to Fresnel: IOR and shininess get real gradients (with total < 1
+# everywhere those gradients are exactly 0).
+ROUGH_SCENE = """
+size 16 16
+recursion 4
+ambient color 0.05 0.05 0.05
+camera 0 1 4  0 1 0  0 1 0  60
+emission 6 6 6
+vertex -1 2.5 -1
+vertex 1 2.5 -1
+vertex -1 2.5 1
+tri 0 1 2 mirrored
+emission 0 0 0
+diffuse .7 .6 .5
+specular .5 .5 .5
+shininess 40
+twosided true
+plane -1  0 0 1
+diffuse .3 .3 .3
+specular .8 .8 .8
+shininess 30
+refraction .7 .7 .7, 1.5
+sphere -0.8 1 0.5 0.6
+refraction off
+diffuse .4 .4 .4
+specular .9 .9 .9
+shininess 60
+sphere 0.8 1 0.5 0.6
+"""
+
 
 def _stress_scene(types):
     """The mixed stress scene of tests/test_configs.py (config 4), built
