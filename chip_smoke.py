@@ -8,12 +8,19 @@ Run from the repository root on a machine with one NVIDIA GPU::
 It builds the port's CUDA kernels from ``raytracercore_tpu_torch/csrc``,
 holds each kernel against its plain PyTorch version on the card (the
 megakernel, the train path's uniforms kernel, the replay forward and
-backward kernels), drives the two main paths on a Cornell-class scene at
-700×700, recursion 10 — the progressive forward render (``Renderer`` →
-camera rays → uniforms → the whole-path megakernel → film → tonemapped
-image) and the material-gradient train step (uniforms kernel → megakernel
-recorder → replay backward kernel → L2 loss → ``torch.optim.Adam``) — and
-prints what it measured.
+backward kernels, the per-bounce select kernel), and drives the main paths
+at 700×700, recursion 10:
+
+1. the progressive forward render of a Cornell-class scene (``Renderer`` →
+   camera rays → uniforms → the whole-path megakernel → film → image);
+2. its material-gradient train step (uniforms kernel → megakernel recorder
+   → replay backward kernel → L2 loss → ``torch.optim.Adam``);
+3. the forward render of a 722-triangle mesh scene, above the megakernel's
+   cap (``Renderer`` → the integrator's bounce loop, one launch of the
+   select kernel per bounce), and that scene's train step (uniforms kernel
+   → the bounce loop as recorder → replay forward and backward kernels);
+
+and prints what it measured.
 The last two lines of standard output are a JSON object describing the
 kernels and a JSON object ``{"ok": true, "device": ...}``.  Any failed
 check exits non-zero before those lines.  Without a CUDA device it exits
@@ -199,6 +206,35 @@ TRAIN_WARM, TRAIN_STEPS = 2, 20
 TRAIN_LR = 1e-2
 TRAIN_SEED = 2024
 PROFILE_STEPS = 4
+# Select kernel vs plain version: the same passes in the same operation
+# order, so all 13 outputs are held bit-equal.  Against the grid oracle
+# (other formulas for the winner's position and normal): floats within
+# 1e-4 · (1 + t) where both name the same primitive (a hit's f32 error
+# grows with the ray's length t, and a unit-size sphere's normal carries its
+# position's error), except at tangent grazes; rays naming different
+# primitives (coplanar surfaces, shared edges) and grazes are counted and
+# must stay below 1e-3 of the rays.
+ORACLE_TOL = 1e-4
+ORACLE_MAX_MISMATCH = 1e-3
+GRAZE_COS = 0.3     # |normal . direction| below this is a tangent graze
+# Main path 3 and its train step.
+MESH_GRID, MESH_SUBDIV = 3, 1         # 9 icospheres x 80 + 2 = 722 triangles
+MESH_TARGET_SPP = 8
+MESH_TRAIN_WARM, MESH_TRAIN_STEPS = 2, 5
+# Peak rates of one H100 SXM (NVIDIA's data sheet): fp32 outside the tensor
+# cores, and device memory.
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+# fp32 operations per table row up to the row's first exit, which every
+# (ray, row) pair runs, counted from csrc/kernel_body.cuh: a triangle's
+# Moller-Trumbore (two cross products, four dot products, one division and
+# the coplanar test), a sphere's object-space ray and discriminant, a
+# plane's two dot products and division; and the work behind the exit (hit
+# position, normal, skip test), run for the few candidates that get there.
+OPS_TRI, OPS_SPH, OPS_PLN, OPS_HIT = 52, 63, 13, 40
+OPS_SHADE = 150           # one bounce of shading (fused.cu, replay.cu fwd)
+OPS_SHADE_BWD = 600       # its hand-written adjoint (replay.cu backward)
+OPS_UNIFORMS = 245        # per path and bounce: 5 Philox draws + 7 channels
 
 
 def check(cond, what):
@@ -224,6 +260,194 @@ def cuda_ms(fn, n):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
+
+
+def bound(ops, n_bytes):
+    """The least time the card could take for ``ops`` fp32 operations and
+    ``n_bytes`` bytes moved (each input read once, each output written
+    once): ``(ms, "operations" | "bytes")``."""
+    t_ops, t_bytes = ops / PEAK_FP32 * 1e3, n_bytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def row_ops(scene, coplanar=True):
+    """fp32 operations of one closest-hit query of one ray, up to every
+    row's first exit (padding rows cost nothing)."""
+    n_tri = int((scene.triangles.prim_id >= 0).sum())
+    n_sph = int((scene.spheres.prim_id >= 0).sum())
+    n_pln = int((scene.planes.prim_id >= 0).sum())
+    per_tri = OPS_TRI if coplanar else OPS_TRI - 6
+    return n_tri * per_tri + n_sph * OPS_SPH + n_pln * OPS_PLN
+
+
+def lit_mesh_scene(grid, subdiv, size, recursion, dev):
+    """``scene.meshgen.make_mesh_scene`` with its light quad made two-sided:
+    ``(SceneArrays, HostCamera)``.  The generator's light faces up and is
+    single-sided: the camera above sees it, but it lights nothing below,
+    every bounced path ends in the ambient colour and no colour depends on
+    a diffuse material.  Two-sided, it lights the mesh and the train step
+    has material gradients."""
+    import dataclasses
+
+    from raytracercore_tpu_torch.scene import meshgen
+
+    arrays, cam, _ = meshgen.make_mesh_scene(
+        grid=grid, subdiv=subdiv, recursion=recursion, width=size,
+        height=size, device=dev)
+    two_sided = arrays.materials.two_sided.clone()
+    two_sided[-1] = True
+    return dataclasses.replace(arrays, materials=dataclasses.replace(
+        arrays.materials, two_sided=two_sided)), cam
+
+
+def camera_rays_and_uniforms(scene, host_camera, size, seed, dev):
+    """Jittered camera rays and path uniforms of a ``size`` x ``size``
+    frame."""
+    from raytracercore_tpu_torch.render import camera as cam_mod
+    from raytracercore_tpu_torch.render.integrator import prepare_uniforms
+    from raytracercore_tpu_torch.scene.types import init_camera
+
+    cam = init_camera(host_camera, size, size, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    px, py = cam_mod.pixel_grid(size, size, device=dev)
+    jitter = torch.rand((size * size, 4), generator=gen, device=dev)
+    ray_o, ray_d = cam_mod.camera_rays(cam, px, py, jitter)
+    uniforms = prepare_uniforms(gen, size * size, scene.recursion + 1, dev)
+    return ray_o.contiguous(), ray_d.contiguous(), uniforms
+
+
+def closest_hit_queries(scene, ray_o, ray_d, uniforms):
+    """The closest-hit inputs ``(ray_o, ray_d, skip)`` of every bounce of a
+    ``trace`` of these rays through the select kernel: real secondary rays
+    with their previous hit as skip record."""
+    from raytracercore_tpu_torch.intersect.cuda_select import \
+        closest_hit_fused
+    from raytracercore_tpu_torch.render.integrator import trace
+
+    queries = []
+
+    def spy(s, o, d, skip):
+        queries.append((o, d, skip))
+        return closest_hit_fused(s, o, d, skip)
+
+    with torch.no_grad():
+        color, _ = trace(scene, ray_o, ray_d, None, closest_fn=spy,
+                         uniforms=uniforms)
+    check(bool(torch.isfinite(color).all()), "traced colours finite")
+    return queries
+
+
+def grid_closest_hit(scene, ray_o, ray_d, skip):
+    """``dispatch.closest_hit`` with its selection from the dense grid scan
+    of ``torch_ref`` on the card too (a select hook that is not the default
+    keeps the dispatch from taking the kernel's selection): the oracle that
+    shares no code with the kernel."""
+    from raytracercore_tpu_torch.intersect import dispatch
+
+    return dispatch._closest_from_tri_select(
+        scene, ray_o, ray_d, skip,
+        lambda *args: dispatch._triangle_select_dense(*args))
+
+
+def select_outputs(select_all, closest_hit, scene, o, d, skip):
+    """All 13 outputs of one closest-hit query through the two public entry
+    points (``select_all``: the four per-table planes as clamped rows,
+    any-flags and the near-root flag; ``closest_hit_fused``: the record's
+    nine), kernel or plain, as ``{name: tensor}``."""
+    from raytracercore_tpu_torch.core import vecmath as vm
+
+    tri, sph, pln = select_all(scene, o, d, skip,
+                               vm.near_enough(torch.float32),
+                               vm.POSITION_EPS_F32)
+    rec = closest_hit(scene, o, d, skip)
+    return {"tri_idx": tri[0], "tri_any": tri[1], "sph_idx": sph[0],
+            "sph_near": sph[1], "sph_any": sph[2], "pl_idx": pln[0],
+            "pl_any": pln[1], "t": rec.t, "prim": rec.prim,
+            "inside": rec.inside, "position": rec.position,
+            "normal": rec.normal}
+
+
+def compare_select(label, scene, queries, bounces=(0, 1, 2, 3)):
+    """Select kernel against its plain version (all 13 outputs, bit for
+    bit, through the wrappers ``select_all`` and ``closest_hit_fused``) and
+    against the grid oracle, on the closest-hit queries of a trace: bounce
+    0 without a skip record (camera rays) and with the empty one the trace
+    passes, later bounces with their previous hit.  Returns the max abs
+    error over the float outputs."""
+    from raytracercore_tpu_torch.intersect import cuda_select as cs
+
+    R = queries[0][0].shape[0]
+    max_err = 0.0
+    cases = [(0, None)] + [(b, queries[b][2]) for b in bounces
+                           if b < len(queries)]
+    for b, skip in cases:
+        o, d, _ = queries[b]
+        got = select_outputs(cs.select_all, cs.closest_hit_fused, scene, o,
+                             d, skip)
+        ref = select_outputs(cs.select_all_reference,
+                             cs.closest_hit_fused_reference, scene, o, d,
+                             skip)
+        torch.cuda.synchronize()
+        differing = {f: int((got[f] != ref[f]).sum()) for f in ref
+                     if not torch.equal(got[f], ref[f])}
+        for f in ("t", "position", "normal"):
+            max_err = max(max_err, float((got[f] - ref[f]).abs().max()))
+            check(bool(torch.isfinite(got[f]).all()),
+                  f"{label} bounce {b}: kernel outputs finite")
+        found = float((ref["prim"] >= 0).float().mean())
+
+        want = grid_closest_hit(scene, o, d, skip)
+        rec = cs.closest_hit_fused(scene, o, d, skip)
+        torch.cuda.synchronize()
+        same = (rec.prim == want.prim)
+        both = same & (want.prim >= 0)
+        tol_t = ORACLE_TOL * (1.0 + want.t.abs())
+        off = both & (
+            ((rec.t - want.t).abs() > tol_t)
+            | ((rec.position - want.position).abs() > tol_t[:, None]).any(1)
+            | ((rec.normal - want.normal).abs() > tol_t[:, None]).any(1)
+            | (rec.inside != want.inside))
+        # A hit near the tangent of a curved surface: the root is the small
+        # difference of large numbers, and two f32 formulas land apart.
+        graze = off & ((want.normal * d).sum(1).abs() < GRAZE_COS)
+        n_off, n_graze = int(off.sum()), int(graze.sum())
+        n_diff = int((~same).sum())
+        tie = (~same & (rec.prim >= 0) & (want.prim >= 0)
+               & ((rec.t - want.t).abs() <= tol_t))
+        print(f"[select] {label} bounce {b} skip={skip is not None}: R={R} "
+              f"found={found:.4f} kernel==plain on all 13 outputs="
+              f"{not differing} {differing or ''} | vs grid oracle: prim "
+              f"differs on {n_diff} rays (same-t ties {int(tie.sum())}), "
+              f"floats beyond {ORACLE_TOL} on {n_off} rays of equal prim "
+              f"({n_graze} tangent grazes, {n_off - n_graze} unexplained)")
+        for r in torch.nonzero(off & ~graze)[:5, 0].tolist():
+            print(f"[select]   unexplained ray {r}: prim {int(want.prim[r])} "
+                  f"|n.d|={float((want.normal[r] * d[r]).sum().abs()):.4f} "
+                  f"t {float(rec.t[r]):.6f} vs {float(want.t[r]):.6f} "
+                  f"position err "
+                  f"{float((rec.position[r] - want.position[r]).abs().max()):.3e} "
+                  f"normal err "
+                  f"{float((rec.normal[r] - want.normal[r]).abs().max()):.3e} "
+                  f"inside {bool(rec.inside[r])} vs {bool(want.inside[r])}")
+        check(not differing,
+              f"{label} bounce {b}: select kernel bit-equal to its plain "
+              f"version ({differing})")
+        check(n_diff + n_graze <= ORACLE_MAX_MISMATCH * R,
+              f"{label} bounce {b}: {n_diff} prim flips + {n_graze} grazes "
+              f"against the grid oracle, more than {ORACLE_MAX_MISMATCH} "
+              "of the rays")
+        check(n_off == n_graze, f"{label} bounce {b}: t/position/normal/"
+              f"inside within {ORACLE_TOL} of the grid oracle outside "
+              "tangent grazes")
+    b = min(1, len(queries) - 1)
+    k_ms = cuda_ms(lambda: cs.closest_hit_fused(scene, *queries[b]), 10)
+    print(f"[select] {label}: kernel ms per launch (bounce {b})={k_ms:.3f}")
+    return max_err
 
 
 def rays_and_uniforms(scene_text, size, recursion, seed, dev):
@@ -317,8 +541,9 @@ def compare(label, arrays, ray_o, ray_d, uniforms):
 def device_busy(fn, n):
     """Device busy share of ``n`` calls ``fn(i)`` under torch.profiler: the
     union of the kernels' device intervals over the host span from the
-    first call to the final synchronize.  Returns (percent, the top kernels
-    by device time per call as text)."""
+    first call to the final synchronize.  Returns (percent, text: the
+    kernel launches per call and the top kernels by device time per
+    call)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -344,7 +569,8 @@ def device_busy(fn, n):
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    text = "; ".join(f"{name[:50]} {us / n:.1f}" for name, us in top)
+    text = (f"{len(kernels) / n:.0f} kernel launches per call; "
+            + "; ".join(f"{name[:50]} {us / n:.1f}" for name, us in top))
     check(busy_us > 0, "the profiler saw device time")
     return 100.0 * busy_us / wall_us, text
 
@@ -377,15 +603,18 @@ def compare_uniforms(dev, n, bounces):
     return float(err.max()), kernel_ms, plain_ms
 
 
-def compare_replay(label, arrays, ray_o, ray_d, uniforms):
+def compare_replay(label, arrays, ray_o, ray_d, uniforms, record=None):
     """Replay forward and backward kernels against their plain versions
-    on a tape the megakernel records; returns (max abs colour err, max abs
-    gradient err)."""
+    on a tape that ``record(arrays, ray_o, ray_d, uniforms) → (color, miss,
+    tape)`` records (by default the megakernel); returns (max abs colour
+    err, max abs gradient err)."""
     from raytracercore_tpu_torch.render import fused
     from raytracercore_tpu_torch.render import replay_kernel as rk
 
-    color_r, miss_r, tape = fused.trace_fused(arrays, ray_o, ray_d,
-                                              uniforms, want_tape=True)
+    if record is None:
+        def record(*args):
+            return fused.trace_fused(*args, want_tape=True)
+    color_r, miss_r, tape = record(arrays, ray_o, ray_d, uniforms)
     matf, scf = rk.material_table(arrays)
     aim = arrays.ambient_is_miss
     ref_c, ref_m = rk.replay_fwd_reference(ray_d, uniforms, tape, matf, scf,
@@ -484,6 +713,310 @@ def plain_trace(scene, ray_o, ray_d, path_seed):
     return replay(scene, ray_o, ray_d, u, tape)
 
 
+def compare_routes(card, dev):
+    """The per-bounce route (``trace`` with the select kernel) against the
+    megakernel on the Cornell scene at 700x700 rec10, same rays and
+    uniforms.  The two differ by design on a few knife-edge rays (``trace``
+    renormalizes at bounce 0 too, the select kernel keeps the coplanar
+    triangle branch, and their normals come from the same passes but meet
+    different rounding downstream): every differing ray is classified."""
+    from raytracercore_tpu_torch.intersect.cuda_select import \
+        closest_hit_fused
+    from raytracercore_tpu_torch.render import fused
+    from raytracercore_tpu_torch.render.integrator import trace
+
+    arrays, ray_o, ray_d, uniforms = rays_and_uniforms(
+        CORNELL_SCENE, 700, 10, 7, dev)
+    ref = fused.trace_fused(arrays, ray_o, ray_d, uniforms, want_tape=True)
+    with torch.no_grad():
+        got = trace(arrays, ray_o, ray_d, None, closest_fn=closest_hit_fused,
+                    uniforms=uniforms, want_tape=True)
+    torch.cuda.synchronize()
+    cls = fused.classify_mismatches(ref, got, CLOSE_ATOL, CLOSE_RTOL)
+    n = {k: int(cls[k].sum()) for k in ("close", "flip", "graze", "samepick")}
+    ref_mean = ref[0].mean(0).cpu().numpy()
+    got_mean = got[0].mean(0).cpu().numpy()
+    print(f"[routes] cornell 700x700 rec10, trace + select kernel vs "
+          f"megakernel: R={ray_o.shape[0]} close={n['close']} "
+          f"flip={n['flip']} graze={n['graze']} samepick={n['samepick']} "
+          f"miss_equal={int(cls['miss_eq'].sum())} "
+          f"max_abs_err_same_path={cls['max_abs_err_same_path']:.3e} "
+          f"means megakernel={ref_mean.tolist()} trace={got_mean.tolist()} "
+          f"on {card}")
+    check(n["samepick"] == 0, "routes: samepick == 0")
+    check(np.all(np.abs(got_mean - ref_mean)
+                 <= MEAN_TOL + MEAN_TOL * np.abs(ref_mean)),
+          f"routes: channel means within {MEAN_TOL}")
+    check(np.all(cls["miss_eq"] | cls["flip"]),
+          "routes: miss flags equal outside flip rays")
+    check(n["close"] >= MIN_CLOSE_FRAC * ray_o.shape[0],
+          f"routes: close fraction >= {MIN_CLOSE_FRAC}")
+
+
+def mesh_train_path(card, dev, r):
+    """The train step of main path 3's scene (``r`` is its ``Renderer``):
+    recorded by the bounce loop with the select kernel, its colour from
+    the replay forward kernel and its gradient from the replay backward
+    kernel on the 722-row material table; then full AD
+    through ``trace`` against the replay route on the 82-triangle scene.
+    Returns {kernel name: launches} of the timed steps."""
+    from raytracercore_tpu_torch.diff import (get_material_params,
+                                              with_material_params)
+    from raytracercore_tpu_torch.intersect import cuda_select as cs
+    from raytracercore_tpu_torch.parallel import make_train_step
+    from raytracercore_tpu_torch.parallel.shard import image_loss, step_rays
+    from raytracercore_tpu_torch.render import replay_kernel as rk
+    from raytracercore_tpu_torch.render import uniforms_kernel as uk
+    from raytracercore_tpu_torch.render.integrator import trace
+    from raytracercore_tpu_torch.render.renderer import Renderer, pass_seed
+
+    scene, camera = r.arrays, r.camera
+    n_bounces = scene.recursion + 1
+
+    # The replay kernels at this path's shapes (722 material rows, a tape of
+    # the bounce loop) against their plain versions, then timed.
+    def record(s, o, d, u):
+        with torch.no_grad():
+            return trace(s, o, d, None, closest_fn=cs.closest_hit_fused,
+                         uniforms=u, want_tape=True)
+    o, d, path_seed = step_rays(camera, 700, 700, pass_seed(TRAIN_SEED, 999))
+    u = uk.prepare_uniforms_kernel(path_seed, 700 * 700, n_bounces, dev)
+    errs = compare_replay("mesh-722 700x700 rec10", scene, o, d, u, record)
+    tape = record(scene, o, d, u)[2]
+    matf, scf = rk.material_table(scene)
+    ct = torch.full((700 * 700, 3), 1e-6, device=dev)
+    aim = scene.ambient_is_miss
+    for name, kernel, plain in (("forward", rk.replay_fwd,
+                                 rk.replay_fwd_reference),
+                                ("backward", rk.replay_bwd,
+                                 rk.replay_bwd_reference)):
+        args = (d, u, tape, matf, scf, aim) + ((ct,) if name == "backward"
+                                               else ())
+        print(f"[time] replay {name} mesh-722 700x700 rec10 "
+              f"({matf.shape[0]} material rows, "
+              f"{rk.launch_blocks(700 * 700, matf.shape[0], dev)} blocks): "
+              f"kernel ms={cuda_ms(lambda: kernel(*args), 10):.3f} plain ms="
+              f"{cuda_ms(lambda: plain(*args), 2):.3f} on {card}")
+    del o, d, u, tape, ct
+
+    r.reset()
+    r.step(MESH_TARGET_SPP)
+    film = r.film
+    target = film.color_sum / (film.samples + film.misses)[..., None]
+    check(bool(torch.isfinite(target).all()) and float(target.max()) > 0.05,
+          "mesh train target finite and lit")
+    emissive = scene.materials.emission.sum(dim=1) > 0
+    params = get_material_params(scene)
+    with torch.no_grad():
+        params["diffuse"][~emissive] *= 0.5
+    adam = torch.optim.Adam(params.values(), lr=TRAIN_LR)
+    step = make_train_step(None, adam)
+    counters = {"closest_hit_fused": cs.closest_hit_fused,
+                "prepare_uniforms_kernel": uk.prepare_uniforms_kernel,
+                "replay_fwd": rk.replay_fwd, "replay_bwd": rk.replay_bwd}
+
+    # The step losses are one-sample renders under a new seed each, and
+    # the bright light quad's edge pixels dominate their noise; whether the
+    # loss falls is read from one fixed set of rays and uniforms, before
+    # and after the steps.
+    eval_o, eval_d, eval_seed = step_rays(camera, 700, 700,
+                                          pass_seed(TRAIN_SEED, 1000))
+    eval_u = uk.prepare_uniforms_kernel(eval_seed, 700 * 700, n_bounces, dev)
+
+    def eval_loss():
+        with torch.no_grad():
+            color, miss = trace(with_material_params(scene, params), eval_o,
+                                eval_d, None,
+                                closest_fn=cs.closest_hit_fused,
+                                uniforms=eval_u)
+            return float(image_loss(color, miss, target))
+
+    loss_before = eval_loss()
+    for i in range(MESH_TRAIN_WARM):
+        step(params, scene, camera, target, pass_seed(TRAIN_SEED, i))
+    torch.cuda.synchronize()
+    for f in counters.values():
+        f.launches = 0
+    losses, times = [], []
+    for i in range(MESH_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        loss = step(params, scene, camera, target,
+                    pass_seed(TRAIN_SEED, MESH_TRAIN_WARM + i))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    counts = {k: f.launches for k, f in counters.items()}
+    loss_after = eval_loss()
+    want = {"closest_hit_fused": MESH_TRAIN_STEPS * n_bounces,
+            "prepare_uniforms_kernel": MESH_TRAIN_STEPS,
+            "replay_fwd": MESH_TRAIN_STEPS, "replay_bwd": MESH_TRAIN_STEPS}
+    print(f"[mesh-train] launches during {MESH_TRAIN_STEPS} steps {counts} "
+          f"(want {want}; {scene.materials.emission.shape[0]} material "
+          f"rows)")
+    print(f"[mesh-train] mesh-722 700x700 rec10 Adam lr={TRAIN_LR}: ms/step "
+          f"min/p25/median/p75/max={quartiles(times)} step losses "
+          + " ".join(f"{x:.6f}" for x in losses)
+          + f" loss on fixed rays before {loss_before:.6f} after "
+          f"{MESH_TRAIN_WARM}+{MESH_TRAIN_STEPS} steps {loss_after:.6f} "
+          f"on {card}")
+    check(counts == want, "mesh train step: select kernel once per bounce, "
+          "uniforms, replay forward and backward kernels once per step")
+    check(all(np.isfinite(losses)), "mesh train step: every loss finite")
+    check(np.isfinite(loss_after) and loss_after < loss_before,
+          "mesh train step: the loss on fixed rays falls")
+
+    # --- full AD through trace against the replay, 128x128 on mesh-82 ------
+    small, small_cam = lit_mesh_scene(1, 1, 128, 4, dev)
+    rs = Renderer(small, device="cuda", cameras=[small_cam])
+    check(rs.route == "trace", "mesh-82 takes the per-bounce route")
+    u = uk.prepare_uniforms_kernel(5, 128 * 128, small.recursion + 1, dev)
+    tgt = torch.full((128, 128, 3), 0.05, device=dev)
+    grads, loss_of = {}, {}
+    for use_replay in (True, False):
+        p = get_material_params(rs.arrays)
+        step = make_train_step(None, torch.optim.SGD(p.values(), lr=0.0),
+                               use_replay=use_replay)
+        loss_of[use_replay] = float(step(p, rs.arrays, rs.camera, tgt, 3,
+                                         uniforms=u))
+        grads[use_replay] = {k: v.grad.clone() for k, v in p.items()}
+    torch.cuda.synchronize()
+    worst = 0.0
+    for k in grads[True]:
+        scale = float(grads[False][k].abs().max())
+        err_k = float((grads[True][k] - grads[False][k]).abs().max())
+        check(err_k <= GRAD_TOL * scale + 1e-12,
+              f"use_replay True vs False: {k} gradient {err_k:.3e} > "
+              f"{GRAD_TOL} * {scale:.3e}")
+        worst = max(worst, err_k / scale if scale else 0.0)
+    rel = abs(loss_of[True] - loss_of[False]) / abs(loss_of[False])
+    nonzero = sum(int((g != 0).sum()) for g in grads[False].values())
+    print(f"[mesh-train] mesh-82 128x128 rec4, use_replay=True vs full AD "
+          f"through trace: loss {loss_of[True]:.8f} vs {loss_of[False]:.8f} "
+          f"(rel diff {rel:.2e}), worst gradient diff / max|g| = "
+          f"{worst:.2e}, nonzero gradient entries {nonzero}")
+    check(rel <= 1e-6, "use_replay True vs False: loss equal to 1e-6")
+    check(nonzero > 50, "use_replay comparison is not vacuous")
+    return counts, errs
+
+
+def mesh_path(card, dev):
+    """Main path 3: ``Renderer`` on the 722-triangle mesh scene at 700x700
+    rec10 (the bounce loop, one select-kernel launch per bounce), then the
+    scene's train step.  Returns (launches of the select kernel during the
+    timed passes, ({kernel name: launches} of the train steps, the replay
+    kernels' max abs errors there), the select kernel's stage numbers)."""
+    from raytracercore_tpu_torch.intersect import cuda_select as cs
+    from raytracercore_tpu_torch.intersect.dispatch import n_table_rows
+    from raytracercore_tpu_torch.render.integrator import trace
+    from raytracercore_tpu_torch.render.renderer import Renderer
+
+    scene, host_cam = lit_mesh_scene(MESH_GRID, MESH_SUBDIV, 700, 10, dev)
+    r = Renderer(scene, device="cuda", seed=0, cameras=[host_cam])
+    scene = r.arrays
+    n_rows = n_table_rows(scene)
+    check(scene.triangles.v0.shape[0] == 722 and scene.recursion == 10
+          and (scene.width, scene.height) == (700, 700),
+          "main path 3 scene is mesh-722 at 700x700 rec10")
+    check(r.route == "trace", "mesh-722 takes the per-bounce route")
+    n_bounces = scene.recursion + 1
+    t0 = time.perf_counter()
+    r.step(WARM_PASSES)
+    warm_s = time.perf_counter() - t0
+    r.reset()
+    cs.closest_hit_fused.launches = 0
+    pass_s = []
+    for _ in range(MAIN_PASSES):
+        t0 = time.perf_counter()
+        r.step(1)
+        pass_s.append(time.perf_counter() - t0)
+    launches = cs.closest_hit_fused.launches
+    st = r.status()
+    print(f"[mesh] launches of the select kernel during {MAIN_PASSES} "
+          f"passes: {launches} ({n_bounces} bounces per pass, no "
+          f"whole-wavefront early exit)")
+    check(launches == MAIN_PASSES * n_bounces,
+          f"main path 3 launched the select kernel once per bounce "
+          f"({launches} != {MAIN_PASSES} * {n_bounces})")
+    film = r.film
+    check(all(bool(torch.isfinite(t).all()) for t in
+              (film.color_sum, film.samples, film.misses)),
+          "mesh film is finite")
+    check(float(film.samples.sum() + film.misses.sum())
+          == MAIN_PASSES * 700 * 700, "mesh: one sample per pixel per pass")
+    img = r.image()
+    check(img.shape == (700, 700, 4) and img.dtype == np.uint8,
+          "mesh image is 700x700 RGBA uint8")
+    check(int(img[..., :3].max()) > 50, "mesh image is lit (max > 50)")
+    print(f"[mesh] mesh-722 ({n_rows} table rows) 700x700 rec10, "
+          f"{MAIN_PASSES} passes: "
+          f"samples/px/sec={st['samples_per_px_per_sec']:.4f} "
+          f"paths/sec={st['paths_per_sec']:.4e} "
+          f"ms/pass min/p25/median/p75/max="
+          f"{quartiles(np.asarray(pass_s) * 1e3)} "
+          f"warm-up s={warm_s:.3f} ({WARM_PASSES} passes) "
+          f"image max={int(img[..., :3].max())} "
+          f"mean={float(img[..., :3].mean()):.3f} on {card}")
+    print("[mesh] ms of each pass: "
+          + " ".join(f"{x * 1e3:.3f}" for x in pass_s))
+    busy, top = device_busy(lambda i: r.step(1), 4)
+    print(f"[profile] 4 mesh-722 passes: device busy {busy:.1f} % of the "
+          f"span on {card}")
+    print(f"[profile] top kernels, device us per pass: {top}")
+
+    # The select kernel at the main path's shapes: its queries, compared,
+    # then timed with CUDA events on bounce 0 and on a late bounce.
+    ray_o, ray_d, uniforms = camera_rays_and_uniforms(
+        scene, host_cam, 700, 11, dev)
+    queries = closest_hit_queries(scene, ray_o, ray_d, uniforms)
+    check(len(queries) == n_bounces, "one closest-hit query per bounce")
+    err = compare_select("mesh-722 700x700", scene, queries, (1, 3))
+    late = n_bounces - 3
+    k_ms = {b: cuda_ms(lambda b=b: cs.closest_hit_fused(scene, *queries[b]),
+                       10)
+            for b in (0, 1, late)}
+    plain_ms = cuda_ms(
+        lambda: cs.closest_hit_fused_reference(scene, *queries[1]), 1)
+    k_ms_again = cuda_ms(lambda: cs.closest_hit_fused(scene, *queries[0]),
+                         10)
+    # Shading alone: the bounce loop fed the hits it was given before.
+    with torch.no_grad():
+        hits = [cs.closest_hit_fused(scene, *q) for q in queries]
+
+    def shading_only():
+        it = iter(hits)
+        with torch.no_grad():
+            trace(scene, ray_o, ray_d, None,
+                  closest_fn=lambda *_: next(it), uniforms=uniforms)
+    shade_ms = cuda_ms(shading_only, 5) / n_bounces
+    out = select_outputs(cs.select_all, cs.closest_hit_fused, scene,
+                         *queries[0])
+    winners = int(out["tri_any"].sum() + out["sph_any"].sum()
+                  + out["pl_any"].sum())
+    R = ray_o.shape[0]
+    skip = queries[0][2]
+    # The kernel writes its 13 planes: 3 int32 rows, 2 bools, t, prim,
+    # position and normal.
+    b_ms, b_by = bound(
+        R * row_ops(scene) + winners * OPS_HIT,
+        nbytes(ray_o, ray_d, skip.prim, skip.position, skip.normal,
+               skip.inside, *scene.fused_tables[:6], hits[0].t,
+               hits[0].prim, hits[0].position, hits[0].normal)
+        + R * (3 * 4 + 2))
+    alive = [float((q[0][:, 0] < 1e8).float().mean()) for q in queries]
+    print(f"[time] select kernel mesh-722 700x700: ms per launch bounce 0="
+          f"{k_ms[0]:.3f} (again {k_ms_again:.3f}) bounce 1={k_ms[1]:.3f} "
+          f"bounce {late}={k_ms[late]:.3f} plain ms (one launch)="
+          f"{plain_ms:.3f} bound ms={b_ms:.4f} (by {b_by}) eager shading ms "
+          f"per bounce={shade_ms:.3f} on {card}")
+    print("[mesh] share of lanes not parked, per bounce: "
+          + " ".join(f"{a:.4f}" for a in alive))
+    stage = {"ms": k_ms[0], "plain_ms": plain_ms, "bound_ms": b_ms,
+             "bound_by": b_by, "max_abs_err": err}
+
+    del queries, hits
+    return launches, mesh_train_path(card, dev, r), stage
+
+
 def quartiles(ms):
     return "/".join(f"{x:.3f}" for x in
                     np.percentile(np.asarray(ms), [0, 25, 50, 75, 100]))
@@ -492,7 +1025,7 @@ def quartiles(ms):
 def train_path(card, dev):
     """Main path 2: the material-gradient train step at 700x700 rec10.
     Returns {kernel name: launches} summed over both routes' timed steps,
-    and the stage times."""
+    the stage times and the train-path kernels' bounds."""
     from raytracercore_tpu_torch.diff import get_material_params
     from raytracercore_tpu_torch.parallel import make_train_step
     from raytracercore_tpu_torch.render import fused
@@ -599,6 +1132,24 @@ def train_path(card, dev):
     ct = (torch.where(miss[:, None], 0.0, 2.0 * color)
           / color.numel()).contiguous()
 
+    # The least time the card could take for each train-path kernel: the
+    # bounces the paths really reach (from the tape), the bytes of each
+    # input and output once.
+    from raytracercore_tpu_torch.render.integrator import PathTape
+    live = int(((tape.flags & PathTape.CODE_MASK) != 0).sum())
+    tape_bytes = nbytes(tape.prim, tape.flags, tape.nx, tape.ny, tape.nz)
+    n_blocks = -(-n_paths // rk.REPLAY_BLOCK)
+    bounds = {
+        "uniforms": bound(n_paths * n_bounces * OPS_UNIFORMS, nbytes(u)),
+        "replay forward": bound(
+            live * OPS_SHADE,
+            nbytes(ray_d, u, matf, scf, color) + tape_bytes + n_paths * 4),
+        "replay backward": bound(
+            live * (OPS_SHADE + OPS_SHADE_BWD),
+            nbytes(ray_d, u, matf, scf, ct) + tape_bytes
+            + n_blocks * matf.numel() * 4),
+    }
+
     def autograd_bwd():
         m = matf.clone().requires_grad_(True)
         c, _ = rk.replay_fwd_reference(ray_d, u, tape, m, scf, aim)
@@ -643,7 +1194,7 @@ def train_path(card, dev):
     print(f"[profile] {PROFILE_STEPS} train steps: device busy {busy:.1f} % "
           f"of the span on {card}")
     print(f"[profile] top kernels, device us per step: {top}")
-    return launches, times, step_ms
+    return launches, times, bounds
 
 
 def main():
@@ -697,6 +1248,38 @@ def main():
     uni_err, uni_ms, uni_plain_ms = compare_uniforms(dev, 700 * 700, 11)
     print(f"[time] prepare_uniforms_kernel [11,7,490000]: kernel ms="
           f"{uni_ms:.3f} plain ms={uni_plain_ms:.3f} on {card}")
+
+    # The select kernel on five scenes at 256x256 (all three tables, an
+    # ellipsoid and a two-sided plane; triangles only, with smooth normals;
+    # transformed and plain spheres) and one sphere scene at 700x700; the
+    # mesh scene at 700x700 is compared beside main path 3.
+    from raytracercore_tpu_torch.scene import meshgen
+    from raytracercore_tpu_torch.scene.types import freeze_scene
+
+    cornell = loader.parse(CORNELL_SCENE)
+    select_scenes = [
+        ("cornell", freeze_scene(cornell, device=dev), cornell.cameras[0],
+         COMPARE_SIZE),
+        ("mesh-82", *meshgen.make_mesh_scene(
+            grid=1, subdiv=1, recursion=4, device=dev)[:2], COMPARE_SIZE),
+        ("mesh-722", *meshgen.make_mesh_scene(
+            grid=MESH_GRID, subdiv=MESH_SUBDIV, recursion=4, device=dev)[:2],
+         COMPARE_SIZE),
+        ("ellipsoids-12", *meshgen.make_sphere_field_scene(
+            grid=12, ellipsoid=True, device=dev), COMPARE_SIZE),
+        ("spheres-16", *meshgen.make_sphere_field_scene(
+            grid=16, device=dev), COMPARE_SIZE),
+        ("spheres-16", *meshgen.make_sphere_field_scene(
+            grid=16, recursion=10, device=dev), 700),
+    ]
+    select_err = 0.0
+    for name, scene, host_cam, size in select_scenes:
+        rays = camera_rays_and_uniforms(scene, host_cam, size, 31, dev)
+        queries = closest_hit_queries(scene, *rays)
+        select_err = max(select_err, compare_select(
+            f"{name} {size}x{size}", scene, queries))
+    del select_scenes, queries, rays
+    compare_routes(card, dev)
 
     # --- 4. main path 1: Renderer at 700x700, recursion 10 ----------------
     host = loader.parse(CORNELL_SCENE)
@@ -759,9 +1342,18 @@ def main():
         2)
     kernel_ms2 = cuda_ms(
         lambda: fused.trace_fused(arrays, ray_o, ray_d, uniforms), 10)
+    _, _, tape = fused.trace_fused(arrays, ray_o, ray_d, uniforms,
+                                   want_tape=True)
+    reached = int(((tape.flags & 0xF) != 0).sum())  # bounces the paths reach
+    fused_bound = bound(
+        reached * (row_ops(arrays, coplanar=False) + OPS_SHADE),
+        nbytes(ray_o, ray_d, uniforms, *arrays.fused_tables)
+        + ray_o.shape[0] * 16)
+    del tape
     print(f"[time] trace_fused cornell 700x700 rec10: kernel ms="
           f"{kernel_ms:.3f} (again {kernel_ms2:.3f}) plain ms={plain_ms:.3f} "
-          f"on {card}")
+          f"bound ms={fused_bound[0]:.4f} (by {fused_bound[1]}, "
+          f"{reached / ray_o.shape[0]:.4f} bounces per path) on {card}")
 
     # The whole pass with the plain version, for the end-to-end comparison.
     jitter = torch.rand((700 * 700, 4), device=dev)
@@ -776,31 +1368,51 @@ def main():
           f"on {card}")
 
     # --- 5. main path 2: the train step at 700x700, recursion 10 ----------
-    train_launches, stage, _ = train_path(card, dev)
+    train_launches, stage, train_bounds = train_path(card, dev)
 
-    # --- 6. result lines ---------------------------------------------------
-    def entry(name, source, replaces, launched, err, ms, p_ms):
+    # --- 6. main path 3: the mesh scene above the megakernel's cap ---------
+    del arrays, ray_o, ray_d, uniforms, jitter, film0
+    select_launches, (mesh_train_counts, mesh_replay_errs), select_stage = \
+        mesh_path(card, dev)
+    fwd_err = max(fwd_err, mesh_replay_errs[0])
+    bwd_err = max(bwd_err, mesh_replay_errs[1])
+
+    # --- 7. result lines ---------------------------------------------------
+    # No single PyTorch call computes any of these five functions (a whole
+    # path, Philox channels, a path replay and its adjoint, a closest hit
+    # over three primitive tables), so there is no library time to report.
+    def entry(name, source, replaces, launched, err, ms, p_ms, bound_ms):
         return {"name": name, "route": "cuda",
                 "source": f"raytracercore_tpu_torch/csrc/{source}",
-                "replaces": f"raytracercore_tpu/render/{replaces}",
+                "replaces": f"raytracercore_tpu/{replaces}",
                 "launches": launched, "max_abs_err": err, "ms": ms,
-                "plain_ms": p_ms}
+                "plain_ms": p_ms, "bound_ms": bound_ms[0],
+                "bound_by": bound_ms[1], "library_ms": None}
 
     print(card)
     print(json.dumps({"kernels": [
-        entry("trace_fused", "fused.cu", "fused.py:56",
+        entry("trace_fused", "fused.cu", "render/fused.py:56",
               launches + train_launches["trace_fused"], max_err, kernel_ms,
-              plain_ms),
+              plain_ms, fused_bound),
         entry("prepare_uniforms_kernel", "uniforms.cu",
-              "uniforms_kernel.py:64",
-              train_launches["prepare_uniforms_kernel"], uni_err, uni_ms,
-              uni_plain_ms),
-        entry("replay_fwd", "replay.cu", "replay_kernel.py:163",
-              train_launches["replay_fwd"], fwd_err,
-              *stage["replay forward"]),
-        entry("replay_bwd", "replay.cu", "replay_kernel.py:193",
-              train_launches["replay_bwd"], bwd_err,
-              *stage["replay backward"]),
+              "render/uniforms_kernel.py:64",
+              train_launches["prepare_uniforms_kernel"]
+              + mesh_train_counts["prepare_uniforms_kernel"], uni_err,
+              uni_ms, uni_plain_ms, train_bounds["uniforms"]),
+        entry("replay_fwd", "replay.cu", "render/replay_kernel.py:163",
+              train_launches["replay_fwd"]
+              + mesh_train_counts["replay_fwd"], fwd_err,
+              *stage["replay forward"], train_bounds["replay forward"]),
+        entry("replay_bwd", "replay.cu", "render/replay_kernel.py:193",
+              train_launches["replay_bwd"]
+              + mesh_train_counts["replay_bwd"], bwd_err,
+              *stage["replay backward"], train_bounds["replay backward"]),
+        entry("closest_hit_fused", "select.cu",
+              "intersect/pallas_select.py:42",
+              select_launches + mesh_train_counts["closest_hit_fused"],
+              max(select_err, select_stage["max_abs_err"]),
+              select_stage["ms"], select_stage["plain_ms"],
+              (select_stage["bound_ms"], select_stage["bound_by"])),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,10 +8,13 @@ each counterpart is easy to find.
 
 Layering (bottom-up):
   core/      vector math, colour/tonemap
-  scene/     text-format loader → SoA scene tensors
-  intersect/ per-row intersection passes (plain torch + CUDA device code)
-  render/    camera rays, uniforms, the whole-path megakernel, film,
-             progressive renderer
+  scene/     text-format loader → SoA scene tensors, procedural scenes
+  intersect/ per-row intersection passes (plain torch + CUDA device code),
+             grid oracle, dense closest hit, the per-bounce select kernel
+  render/    camera rays, uniforms, the integrator, the whole-path
+             megakernel, path replay, film, progressive renderer
+  diff/      material parameters as leaf tensors
+  parallel/  train step and loop
   tools/     PNG IO, CLI
   csrc/      hand-written CUDA C++ kernels for Hopper (sm_90a), built at
              first use by :mod:`.kernels`

@@ -1,6 +1,6 @@
 """Central runtime configuration (counterpart of ``raytracercore_tpu.config``).
 
-Only the knobs the forward render path reads are carried over.
+Only the knobs the port's paths read are carried over.
 """
 
 from __future__ import annotations
@@ -8,8 +8,8 @@ from __future__ import annotations
 # Scenes with at most this many primitive table rows (triangles + spheres +
 # planes, padding rows included) run through the whole-path megakernel
 # (render/fused.py).  Kept equal to the JAX package's cap so both packages
-# route the same scenes the same way; larger scenes need the per-bounce
-# select kernel or the BVH, which this package does not have yet.
+# route the same scenes the same way; larger scenes go bounce by bounce
+# through the select kernel (intersect/cuda_select.py).
 FUSED_MAX_PRIMS = 64
 
 # Keep the scalar triangle test's coplanar ray-in-plane branch in the
@@ -17,3 +17,17 @@ FUSED_MAX_PRIMS = 64
 # JAX megakernel's setting; det == 0 exactly is measure-zero under
 # jittered camera rays.
 FUSED_COPLANAR_BRANCH = False
+
+# Table-row cap of the per-bounce select kernel (csrc/select.cu), which
+# keeps every packed table row in a block's shared memory.  A row costs at
+# most 28·4 B of floats + 4·4 B of ints = 128 B (a sphere; a triangle
+# 21·4 + 16 = 100 B, a plane 32 B).  An H100 block may take 227 KB
+# (232,448 B) of dynamic shared memory, i.e. 1,816 sphere rows in one block
+# per SM; 768 rows are at most 768 · 128 B = 96 KB, so two blocks of 256
+# threads always fit on an SM (2 · 96 KB = 192 KB ≤ 227 KB).  768 is also
+# the JAX package's cap, so both packages route the same scenes alike.
+SELECT_MAX_PRIMS = 768
+
+# Renderer(accelerator="auto") switches to the BVH above this many
+# triangles: the dense tier's own cap, as in the JAX package.
+BVH_AUTO_THRESHOLD = SELECT_MAX_PRIMS

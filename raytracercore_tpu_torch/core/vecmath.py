@@ -1,6 +1,6 @@
 """Vector math on torch tensors (counterpart of
-``raytracercore_tpu.core.vecmath``), only what the forward render and the
-replay use.
+``raytracercore_tpu.core.vecmath``), only what the render and train paths
+use.
 
 Two conventions, as in the JAX package: ``[..., 3]`` tensors at module
 boundaries, and component tuples ``(x, y, z)`` of ``[R]`` tensors inside
@@ -33,17 +33,42 @@ def near_enough(dtype=torch.float32) -> float:
     return NEAR_ENOUGH_F32
 
 
-def normalize(a):
-    """Normalize over the trailing axis; a zero vector yields NaN, like the
-    reference (Vec4D.cs:321)."""
-    return a / torch.sqrt(torch.sum(a * a, dim=-1, keepdim=True))
+def _scalar_like(x, value):
+    """A 0-dim tensor of ``value`` in ``x``'s dtype, filled on ``x``'s
+    device (``x.new_tensor`` would copy it from host memory, and on a CUDA
+    device that copy first waits for the stream to drain)."""
+    return torch.full((), value, dtype=x.dtype, device=x.device)
+
+
+def dot(a, b):
+    """Dot product over the trailing axis of ``[..., 3]`` tensors, summed
+    x, y, z in that order (as :func:`dot3`)."""
+    return (a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]
+            + a[..., 2] * b[..., 2])
+
+
+def cross(a, b):
+    """Cross product over the trailing axis of ``[..., 3]`` tensors
+    (Vec4D.cs:357)."""
+    return torch.stack(cross3(a.unbind(-1), b.unbind(-1)), dim=-1)
+
+
+def normalize(a, eps=0.0):
+    """Normalize over the trailing axis.  With ``eps=0`` a zero vector
+    yields NaN, like the reference (Vec4D.cs:321); otherwise the length is
+    floored at ``eps`` (``torch.maximum``: half the derivative at a tie,
+    as JAX's ``jnp.maximum``)."""
+    n = torch.sqrt(dot(a, a))
+    if eps:
+        n = torch.maximum(n, _scalar_like(n, eps))
+    return a / n[..., None]
 
 
 def safe_sqrt(x, floor=1e-20):
     """sqrt with the argument floored away from 0 (≤1e-10 change).  Below
     the floor the derivative is 0; at it, ``torch.maximum`` passes half, as
     JAX's ``jnp.maximum`` does (``clamp`` would pass all of it)."""
-    return torch.sqrt(torch.maximum(x, x.new_tensor(floor)))
+    return torch.sqrt(torch.maximum(x, _scalar_like(x, floor)))
 
 
 def dot3(a, b):
@@ -98,6 +123,32 @@ def create_horizon3_cs(pole, z, ct, st):
             pole[1] * z + horiz[1] * s,
             pole[2] * z + horiz[2] * s)
     return rotate_about_axis3_cs(base, pole, ct, st)
+
+
+def create_horizon_cs(pole, z, ct, st):
+    """``[..., 3]``-shaped CreateHorizon with precomputed azimuth
+    cos/sin."""
+    return torch.stack(create_horizon3_cs(pole.unbind(-1), z, ct, st),
+                       dim=-1)
+
+
+def reflect(normal, incoming, cos):
+    """Mirror ``incoming`` about ``normal``; ``cos = -normal·incoming``
+    (Raytracer.Reflection, Raytracer.cs:58-61)."""
+    return incoming + normal * (2.0 * cos)[..., None]
+
+
+def transform_point(m, p):
+    """Apply row-major 4x4 ``m`` (``[..., 4, 4]``) to point(s) ``p``
+    (``[..., 3]``) with implicit w=1 (Mat4x4D.cs:151-168)."""
+    return transform_dir(m, p) + m[..., :3, 3]
+
+
+def transform_dir(m, d):
+    """Apply 4x4 ``m`` to direction(s) ``d`` with implicit w=0."""
+    x, y, z = d.unbind(-1)
+    return torch.stack([m[..., i, 0] * x + m[..., i, 1] * y + m[..., i, 2] * z
+                        for i in range(3)], dim=-1)
 
 
 def reflect3(normal, incoming, cos):

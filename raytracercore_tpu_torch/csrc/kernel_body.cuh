@@ -33,13 +33,18 @@ struct V3 {
   float x, y, z;
 };
 
-// Running closest hit (GlobalBest).  prim < 0 means no hit.
+// Running closest hit (GlobalBest).  prim < 0 means no hit.  row is the
+// winning row of the table the hit came from, near_root whether a sphere hit is
+// its near root: the select kernel reports them, the megakernel does not
+// read them.
 struct Best {
   float t;
   int prim;
   bool inside;
   V3 pos;
   V3 nrm;
+  int row;
+  bool near_root;
 };
 
 __device__ __forceinline__ Best no_hit() {
@@ -49,6 +54,8 @@ __device__ __forceinline__ Best no_hit() {
   b.inside = false;
   b.pos = {0.f, 0.f, 0.f};
   b.nrm = {0.f, 0.f, 0.f};
+  b.row = -1;
+  b.near_root = false;
   return b;
 }
 
@@ -177,12 +184,14 @@ __device__ __forceinline__ void triangle_pass(int T, const float* tf,
     best.inside = inside;
     best.pos = {hx, hy, hz};
     best.nrm = n;
+    best.row = t;
   }
 }
 
 // One root of a transformed sphere (Sphere.cs:156-209): world position via
 // obj_to_world, normal via w2o^T, world-space t from the world position.
 // Returns false when the root is filtered (two-sided rule, skip match).
+// Fills the hit fields of cand; its row and near_root are the caller's.
 __device__ __forceinline__ bool sphere_root(const float* m, int prim,
                                             bool inv_f, bool two_s,
                                             bool geo_inside, float t_obj,
@@ -252,10 +261,15 @@ __device__ __forceinline__ void sphere_pass(int S, const float* sf,
     if (radix < b)
       got = sphere_root(m, prim, inv_f, two_s, false, (b - radix) / 2.f, oo,
                         dd, o, d, inv_rad, k, eps2, cand);
+    const bool near_root = got;
     if (!got)
       got = sphere_root(m, prim, inv_f, two_s, true, (b + radix) / 2.f, oo,
                         dd, o, d, inv_rad, k, eps2, cand);
-    if (got && cand.t < best.t) best = cand;
+    if (got && cand.t < best.t) {
+      best = cand;
+      best.row = s;
+      best.near_root = near_root;
+    }
   }
 }
 
@@ -295,6 +309,7 @@ __device__ __forceinline__ void plane_pass(int P, const float* pf,
     best.inside = inside;
     best.pos = {hx, hy, hz};
     best.nrm = {qnx * flip, qny * flip, qnz * flip};
+    best.row = q;
   }
 }
 

@@ -21,8 +21,15 @@
 // (~3x that for the adjoint), so by these counts the forward sits near the
 // memory side and the backward on fp32 issue and divergence; no hardware
 // counter has confirmed it.  What the design does about it:
-//   * the material table sits in shared memory (N <= 64 rows) and is read
-//     by row, max(prim, 0) * 14 + c;
+//   * the material table sits in dynamic shared memory (N <= 768 rows,
+//     43 KB; with the backward's accumulator 86 KB, above the 48 KB
+//     default, hence cudaFuncSetAttribute below) and is read by row,
+//     max(prim, 0) * 14 + c;
+//   * a block walks the paths in strides of the grid, so the caller picks
+//     the grid: one block per 128 paths for a small table, and for a large
+//     one only as many blocks as stay resident, so that the table is copied
+//     (and the accumulator written out) once per resident block and not
+//     once per 128 paths;
 //   * the path state lives in registers; bounces the path never reached
 //     (code Skipped) only renormalize;
 //   * the backward keeps each bounce's entry (direction, tint) in a
@@ -48,7 +55,8 @@ namespace rtc {
 
 constexpr int RP_MAT_F = 14;  // emission(3) diffuse(3) specular(3) refraction(3) ior shin
 constexpr int REPLAY_BLOCK = 128;
-constexpr int MAX_REPLAY_MATS = 64;
+constexpr int MAX_REPLAY_MATS = 768;
+constexpr size_t DEFAULT_SMEM = 48 * 1024;  // dynamic shared memory allowed unasked
 constexpr int MAX_REPLAY_BOUNCES = 32;
 constexpr float SQRT_FLOOR = 1e-20f;  // vecmath.safe_sqrt
 
@@ -381,49 +389,50 @@ __device__ __forceinline__ void load_table(const ReplayParams& p,
 template <bool AIM>
 __global__ void __launch_bounds__(REPLAY_BLOCK)
     replay_fwd_kernel(ReplayParams p, float* color, int* miss) {
-  __shared__ float s_mf[MAX_REPLAY_MATS * RP_MAT_F];
+  extern __shared__ float s_mf[];  // [N,14]
   load_table(p, s_mf);
   __syncthreads();
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= p.R) return;
 
   const float air = p.scf[0];
   const V3 ambient = {p.scf[1], p.scf[2], p.scf[3]};
-  V3 d = {p.ray_d[3 * r], p.ray_d[3 * r + 1], p.ray_d[3 * r + 2]};
-  V3 tint = {1.f, 1.f, 1.f};
-  V3 result = {0.f, 0.f, 0.f};
-  int m = 0;
-  for (int i = 0; i < p.n_bounces; ++i) {
-    if (i % 3 == 0) d = renorm(d);  // Raytracer.cs:74-75
-    const size_t at = (size_t)i * p.R + r;
-    const int flags = p.flags[at];
-    if ((flags & CODE_MASK) == SKIPPED) continue;
-    const float* g = s_mf + max(p.prim[at], 0) * RP_MAT_F;
-    Shade sh;
-    shade(p, i, r, d, g, flags, air, sh);
-    advance<AIM>(p, i, r, sh, g, ambient, d, tint, result);
-    if ((AIM || i == 0) && sh.code == MISSED) m = 1;
+  for (int r = blockIdx.x * blockDim.x + threadIdx.x; r < p.R;
+       r += gridDim.x * blockDim.x) {
+    V3 d = {p.ray_d[3 * r], p.ray_d[3 * r + 1], p.ray_d[3 * r + 2]};
+    V3 tint = {1.f, 1.f, 1.f};
+    V3 result = {0.f, 0.f, 0.f};
+    int m = 0;
+    for (int i = 0; i < p.n_bounces; ++i) {
+      if (i % 3 == 0) d = renorm(d);  // Raytracer.cs:74-75
+      const size_t at = (size_t)i * p.R + r;
+      const int flags = p.flags[at];
+      if ((flags & CODE_MASK) == SKIPPED) continue;
+      const float* g = s_mf + max(p.prim[at], 0) * RP_MAT_F;
+      Shade sh;
+      shade(p, i, r, d, g, flags, air, sh);
+      advance<AIM>(p, i, r, sh, g, ambient, d, tint, result);
+      if ((AIM || i == 0) && sh.code == MISSED) m = 1;
+    }
+    color[3 * r] = result.x;
+    color[3 * r + 1] = result.y;
+    color[3 * r + 2] = result.z;
+    miss[r] = m;
   }
-  color[3 * r] = result.x;
-  color[3 * r + 1] = result.y;
-  color[3 * r + 2] = result.z;
-  miss[r] = m;
 }
 
 template <bool AIM>
 __global__ void __launch_bounds__(REPLAY_BLOCK)
     replay_bwd_kernel(ReplayParams p, const float* ct, float* partial) {
-  __shared__ float s_mf[MAX_REPLAY_MATS * RP_MAT_F];
-  __shared__ float s_acc[MAX_REPLAY_MATS * RP_MAT_F];
+  extern __shared__ float s_mf[];  // [N,14] table, then [N,14] accumulator
+  float* s_acc = s_mf + p.N * RP_MAT_F;
   load_table(p, s_mf);
   for (int k = threadIdx.x; k < p.N * RP_MAT_F; k += blockDim.x)
     s_acc[k] = 0.f;
   __syncthreads();
 
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r < p.R) {
-    const float air = p.scf[0];
-    const V3 ambient = {p.scf[1], p.scf[2], p.scf[3]};
+  const float air = p.scf[0];
+  const V3 ambient = {p.scf[1], p.scf[2], p.scf[3]};
+  for (int r = blockIdx.x * blockDim.x + threadIdx.x; r < p.R;
+       r += gridDim.x * blockDim.x) {
     V3 d_st[MAX_REPLAY_BOUNCES], t_st[MAX_REPLAY_BOUNCES];
 
     // Forward sweep: keep each bounce's entry (direction, tint).
@@ -478,35 +487,47 @@ __global__ void __launch_bounds__(REPLAY_BLOCK)
 
 namespace {
 
-bool bad_sizes(int R, int N, int n_bounces) {
+bool bad_sizes(int R, int N, int n_bounces, int n_blocks) {
   return R <= 0 || N <= 0 || N > rtc::MAX_REPLAY_MATS || n_bounces <= 0 ||
-         n_bounces > rtc::MAX_REPLAY_BOUNCES;
+         n_bounces > rtc::MAX_REPLAY_BOUNCES || n_blocks <= 0 ||
+         n_blocks > (R + rtc::REPLAY_BLOCK - 1) / rtc::REPLAY_BLOCK;
+}
+
+// Launch `kernel` with `smem` bytes of dynamic shared memory, asking for
+// more than the default first where needed.
+template <typename... Args>
+int launch(void (*kernel)(rtc::ReplayParams, Args...), int n_blocks,
+           size_t smem, void* stream, rtc::ReplayParams p, Args... args) {
+  if (smem > rtc::DEFAULT_SMEM) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<n_blocks, rtc::REPLAY_BLOCK, smem,
+           static_cast<cudaStream_t>(stream)>>>(p, args...);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// C entry points, loaded with ctypes.  Each launches on `stream` and
-// returns the cudaGetLastError() after the launch (0 = launched), or
-// cudaErrorInvalidValue for sizes the kernels do not take.
+// C entry points, loaded with ctypes.  Each launches `n_blocks` blocks (at
+// most one per REPLAY_BLOCK paths; fewer walk the paths in strides) on
+// `stream` and returns the cudaGetLastError() after the launch (0 =
+// launched), or cudaErrorInvalidValue for sizes the kernels do not take.
 extern "C" int rtc_replay_fwd(const float* ray_d, const float* u,
                               const int* prim, const int* flags,
                               const float* nx, const float* ny,
                               const float* nz, const float* matf,
                               const float* scf, float* color, int* miss,
-                              int R, int N, int n_bounces,
+                              int R, int N, int n_bounces, int n_blocks,
                               int ambient_is_miss, void* stream) {
-  if (bad_sizes(R, N, n_bounces)) return (int)cudaErrorInvalidValue;
+  if (bad_sizes(R, N, n_bounces, n_blocks)) return (int)cudaErrorInvalidValue;
   rtc::ReplayParams p{ray_d, u, prim, flags, nx, ny, nz, matf, scf,
                       R, N, n_bounces};
-  dim3 grid((R + rtc::REPLAY_BLOCK - 1) / rtc::REPLAY_BLOCK);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (ambient_is_miss)
-    rtc::replay_fwd_kernel<true><<<grid, rtc::REPLAY_BLOCK, 0, st>>>(
-        p, color, miss);
-  else
-    rtc::replay_fwd_kernel<false><<<grid, rtc::REPLAY_BLOCK, 0, st>>>(
-        p, color, miss);
-  return (int)cudaGetLastError();
+  const size_t smem = (size_t)N * rtc::RP_MAT_F * sizeof(float);
+  return launch(ambient_is_miss ? rtc::replay_fwd_kernel<true>
+                                : rtc::replay_fwd_kernel<false>,
+                n_blocks, smem, stream, p, color, miss);
 }
 
 extern "C" int rtc_replay_bwd(const float* ray_d, const float* u,
@@ -517,17 +538,11 @@ extern "C" int rtc_replay_bwd(const float* ray_d, const float* u,
                               float* partial, int R, int N, int n_bounces,
                               int n_blocks, int ambient_is_miss,
                               void* stream) {
-  if (bad_sizes(R, N, n_bounces) ||
-      n_blocks != (R + rtc::REPLAY_BLOCK - 1) / rtc::REPLAY_BLOCK)
-    return (int)cudaErrorInvalidValue;
+  if (bad_sizes(R, N, n_bounces, n_blocks)) return (int)cudaErrorInvalidValue;
   rtc::ReplayParams p{ray_d, u, prim, flags, nx, ny, nz, matf, scf,
                       R, N, n_bounces};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (ambient_is_miss)
-    rtc::replay_bwd_kernel<true><<<n_blocks, rtc::REPLAY_BLOCK, 0, st>>>(
-        p, ct, partial);
-  else
-    rtc::replay_bwd_kernel<false><<<n_blocks, rtc::REPLAY_BLOCK, 0, st>>>(
-        p, ct, partial);
-  return (int)cudaGetLastError();
+  const size_t smem = 2 * (size_t)N * rtc::RP_MAT_F * sizeof(float);
+  return launch(ambient_is_miss ? rtc::replay_bwd_kernel<true>
+                                : rtc::replay_bwd_kernel<false>,
+                n_blocks, smem, stream, p, ct, partial);
 }

@@ -50,16 +50,37 @@ SIGNATURES = {
         + [_P]),                       # stream
     "rtc_replay_fwd": (
         [_P] * 11                      # 9 inputs, color, miss
-        + [_I] * 4                     # R N n_bounces ambient_is_miss
+        + [_I] * 5                     # R N n_bounces n_blocks
+                                       # ambient_is_miss
         + [_P]),                       # stream
     "rtc_replay_bwd": (
         [_P] * 11                      # 9 inputs, color cotangent, partial
         + [_I] * 5                     # R N n_bounces n_blocks
                                        # ambient_is_miss
         + [_P]),                       # stream
+    "rtc_select": (
+        [_P] * 21                      # 2 rays, 4 skip (null: none),
+                                       # 6 tables, 9 outputs
+        + [_I] * 4                     # R T S P
+        + [_F, _F]                     # eps_behind, eps_pos²
+        + [_P]),                       # stream
 }
 
 _loaded: dict = {}
+
+
+def check_tensor(name, t, shape, dtype, device):
+    """Raise ``ValueError`` unless tensor ``t`` has what a kernel reads
+    through its raw pointer: the device, dtype and shape given, and a
+    contiguous layout."""
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
 
 
 def _sources():

@@ -3,8 +3,9 @@
 ``make_train_loop``), single device.
 
 A step renders the target's view through the train path
-(:func:`..render.replay.trace_replay`: uniforms kernel → megakernel recorder
-→ replay backward kernel), takes the L2 image loss against the target and
+(:func:`..render.replay.trace_replay`: uniforms kernel → recorder → replay
+backward) or, as the slow oracle, through the whole differentiable
+:func:`..render.integrator.trace`, takes the L2 image loss against the target and
 lets the caller's ``torch.optim`` optimizer update the material params in
 place.  The JAX step is stateless (params and optimizer state in, new ones
 out); here ``params`` is the dict of leaf tensors the optimizer was built
@@ -18,9 +19,12 @@ from typing import Callable
 import torch
 
 from ..diff.params import with_material_params
+from ..intersect.dispatch import closest_hit
 from ..render import camera as cam_mod
+from ..render.integrator import trace
 from ..render.renderer import pass_seed
 from ..render.replay import trace_replay
+from ..render.uniforms_kernel import prepare_uniforms_kernel
 
 
 def _single_device(mesh):
@@ -54,13 +58,23 @@ def image_loss(color, miss, target):
     return torch.mean((img - target) ** 2)
 
 
-def make_train_step(mesh, optimizer: torch.optim.Optimizer) -> Callable:
+def make_train_step(mesh, optimizer: torch.optim.Optimizer,
+                    closest_fn=closest_hit, use_replay: bool = True
+                    ) -> Callable:
     """A material-optimization step: render → L2 image loss → gradients →
     ``optimizer.step()``.
 
     ``optimizer`` is built over the params dict the step will be given
     (e.g. ``torch.optim.Adam(params.values(), lr)``).  ``mesh`` must be
     ``None``.
+
+    ``use_replay`` routes the loss through the path-replay estimator
+    (:func:`..render.replay.trace_replay`): the values and gradients of
+    ``trace``, but the backward pass differentiates only the ``[R]``-shaped
+    replay instead of the whole bounce loop.  False differentiates the full
+    :func:`..render.integrator.trace` with autograd (the slow oracle the
+    replay is tested against).  ``closest_fn`` is the closest-hit query of
+    either route.
 
     Returns ``step(params, scene, camera, target, seed, jitter=None,
     uniforms=None) → loss`` (a detached scalar tensor, the loss before the
@@ -74,9 +88,17 @@ def make_train_step(mesh, optimizer: torch.optim.Optimizer) -> Callable:
              jitter=None, uniforms=None):
         h, w = target.shape[:2]
         ray_o, ray_d, path_seed = step_rays(camera, h, w, seed, jitter)
-        color, miss = trace_replay(with_material_params(scene, params),
-                                   ray_o, ray_d, seed=path_seed,
-                                   uniforms=uniforms)
+        s = with_material_params(scene, params)
+        if use_replay:
+            color, miss = trace_replay(s, ray_o, ray_d, seed=path_seed,
+                                       uniforms=uniforms,
+                                       closest_fn=closest_fn)
+        else:
+            if uniforms is None:
+                uniforms = prepare_uniforms_kernel(
+                    path_seed, h * w, scene.recursion + 1, ray_o.device)
+            color, miss = trace(s, ray_o, ray_d, None, closest_fn=closest_fn,
+                                uniforms=uniforms)
         loss = image_loss(color, miss, target)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -87,7 +109,8 @@ def make_train_step(mesh, optimizer: torch.optim.Optimizer) -> Callable:
 
 
 def make_train_loop(mesh, optimizer: torch.optim.Optimizer,
-                    n_steps: int) -> Callable:
+                    n_steps: int, closest_fn=closest_hit,
+                    use_replay: bool = True) -> Callable:
     """``n_steps`` optimization steps; step ``i`` is seeded
     ``pass_seed(seed, i)``, so the loop equals ``n_steps`` calls of
     :func:`make_train_step`'s step (the JAX loop folds the step index into
@@ -96,7 +119,8 @@ def make_train_loop(mesh, optimizer: torch.optim.Optimizer,
     Returns ``loop(params, scene, camera, target, seed) → losses
     [n_steps]``."""
     _single_device(mesh)
-    step = make_train_step(None, optimizer)
+    step = make_train_step(None, optimizer, closest_fn=closest_fn,
+                           use_replay=use_replay)
 
     def loop(params: dict, scene, camera, target, seed: int):
         return torch.stack([step(params, scene, camera, target,

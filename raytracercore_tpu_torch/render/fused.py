@@ -30,6 +30,7 @@ from ..config import FUSED_MAX_PRIMS as MAX_PRIMS
 from ..core import vecmath as vm
 from ..core.color import LUM_B, LUM_G, LUM_R
 from ..intersect import kernel_body as kb
+from ..kernels import check_tensor as _check
 from ..scene.types import SceneArrays
 from .integrator import BounceType as BT
 from .integrator import PathTape
@@ -337,17 +338,6 @@ def classify_mismatches(ref, got, atol=1e-3, rtol=1e-3):
         "samepick": mismatch & same_path,
         "max_abs_err_same_path": float(err[same_path].max(initial=0.0)),
     }
-
-
-def _check(name, t, shape, dtype, device):
-    if t.device != device:
-        raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: not contiguous")
 
 
 def _launch(scene: SceneArrays, ray_o, ray_d, uniforms, want_tape):

@@ -1,11 +1,34 @@
-"""Integrator contract pieces (counterpart of
-``raytracercore_tpu.render.integrator``): the bounce codes, the
-:class:`PathTape` bit layout and the preprocessed-uniform channels that the
-megakernel (:mod:`.fused`) consumes.
+"""The wavefront path-tracing integrator (counterpart of
+``raytracercore_tpu.render.integrator``).
 
-:func:`_material_matrix` is the differentiable ``[N, 14]`` material
-packing the replay reads.  The differentiable ``trace`` and the dense
-``closest_hit`` of the JAX package are not ported yet (ROADMAP.md, queue 1).
+:func:`trace` is the batched rebuild of ``Raytracer.GetColor``
+(Raytracing/Raytracer.cs:65-246): a whole batch of rays advances through a
+loop over bounces, one closest-hit query per bounce; terminated rays are
+masked out and their results frozen.  All reference semantics are kept:
+
+* direction renormalized every 3 bounces (Raytracer.cs:74-75)
+* primary miss → "Placeholder" miss sample; secondary miss → the scene's
+  ambient colour returned untinted (Raytracer.cs:85-90)
+* ``debug geom`` mode: flat spec+diff+emission of the first hit (:93-98)
+* rough shading normal: ``z = U^(1/shininess)`` cone sample around the true
+  normal (RandomShine, :51-56)
+* exact Fresnel s/p-wave average with total internal reflection, applied to
+  the luminance-weighted branch probabilities (:120-157)
+* single stochastic branch per bounce ∝ luminance: transmit / specular (with
+  the rough-normal fail path) / diffuse (``z = 2·acos(U)/π``) / emission
+  (:163-229); throughput multiplied by chosen albedo × ``max(totalLum, 1)``
+  (:238-240); termination returns ``tint · emission`` (:245)
+* self-intersection via the previous-hit skip record, not ray epsilons (:77)
+
+Differentiability: branch *selection* is discrete (comparisons carry no
+gradient); the realized path's albedo/Fresnel/totalLum factors stay in the
+autograd graph, so the gradient of a pixel w.r.t. material parameters
+matches finite differences of the same fixed-uniforms estimator.
+
+The module also holds the contract pieces the kernels share: the bounce
+codes, the :class:`PathTape` bit layout, the preprocessed-uniform channels
+and :func:`_material_matrix`, the differentiable ``[N, 14]`` material
+packing.
 """
 
 from __future__ import annotations
@@ -13,6 +36,11 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+from ..core import vecmath as vm
+from ..core.color import luminance
+from ..intersect.dispatch import HitRecord, closest_hit
+from ..scene.types import SceneArrays
 
 TWO_PI = 6.283185307179586
 
@@ -108,3 +136,343 @@ def _material_matrix(mats):
     return torch.cat([
         mats.emission, mats.diffuse, mats.specular, mats.refraction,
         mats.refractive_index[:, None], shin[:, None]], dim=1)
+
+
+def _random_shine(ln_u, cos_t, sin_t, normal, shininess):
+    """RandomShine (Raytracer.cs:51-56): perturb the shading normal on a cone
+    with ``z = U^(1/shininess)`` = exp(ln U / shininess); shininess=+inf ⇒
+    z=1 (unperturbed).  ``ln_u`` is pre-clipped away from ln(0) so the
+    backward pass through the exp stays finite."""
+    z = torch.where(torch.isinf(shininess), 1.0, torch.exp(ln_u / shininess))
+    return vm.create_horizon_cs(normal, z, cos_t, sin_t)
+
+
+def _gather_material(mats, prim, matf=None):
+    """The hit primitives' material rows (row 0 where ``prim`` < 0) as a
+    dict of fields, by a plain index gather of :func:`_material_matrix`
+    (``matf``, when the caller already packed it).  The gather reads a
+    float64 copy, so autograd sums each row's gradient over all rays in
+    float64 (as the replay's ``_gather``); the values are the table's
+    own."""
+    if matf is None:
+        matf = _material_matrix(mats)
+    m = matf.to(torch.float64)[torch.clamp(prim, min=0).long()].to(matf.dtype)
+    return {
+        "emission": m[:, 0:3],
+        "diffuse": m[:, 3:6],
+        "specular": m[:, 6:9],
+        "refraction": m[:, 9:12],
+        "ior": m[:, 12],
+        "shininess": m[:, 13],
+    }
+
+
+@dataclasses.dataclass(frozen=True)
+class BounceRecords:
+    """Per-bounce debug trace (the DebugRay records of Raytracer.cs:28-33),
+    ``[R, recursion + 1]`` per field."""
+
+    btype: torch.Tensor     # int32 BounceType
+    prim: torch.Tensor      # int32 hit primitive (-1 miss)
+    t: torch.Tensor         # hit distance
+    position: torch.Tensor  # [R, B, 3]
+    normal: torch.Tensor    # [R, B, 3]
+    inside: torch.Tensor    # bool
+    fresnel: torch.Tensor   # Fresnel ratio (NaN when not evaluated)
+
+
+@dataclasses.dataclass(frozen=True)
+class PathState:
+    ray_o: torch.Tensor    # [R, 3]
+    ray_d: torch.Tensor    # [R, 3]
+    tint: torch.Tensor     # [R, 3] running throughput
+    alive: torch.Tensor    # [R] bool — still bouncing
+    result: torch.Tensor   # [R, 3] final colour once dead
+    miss: torch.Tensor     # [R] bool — sample counts as a miss
+    prev: HitRecord        # previous bounce's hit (skip record)
+
+
+def _stack_records(rows, R, n_bounces, dtype, device):
+    """Per-bounce record rows → :class:`BounceRecords`; bounces after an
+    early exit keep the untouched defaults."""
+    none = HitRecord.none(R, dtype, device)
+    pad = (torch.zeros((R,), dtype=torch.int32, device=device), none.prim,
+           none.t, none.position, none.normal, none.inside,
+           torch.full((R,), float("nan"), dtype=dtype, device=device))
+    rows = rows + [pad] * (n_bounces - len(rows))
+    return BounceRecords(*(torch.stack(col, dim=1) for col in zip(*rows)))
+
+
+def _stack_tape(rows, R, n_bounces, dtype, device):
+    """Per-bounce tape rows → :class:`PathTape`; bounces after an early
+    exit hold prim -1, flags 0 and zero normals."""
+    zero = torch.zeros((R,), dtype=dtype, device=device)
+    pad = (torch.full((R,), -1, dtype=torch.int32, device=device),
+           torch.zeros((R,), dtype=torch.int32, device=device),
+           zero, zero, zero)
+    rows = rows + [pad] * (n_bounces - len(rows))
+    return PathTape(*(torch.stack(col) for col in zip(*rows)))
+
+
+def trace(scene: SceneArrays, ray_o, ray_d, generator=None,
+          closest_fn=closest_hit, record: bool = False,
+          early_exit: bool = False, uniforms=None, want_tape: bool = False):
+    """Trace a batch of camera rays to final colours.
+
+    Args:
+      scene: frozen SceneArrays on the rays' device.
+      ray_o, ray_d: [R, 3] camera rays (unit directions).
+      generator: ``torch.Generator`` the per-bounce uniforms are drawn from
+        (:func:`prepare_uniforms`) when ``uniforms`` is not given.
+      closest_fn: closest-hit implementation, ``(scene, ray_o, ray_d, skip)
+        → HitRecord`` (:func:`..intersect.dispatch.closest_hit`, which is
+        differentiable, or :func:`..intersect.cuda_select.closest_hit_fused`).
+      record: also return per-bounce :class:`BounceRecords` (the
+        GetDebugTrace path, Raytracer.cs:254-260) — same loop body, so the
+        debug view can never drift from the render path.
+      early_exit: stop the bounce loop once every ray has terminated
+        (one host read of a flag per bounce).  Forward only.
+      uniforms: pre-generated ``[recursion + 1, 7, R]`` channels to use
+        instead of drawing from ``generator`` (the replay path shares one
+        uniform set between the recording and replay passes).
+      want_tape: also return a :class:`PathTape` of per-bounce discrete
+        decisions (recorded through the same loop body).  ``trace`` writes
+        the hit's prim and flag bits on every lane, dead ones included;
+        compare tapes only where a replay reads them.
+
+    Returns:
+      (color [R, 3], miss [R] bool) — ``miss`` marks Placeholder samples
+      (primary miss, or any miss under ``ambient miss``); with
+      ``record=True`` a :class:`BounceRecords` is appended, and with
+      ``want_tape=True`` a :class:`PathTape` is appended (in that order).
+    """
+    R = ray_o.shape[0]
+    dtype, device = ray_o.dtype, ray_o.device
+    recursion = scene.recursion
+    n_bounces = recursion + 1
+
+    if scene.debug_geom:
+        # Flat geometry view (Raytracer.cs:93-98): first hit's
+        # spec+diff+emission; primary misses stay misses.
+        hit = closest_fn(scene, ray_o, ray_d, None)
+        mat = _gather_material(scene.materials, hit.prim)
+        color = mat["specular"] + mat["diffuse"] + mat["emission"]
+        color = torch.where(hit.found[:, None], color, 0.0)
+        code = torch.where(hit.found, BounceType.DEBUG,
+                           BounceType.MISSED).to(torch.int32)
+        out = (color, ~hit.found)
+        if record:
+            nan = torch.full((R,), float("nan"), dtype=dtype, device=device)
+            out += (_stack_records(
+                [(code, hit.prim, hit.t, hit.position, hit.normal,
+                  hit.inside, nan)], R, n_bounces, dtype, device),)
+        if want_tape:
+            zero = torch.zeros((R,), dtype=dtype, device=device)
+            out += (_stack_tape([(hit.prim, code, zero, zero, zero)], R,
+                                n_bounces, dtype, device),)
+        return out
+
+    # All randomness for the whole trace, generated up front (bounce i reads
+    # uniforms[i]).
+    if uniforms is None:
+        if generator is None:
+            raise ValueError("trace: give a generator or the uniforms")
+        uniforms = prepare_uniforms(generator, R, n_bounces, device, dtype)
+    ambient = scene.ambient_rgb.to(dtype)
+    air = scene.air_refractive_index.to(dtype)
+    one = torch.ones((), dtype=dtype, device=device)
+    matf = _material_matrix(scene.materials)  # packed once for all bounces
+    # Dead lanes are parked far outside any scene, pointing away (+x):
+    # their results are already committed, and a parked ray misses
+    # everything.  (Filled on the device: no copy from host memory.)
+    parked_o = torch.full((3,), 4e8, dtype=dtype, device=device)
+    parked_d = torch.zeros((3,), dtype=dtype, device=device)
+    parked_d[0] = 1.0
+
+    state = PathState(
+        ray_o=ray_o, ray_d=ray_d,
+        tint=torch.ones((R, 3), dtype=dtype, device=device),
+        alive=torch.ones((R,), dtype=torch.bool, device=device),
+        result=torch.zeros((R, 3), dtype=dtype, device=device),
+        miss=torch.zeros((R,), dtype=torch.bool, device=device),
+        prev=HitRecord.none(R, dtype, device))
+    record_rows, tape_rows = [], []
+
+    for i in range(n_bounces):
+        if early_exit and not bool(state.alive.any()):
+            break
+        # Periodic renormalization (Raytracer.cs:74-75), bounce 0 included.
+        d = vm.normalize(state.ray_d) if i % 3 == 0 else state.ray_d
+
+        hit = closest_fn(scene, state.ray_o, d, state.prev)
+        active = state.alive
+        found = hit.found
+
+        # --- miss handling (Raytracer.cs:81-91) -------------------------
+        was_missed = active & ~found
+        result = state.result
+        miss = state.miss
+        if i == 0 or scene.ambient_is_miss:
+            miss = miss | was_missed
+        else:
+            result = torch.where(was_missed[:, None], ambient, result)
+        alive = active & found
+
+        mat = _gather_material(scene.materials, hit.prim, matf)
+        emission = mat["emission"]
+
+        # --- recursion complete (Raytracer.cs:100-104) ------------------
+        if i >= recursion:
+            done = alive
+            result = torch.where(done[:, None], state.tint * emission,
+                                 result)
+            alive = torch.zeros_like(alive)
+        else:
+            done = torch.zeros_like(alive)
+
+        # --- shading (only meaningful where alive) ----------------------
+        u = uniforms[i]  # [7, R] preprocessed channels
+
+        rough_n = _random_shine(u[0], u[1], u[2], hit.normal,
+                                mat["shininess"])
+
+        diff_lum = luminance(mat["diffuse"])
+        spec_lum = luminance(mat["specular"])
+        refr_lum = luminance(mat["refraction"])
+        emis_lum = luminance(emission)
+
+        cos = -vm.dot(rough_n, d)
+
+        # Fresnel split (Raytracer.cs:120-157).
+        can_refract = ((refr_lum > 0) | (spec_lum > 0)) & \
+            (mat["ior"] != 0) & (cos >= 0)
+        ior_in = torch.where(hit.inside, mat["ior"], air)
+        ior_out = torch.where(hit.inside, air, mat["ior"])
+        safe_out = torch.where(ior_out == 0, 1.0, ior_out)
+        ior_ratio = ior_in / safe_out
+        sin_out = ior_ratio * vm.safe_sqrt(1.0 - cos * cos)
+        tir = sin_out >= 1.0
+        cos_out = vm.safe_sqrt(1.0 - sin_out * sin_out)
+        # Fresnel terms evaluated with masked inputs: where refraction is
+        # impossible (cos<0, ior=0, TIR) the raw denominators can pass
+        # through 0 and rs² overflows to inf, which NaNs the backward pass
+        # through torch.where even though the branch is unselected.
+        f_live = can_refract & ~tir
+        cos_f = torch.where(f_live, cos, 1.0)
+        cos_out_f = torch.where(f_live, cos_out, 1.0)
+        rs = ((ior_out * cos_f) - (ior_in * cos_out_f)) / \
+            ((ior_out * cos_f) + (ior_in * cos_out_f))
+        rp = ((ior_in * cos_f) - (ior_out * cos_out_f)) / \
+            ((ior_in * cos_f) + (ior_out * cos_out_f))
+        fresnel = (rs * rs + rp * rp) / 2.0
+
+        spec_lum = torch.where(f_live, spec_lum * fresnel, spec_lum)
+        refr_lum = torch.where(f_live, refr_lum * (1.0 - fresnel), 0.0)
+
+        total_lum = diff_lum + spec_lum + refr_lum + emis_lum
+
+        # Pure black termination (Raytracer.cs:165-169).
+        black = alive & (total_lum <= 0)
+        result = torch.where(black[:, None], state.tint * emission, result)
+        alive = alive & ~black
+
+        # --- stochastic branch selection (Raytracer.cs:177-229) ---------
+        ray_rand = u[3] * total_lum
+        pick_refr = (refr_lum != 0) & (ray_rand - refr_lum <= 0)
+        r2 = ray_rand - refr_lum
+        pick_spec = ~pick_refr & (spec_lum != 0) & (r2 - spec_lum <= 0)
+        r3 = r2 - spec_lum
+        pick_diff = ~pick_refr & ~pick_spec & (diff_lum != 0) & \
+            (r3 - diff_lum <= 0)
+        pick_emit = ~pick_refr & ~pick_spec & ~pick_diff
+
+        # Transmission (Raytracer.cs:181-193).
+        refr_dir = (rough_n * (-cos_out)[:, None]
+                    + (d + rough_n * cos[:, None]) * ior_ratio[:, None])
+        refr_tint = torch.where(hit.inside[:, None], 1.0, mat["refraction"])
+
+        # Specular with rough-normal fail (Raytracer.cs:194-209).
+        spec_dir = vm.reflect(rough_n, d, cos)
+        spec_ok = vm.dot(spec_dir, hit.normal) > 0
+
+        # Diffuse (Raytracer.cs:210-219): z = 2·acos(U)/π around the TRUE
+        # normal (not the rough normal); z precomputed as channel 4.
+        diff_dir = vm.create_horizon_cs(hit.normal, u[4], u[5], u[6])
+
+        # Terminal branches: emission pick, or failed specular.
+        terminal = alive & (pick_emit | (pick_spec & ~spec_ok))
+        result = torch.where(terminal[:, None], state.tint * emission,
+                             result)
+        alive = alive & ~terminal
+
+        out_dir = torch.where(pick_refr[:, None], refr_dir,
+                              torch.where(pick_spec[:, None], spec_dir,
+                                          diff_dir))
+        new_tint = torch.where(pick_refr[:, None], refr_tint,
+                               torch.where(pick_spec[:, None],
+                                           mat["specular"], mat["diffuse"]))
+        # Energy compensation (Raytracer.cs:238-240); torch.maximum splits
+        # the derivative at a tie as jnp.maximum does.
+        new_tint = new_tint * torch.maximum(total_lum, one)[:, None]
+
+        bounced = alive
+        sel = bounced[:, None]
+        new_o = torch.where(sel, hit.position, state.ray_o)
+        new_d = torch.where(sel, out_dir, d)
+        new_o = torch.where(alive[:, None], new_o, parked_o)
+        new_d = torch.where(alive[:, None], new_d, parked_d)
+        tint = torch.where(sel, state.tint * new_tint, state.tint)
+
+        prev = HitRecord(
+            prim=torch.where(bounced, hit.prim, state.prev.prim),
+            t=torch.where(bounced, hit.t, state.prev.t),
+            position=torch.where(sel, hit.position, state.prev.position),
+            normal=torch.where(sel, hit.normal, state.prev.normal),
+            inside=torch.where(bounced, hit.inside, state.prev.inside))
+
+        if record or want_tape:
+            btype = torch.full_like(hit.prim, BounceType.SKIPPED)
+            for code, mask in (
+                    (BounceType.MISSED, was_missed),
+                    (BounceType.RECURSION_COMPLETE, done),
+                    (BounceType.PURE_BLACK, black),
+                    (BounceType.EMISSION, terminal & pick_emit),
+                    (BounceType.SPECULAR_FAIL,
+                     terminal & pick_spec & ~spec_ok),
+                    (BounceType.TRANSMITTED, bounced & pick_refr),
+                    (BounceType.SPECULAR, bounced & pick_spec),
+                    (BounceType.DIFFUSE, bounced & pick_diff)):
+                btype = torch.where(mask, code, btype)
+
+        if want_tape:
+            flags = (btype
+                     | torch.where(hit.inside, PathTape.FLAG_INSIDE, 0)
+                     | torch.where(f_live, PathTape.FLAG_FLIVE, 0))
+            normal = hit.normal.detach()
+            tape_rows.append((hit.prim, flags.to(torch.int32), normal[:, 0],
+                              normal[:, 1], normal[:, 2]))
+
+        if record:
+            nan = torch.full_like(fresnel, float("nan"))
+            fr = torch.where(active & can_refract,
+                             torch.where(tir, 1.0, fresnel), nan)
+            none = HitRecord.none(R, dtype, device)
+            touched = active
+            record_rows.append((
+                torch.where(touched, btype, 0),
+                torch.where(touched, hit.prim, none.prim),
+                torch.where(touched, hit.t, none.t),
+                torch.where(touched[:, None], hit.position, none.position),
+                torch.where(touched[:, None], hit.normal, none.normal),
+                torch.where(touched, hit.inside, none.inside),
+                fr))
+
+        state = PathState(ray_o=new_o, ray_d=new_d, tint=tint, alive=alive,
+                          result=result, miss=miss, prev=prev)
+
+    out = (state.result, state.miss)
+    if record:
+        out += (_stack_records(record_rows, R, n_bounces, dtype, device),)
+    if want_tape:
+        out += (_stack_tape(tape_rows, R, n_bounces, dtype, device),)
+    return out

@@ -2,8 +2,10 @@
 ``raytracercore_tpu.render.renderer``).
 
 Replaces the reference's ``FullRaytracer`` (Raytracing/FullRaytracer.cs):
-one full-frame render pass per sample, the whole image traced by the
-megakernel in one launch.  Progressive refinement = calling ``step``
+one full-frame render pass per sample, the whole image traced at once — by
+the megakernel in one launch for scenes it takes, else by the integrator's
+bounce loop with one closest-hit kernel launch per bounce.  Progressive
+refinement = calling ``step``
 repeatedly; every pass adds +1 sample/pixel, like the reference's
 wraparound tile loop (Raytracer.cs:302-327).
 
@@ -22,11 +24,14 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..config import BVH_AUTO_THRESHOLD, SELECT_MAX_PRIMS
+from ..intersect.cuda_select import closest_hit_fused
+from ..intersect.dispatch import closest_hit, n_table_rows
 from ..scene.types import HostScene, SceneArrays, freeze_scene, init_camera
 from . import camera as cam_mod
 from . import fused
 from .film import Film
-from .integrator import prepare_uniforms
+from .integrator import prepare_uniforms, trace
 
 
 def pass_seed(seed: int, pass_index: int) -> int:
@@ -40,27 +45,38 @@ def pass_seed(seed: int, pass_index: int) -> int:
 
 
 def render_pass(scene: SceneArrays, camera, film: Film, jitter, uniforms,
-                trace_fn=fused.trace_fused) -> Film:
+                closest_fn=closest_hit, trace_fn=None) -> Film:
     """One full-frame progressive pass: +1 sample for every pixel.
 
     ``jitter`` [H*W, 4] are the camera uniforms (:func:`.camera.camera_rays`)
     and ``uniforms`` [recursion + 1, 7, H*W] the path uniforms
     (:func:`.integrator.preprocess_uniforms`), in row-major pixel order.
-    ``trace_fn(scene, ray_o, ray_d, uniforms) → (color, miss)`` traces the
-    rays (default: the megakernel).
+    The rays go through :func:`.integrator.trace` with ``closest_fn``,
+    unless ``trace_fn(scene, ray_o, ray_d, uniforms) → (color, miss)``
+    overrides the whole integrator call — how the megakernel
+    (:func:`.fused.trace_fused`) plugs in.
     """
     h, w = film.shape
     px, py = cam_mod.pixel_grid(w, h, device=jitter.device)
     ray_o, ray_d = cam_mod.camera_rays(camera, px, py, jitter)
-    color, miss = trace_fn(scene, ray_o.contiguous(), ray_d.contiguous(),
-                           uniforms)
+    ray_o, ray_d = ray_o.contiguous(), ray_d.contiguous()
+    if trace_fn is not None:
+        color, miss = trace_fn(scene, ray_o, ray_d, uniforms)
+    else:
+        # No early exit: at full-frame batches some ray nearly always
+        # survives to the recursion cap, and the test costs a host read of
+        # the device per bounce.
+        color, miss = trace(scene, ray_o, ray_d, None, closest_fn=closest_fn,
+                            uniforms=uniforms)
     return film.add_full_frame(color, miss)
 
 
 def render_passes(scene: SceneArrays, camera, film: Film, seed: int,
-                  start: int, n: int = 1) -> Film:
+                  start: int, n: int = 1, closest_fn=closest_hit,
+                  trace_fn=None) -> Film:
     """``n`` progressive passes, pass ``k`` (``start <= k < start + n``)
-    drawing from a generator seeded with :func:`pass_seed` ``(seed, k)``."""
+    drawing from a generator seeded with :func:`pass_seed` ``(seed, k)``;
+    ``closest_fn`` and ``trace_fn`` as in :func:`render_pass`."""
     h, w = film.shape
     R = h * w
     device = film.samples.device
@@ -69,7 +85,9 @@ def render_passes(scene: SceneArrays, camera, film: Film, seed: int,
         gen.manual_seed(pass_seed(seed, k))
         jitter = torch.rand((R, 4), generator=gen, device=device)
         uniforms = prepare_uniforms(gen, R, scene.recursion + 1, device)
-        film = render_pass(scene, camera, film, jitter, uniforms)
+        with torch.no_grad():
+            film = render_pass(scene, camera, film, jitter, uniforms,
+                               closest_fn=closest_fn, trace_fn=trace_fn)
     return film
 
 
@@ -92,36 +110,77 @@ class Renderer:
     (Scene.NextCamera, Scene.cs:122-135).
     """
 
-    def __init__(self, scene: HostScene, device="cuda", seed: int = 0,
-                 camera_index: int = 0, compensated: bool = False):
-        """``device``: where the scene, film and kernel live ("cuda" runs
-        the megakernel; "cpu" its plain version).  ``compensated``:
-        Neumaier-compensated film accumulation for runs of thousands of
-        samples per pixel."""
+    def __init__(self, scene: HostScene | SceneArrays, device="cuda",
+                 seed: int = 0, camera_index: int = 0,
+                 compensated: bool = False, accelerator: str = "auto",
+                 closest_fn=None, cameras=None):
+        """``scene``: a loaded :class:`HostScene`, or frozen
+        :class:`SceneArrays` (as :mod:`..scene.meshgen` makes them) together
+        with their host ``cameras``.  ``device``: where the scene, film and
+        kernels live ("cuda" runs the kernels; "cpu" their plain versions).
+        ``compensated``: Neumaier-compensated film accumulation for runs of
+        thousands of samples per pixel.
+
+        ``accelerator``: "brute" (dense scan), "bvh", or "auto" — the BVH
+        once the triangle table outgrows the dense tier
+        (``config.BVH_AUTO_THRESHOLD``).  The BVH is not ported yet, so
+        "bvh" and scenes above ``config.SELECT_MAX_PRIMS`` table rows
+        raise ``NotImplementedError``.  Within the dense tier, scenes that
+        :func:`.fused.fits` run the megakernel; the others (65 to
+        ``SELECT_MAX_PRIMS`` rows, or ``debug geom``) run
+        :func:`.integrator.trace` with the select kernel's
+        :func:`..intersect.cuda_select.closest_hit_fused`.  A given
+        ``closest_fn`` overrides the pick and runs through ``trace``."""
+        if accelerator not in ("auto", "brute", "bvh"):
+            raise ValueError(f"Renderer: unknown accelerator {accelerator!r}")
         self.device = _resolve_device(device)
-        self.host_scene = scene
         self.seed = seed
         self.compensated = compensated
-        self.arrays = freeze_scene(scene, device=self.device)
-        if not fused.fits(self.arrays):
-            raise NotImplementedError(
-                "scene has more than FUSED_MAX_PRIMS "
-                f"({fused.MAX_PRIMS}) table rows or uses `debug geom`; "
-                "the port renders only megakernel-sized scenes so far "
-                "(larger scenes need the per-bounce select kernel and the "
-                "BVH: ROADMAP.md queue 1, items 1 and 3)")
+        if isinstance(scene, SceneArrays):
+            if not cameras:
+                raise ValueError("Renderer: frozen SceneArrays come with "
+                                 "their cameras=[HostCamera, ...]")
+            self.arrays = scene.to(self.device)
+            self.cameras = list(cameras)
+        else:
+            self.arrays = freeze_scene(scene, device=self.device)
+            self.cameras = scene.cameras
         self.camera_index = camera_index
+        self.trace_fn = None
+        if closest_fn is not None:
+            self.closest_fn = closest_fn
+        else:
+            rows = n_table_rows(self.arrays)
+            use_bvh = accelerator == "bvh" or (
+                accelerator == "auto"
+                and int((self.arrays.triangles.prim_id >= 0).sum())
+                > BVH_AUTO_THRESHOLD)
+            if use_bvh or rows > SELECT_MAX_PRIMS:
+                raise NotImplementedError(
+                    f"accelerator {accelerator!r} on a scene of {rows} table "
+                    "rows needs the BVH, which is not ported yet; the dense "
+                    f"tier takes up to SELECT_MAX_PRIMS ({SELECT_MAX_PRIMS}) "
+                    "rows (ROADMAP.md queue 1, item 3)")
+            self.closest_fn = closest_hit_fused
+            if fused.fits(self.arrays):
+                self.trace_fn = fused.trace_fused
         self.reset()
+
+    @property
+    def route(self) -> str:
+        """Which tracer a pass runs: "megakernel", or "trace" (the bounce
+        loop with one closest-hit query per bounce)."""
+        return "megakernel" if self.trace_fn is not None else "trace"
 
     # -- lifecycle ---------------------------------------------------------
 
     def _init_camera(self):
-        s = self.host_scene
-        return init_camera(s.cameras[self.camera_index], s.width, s.height,
-                           device=self.device)
+        s = self.arrays
+        return init_camera(self.cameras[self.camera_index], s.width,
+                           s.height, device=self.device)
 
     def reset(self) -> None:
-        s = self.host_scene
+        s = self.arrays
         self.camera = self._init_camera()
         self.film = Film.create(s.height, s.width, device=self.device,
                                 compensated=self.compensated)
@@ -132,7 +191,7 @@ class Renderer:
         """Cycle cameras; returns True on wraparound (Scene.cs:127-135).
         Resets accumulation like the reference's render restart."""
         self.camera_index += 1
-        wrapped = self.camera_index >= len(self.host_scene.cameras)
+        wrapped = self.camera_index >= len(self.cameras)
         if wrapped:
             self.camera_index = 0
         self.reset()
@@ -145,7 +204,9 @@ class Renderer:
         device has finished them."""
         t0 = time.perf_counter()
         self.film = render_passes(self.arrays, self.camera, self.film,
-                                  self.seed, self.pass_index, n)
+                                  self.seed, self.pass_index, n,
+                                  closest_fn=self.closest_fn,
+                                  trace_fn=self.trace_fn)
         self.pass_index += n
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -180,12 +241,10 @@ class Renderer:
     def image(self, exposure: float = 1.0) -> np.ndarray:
         """Tonemapped uint8 RGBA frame [H, W, 4] (GetBitmap,
         FullRaytracer.cs:179-205)."""
-        s = self.host_scene
-        bg = torch.tensor(np.asarray(s.background_rgb, np.float64),
-                          dtype=torch.float32, device=self.device)
-        alpha = torch.tensor(float(s.background_alpha), dtype=torch.float32,
-                             device=self.device)
-        return self.film.to_uint8(bg, alpha, exposure).cpu().numpy()
+        s = self.arrays
+        return self.film.to_uint8(s.background_rgb.float(),
+                                  s.background_alpha.float(),
+                                  exposure).cpu().numpy()
 
     # -- checkpoint / resume ----------------------------------------------
     # Same .npz keys as the JAX Renderer, so checkpoints move both ways.

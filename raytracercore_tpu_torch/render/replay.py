@@ -3,9 +3,11 @@
 
 The train path is:
 
-1. **Record** (no grad): one megakernel pass with the tape on
-   (:func:`record_tape_fused`): per bounce the winning primitive, branch
-   code, inside/Fresnel-live bits and hit normal.
+1. **Record** (no grad): the per-bounce winning primitive, branch code,
+   inside/Fresnel-live bits and hit normal of every path — one megakernel
+   pass with the tape on (:func:`record_tape_fused`) for scenes the
+   megakernel takes, else the integrator's own loop with the tape on
+   (:func:`record_tape`), its closest hit from the select kernel.
 2. **Replay** (differentiable): re-walk the recorded path with shading math
    only.  Given the tape, a path's colour is a closed-form function of the
    material table, so its gradient needs no intersection at all.
@@ -13,7 +15,7 @@ The train path is:
 :func:`replay` is the plain differentiable replay (eager torch, autograd):
 the gradient oracle and the plain version of the forward kernel.
 :func:`trace_replay` is the train path's drop-in for a trace: uniforms from
-the uniforms kernel, the megakernel recorder, then the replay kernels
+the uniforms kernel, a recorder, then the replay kernels
 (:func:`.replay_kernel.replay_fused`).
 """
 
@@ -21,10 +23,12 @@ from __future__ import annotations
 
 import torch
 
+from ..config import SELECT_MAX_PRIMS
+from ..intersect.dispatch import closest_hit, n_table_rows
 from ..scene.types import SceneArrays
 from . import fused
-from .integrator import PathTape
-from .replay_kernel import (material_table, replay_fused,
+from .integrator import PathTape, trace
+from .replay_kernel import (MAX_KERNEL_MATS, material_table, replay_fused,
                             replay_fwd_reference)
 from .uniforms_kernel import prepare_uniforms_kernel
 
@@ -41,53 +45,103 @@ def replay(scene: SceneArrays, ray_o, ray_d, uniforms, tape: PathTape):
                                 matf, scf, scene.ambient_is_miss)
 
 
-def _require_fits(scene: SceneArrays):
-    if not fused.fits(scene):
-        raise NotImplementedError(
-            "the train path records with the megakernel, which takes scenes "
-            f"of at most FUSED_MAX_PRIMS ({fused.MAX_PRIMS}) table rows "
-            "without `debug geom`; larger scenes need the per-bounce select "
-            "kernel or the BVH recorder (ROADMAP.md queue 1)")
+@torch.no_grad()
+def record_tape(scene: SceneArrays, ray_o, ray_d, uniforms,
+                closest_fn=closest_hit) -> PathTape:
+    """The recording pass through the integrator's own loop body
+    (``trace(..., want_tape=True)``, no grad), so the tape can never drift
+    from the render path."""
+    return trace(scene, ray_o.detach(), ray_d.detach(), None,
+                 closest_fn=closest_fn, uniforms=uniforms.detach(),
+                 want_tape=True)[2]
 
 
 @torch.no_grad()
-def _record(scene: SceneArrays, ray_o, ray_d, uniforms):
-    _require_fits(scene)
-    return fused.trace_fused(scene, ray_o, ray_d, uniforms, want_tape=True)
+def _record_fused(scene: SceneArrays, ray_o, ray_d, uniforms):
+    return fused.trace_fused(scene, ray_o.detach(), ray_d.detach(), uniforms,
+                             want_tape=True)
 
 
 def record_tape_fused(scene: SceneArrays, ray_o, ray_d, uniforms) -> PathTape:
     """The recording pass through the megakernel with the tape on (no
     grad): the :class:`.integrator.PathTape` of the paths it samples."""
-    return _record(scene, ray_o, ray_d, uniforms)[2]
+    return _record_fused(scene, ray_o, ray_d, uniforms)[2]
+
+
+def _default_record_fn(scene: SceneArrays, closest_fn):
+    """Pick the fastest recorder: on the card the select kernel's full hit
+    record (selection values never reach the tape's gradients, so the
+    non-differentiable kernel is fine), else the given ``closest_fn``."""
+    if closest_fn is not closest_hit:
+        return closest_fn  # the caller chose (e.g. a BVH)
+    if scene.materials.emission.device.type == "cuda":
+        from ..intersect.cuda_select import closest_hit_fused
+        return closest_hit_fused
+    return closest_fn
 
 
 def trace_replay(scene: SceneArrays, ray_o, ray_d, seed: int | None = None,
-                 uniforms=None, record_as_primal: bool = True):
+                 uniforms=None, record_as_primal: bool = True,
+                 closest_fn=closest_hit):
     """The train path's trace: ``(color [R, 3], miss [R] bool)``,
-    differentiable in ``scene.materials``.
+    differentiable in ``scene.materials`` — the estimator of
+    :func:`.integrator.trace` with a selection-free backward.
 
     Uniforms come from :func:`.uniforms_kernel.prepare_uniforms_kernel`
-    keyed by ``seed``, unless ``uniforms`` [B, 7, R] is given.  The
-    megakernel records the tape with ``scene``'s own materials, then
-    :func:`.replay_kernel.replay_fused` replays it.  Scenes the megakernel
-    cannot trace raise ``NotImplementedError``.
+    keyed by ``seed``, unless ``uniforms`` [B, 7, R] is given.
 
-    ``record_as_primal`` picks the route of the forward value.  True (the
-    default, and the only route of :func:`..parallel.shard.make_train_step`
-    and of the JAX train step) passes the recorder's colour through, so
-    only the backward kernel runs.  False recomputes the colour from the
-    tape with the replay-forward kernel: the port of the JAX
-    ``replay_fused(primal=None)`` route, kept so that that kernel runs
-    inside a whole train path (``chip_smoke.py`` builds a step on it and
-    holds it to the default route); its gradients are the same."""
+    The recorder: with the default ``closest_fn``, scenes the megakernel
+    takes (:func:`.fused.fits`) are recorded by it; all others by
+    :func:`record_tape` with :func:`_default_record_fn`'s closest hit, and
+    then values and gradients equal ``trace``'s for the same uniforms.
+    ``debug geom`` scenes have no bounce loop to replay and return
+    ``trace``.  With the default ``closest_fn`` a scene above
+    ``config.SELECT_MAX_PRIMS`` table rows needs the BVH, which is not
+    ported yet: ``NotImplementedError``.
+
+    The replay: :func:`.replay_kernel.replay_fused` for material tables of
+    at most ``MAX_KERNEL_MATS`` rows (every scene of the dense tier).  A
+    larger table, which only a caller's own ``closest_fn`` can bring,
+    raises ``NotImplementedError`` on CUDA tensors; on CPU tensors the
+    wrappers run their plain versions, which take any table.
+
+    ``record_as_primal`` picks the route of the forward value on the
+    megakernel-recorder route.  True (the default, and the only route of
+    :func:`..parallel.shard.make_train_step` and of the JAX train step)
+    passes the recorder's colour through, so only the backward kernel
+    runs.  False recomputes the colour from the tape with the
+    replay-forward kernel: the port of the JAX ``replay_fused(primal=None)``
+    route, kept so that that kernel runs inside a whole train path
+    (``chip_smoke.py`` builds a step on it and holds it to the default
+    route); its gradients are the same."""
+    rows = n_table_rows(scene)
+    if closest_fn is closest_hit and rows > SELECT_MAX_PRIMS:
+        raise NotImplementedError(
+            f"trace_replay on a scene of {rows} table rows needs the BVH, "
+            "which is not ported yet; the dense tier takes up to "
+            f"SELECT_MAX_PRIMS ({SELECT_MAX_PRIMS}) rows (ROADMAP.md queue "
+            "1, item 3)")
+    if scene.debug_geom:
+        return trace(scene, ray_o, ray_d, None, closest_fn=closest_fn)
+    n_mats = scene.materials.emission.shape[0]
+    if n_mats > MAX_KERNEL_MATS and ray_o.device.type != "cpu":
+        raise NotImplementedError(
+            f"trace_replay: the replay kernels take material tables of up "
+            f"to MAX_KERNEL_MATS ({MAX_KERNEL_MATS}) rows, this scene has "
+            f"{n_mats}; the train step of such scenes comes with the BVH "
+            "(ROADMAP.md queue 1, item 3)")
     R = ray_o.shape[0]
     if uniforms is None:
         if seed is None:
             raise ValueError("trace_replay: give a seed or the uniforms")
         uniforms = prepare_uniforms_kernel(seed, R, scene.recursion + 1,
                                            ray_o.device)
-    color_r, miss_r, tape = _record(scene, ray_o.detach(), ray_d.detach(),
-                                    uniforms)
-    primal = (color_r, miss_r) if record_as_primal else None
+    primal = None
+    if closest_fn is closest_hit and fused.fits(scene):
+        color_r, miss_r, tape = _record_fused(scene, ray_o, ray_d, uniforms)
+        if record_as_primal:
+            primal = (color_r, miss_r)
+    else:
+        tape = record_tape(scene, ray_o, ray_d, uniforms,
+                           closest_fn=_default_record_fn(scene, closest_fn))
     return replay_fused(scene, ray_o, ray_d, uniforms, tape, primal=primal)

@@ -43,12 +43,21 @@ from .integrator import BounceType as BT
 from .integrator import PathTape, _material_matrix
 
 C = 14                   # material channels (integrator._material_matrix)
-MAX_KERNEL_MATS = 64     # material rows the kernels keep in shared memory
+# Material rows the kernels keep in shared memory: the whole dense tier
+# (config.SELECT_MAX_PRIMS table rows, one material row per primitive).  The
+# backward kernel holds the table and its gradient accumulator, 2 · 768 ·
+# 14 · 4 B = 86,016 B a block, so two blocks fit in an SM's 227 KB.
+MAX_KERNEL_MATS = 768
+# Up to this many rows a launch has one block per REPLAY_BLOCK paths; above,
+# copying the table in (and the accumulator out) would cost a block more
+# than its 128 paths' shading, so the launch has only the blocks that stay
+# resident, RESIDENT_BLOCKS_PER_SM on each SM, and each walks the paths in
+# strides.
+SMALL_TABLE_MATS = 64
+RESIDENT_BLOCKS_PER_SM = 2
 MAX_KERNEL_BOUNCES = 32  # bounces the backward kernel stashes per thread
 REPLAY_BLOCK = 128       # threads per block (csrc/replay.cu REPLAY_BLOCK)
 _LUM = (LUM_R, LUM_G, LUM_B)
-_TERMINAL = (BT.EMISSION, BT.SPECULAR_FAIL, BT.PURE_BLACK,
-             BT.RECURSION_COMPLETE)
 _SQRT_FLOOR = 1e-20      # vecmath.safe_sqrt's floor
 
 
@@ -61,6 +70,14 @@ def _decode(flags):
     inside = (flags & PathTape.FLAG_INSIDE) != 0
     f_live = (flags & PathTape.FLAG_FLIVE) != 0
     return code, inside, f_live
+
+
+def _is_terminal(code):
+    """``code`` is one of the terminal codes (compared one by one:
+    ``torch.isin`` against a tensor made from the tuple would copy it from
+    host memory on every bounce)."""
+    return ((code == BT.EMISSION) | (code == BT.SPECULAR_FAIL)
+            | (code == BT.PURE_BLACK) | (code == BT.RECURSION_COMPLETE))
 
 
 def _shine_den(shin):
@@ -124,7 +141,7 @@ def _bounce_fwd(i, d, tint, result, g, u, flags, normal, air, ambient,
 
     te = (tint[0] * emission[0], tint[1] * emission[1],
           tint[2] * emission[2])
-    terminal = torch.isin(code, torch.tensor(_TERMINAL, device=code.device))
+    terminal = _is_terminal(code)
     result = vm.where3(terminal, te, result)
 
     is_miss = code == BT.MISSED
@@ -220,7 +237,7 @@ def _bounce_bwd(i, d_in, tint, g, u, flags, normal, air, ambient_is_miss,
     refr_lum = torch.where(f_live, l_r0 * (1.0 - fres), 0.0)
     total = _lum(D) + spec_lum + refr_lum + _lum(E)
 
-    terminal = torch.isin(code, torch.tensor(_TERMINAL, device=code.device))
+    terminal = _is_terminal(code)
     is_miss = code == BT.MISSED
     pick_refr = code == BT.TRANSMITTED
     pick_spec = (code == BT.SPECULAR) & ~pick_refr
@@ -471,6 +488,16 @@ def _kernel_args(ray_d, uniforms, tape, matf, scf):
     return ptrs, R, N, B
 
 
+def launch_blocks(R: int, N: int, device) -> int:
+    """Blocks of a replay launch over ``R`` paths and ``N`` material rows
+    (see ``SMALL_TABLE_MATS``)."""
+    n_blocks = -(-R // REPLAY_BLOCK)
+    if N > SMALL_TABLE_MATS:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        n_blocks = min(n_blocks, RESIDENT_BLOCKS_PER_SM * sms)
+    return n_blocks
+
+
 def replay_fwd(ray_d, uniforms, tape: PathTape, matf, scf,
                ambient_is_miss: bool):
     """Replay forward: ``(color [R, 3] f32, miss [R] bool)``.
@@ -490,7 +517,7 @@ def replay_fwd(ray_d, uniforms, tape: PathTape, matf, scf,
     miss = torch.empty((R,), dtype=torch.int32, device=ray_d.device)
     err = kernels.load().rtc_replay_fwd(
         *ptrs, color.data_ptr(), miss.data_ptr(), R, N, B,
-        int(ambient_is_miss),
+        launch_blocks(R, N, ray_d.device), int(ambient_is_miss),
         torch.cuda.current_stream(ray_d.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"replay forward kernel launch failed: CUDA "
@@ -518,7 +545,7 @@ def replay_bwd(ray_d, uniforms, tape: PathTape, matf, scf,
 
     ptrs, R, N, B = _kernel_args(ray_d, uniforms, tape, matf, scf)
     _check("color_ct", color_ct, (R, 3), torch.float32, ray_d.device)
-    n_blocks = -(-R // REPLAY_BLOCK)
+    n_blocks = launch_blocks(R, N, ray_d.device)
     partial = torch.empty((n_blocks, N, C), dtype=torch.float32,
                           device=ray_d.device)
     err = kernels.load().rtc_replay_bwd(
@@ -580,10 +607,6 @@ def replay_fused(scene, ray_o, ray_d, uniforms, tape: PathTape,
     its own forward sweep from the tape.  Directions, air IOR and ambient
     get no gradient (the JAX ``_bwd_core`` gives them zeros)."""
     matf, scf = material_table(scene)
-    if matf.shape[0] > MAX_KERNEL_MATS:
-        raise ValueError(
-            f"replay_fused supports material tables up to {MAX_KERNEL_MATS} "
-            f"rows (got {matf.shape[0]}); use replay.replay")
     p_color, p_miss = (None, None) if primal is None else primal
     f32 = torch.float32
     color, miss = _ReplayShade.apply(

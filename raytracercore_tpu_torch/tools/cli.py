@@ -10,7 +10,10 @@ Usage:
   python -m raytracercore_tpu_torch.tools.cli bench scene.txt --spp 8
   python -m raytracercore_tpu_torch.tools.cli optimize scene.txt \
       --target target.png --steps 100 -o materials.npz
-All run on ``--device cuda`` (the default) or ``--device cpu``.
+All run on ``--device cuda`` (the default) or ``--device cpu``.  Scenes of
+at most 64 table rows go through the megakernel, scenes of up to 768 rows
+bounce by bounce through the select kernel (``--accelerator auto|brute``;
+``bvh`` is not ported yet).
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ def cmd_render(args):
 
     scene = _load(args)
     r = Renderer(scene, device=args.device, seed=args.seed,
-                 camera_index=args.camera)
+                 camera_index=args.camera, accelerator=args.accelerator)
 
     def status(st):
         print(f"spp={st['samples_per_px']} "
@@ -58,8 +61,8 @@ def cmd_bench(args):
 
     scene = _load(args)
     r = Renderer(scene, device=args.device, seed=args.seed,
-                 camera_index=args.camera)
-    r.step(1)  # builds and loads the kernel on first use
+                 camera_index=args.camera, accelerator=args.accelerator)
+    r.step(1)  # builds and loads the kernels on first use
     r.reset()
     t0 = time.perf_counter()
     r.step(args.spp)
@@ -74,6 +77,7 @@ def cmd_bench(args):
         "spp": args.spp,
         "size": [scene.width, scene.height],
         "device": device,
+        "route": r.route,
     }))
 
 
@@ -119,10 +123,16 @@ def main(argv=None):
         sp.add_argument("--recursion", type=int, default=None)
         sp.add_argument("--seed", type=int, default=0)
         sp.add_argument("--device", default="cuda",
-                        help="torch device: cuda (the kernel) or cpu")
+                        help="torch device: cuda (the kernels) or cpu")
+
+    def accelerator(sp):
+        sp.add_argument("--accelerator", default="auto",
+                        choices=("auto", "brute", "bvh"),
+                        help="closest-hit tier (bvh is not ported yet)")
 
     sp = sub.add_parser("render")
     common(sp)
+    accelerator(sp)
     sp.add_argument("-o", "--output", default="out.png")
     sp.add_argument("--spp", type=int, default=16)
     sp.add_argument("--exposure", type=float, default=1.0)
@@ -131,6 +141,7 @@ def main(argv=None):
 
     sp = sub.add_parser("bench")
     common(sp)
+    accelerator(sp)
     sp.add_argument("--spp", type=int, default=8)
     sp.set_defaults(fn=cmd_bench)
 

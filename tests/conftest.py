@@ -36,6 +36,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: heavy test (interpret-mode Pallas kernels, BVH "
         "train steps); skipped unless --runslow or RTC_RUN_SLOW=1")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (a hand-written CUDA kernel "
+        "has no CPU mode); skips without one")
 
 
 def pytest_collection_modifyitems(config, items):

@@ -182,6 +182,7 @@ def cuda_device():
     return torch.device("cuda")
 
 
+@pytest.mark.cuda
 @pytest.mark.parametrize("name,recursion,want_tape", [
     ("fused", 4, True), ("fused", 10, False), ("cornell", 10, True),
     ("smooth", 6, True)])

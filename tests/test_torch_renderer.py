@@ -159,14 +159,28 @@ def test_renderer_cuda_device_needs_a_card():
 
 
 def test_renderer_rejects_scenes_the_megakernel_cannot_trace():
+    """Scenes the megakernel cannot trace now take the per-bounce route;
+    what is still rejected is what needs the BVH: ``accelerator="bvh"`` and
+    scenes above the dense tier's cap."""
+    from raytracercore_tpu_torch.config import SELECT_MAX_PRIMS
+
     _, thost = _small("fused", 8, 2)
+    assert Renderer(thost, device="cpu").route == "megakernel"
     thost.debug_geom = True
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Renderer(thost, device="cpu")
-    big = "size 4 4\ncamera 0 0 5  0 0 0  0 1 0  40\n" + "".join(
+    assert Renderer(thost, device="cpu").route == "trace"
+    spheres = "size 4 4\ncamera 0 0 5  0 0 0  0 1 0  40\n" + "".join(
         f"sphere {i} 0 0 .1\n" for i in range(65))
-    with pytest.raises(NotImplementedError, match="FUSED_MAX_PRIMS"):
-        Renderer(tloader.parse(big), device="cpu")
+    assert Renderer(tloader.parse(spheres), device="cpu").route == "trace"
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
+        Renderer(thost, device="cpu", accelerator="bvh")
+    with pytest.raises(ValueError, match="accelerator"):
+        Renderer(thost, device="cpu", accelerator="kd-tree")
+    big = "size 4 4\ncamera 0 0 5  0 0 0  0 1 0  40\n" + "".join(
+        f"sphere {i} 0 0 .1\n" for i in range(SELECT_MAX_PRIMS))
+    for accelerator in ("auto", "brute"):
+        with pytest.raises(NotImplementedError, match="SELECT_MAX_PRIMS"):
+            Renderer(tloader.parse(big), device="cpu",
+                     accelerator=accelerator)
 
 
 def test_cli_render_and_bench(tmp_path):
@@ -186,6 +200,7 @@ def test_cli_render_and_bench(tmp_path):
     line = json.loads(res.stdout.strip().splitlines()[-1])
     assert line["device"] == "cpu" and line["size"] == [8, 8]
     assert line["samples_per_px_per_sec"] > 0
+    assert line["route"] == "megakernel"
 
 
 def test_port_never_imports_jax():
@@ -198,8 +213,12 @@ def test_port_never_imports_jax():
         "    importlib.import_module(n)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'raytracercore_tpu')]\n"
-        "print(len(names), bad)\n"
-        "sys.exit(1 if bad or len(names) < 15 else 0)\n")
+        "need = {p.__name__ + m for m in ('.intersect.dispatch', "
+        "'.intersect.torch_ref', '.intersect.cuda_select', "
+        "'.scene.meshgen', '.render.integrator', '.render.replay')}\n"
+        "print(len(names), bad, need - set(names))\n"
+        "sys.exit(1 if bad or len(names) < 21 or need - set(names) "
+        "else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr

@@ -348,13 +348,45 @@ def test_with_material_params_repacks_only_materials():
 
 
 def test_trace_replay_rejects_scenes_the_recorder_cannot_trace():
-    big = "size 4 4\ncamera 0 0 5  0 0 0  0 1 0  40\n" + "".join(
-        f"sphere {i} 0 0 .1\n" for i in range(65))
+    """A scene above the megakernel's cap is no longer rejected: the
+    integrator's own loop records it, and the replay kernels' route takes
+    its 66 material rows.  Rejected still: neither a seed nor uniforms; and
+    with the default closest hit a scene above the dense tier's cap, which
+    needs the BVH.  A caller's own closest hit may bring a material table
+    the replay kernels cannot take: on CPU tensors the plain versions run."""
+    big = ("size 4 4\ncamera 0 0 5  0 0 0  0 1 0  40\n"
+           "emission 4 4 4\nsphere 0 0 40 30\nemission 0 0 0\n"
+           "diffuse .5 .5 .5\n"
+           + "".join(f"sphere {i - 32} 0 0 .4\n" for i in range(65)))
     ta = ttypes.freeze_scene(tloader.parse(big))
-    o = torch.zeros((16, 3))
+    assert not fused.fits(ta)
+    assert fused.MAX_PRIMS < ta.materials.emission.shape[0] \
+        <= rk.MAX_KERNEL_MATS
+    o = torch.tensor([[0.0, 0.0, 5.0]]).repeat(16, 1)
+    o[:, 0] = torch.linspace(-3, 3, 16)
     d = torch.tensor([[0.0, 0.0, -1.0]]).repeat(16, 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trace_replay(ta, o, d, seed=0)
+    params = get_material_params(ta)
+    color, miss = trace_replay(with_material_params(ta, params), o, d,
+                               seed=0)
+    assert color.shape == (16, 3) and not bool(miss.any())
+    assert bool(torch.isfinite(color).all())
+    color.sum().backward()
+    assert bool(torch.isfinite(params["diffuse"].grad).all())
+    assert bool((params["diffuse"].grad != 0).any())
+    with pytest.raises(ValueError, match="seed or the uniforms"):
+        trace_replay(ta, o, d)
+
+    from raytracercore_tpu_torch.config import SELECT_MAX_PRIMS
+    from raytracercore_tpu_torch.intersect.dispatch import closest_hit
+    from raytracercore_tpu_torch.scene import meshgen
+    huge = meshgen.make_mesh_scene(grid=4, subdiv=1, recursion=2)[0]
+    assert huge.materials.emission.shape[0] > max(SELECT_MAX_PRIMS,
+                                                  rk.MAX_KERNEL_MATS)
+    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
+        trace_replay(huge, o, d, seed=0)
+    color, _ = trace_replay(huge, o, d, seed=0,
+                            closest_fn=lambda *a: closest_hit(*a))
+    assert bool(torch.isfinite(color).all())
 
 
 def test_kernel_wrappers_reject_bad_inputs():
@@ -366,7 +398,7 @@ def test_kernel_wrappers_reject_bad_inputs():
         (d.double(), u, tape, matf, scf),                       # dtype
         (d[:-1], u, tape, matf, scf),                           # shape
         (d, u[:-1], tape, matf, scf),                           # bounces
-        (d, u, tape, matf.repeat(17, 1), scf),                  # > 64 rows
+        (d, u, tape, matf.repeat(rk.MAX_KERNEL_MATS // 4 + 1, 1), scf),  # rows
         (d.t().contiguous().t(), u, tape, matf, scf),           # layout
     ]
     for args in bad:
@@ -390,6 +422,7 @@ def test_replay_on_cpu_runs_the_plain_versions():
                                rtol=0, atol=0)
 
 
+@pytest.mark.cuda
 @pytest.mark.parametrize("name,recursion,ambient_miss", [
     ("rough", 4, False), ("cornell", 10, False), ("smooth", 6, True)])
 def test_replay_kernels_match_reference_on_card(  # noqa: F811

@@ -212,15 +212,21 @@ def test_train_step_rejections():
         make_train_step(object(), opt)
     with pytest.raises(NotImplementedError, match="parallel/"):
         make_train_loop(object(), opt, 2)
-    big = ("size 4 4\ncamera 0 0 5  0 0 0  0 1 0  40\ndiffuse .5 .5 .5\n"
-           + "".join(f"sphere {i} 0 0 .1\n" for i in range(65)))
+    big = ("size 4 4\ncamera 0 0 5  0 0 0  0 1 0  40\n"
+           "emission 4 4 4\nsphere 0 0 40 30\nemission 0 0 0\n"
+           "diffuse .5 .5 .5\n"
+           + "".join(f"sphere {(i - 32) * .02} 0 0 1\n" for i in range(65)))
     host = tloader.parse(big)
     sa = ttypes.freeze_scene(host)
     sc = ttypes.init_camera(host.cameras[0], 4, 4)
     sp = get_material_params(sa)
+    # A scene above the megakernel's cap is no longer rejected: it trains
+    # through the integrator's recorder and the replay kernels' route.
     step = make_train_step(None, torch.optim.SGD(sp.values(), lr=1e-2))
-    with pytest.raises(NotImplementedError, match="FUSED_MAX_PRIMS"):
-        step(sp, sa, sc, torch.zeros((4, 4, 3)), 0)
+    before = sp["diffuse"].detach().clone()
+    loss = step(sp, sa, sc, torch.full((4, 4, 3), 0.5), 0)
+    assert torch.isfinite(loss)
+    assert not torch.equal(sp["diffuse"].detach(), before)
 
 
 def test_cli_optimize_writes_the_jax_keys(tmp_path):
@@ -247,6 +253,7 @@ def test_cli_optimize_writes_the_jax_keys(tmp_path):
     assert diffuse.shape == (4, 3) and np.isfinite(diffuse).all()
 
 
+@pytest.mark.cuda
 def test_train_step_on_card_launches_each_kernel_once(  # noqa: F811
         cuda_device):
     _, _, ta, tc = _scenes("rough", 32, 4)

@@ -125,6 +125,7 @@ def test_kernel_wrapper_on_cpu_runs_the_reference():
         uk.prepare_uniforms_kernel(99, 300, 3, "meta")
 
 
+@pytest.mark.cuda
 def test_uniforms_kernel_matches_reference_on_card(cuda_device):  # noqa: F811
     want = uk.prepare_uniforms_reference(2 ** 63 + 17, 70000, 11,
                                          cuda_device)
