@@ -8,8 +8,8 @@ Run from the repository root on a machine with one NVIDIA GPU::
 It builds the port's CUDA kernels from ``raytracercore_tpu_torch/csrc``,
 holds each kernel against its plain PyTorch version on the card (the
 megakernel, the train path's uniforms kernel, the replay forward and
-backward kernels, the per-bounce select kernel), and drives the main paths
-at 700×700, recursion 10:
+backward kernels, the per-bounce select kernel, the BVH traversal kernel),
+and drives the main paths, the first three at 700×700, recursion 10:
 
 1. the progressive forward render of a Cornell-class scene (``Renderer`` →
    camera rays → uniforms → the whole-path megakernel → film → image);
@@ -19,6 +19,14 @@ at 700×700, recursion 10:
    cap (``Renderer`` → the integrator's bounce loop, one launch of the
    select kernel per bounce), and that scene's train step (uniforms kernel
    → the bounce loop as recorder → replay forward and backward kernels);
+4. the forward render of a 184,322-triangle mesh scene at 512×512,
+   recursion 4, above the dense tier (``Renderer`` → the native BVH
+   builder → the bounce loop, one launch of the traversal kernel per
+   bounce), and one pass of a 1,003,522-triangle scene at 1024×1024;
+5. the train step of a 46,082-triangle mesh scene at 512×512, recursion 4
+   (uniforms kernel → the bounce loop with the traversal kernel as recorder
+   → replay forward and backward kernels reading the 46,082-row material
+   table from device memory);
 
 and prints what it measured.
 The last two lines of standard output are a JSON object describing the
@@ -221,6 +229,18 @@ GRAZE_COS = 0.3     # |normal . direction| below this is a tangent graze
 MESH_GRID, MESH_SUBDIV = 3, 1         # 9 icospheres x 80 + 2 = 722 triangles
 MESH_TARGET_SPP = 8
 MESH_TRAIN_WARM, MESH_TRAIN_STEPS = 2, 5
+# The BVH tier.  Traversal kernel vs plain version: the same walk and the
+# same leaf tests in the same operation order, so all outputs (row, t, the
+# ten detail planes, the two counters) are held bit-equal.  Against the grid
+# oracle, on a sample of the rays: the tolerances of the select kernel.
+BVH_SIZE, BVH_REC = 512, 4
+BVH_PASSES = 16
+BVH_MESH = (12, 3)                    # 144 icospheres x 1280 + 2 = 184,322
+BVH_TRAIN_MESH = (3, 4)               # 9 icospheres x 5120 + 2 = 46,082
+BVH_BIG_MESH, BVH_BIG_SIZE = (14, 4), 1024   # 196 x 5120 + 2 = 1,003,522
+BVH_FIELD_GRID = 17                   # 289 spheres: a BVH of their own
+BVH_LEAF_SIZES = (1, 2, 3, 4, 8, 16)  # timed in turn on main path 4
+ORACLE_SAMPLE = 16384
 # Peak rates of one H100 SXM (NVIDIA's data sheet): fp32 outside the tensor
 # cores, and device memory.
 PEAK_FP32 = 67e12
@@ -235,6 +255,13 @@ OPS_TRI, OPS_SPH, OPS_PLN, OPS_HIT = 52, 63, 13, 40
 OPS_SHADE = 150           # one bounce of shading (fused.cu, replay.cu fwd)
 OPS_SHADE_BWD = 600       # its hand-written adjoint (replay.cu backward)
 OPS_UNIFORMS = 245        # per path and bounce: 5 Philox draws + 7 channels
+# csrc/traverse.cu: a node visit is the slab test (6 subtractions, 6
+# products, 12 min/max, 3 comparisons); a leaf record up to its first exit
+# is the triangle's Moller-Trumbore without the coplanar test, the sphere's
+# discriminant on the normalized direction, or the ellipsoid's object-space
+# ray and discriminant.
+OPS_NODE = 27
+OPS_LEAF = {"tri": OPS_TRI - 6, "sph": 24, "spht": OPS_SPH}
 
 
 def check(cond, what):
@@ -321,19 +348,21 @@ def camera_rays_and_uniforms(scene, host_camera, size, seed, dev):
     return ray_o.contiguous(), ray_d.contiguous(), uniforms
 
 
-def closest_hit_queries(scene, ray_o, ray_d, uniforms):
+def closest_hit_queries(scene, ray_o, ray_d, uniforms, closest_fn=None):
     """The closest-hit inputs ``(ray_o, ray_d, skip)`` of every bounce of a
-    ``trace`` of these rays through the select kernel: real secondary rays
-    with their previous hit as skip record."""
+    ``trace`` of these rays through ``closest_fn`` (by default the select
+    kernel): real secondary rays with their previous hit as skip record."""
     from raytracercore_tpu_torch.intersect.cuda_select import \
         closest_hit_fused
     from raytracercore_tpu_torch.render.integrator import trace
 
+    if closest_fn is None:
+        closest_fn = closest_hit_fused
     queries = []
 
     def spy(s, o, d, skip):
-        queries.append((o, d, skip))
-        return closest_hit_fused(s, o, d, skip)
+        queries.append((o.contiguous(), d.contiguous(), skip))
+        return closest_fn(s, o, d, skip)
 
     with torch.no_grad():
         color, _ = trace(scene, ray_o, ray_d, None, closest_fn=spy,
@@ -352,6 +381,67 @@ def grid_closest_hit(scene, ray_o, ray_d, skip):
     return dispatch._closest_from_tri_select(
         scene, ray_o, ray_d, skip,
         lambda *args: dispatch._triangle_select_dense(*args))
+
+
+def max_curvature(scene):
+    """The largest curvature of the scene's spheres and ellipsoids (semi-axes
+    a >= ... >= c: a / c^2), at least 1: a unit normal moves by the position
+    error times the curvature, so this scales the normals' tolerance."""
+    sph = scene.spheres
+    ok = sph.prim_id >= 0
+    if not bool(ok.any()):
+        return 1.0
+    axes = torch.linalg.svdvals(sph.obj_to_world[ok][:, :3, :3].cpu())
+    axes = axes * sph.radius[ok].cpu()[:, None]
+    return max(1.0, float((axes[:, 0] / axes[:, -1] ** 2).max()))
+
+
+def against_oracle(tag, label, rec, want, d, normal_factor=1.0):
+    """A kernel route's hit record ``rec`` against another route's ``want``
+    (the grid oracle, or a second kernel route) for rays of directions
+    ``d``, every differing ray classified: another primitive (a flip; at the
+    same t a tie on a shared edge or coplanar surfaces), the same primitive
+    with floats beyond ``ORACLE_TOL`` * (1 + t) at a tangent graze, or the
+    same primitive with other floats elsewhere (a samepick: a fault).
+    Normals are held to ``normal_factor`` times that tolerance (see
+    :func:`max_curvature`).  Checks flips + grazes <=
+    ``ORACLE_MAX_MISMATCH`` of the rays and samepick == 0."""
+    R = d.shape[0]
+    same = (rec.prim == want.prim)
+    both = same & (want.prim >= 0)
+    tol_t = ORACLE_TOL * (1.0 + want.t.abs())
+    off = both & (
+        ((rec.t - want.t).abs() > tol_t)
+        | ((rec.position - want.position).abs() > tol_t[:, None]).any(1)
+        | ((rec.normal - want.normal).abs()
+           > normal_factor * tol_t[:, None]).any(1)
+        | (rec.inside != want.inside))
+    # A hit near the tangent of a curved surface: the root is the small
+    # difference of large numbers, and two f32 formulas land apart.
+    graze = off & ((want.normal * d).sum(1).abs() < GRAZE_COS)
+    n_off, n_graze = int(off.sum()), int(graze.sum())
+    n_diff = int((~same).sum())
+    tie = (~same & (rec.prim >= 0) & (want.prim >= 0)
+           & ((rec.t - want.t).abs() <= tol_t))
+    print(f"[{tag}] {label}: R={R} "
+          f"found={float((want.prim >= 0).float().mean()):.4f} "
+          f"prim differs on {n_diff} rays (same-t ties {int(tie.sum())}), "
+          f"floats beyond {ORACLE_TOL} on {n_off} rays of equal prim "
+          f"({n_graze} tangent grazes, {n_off - n_graze} samepick)")
+    for r in torch.nonzero(off & ~graze)[:5, 0].tolist():
+        print(f"[{tag}]   samepick ray {r}: prim {int(want.prim[r])} "
+              f"|n.d|={float((want.normal[r] * d[r]).sum().abs()):.4f} "
+              f"t {float(rec.t[r]):.6f} vs {float(want.t[r]):.6f} "
+              f"position err "
+              f"{float((rec.position[r] - want.position[r]).abs().max()):.3e} "
+              f"normal err "
+              f"{float((rec.normal[r] - want.normal[r]).abs().max()):.3e} "
+              f"inside {bool(rec.inside[r])} vs {bool(want.inside[r])}")
+    check(n_diff + n_graze <= ORACLE_MAX_MISMATCH * R,
+          f"{label}: {n_diff} prim flips + {n_graze} grazes, more than "
+          f"{ORACLE_MAX_MISMATCH} of the rays")
+    check(n_off == n_graze, f"{label}: t/position/normal/inside within "
+          f"{ORACLE_TOL} outside tangent grazes (samepick == 0)")
 
 
 def select_outputs(select_all, closest_hit, scene, o, d, skip):
@@ -381,7 +471,6 @@ def compare_select(label, scene, queries, bounces=(0, 1, 2, 3)):
     error over the float outputs."""
     from raytracercore_tpu_torch.intersect import cuda_select as cs
 
-    R = queries[0][0].shape[0]
     max_err = 0.0
     cases = [(0, None)] + [(b, queries[b][2]) for b in bounces
                            if b < len(queries)]
@@ -399,51 +488,15 @@ def compare_select(label, scene, queries, bounces=(0, 1, 2, 3)):
             max_err = max(max_err, float((got[f] - ref[f]).abs().max()))
             check(bool(torch.isfinite(got[f]).all()),
                   f"{label} bounce {b}: kernel outputs finite")
-        found = float((ref["prim"] >= 0).float().mean())
-
-        want = grid_closest_hit(scene, o, d, skip)
-        rec = cs.closest_hit_fused(scene, o, d, skip)
-        torch.cuda.synchronize()
-        same = (rec.prim == want.prim)
-        both = same & (want.prim >= 0)
-        tol_t = ORACLE_TOL * (1.0 + want.t.abs())
-        off = both & (
-            ((rec.t - want.t).abs() > tol_t)
-            | ((rec.position - want.position).abs() > tol_t[:, None]).any(1)
-            | ((rec.normal - want.normal).abs() > tol_t[:, None]).any(1)
-            | (rec.inside != want.inside))
-        # A hit near the tangent of a curved surface: the root is the small
-        # difference of large numbers, and two f32 formulas land apart.
-        graze = off & ((want.normal * d).sum(1).abs() < GRAZE_COS)
-        n_off, n_graze = int(off.sum()), int(graze.sum())
-        n_diff = int((~same).sum())
-        tie = (~same & (rec.prim >= 0) & (want.prim >= 0)
-               & ((rec.t - want.t).abs() <= tol_t))
-        print(f"[select] {label} bounce {b} skip={skip is not None}: R={R} "
-              f"found={found:.4f} kernel==plain on all 13 outputs="
-              f"{not differing} {differing or ''} | vs grid oracle: prim "
-              f"differs on {n_diff} rays (same-t ties {int(tie.sum())}), "
-              f"floats beyond {ORACLE_TOL} on {n_off} rays of equal prim "
-              f"({n_graze} tangent grazes, {n_off - n_graze} unexplained)")
-        for r in torch.nonzero(off & ~graze)[:5, 0].tolist():
-            print(f"[select]   unexplained ray {r}: prim {int(want.prim[r])} "
-                  f"|n.d|={float((want.normal[r] * d[r]).sum().abs()):.4f} "
-                  f"t {float(rec.t[r]):.6f} vs {float(want.t[r]):.6f} "
-                  f"position err "
-                  f"{float((rec.position[r] - want.position[r]).abs().max()):.3e} "
-                  f"normal err "
-                  f"{float((rec.normal[r] - want.normal[r]).abs().max()):.3e} "
-                  f"inside {bool(rec.inside[r])} vs {bool(want.inside[r])}")
+        print(f"[select] {label} bounce {b} skip={skip is not None}: "
+              f"kernel==plain on all 13 outputs={not differing} "
+              f"{differing or ''}")
         check(not differing,
               f"{label} bounce {b}: select kernel bit-equal to its plain "
               f"version ({differing})")
-        check(n_diff + n_graze <= ORACLE_MAX_MISMATCH * R,
-              f"{label} bounce {b}: {n_diff} prim flips + {n_graze} grazes "
-              f"against the grid oracle, more than {ORACLE_MAX_MISMATCH} "
-              "of the rays")
-        check(n_off == n_graze, f"{label} bounce {b}: t/position/normal/"
-              f"inside within {ORACLE_TOL} of the grid oracle outside "
-              "tangent grazes")
+        against_oracle("select", f"{label} bounce {b} vs grid oracle",
+                       cs.closest_hit_fused(scene, o, d, skip),
+                       grid_closest_hit(scene, o, d, skip), d)
     b = min(1, len(queries) - 1)
     k_ms = cuda_ms(lambda: cs.closest_hit_fused(scene, *queries[b]), 10)
     print(f"[select] {label}: kernel ms per launch (bounce {b})={k_ms:.3f}")
@@ -753,81 +806,53 @@ def compare_routes(card, dev):
           f"routes: close fraction >= {MIN_CLOSE_FRAC}")
 
 
-def mesh_train_path(card, dev, r):
-    """The train step of main path 3's scene (``r`` is its ``Renderer``):
-    recorded by the bounce loop with the select kernel, its colour from
-    the replay forward kernel and its gradient from the replay backward
-    kernel on the 722-row material table; then full AD
-    through ``trace`` against the replay route on the 82-triangle scene.
-    Returns {kernel name: launches} of the timed steps."""
+def train_steps(tag, label, r, step_closest_fn, eval_closest_fn, counters,
+                target_spp, card, dev):
+    """``MESH_TRAIN_WARM`` + ``MESH_TRAIN_STEPS`` Adam steps of
+    ``make_train_step`` on the scene of ``Renderer`` ``r`` (target: its own
+    ``target_spp`` render; start: every non-emissive diffuse halved), with
+    ``step_closest_fn`` as the step's closest hit (None: the default, the
+    dense one).  ``counters``: ``{name: (wrapper, launches wanted per
+    step)}``.  Checks the launches, that every loss is finite and that the
+    loss on one fixed set of rays falls; returns ``{name: launches}`` of the
+    timed steps."""
     from raytracercore_tpu_torch.diff import (get_material_params,
                                               with_material_params)
-    from raytracercore_tpu_torch.intersect import cuda_select as cs
     from raytracercore_tpu_torch.parallel import make_train_step
     from raytracercore_tpu_torch.parallel.shard import image_loss, step_rays
-    from raytracercore_tpu_torch.render import replay_kernel as rk
     from raytracercore_tpu_torch.render import uniforms_kernel as uk
     from raytracercore_tpu_torch.render.integrator import trace
-    from raytracercore_tpu_torch.render.renderer import Renderer, pass_seed
+    from raytracercore_tpu_torch.render.renderer import pass_seed
 
     scene, camera = r.arrays, r.camera
+    h, w = scene.height, scene.width
     n_bounces = scene.recursion + 1
-
-    # The replay kernels at this path's shapes (722 material rows, a tape of
-    # the bounce loop) against their plain versions, then timed.
-    def record(s, o, d, u):
-        with torch.no_grad():
-            return trace(s, o, d, None, closest_fn=cs.closest_hit_fused,
-                         uniforms=u, want_tape=True)
-    o, d, path_seed = step_rays(camera, 700, 700, pass_seed(TRAIN_SEED, 999))
-    u = uk.prepare_uniforms_kernel(path_seed, 700 * 700, n_bounces, dev)
-    errs = compare_replay("mesh-722 700x700 rec10", scene, o, d, u, record)
-    tape = record(scene, o, d, u)[2]
-    matf, scf = rk.material_table(scene)
-    ct = torch.full((700 * 700, 3), 1e-6, device=dev)
-    aim = scene.ambient_is_miss
-    for name, kernel, plain in (("forward", rk.replay_fwd,
-                                 rk.replay_fwd_reference),
-                                ("backward", rk.replay_bwd,
-                                 rk.replay_bwd_reference)):
-        args = (d, u, tape, matf, scf, aim) + ((ct,) if name == "backward"
-                                               else ())
-        print(f"[time] replay {name} mesh-722 700x700 rec10 "
-              f"({matf.shape[0]} material rows, "
-              f"{rk.launch_blocks(700 * 700, matf.shape[0], dev)} blocks): "
-              f"kernel ms={cuda_ms(lambda: kernel(*args), 10):.3f} plain ms="
-              f"{cuda_ms(lambda: plain(*args), 2):.3f} on {card}")
-    del o, d, u, tape, ct
-
     r.reset()
-    r.step(MESH_TARGET_SPP)
+    r.step(target_spp)
     film = r.film
     target = film.color_sum / (film.samples + film.misses)[..., None]
     check(bool(torch.isfinite(target).all()) and float(target.max()) > 0.05,
-          "mesh train target finite and lit")
+          f"{label}: train target finite and lit")
     emissive = scene.materials.emission.sum(dim=1) > 0
     params = get_material_params(scene)
     with torch.no_grad():
         params["diffuse"][~emissive] *= 0.5
     adam = torch.optim.Adam(params.values(), lr=TRAIN_LR)
-    step = make_train_step(None, adam)
-    counters = {"closest_hit_fused": cs.closest_hit_fused,
-                "prepare_uniforms_kernel": uk.prepare_uniforms_kernel,
-                "replay_fwd": rk.replay_fwd, "replay_bwd": rk.replay_bwd}
+    step = (make_train_step(None, adam) if step_closest_fn is None
+            else make_train_step(None, adam, closest_fn=step_closest_fn))
 
     # The step losses are one-sample renders under a new seed each, and
     # the bright light quad's edge pixels dominate their noise; whether the
     # loss falls is read from one fixed set of rays and uniforms, before
     # and after the steps.
-    eval_o, eval_d, eval_seed = step_rays(camera, 700, 700,
+    eval_o, eval_d, eval_seed = step_rays(camera, h, w,
                                           pass_seed(TRAIN_SEED, 1000))
-    eval_u = uk.prepare_uniforms_kernel(eval_seed, 700 * 700, n_bounces, dev)
+    eval_u = uk.prepare_uniforms_kernel(eval_seed, h * w, n_bounces, dev)
 
     def eval_loss():
         with torch.no_grad():
             color, miss = trace(with_material_params(scene, params), eval_o,
-                                eval_d, None,
-                                closest_fn=cs.closest_hit_fused,
+                                eval_d, None, closest_fn=eval_closest_fn,
                                 uniforms=eval_u)
             return float(image_loss(color, miss, target))
 
@@ -835,7 +860,7 @@ def mesh_train_path(card, dev, r):
     for i in range(MESH_TRAIN_WARM):
         step(params, scene, camera, target, pass_seed(TRAIN_SEED, i))
     torch.cuda.synchronize()
-    for f in counters.values():
+    for f, _ in counters.values():
         f.launches = 0
     losses, times = [], []
     for i in range(MESH_TRAIN_STEPS):
@@ -845,25 +870,110 @@ def mesh_train_path(card, dev, r):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(loss))
-    counts = {k: f.launches for k, f in counters.items()}
+    counts = {k: f.launches for k, (f, _) in counters.items()}
     loss_after = eval_loss()
-    want = {"closest_hit_fused": MESH_TRAIN_STEPS * n_bounces,
-            "prepare_uniforms_kernel": MESH_TRAIN_STEPS,
-            "replay_fwd": MESH_TRAIN_STEPS, "replay_bwd": MESH_TRAIN_STEPS}
-    print(f"[mesh-train] launches during {MESH_TRAIN_STEPS} steps {counts} "
+    want = {k: MESH_TRAIN_STEPS * n for k, (_, n) in counters.items()}
+    med = float(np.median(times))
+    print(f"[{tag}] launches during {MESH_TRAIN_STEPS} steps {counts} "
           f"(want {want}; {scene.materials.emission.shape[0]} material "
           f"rows)")
-    print(f"[mesh-train] mesh-722 700x700 rec10 Adam lr={TRAIN_LR}: ms/step "
-          f"min/p25/median/p75/max={quartiles(times)} step losses "
-          + " ".join(f"{x:.6f}" for x in losses)
+    print(f"[{tag}] {label} Adam lr={TRAIN_LR}: ms/step "
+          f"min/p25/median/p75/max={quartiles(times)} "
+          f"fwd+bwd steps/sec={1e3 / med:.4f} "
+          f"wavefront rays/sec={h * w * n_bounces / (med * 1e-3):.4e} "
+          "step losses " + " ".join(f"{x:.6f}" for x in losses)
           + f" loss on fixed rays before {loss_before:.6f} after "
           f"{MESH_TRAIN_WARM}+{MESH_TRAIN_STEPS} steps {loss_after:.6f} "
           f"on {card}")
-    check(counts == want, "mesh train step: select kernel once per bounce, "
-          "uniforms, replay forward and backward kernels once per step")
-    check(all(np.isfinite(losses)), "mesh train step: every loss finite")
+    check(counts == want, f"{label} train step: every kernel launched as "
+          f"often as wanted ({counts} != {want})")
+    check(all(np.isfinite(losses)), f"{label} train step: every loss finite")
     check(np.isfinite(loss_after) and loss_after < loss_before,
-          "mesh train step: the loss on fixed rays falls")
+          f"{label} train step: the loss on fixed rays falls")
+    return counts
+
+
+def replay_on_path(label, r, closest_fn, card, dev):
+    """The replay kernels at the shapes of the train path of ``Renderer``
+    ``r`` (its material table, a tape that the bounce loop records through
+    ``closest_fn``) against their plain versions, then timed.  Returns
+    ((max abs colour err, max abs gradient err), {"forward" | "backward":
+    (kernel ms, plain ms, (bound ms, bound by))})."""
+    from raytracercore_tpu_torch.parallel.shard import step_rays
+    from raytracercore_tpu_torch.render import replay_kernel as rk
+    from raytracercore_tpu_torch.render import uniforms_kernel as uk
+    from raytracercore_tpu_torch.render.integrator import PathTape, trace
+    from raytracercore_tpu_torch.render.renderer import pass_seed
+
+    scene, camera = r.arrays, r.camera
+    h, w = scene.height, scene.width
+    n_paths, n_bounces = h * w, scene.recursion + 1
+
+    def record(s, o, d, u):
+        with torch.no_grad():
+            return trace(s, o, d, None, closest_fn=closest_fn, uniforms=u,
+                         want_tape=True)
+    o, d, path_seed = step_rays(camera, h, w, pass_seed(TRAIN_SEED, 999))
+    u = uk.prepare_uniforms_kernel(path_seed, n_paths, n_bounces, dev)
+    errs = compare_replay(label, scene, o, d, u, record)
+    tape = record(scene, o, d, u)[2]
+    matf, scf = rk.material_table(scene)
+    n_mats = matf.shape[0]
+    ct = torch.full((n_paths, 3), 1e-6, device=dev)
+    aim = scene.ambient_is_miss
+    n_blocks = rk.launch_blocks(n_paths, n_mats, dev)
+    live = int(((tape.flags & PathTape.CODE_MASK) != 0).sum())
+    tape_bytes = nbytes(tape.prim, tape.flags, tape.nx, tape.ny, tape.nz)
+    # The backward writes its [blocks, N, 14] slices of floats, or above the
+    # shared-memory cap one [N, 14] accumulator of doubles.
+    grad_bytes = (matf.numel() * 8 if n_mats > rk.MAX_KERNEL_MATS
+                  else n_blocks * matf.numel() * 4)
+    bounds = {
+        "forward": bound(live * OPS_SHADE, nbytes(d, u, matf, scf)
+                         + tape_bytes + n_paths * 16),
+        "backward": bound(live * (OPS_SHADE + OPS_SHADE_BWD),
+                          nbytes(d, u, matf, scf, ct) + tape_bytes
+                          + grad_bytes)}
+    times = {}
+    for name, kernel, plain in (("forward", rk.replay_fwd,
+                                 rk.replay_fwd_reference),
+                                ("backward", rk.replay_bwd,
+                                 rk.replay_bwd_reference)):
+        args = (d, u, tape, matf, scf, aim) + ((ct,) if name == "backward"
+                                               else ())
+        times[name] = (cuda_ms(lambda: kernel(*args), 10),
+                       cuda_ms(lambda: plain(*args), 2), bounds[name])
+        print(f"[time] replay {name} {label} ({n_mats} material rows, "
+              f"{n_blocks} blocks, {live / n_paths:.4f} live bounces per "
+              f"path): kernel ms={times[name][0]:.3f} plain ms="
+              f"{times[name][1]:.3f} bound ms={bounds[name][0]:.4f} (by "
+              f"{bounds[name][1]}) on {card}")
+    return errs, times
+
+
+def mesh_train_path(card, dev, r):
+    """The train step of main path 3's scene (``r`` is its ``Renderer``):
+    recorded by the bounce loop with the select kernel, its colour from
+    the replay forward kernel and its gradient from the replay backward
+    kernel on the 722-row material table; then full AD
+    through ``trace`` against the replay route on the 82-triangle scene.
+    Returns {kernel name: launches} of the timed steps."""
+    from raytracercore_tpu_torch.diff import get_material_params
+    from raytracercore_tpu_torch.intersect import cuda_select as cs
+    from raytracercore_tpu_torch.parallel import make_train_step
+    from raytracercore_tpu_torch.render import replay_kernel as rk
+    from raytracercore_tpu_torch.render import uniforms_kernel as uk
+    from raytracercore_tpu_torch.render.renderer import Renderer
+
+    n_bounces = r.arrays.recursion + 1
+    errs, _ = replay_on_path("mesh-722 700x700 rec10", r,
+                             cs.closest_hit_fused, card, dev)
+    counts = train_steps(
+        "mesh-train", "mesh-722 700x700 rec10", r, None, cs.closest_hit_fused,
+        {"closest_hit_fused": (cs.closest_hit_fused, n_bounces),
+         "prepare_uniforms_kernel": (uk.prepare_uniforms_kernel, 1),
+         "replay_fwd": (rk.replay_fwd, 1), "replay_bwd": (rk.replay_bwd, 1)},
+        MESH_TARGET_SPP, card, dev)
 
     # --- full AD through trace against the replay, 128x128 on mesh-82 ------
     small, small_cam = lit_mesh_scene(1, 1, 128, 4, dev)
@@ -1015,6 +1125,427 @@ def mesh_path(card, dev):
 
     del queries, hits
     return launches, mesh_train_path(card, dev, r), stage
+
+
+def take_rays(query, idx):
+    """Rays ``idx`` of a closest-hit query ``(ray_o, ray_d, skip)``."""
+    import dataclasses
+
+    o, d, skip = query
+    if skip is not None:
+        skip = type(skip)(*(getattr(skip, f.name)[idx]
+                            for f in dataclasses.fields(skip)))
+    return o[idx].contiguous(), d[idx].contiguous(), skip
+
+
+def select_flat(out):
+    """``select(want_detail=True, want_stats=True)``'s result as one
+    ``{name: tensor}``: the kernel's 12 output planes and its counters."""
+    row, found, t, detail, stats = out
+    return {"row": row, "any": found, "t": t, **detail, "stats": stats}
+
+
+def in_sphere_bvh_metric(scene, want, d):
+    """The dense scan's record ``want`` with the t of untransformed spheres
+    in the sphere BVH's metric.  The dense scan returns such a sphere's t
+    along the re-normalized direction, t_n; the sphere leaves return
+    d . (position - origin) = |d| t_n, the metric of the transformed spheres
+    and of the merge (both as in the JAX package).  They differ where |d| is
+    not 1: by some 3e-4 after a bounce, between two renormalizations."""
+    import dataclasses
+
+    sph = scene.spheres
+    plain = torch.zeros(scene.n_prims + 1, dtype=torch.bool, device=d.device)
+    plain[sph.prim_id[(sph.prim_id >= 0) & ~sph.transformed].long()] = True
+    on_plain = plain[want.prim.long()] & (want.prim >= 0)
+    return dataclasses.replace(want, t=torch.where(
+        on_plain, want.t * torch.linalg.vector_norm(d, dim=1), want.t))
+
+
+def compare_traverse(label, scene, closest, queries, bounces=(0, 1, 2, 3),
+                     oracle_bounces=(0, 1)):
+    """Traversal kernel against its plain version (all 12 outputs and the
+    two counters, bit for bit, through ``select`` of every BVH that
+    ``closest``, a ``make_bvh_closest_fn`` closure, walks) on the
+    closest-hit queries of a trace: bounce 0 without a skip record and with
+    the empty one the trace passes, later bounces with their previous hit;
+    and the closure's merged record against the grid oracle on a sample of
+    ``ORACLE_SAMPLE`` rays.  Returns the max abs error over the float
+    outputs."""
+    from raytracercore_tpu_torch.core import vecmath as vm
+
+    eps = (vm.near_enough(torch.float32), vm.POSITION_EPS_F32)
+    R = queries[0][0].shape[0]
+    max_err = 0.0
+    cases = [(0, None)] + [(b, queries[b][2]) for b in bounces
+                           if b < len(queries)]
+    for b, skip in cases:
+        o, d, _ = queries[b]
+        for bvh in closest.bvhs:
+            got = select_flat(bvh.select(o, d, skip, *eps, want_detail=True,
+                                         want_stats=True))
+            ref = select_flat(bvh.select(o, d, skip, *eps, want_detail=True,
+                                         want_stats=True, reference=True))
+            torch.cuda.synchronize()
+            differing = {f: int((got[f] != ref[f]).sum()) for f in ref
+                         if not torch.equal(got[f], ref[f])}
+            hit = ref["any"]
+            for f in ("t", "pos", "nrm", "u", "v"):
+                check(bool(torch.isfinite(got[f][hit]).all()),
+                      f"{label} bounce {b}: kernel outputs finite")
+                if bool(hit.any()):
+                    max_err = max(max_err, float(
+                        (got[f][hit] - ref[f][hit]).abs().max()))
+            visited, tested = got["stats"].float().mean(0).tolist()
+            print(f"[traverse] {label} {bvh.leaf_kind} leaves ({bvh.n_nodes} "
+                  f"nodes, leaf size {bvh.K}) bounce {b} "
+                  f"skip={skip is not None}: R={R} "
+                  f"found={float(hit.float().mean()):.4f} nodes visited per "
+                  f"ray={visited:.2f} records tested per ray={tested:.2f} "
+                  f"kernel==plain on all 12 outputs and both counters="
+                  f"{not differing} {differing or ''}")
+            check(not differing,
+                  f"{label} {bvh.leaf_kind} bounce {b}: traversal kernel "
+                  f"bit-equal to its plain version ({differing})")
+        if b in oracle_bounces:
+            gen = torch.Generator(device=o.device)
+            gen.manual_seed(b)
+            idx = torch.randperm(R, generator=gen, device=o.device)
+            sample = take_rays((o, d, skip), idx[:ORACLE_SAMPLE])
+            want = grid_closest_hit(scene, *sample)
+            if any(bvh.leaf_kind == "sph" for bvh in closest.bvhs):
+                want = in_sphere_bvh_metric(scene, want, sample[1])
+            against_oracle("traverse", f"{label} bounce {b} "
+                           f"skip={skip is not None} vs grid oracle",
+                           closest(scene, *sample), want, sample[1],
+                           max_curvature(scene))
+    return max_err
+
+
+def bvh_closest(scene):
+    """The BVH tier's closest hit of a scene on the card, its tree from the
+    native builder asked for by name (a missing host compiler fails the
+    run): ``(closest, seconds to build and pack)``."""
+    from raytracercore_tpu_torch.bvh.builder import build_bvh
+    from raytracercore_tpu_torch.intersect.dispatch import \
+        make_bvh_closest_fn
+
+    t0 = time.perf_counter()
+    closest = make_bvh_closest_fn(build_bvh(scene, backend="native"), scene,
+                                  traversal="kernel")
+    return closest, time.perf_counter() - t0
+
+
+def traverse_bound(bvh, stats, query, n_out_planes=12):
+    """The least time the card could take for one traversal: the node
+    visits and leaf records that these rays' walks counted, and every input
+    (nodes, leaf records, rays, skip record) and output plane once."""
+    o, d, skip = query
+    visited, tested = (int(x) for x in stats.sum(0))
+    n_bytes = nbytes(bvh.nodes, bvh.leaves, o, d) + o.shape[0] * (
+        4 * n_out_planes)
+    if skip is not None:
+        n_bytes += nbytes(skip.prim, skip.position, skip.normal, skip.inside)
+    return bound(visited * OPS_NODE + tested * OPS_LEAF[bvh.leaf_kind],
+                 n_bytes)
+
+
+def bvh_compare_scenes(card, dev):
+    """The traversal kernel against its plain version and the grid oracle
+    on a 5k-triangle mesh, a sphere field and an ellipsoid field at 256x256
+    (triangle, sphere and ellipsoid leaves), and the BVH route against the
+    select route on mesh-722 and on the Cornell scene (whose spheres and
+    plane are the BVH route's dense tail), which both take.  Returns the max
+    abs error kernel vs plain."""
+    from raytracercore_tpu_torch.bvh import cuda_traverse as ct
+    from raytracercore_tpu_torch.intersect import cuda_select as cs
+    from raytracercore_tpu_torch.scene import loader, meshgen
+    from raytracercore_tpu_torch.scene.types import freeze_scene
+
+    cornell = loader.parse(CORNELL_SCENE)
+    cornell.recursion = BVH_REC
+    scenes = [
+        ("mesh-5k", meshgen.make_mesh_scene(
+            grid=2, subdiv=3, recursion=BVH_REC, device=dev)[:2]),
+        (f"spheres-{BVH_FIELD_GRID}", meshgen.make_sphere_field_scene(
+            grid=BVH_FIELD_GRID, recursion=BVH_REC, device=dev)),
+        (f"ellipsoids-{BVH_FIELD_GRID}", meshgen.make_sphere_field_scene(
+            grid=BVH_FIELD_GRID, recursion=BVH_REC, ellipsoid=True,
+            device=dev)),
+        ("mesh-722", meshgen.make_mesh_scene(
+            grid=MESH_GRID, subdiv=MESH_SUBDIV, recursion=BVH_REC,
+            device=dev)[:2]),
+        # 20 triangles in the BVH; 3 spheres and a plane in the dense tail.
+        ("cornell", (freeze_scene(cornell, device=dev), cornell.cameras[0])),
+    ]
+    err, seen, tails = 0.0, set(), 0
+    for name, (scene, host_cam) in scenes:
+        closest, build_s = bvh_closest(scene)
+        kinds = [b.leaf_kind for b in closest.bvhs]
+        seen.update(kinds)
+        rays = camera_rays_and_uniforms(scene, host_cam, COMPARE_SIZE, 41,
+                                        dev)
+        ct.traverse.launches = cs.closest_hit_fused.launches = 0
+        queries = closest_hit_queries(scene, *rays, closest_fn=closest)
+        check(ct.traverse.launches == len(queries) * len(kinds),
+              f"{name}: one traversal launch per BVH and bounce")
+        has_tail = closest.tail is not None
+        tails += has_tail
+        check(cs.closest_hit_fused.launches == len(queries) * has_tail,
+              f"{name}: one select launch per bounce for the dense tail")
+        print(f"[traverse] {name}: BVHs {kinds}, dense tail "
+              f"{closest.tail is not None}, build+pack s={build_s:.3f}")
+        label = f"{name} {COMPARE_SIZE}x{COMPARE_SIZE}"
+        err = max(err, compare_traverse(label, scene, closest, queries))
+        if name in ("mesh-722", "cornell"):
+            for b, query in enumerate(queries[:4]):
+                against_oracle("traverse", f"{label} bounce {b}: BVH route "
+                               "vs select route", closest(scene, *query),
+                               cs.closest_hit_fused(scene, *query), query[1])
+    check(seen == {"tri", "sph", "spht"}, "all three leaf kinds compared")
+    check(tails > 0, "a scene with a dense tail compared")
+    return err
+
+
+def bvh_render_path(card, dev):
+    """Main path 4: ``Renderer(accelerator="auto")`` on the 184,322-triangle
+    mesh scene at 512x512 rec4 (the native builder, the bounce loop, one
+    launch of the traversal kernel per bounce).  Returns (launches of the
+    traversal kernel during the timed passes, the kernel's stage numbers)."""
+    from raytracercore_tpu_torch.bvh import cuda_traverse as ct
+    from raytracercore_tpu_torch.bvh.builder import build_bvh
+    from raytracercore_tpu_torch.bvh.cuda_traverse import CudaBVH
+    from raytracercore_tpu_torch.core import vecmath as vm
+    from raytracercore_tpu_torch.render.integrator import trace
+    from raytracercore_tpu_torch.render.renderer import Renderer
+
+    t0 = time.perf_counter()
+    scene, host_cam = lit_mesh_scene(*BVH_MESH, BVH_SIZE, BVH_REC, dev)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    r = Renderer(scene, device="cuda", seed=0, cameras=[host_cam],
+                 accelerator="auto")
+    build_s = time.perf_counter() - t0
+    scene = r.arrays
+    n_tris = int((scene.triangles.prim_id >= 0).sum())
+    check(n_tris == 184322 and scene.recursion == BVH_REC
+          and (scene.width, scene.height) == (BVH_SIZE, BVH_SIZE),
+          "main path 4 scene is mesh-184k at 512x512 rec4")
+    check(r.route == "bvh", "mesh-184k takes the BVH route")
+    bvhs = r.closest_fn.bvhs
+    check(len(bvhs) == 1 and r.closest_fn.tail is None,
+          "mesh-184k: one triangle BVH, no dense tail")
+    n_bounces = scene.recursion + 1
+    R = BVH_SIZE * BVH_SIZE
+    t0 = time.perf_counter()
+    r.step(WARM_PASSES)
+    warm_s = time.perf_counter() - t0
+    r.reset()
+    ct.traverse.launches = 0
+    pass_s = []
+    for _ in range(BVH_PASSES):
+        t0 = time.perf_counter()
+        r.step(1)
+        pass_s.append(time.perf_counter() - t0)
+    launches = ct.traverse.launches
+    st = r.status()
+    print(f"[bvh] launches of the traversal kernel during {BVH_PASSES} "
+          f"passes: {launches} ({n_bounces} bounces per pass, one BVH)")
+    check(launches == BVH_PASSES * n_bounces,
+          f"main path 4 launched the traversal kernel once per bounce "
+          f"({launches} != {BVH_PASSES} * {n_bounces})")
+    film = r.film
+    check(all(bool(torch.isfinite(t).all()) for t in
+              (film.color_sum, film.samples, film.misses)),
+          "mesh-184k film is finite")
+    check(float(film.samples.sum() + film.misses.sum()) == BVH_PASSES * R,
+          "mesh-184k: one sample per pixel per pass")
+    img = r.image()
+    check(img.shape == (BVH_SIZE, BVH_SIZE, 4) and img.dtype == np.uint8,
+          "mesh-184k image is 512x512 RGBA uint8")
+    check(int(img[..., :3].max()) > 50, "mesh-184k image is lit (max > 50)")
+    med_s = float(np.median(pass_s))
+    print(f"[bvh] mesh-184k ({n_tris} triangles, {bvhs[0].n_nodes} nodes, "
+          f"leaf size {bvhs[0].K}) 512x512 rec4, {BVH_PASSES} passes: "
+          f"samples/px/sec={st['samples_per_px_per_sec']:.4f} "
+          f"paths/sec={st['paths_per_sec']:.4e} "
+          f"wavefront rays/sec={R * n_bounces / med_s:.4e} "
+          f"ms/pass min/p25/median/p75/max="
+          f"{quartiles(np.asarray(pass_s) * 1e3)} "
+          f"scene generation s={gen_s:.3f} Renderer (BVH build + pack) s="
+          f"{build_s:.3f} warm-up s={warm_s:.3f} ({WARM_PASSES} passes) "
+          f"image max={int(img[..., :3].max())} "
+          f"mean={float(img[..., :3].mean()):.3f} on {card}")
+    print("[bvh] ms of each pass: "
+          + " ".join(f"{x * 1e3:.3f}" for x in pass_s))
+    busy, top = device_busy(lambda i: r.step(1), 4)
+    print(f"[profile] 4 mesh-184k passes: device busy {busy:.1f} % of the "
+          f"span on {card}")
+    print(f"[profile] top kernels, device us per pass: {top}")
+
+    # The traversal kernel at the main path's shapes: its queries,
+    # compared, then timed with CUDA events on every bounce.
+    rays = camera_rays_and_uniforms(scene, host_cam, BVH_SIZE, 11, dev)
+    queries = closest_hit_queries(scene, *rays, closest_fn=r.closest_fn)
+    check(len(queries) == n_bounces, "one closest-hit query per bounce")
+    err = compare_traverse("mesh-184k 512x512", scene, r.closest_fn, queries)
+    eps = (vm.near_enough(torch.float32), vm.POSITION_EPS_F32)
+    bvh = bvhs[0]
+
+    def run(b, **kw):
+        return bvh.select(*queries[b], *eps, want_detail=True, **kw)
+    k_ms = {b: cuda_ms(lambda b=b: run(b), 10) for b in range(n_bounces)}
+    k_ms_again = cuda_ms(lambda: run(0), 10)
+    plain_ms = cuda_ms(lambda: run(0, reference=True), 1)
+    stats = [run(b, want_stats=True)[4] for b in range(n_bounces)]
+    bounds = [traverse_bound(bvh, stats[b], queries[b])
+              for b in range(n_bounces)]
+    alive = [float((q[0][:, 0] < 1e8).float().mean()) for q in queries]
+    with torch.no_grad():
+        hits = [r.closest_fn(scene, *q) for q in queries]
+
+    def shading_only():
+        it = iter(hits)
+        with torch.no_grad():
+            trace(scene, rays[0], rays[1], None,
+                  closest_fn=lambda *_: next(it), uniforms=rays[2])
+    shade_ms = cuda_ms(shading_only, 5) / n_bounces
+    closest_ms = cuda_ms(lambda: r.closest_fn(scene, *queries[1]), 10)
+    for b in range(n_bounces):
+        visited, tested = stats[b].float().mean(0).tolist()
+        n_alive = max(alive[b] * R, 1.0)
+        print(f"[time] traversal kernel mesh-184k 512x512 bounce {b}: "
+              f"ms={k_ms[b]:.3f} bound ms={bounds[b][0]:.4f} (by "
+              f"{bounds[b][1]}) lanes not parked={alive[b]:.4f} nodes "
+              f"visited per ray={visited:.2f} records tested per ray="
+              f"{tested:.2f} ns per live ray="
+              f"{k_ms[b] * 1e6 / n_alive:.2f} ns per node visit="
+              f"{k_ms[b] * 1e6 / max(visited * R, 1.0):.3f} on {card}")
+    print(f"[time] traversal kernel mesh-184k 512x512: bounce 0 again ms="
+          f"{k_ms_again:.3f} plain ms (one walk, bounce 0)={plain_ms:.3f} "
+          f"whole closest hit (kernel + record, bounce 1) ms={closest_ms:.3f} "
+          f"eager shading ms per bounce={shade_ms:.3f} on {card}")
+    # A parked lane (a finished path, moved far outside the scene) fails the
+    # root's slab test and ends its walk there.
+    for b in range(1, n_bounces):
+        parked = queries[b][0][:, 0] >= 1e8
+        if bool(parked.any()):
+            check(int(stats[b][parked, 0].max()) == 1
+                  and int(stats[b][parked, 1].max()) == 0,
+                  f"bounce {b}: a parked lane visits the root, nothing else")
+
+    # Leaf size: the same five queries through trees of these leaf sizes,
+    # each built anew and timed in turn (the winner does not depend on the
+    # leaf size but on exact ties); config.BVH_LEAF_SIZE is the fastest.
+    want_row = [run(b)[0] for b in range(n_bounces)]
+    sums = {}
+    for leaf in BVH_LEAF_SIZES:
+        t0 = time.perf_counter()
+        other = CudaBVH(build_bvh(scene, leaf_size=leaf, backend="native"),
+                        scene.triangles, scene.materials, scene.n_prims)
+        leaf_s = time.perf_counter() - t0
+
+        def run_other(b, **kw):
+            return other.select(*queries[b], *eps, want_detail=True, **kw)
+        ms = [cuda_ms(lambda b=b: run_other(b), 10) for b in range(n_bounces)]
+        visited, tested = run_other(0, want_stats=True)[4].float().mean(
+            0).tolist()
+        same = min(float((run_other(b)[0] == want_row[b]).float().mean())
+                   for b in range(n_bounces))
+        print(f"[time] traversal kernel mesh-184k 512x512 leaf size {leaf} "
+              f"({other.n_nodes} nodes, build+pack s={leaf_s:.3f}): ms per "
+              f"bounce " + " ".join(f"{x:.3f}" for x in ms)
+              + f" sum={sum(ms):.3f} bounce 0 nodes visited per ray="
+              f"{visited:.2f} records tested per ray={tested:.2f} rows equal "
+              f"to leaf size {bvh.K}'s on >= {same:.6f} of the rays on {card}")
+        check(same >= 0.999, f"leaf size {leaf}: same winners but for ties")
+        sums[leaf] = sum(ms)
+        del other
+    best = min(sums, key=sums.get)
+    print(f"[time] leaf size: fastest {best} ({sums[best]:.3f} ms over the "
+          f"{n_bounces} bounces), config.BVH_LEAF_SIZE {bvh.K} "
+          f"({sums.get(bvh.K, float('nan')):.3f} ms)")
+    check(sums.get(bvh.K, float("inf")) <= 1.1 * sums[best],
+          "config.BVH_LEAF_SIZE is within 10 % of the fastest leaf size")
+    stage = {"ms": k_ms[0], "plain_ms": plain_ms, "bound_ms": bounds[0][0],
+             "bound_by": bounds[0][1], "max_abs_err": err}
+    return launches, stage
+
+
+def bvh_big_pass(card, dev):
+    """One timed pass of the 1,003,522-triangle mesh scene at 1024x1024
+    rec4 through ``Renderer`` (after one untimed pass)."""
+    from raytracercore_tpu_torch.bvh import cuda_traverse as ct
+    from raytracercore_tpu_torch.render.renderer import Renderer
+
+    t0 = time.perf_counter()
+    scene, host_cam = lit_mesh_scene(*BVH_BIG_MESH, BVH_BIG_SIZE, BVH_REC,
+                                     dev)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    r = Renderer(scene, device="cuda", seed=0, cameras=[host_cam])
+    build_s = time.perf_counter() - t0
+    n_tris = int((r.arrays.triangles.prim_id >= 0).sum())
+    check(n_tris == 1003522 and r.route == "bvh",
+          "mesh-1M has 1,003,522 triangles and takes the BVH route")
+    times = []
+    ct.traverse.launches = 0
+    for _ in range(2):
+        t0 = time.perf_counter()
+        r.step(1)
+        times.append((time.perf_counter() - t0) * 1e3)
+    check(ct.traverse.launches == 2 * (BVH_REC + 1),
+          "mesh-1M launched the traversal kernel once per bounce")
+    film = r.film
+    check(bool(torch.isfinite(film.color_sum).all())
+          and float(film.samples.sum() + film.misses.sum())
+          == 2 * BVH_BIG_SIZE ** 2, "mesh-1M film finite, one sample per "
+          "pixel per pass")
+    bvh = r.closest_fn.bvhs[0]
+    R = BVH_BIG_SIZE ** 2
+    print(f"[bvh] mesh-1M ({n_tris} triangles, {bvh.n_nodes} nodes, leaf "
+          f"size {bvh.K}) 1024x1024 rec4: first pass ms={times[0]:.3f} "
+          f"second pass ms={times[1]:.3f} = "
+          f"{1e3 / times[1]:.4f} samples/px/sec, "
+          f"{R * (BVH_REC + 1) / (times[1] * 1e-3):.4e} wavefront rays/sec; "
+          f"scene generation s={gen_s:.3f} Renderer (BVH build + pack) s="
+          f"{build_s:.3f} peak device memory MB="
+          f"{torch.cuda.max_memory_allocated() / 2 ** 20:.0f} on {card}")
+
+
+def bvh_train_path(card, dev):
+    """Main path 5: the train step of the 46,082-triangle mesh scene at
+    512x512 rec4: recorded by the bounce loop with the traversal kernel, its
+    colour from the replay forward kernel and its gradient from the replay
+    backward kernel, both reading the 46,082-row material table from device
+    memory.  Returns ({kernel name: launches} of the timed steps, the
+    replay kernels' max abs errors, their times)."""
+    from raytracercore_tpu_torch.bvh import cuda_traverse as ct
+    from raytracercore_tpu_torch.render import replay_kernel as rk
+    from raytracercore_tpu_torch.render import uniforms_kernel as uk
+    from raytracercore_tpu_torch.render.renderer import Renderer
+
+    scene, host_cam = lit_mesh_scene(*BVH_TRAIN_MESH, BVH_SIZE, BVH_REC, dev)
+    t0 = time.perf_counter()
+    r = Renderer(scene, device="cuda", seed=0, cameras=[host_cam])
+    build_s = time.perf_counter() - t0
+    n_tris = int((r.arrays.triangles.prim_id >= 0).sum())
+    n_mats = r.arrays.materials.emission.shape[0]
+    check(n_tris == 46082 and r.route == "bvh"
+          and n_mats > rk.MAX_KERNEL_MATS,
+          "main path 5 scene is mesh-46k on the BVH route, its material "
+          "table above the replay kernels' shared-memory cap")
+    print(f"[bvh-train] mesh-46k: {n_tris} triangles, {n_mats} material "
+          f"rows, Renderer (BVH build + pack) s={build_s:.3f}")
+    label = "mesh-46k 512x512 rec4"
+    errs, times = replay_on_path(label, r, r.closest_fn, card, dev)
+    counts = train_steps(
+        "bvh-train", label, r, r.closest_fn, r.closest_fn,
+        {"traverse": (ct.traverse, r.arrays.recursion + 1),
+         "prepare_uniforms_kernel": (uk.prepare_uniforms_kernel, 1),
+         "replay_fwd": (rk.replay_fwd, 1), "replay_bwd": (rk.replay_bwd, 1)},
+        MESH_TARGET_SPP, card, dev)
+    return counts, errs, times
 
 
 def quartiles(ms):
@@ -1377,10 +1908,26 @@ def main():
     fwd_err = max(fwd_err, mesh_replay_errs[0])
     bwd_err = max(bwd_err, mesh_replay_errs[1])
 
-    # --- 7. result lines ---------------------------------------------------
-    # No single PyTorch call computes any of these five functions (a whole
+    # --- 7. the BVH tier: kernel vs plain, main paths 4 and 5 --------------
+    # Renderer builds its tree with backend "auto", which would hand a
+    # failed native build to the numpy builder with a warning: here that
+    # fails the run (the comparisons ask for "native" by name).
+    import warnings
+    warnings.filterwarnings("error", message="native BVH builder")
+    traverse_err = bvh_compare_scenes(card, dev)
+    traverse_launches, traverse_stage = bvh_render_path(card, dev)
+    torch.cuda.empty_cache()
+    bvh_big_pass(card, dev)
+    torch.cuda.empty_cache()
+    bvh_train_counts, bvh_replay_errs, _ = bvh_train_path(card, dev)
+    fwd_err = max(fwd_err, bvh_replay_errs[0])
+    bwd_err = max(bwd_err, bvh_replay_errs[1])
+
+    # --- 8. result lines ---------------------------------------------------
+    # No single PyTorch call computes any of these six functions (a whole
     # path, Philox channels, a path replay and its adjoint, a closest hit
-    # over three primitive tables), so there is no library time to report.
+    # over three primitive tables, a BVH walk), so there is no library time
+    # to report.
     def entry(name, source, replaces, launched, err, ms, p_ms, bound_ms):
         return {"name": name, "route": "cuda",
                 "source": f"raytracercore_tpu_torch/csrc/{source}",
@@ -1397,15 +1944,16 @@ def main():
         entry("prepare_uniforms_kernel", "uniforms.cu",
               "render/uniforms_kernel.py:64",
               train_launches["prepare_uniforms_kernel"]
-              + mesh_train_counts["prepare_uniforms_kernel"], uni_err,
+              + mesh_train_counts["prepare_uniforms_kernel"]
+              + bvh_train_counts["prepare_uniforms_kernel"], uni_err,
               uni_ms, uni_plain_ms, train_bounds["uniforms"]),
         entry("replay_fwd", "replay.cu", "render/replay_kernel.py:163",
-              train_launches["replay_fwd"]
-              + mesh_train_counts["replay_fwd"], fwd_err,
+              train_launches["replay_fwd"] + mesh_train_counts["replay_fwd"]
+              + bvh_train_counts["replay_fwd"], fwd_err,
               *stage["replay forward"], train_bounds["replay forward"]),
         entry("replay_bwd", "replay.cu", "render/replay_kernel.py:193",
-              train_launches["replay_bwd"]
-              + mesh_train_counts["replay_bwd"], bwd_err,
+              train_launches["replay_bwd"] + mesh_train_counts["replay_bwd"]
+              + bvh_train_counts["replay_bwd"], bwd_err,
               *stage["replay backward"], train_bounds["replay backward"]),
         entry("closest_hit_fused", "select.cu",
               "intersect/pallas_select.py:42",
@@ -1413,6 +1961,11 @@ def main():
               max(select_err, select_stage["max_abs_err"]),
               select_stage["ms"], select_stage["plain_ms"],
               (select_stage["bound_ms"], select_stage["bound_by"])),
+        entry("traverse", "traverse.cu", "bvh/pallas_traverse.py:292",
+              traverse_launches + bvh_train_counts["traverse"],
+              max(traverse_err, traverse_stage["max_abs_err"]),
+              traverse_stage["ms"], traverse_stage["plain_ms"],
+              (traverse_stage["bound_ms"], traverse_stage["bound_by"])),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

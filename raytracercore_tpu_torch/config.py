@@ -31,3 +31,17 @@ SELECT_MAX_PRIMS = 768
 # Renderer(accelerator="auto") switches to the BVH above this many
 # triangles: the dense tier's own cap, as in the JAX package.
 BVH_AUTO_THRESHOLD = SELECT_MAX_PRIMS
+
+# Primitive slots per BVH leaf (bvh/builder.py) when the caller names none.
+# One thread walks one ray (csrc/traverse.cu), so a leaf costs a thread its
+# records one after another and small leaves win: on the 184,322-triangle
+# mesh at 512x512, five bounces of the kernel took 1.639 / 1.630 / 1.718 /
+# 1.917 / 2.431 / 3.596 ms at leaf sizes 1 / 2 / 3 / 4 / 8 / 16 (NVIDIA H100
+# 80GB HBM3, 700.00 W; chip_smoke.py times them in turn; PERF.md section 6).
+BVH_LEAF_SIZE = 2
+
+# make_bvh_closest_fn gives the untransformed spheres, and the transformed
+# ones, a BVH of their own from this many rows on (as the JAX package does);
+# fewer stay with the planes in the dense tail, which the select kernel
+# scans.
+SPHERE_BVH_MIN_ROWS = 256

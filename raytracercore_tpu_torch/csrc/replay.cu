@@ -25,6 +25,13 @@
 //     43 KB; with the backward's accumulator 86 KB, above the 48 KB
 //     default, hence cudaFuncSetAttribute below) and is read by row,
 //     max(prim, 0) * 14 + c;
+//   * a larger table (a mesh has one material row per triangle: 46,082
+//     rows are 2.6 MB) fits no shared memory: in the kernels' global-table
+//     mode the rows are read from device memory through the read-only path
+//     (they stay in the 50 MB L2), one block per 128 paths, and the
+//     backward adds dL/dg with atomics into ONE [N,14] accumulator in
+//     device memory, in double (native on sm_90): an f32 atomic sum over
+//     10^6 paths is ~2e-5 off, more than the gradient gate of 1e-5;
 //   * a block walks the paths in strides of the grid, so the caller picks
 //     the grid: one block per 128 paths for a small table, and for a large
 //     one only as many blocks as stay resident, so that the table is copied
@@ -386,12 +393,18 @@ __device__ __forceinline__ void load_table(const ReplayParams& p,
     s_mf[k] = p.matf[k];
 }
 
-template <bool AIM>
+// GLOBAL: the material rows are read from device memory (p.matf), not from
+// a copy in shared memory.
+template <bool AIM, bool GLOBAL>
 __global__ void __launch_bounds__(REPLAY_BLOCK)
     replay_fwd_kernel(ReplayParams p, float* color, int* miss) {
-  extern __shared__ float s_mf[];  // [N,14]
-  load_table(p, s_mf);
-  __syncthreads();
+  extern __shared__ float s_tab[];  // [N,14] unless GLOBAL
+  const float* s_mf = p.matf;
+  if (!GLOBAL) {
+    load_table(p, s_tab);
+    __syncthreads();
+    s_mf = s_tab;
+  }
 
   const float air = p.scf[0];
   const V3 ambient = {p.scf[1], p.scf[2], p.scf[3]};
@@ -419,15 +432,23 @@ __global__ void __launch_bounds__(REPLAY_BLOCK)
   }
 }
 
-template <bool AIM>
+// `partial`: [blocks,N,14] floats, one slice per block; GLOBAL: one [N,14]
+// accumulator of doubles, zeroed by the caller, that every block adds into.
+template <bool AIM, bool GLOBAL>
 __global__ void __launch_bounds__(REPLAY_BLOCK)
-    replay_bwd_kernel(ReplayParams p, const float* ct, float* partial) {
-  extern __shared__ float s_mf[];  // [N,14] table, then [N,14] accumulator
-  float* s_acc = s_mf + p.N * RP_MAT_F;
-  load_table(p, s_mf);
-  for (int k = threadIdx.x; k < p.N * RP_MAT_F; k += blockDim.x)
-    s_acc[k] = 0.f;
-  __syncthreads();
+    replay_bwd_kernel(ReplayParams p, const float* ct, void* partial) {
+  extern __shared__ float s_tab[];  // [N,14] table, then [N,14] accumulator
+  const float* s_mf = p.matf;
+  float* s_acc = nullptr;
+  double* g_acc = static_cast<double*>(partial);
+  if (!GLOBAL) {
+    s_acc = s_tab + p.N * RP_MAT_F;
+    load_table(p, s_tab);
+    for (int k = threadIdx.x; k < p.N * RP_MAT_F; k += blockDim.x)
+      s_acc[k] = 0.f;
+    __syncthreads();
+    s_mf = s_tab;
+  }
 
   const float air = p.scf[0];
   const V3 ambient = {p.scf[1], p.scf[2], p.scf[3]};
@@ -469,16 +490,22 @@ __global__ void __launch_bounds__(REPLAY_BLOCK)
         shade(p, i, r, dn, g, flags, air, sh);
         float gct[RP_MAT_F];
         bounce_adjoint<AIM>(i, sh, dn, t_st[i], g, d_ct, t_ct, r_ct, gct);
-        float* acc = s_acc + row * RP_MAT_F;
 #pragma unroll
-        for (int c = 0; c < RP_MAT_F; ++c)
-          if (gct[c] != 0.f) atomicAdd(acc + c, gct[c]);
+        for (int c = 0; c < RP_MAT_F; ++c) {
+          if (gct[c] == 0.f) continue;
+          if (GLOBAL)
+            atomicAdd(g_acc + (size_t)row * RP_MAT_F + c, (double)gct[c]);
+          else
+            atomicAdd(s_acc + row * RP_MAT_F + c, gct[c]);
+        }
       }
       if (rn) d_ct = renorm_adjoint(d_in, d_ct);
     }
   }
+  if (GLOBAL) return;
   __syncthreads();
-  float* out = partial + (size_t)blockIdx.x * p.N * RP_MAT_F;
+  float* out =
+      static_cast<float*>(partial) + (size_t)blockIdx.x * p.N * RP_MAT_F;
   for (int k = threadIdx.x; k < p.N * RP_MAT_F; k += blockDim.x)
     out[k] = s_acc[k];
 }
@@ -487,9 +514,10 @@ __global__ void __launch_bounds__(REPLAY_BLOCK)
 
 namespace {
 
-bool bad_sizes(int R, int N, int n_bounces, int n_blocks) {
-  return R <= 0 || N <= 0 || N > rtc::MAX_REPLAY_MATS || n_bounces <= 0 ||
-         n_bounces > rtc::MAX_REPLAY_BOUNCES || n_blocks <= 0 ||
+bool bad_sizes(int R, int N, int n_bounces, int n_blocks, int global_table) {
+  return R <= 0 || N <= 0 || (!global_table && N > rtc::MAX_REPLAY_MATS) ||
+         n_bounces <= 0 || n_bounces > rtc::MAX_REPLAY_BOUNCES ||
+         n_blocks <= 0 ||
          n_blocks > (R + rtc::REPLAY_BLOCK - 1) / rtc::REPLAY_BLOCK;
 }
 
@@ -514,19 +542,28 @@ int launch(void (*kernel)(rtc::ReplayParams, Args...), int n_blocks,
 // most one per REPLAY_BLOCK paths; fewer walk the paths in strides) on
 // `stream` and returns the cudaGetLastError() after the launch (0 =
 // launched), or cudaErrorInvalidValue for sizes the kernels do not take.
+// `global_table` != 0 reads the material rows from device memory (any N);
+// the backward's `partial` is then one zeroed [N,14] accumulator of doubles
+// instead of [n_blocks,N,14] floats.
 extern "C" int rtc_replay_fwd(const float* ray_d, const float* u,
                               const int* prim, const int* flags,
                               const float* nx, const float* ny,
                               const float* nz, const float* matf,
                               const float* scf, float* color, int* miss,
                               int R, int N, int n_bounces, int n_blocks,
-                              int ambient_is_miss, void* stream) {
-  if (bad_sizes(R, N, n_bounces, n_blocks)) return (int)cudaErrorInvalidValue;
+                              int ambient_is_miss, int global_table,
+                              void* stream) {
+  if (bad_sizes(R, N, n_bounces, n_blocks, global_table))
+    return (int)cudaErrorInvalidValue;
   rtc::ReplayParams p{ray_d, u, prim, flags, nx, ny, nz, matf, scf,
                       R, N, n_bounces};
+  if (global_table)
+    return launch(ambient_is_miss ? rtc::replay_fwd_kernel<true, true>
+                                  : rtc::replay_fwd_kernel<false, true>,
+                  n_blocks, 0, stream, p, color, miss);
   const size_t smem = (size_t)N * rtc::RP_MAT_F * sizeof(float);
-  return launch(ambient_is_miss ? rtc::replay_fwd_kernel<true>
-                                : rtc::replay_fwd_kernel<false>,
+  return launch(ambient_is_miss ? rtc::replay_fwd_kernel<true, false>
+                                : rtc::replay_fwd_kernel<false, false>,
                 n_blocks, smem, stream, p, color, miss);
 }
 
@@ -535,14 +572,19 @@ extern "C" int rtc_replay_bwd(const float* ray_d, const float* u,
                               const float* nx, const float* ny,
                               const float* nz, const float* matf,
                               const float* scf, const float* ct,
-                              float* partial, int R, int N, int n_bounces,
+                              void* partial, int R, int N, int n_bounces,
                               int n_blocks, int ambient_is_miss,
-                              void* stream) {
-  if (bad_sizes(R, N, n_bounces, n_blocks)) return (int)cudaErrorInvalidValue;
+                              int global_table, void* stream) {
+  if (bad_sizes(R, N, n_bounces, n_blocks, global_table))
+    return (int)cudaErrorInvalidValue;
   rtc::ReplayParams p{ray_d, u, prim, flags, nx, ny, nz, matf, scf,
                       R, N, n_bounces};
+  if (global_table)
+    return launch(ambient_is_miss ? rtc::replay_bwd_kernel<true, true>
+                                  : rtc::replay_bwd_kernel<false, true>,
+                  n_blocks, 0, stream, p, ct, partial);
   const size_t smem = 2 * (size_t)N * rtc::RP_MAT_F * sizeof(float);
-  return launch(ambient_is_miss ? rtc::replay_bwd_kernel<true>
-                                : rtc::replay_bwd_kernel<false>,
+  return launch(ambient_is_miss ? rtc::replay_bwd_kernel<true, false>
+                                : rtc::replay_bwd_kernel<false, false>,
                 n_blocks, smem, stream, p, ct, partial);
 }

@@ -1,6 +1,6 @@
 """Closest-hit query over the whole scene with material-level filtering
-(counterpart of the dense half of ``raytracercore_tpu.intersect.dispatch``;
-the BVH half comes with the BVH).
+(counterpart of ``raytracercore_tpu.intersect.dispatch``): the dense
+:func:`closest_hit` and the BVH tier's :func:`make_bvh_closest_fn`.
 
 The batched equivalent of the reference's per-primitive wrapper + scene
 scan:
@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from ..config import SELECT_MAX_PRIMS
@@ -368,9 +369,9 @@ def _closest_from_tri_select(scene, ray_o, ray_d, skip, tri_select_fn,
     dense scans — how a BVH plugs in.  With the dense defaults, on CUDA
     tensors all three selections come from one launch of the select kernel,
     which takes f32 rays (else ``ValueError``) and scenes within
-    ``SELECT_MAX_PRIMS`` rows (else ``NotImplementedError``: they need the
-    BVH); the grid scans run on CPU tensors, and on the card only behind a
-    hook of the caller's own."""
+    ``SELECT_MAX_PRIMS`` rows (else ``NotImplementedError``: they need
+    :func:`make_bvh_closest_fn`); the grid scans run on CPU tensors, and on
+    the card only behind a hook of the caller's own."""
     dtype = ray_o.dtype
     eps_behind = vm.near_enough(dtype)
     eps_pos = _position_eps(dtype)
@@ -386,9 +387,9 @@ def _closest_from_tri_select(scene, ray_o, ray_d, skip, tri_select_fn,
             if rows > SELECT_MAX_PRIMS:
                 raise NotImplementedError(
                     f"closest_hit on CUDA tensors: a scene of {rows} table "
-                    "rows needs the BVH, which is not ported yet; the select "
+                    "rows needs the BVH (make_bvh_closest_fn); the select "
                     f"kernel takes up to SELECT_MAX_PRIMS ({SELECT_MAX_PRIMS})"
-                    " rows (ROADMAP.md queue 1, item 3)")
+                    " rows")
             ((tri_idx, tri_any), (sph_idx, use_near, sph_any),
              (pl_idx, pl_any)) = cuda_select.select_all(
                 scene, o_sg.contiguous(), d_sg.contiguous(), skip_sg,
@@ -419,3 +420,203 @@ def closest_hit(scene: SceneArrays, ray_o, ray_d, skip: HitRecord | None
     """
     return _closest_from_tri_select(scene, ray_o, ray_d, skip,
                                     _triangle_select_dense)
+
+
+# ---------------------------------------------------------------------------
+# The BVH tier
+# ---------------------------------------------------------------------------
+
+def _merge2(a, b):
+    """Take ``b`` only where STRICTLY closer — preserves :func:`_combine`'s
+    first-table-wins tie rule."""
+    use_b = b["any"] & (~a["any"] | (b["t"] < a["t"]))
+    sel = use_b[:, None]
+    return {"t": torch.where(use_b, b["t"], a["t"]),
+            "any": a["any"] | b["any"],
+            "prim": torch.where(use_b, b["prim"], a["prim"]),
+            "inside": torch.where(use_b, b["inside"], a["inside"]),
+            "position": torch.where(sel, b["position"], a["position"]),
+            "normal": torch.where(sel, b["normal"], a["normal"])}
+
+
+def _rec_from_detail(any_, t, det):
+    """Kernel detail dict → winner-record dict (the :func:`_merge2`
+    shape)."""
+    return {"t": _fin(torch.where(any_, t, 0.0)), "any": any_,
+            "prim": det["prim"], "inside": det["inside"],
+            "position": det["pos"], "normal": det["nrm"]}
+
+
+def _tri_smooth_fixup(scene, row, det):
+    """Re-interpolate the winner's SMOOTH normal (Triangle.GetNormal,
+    Triangle.cs:209-224) from the kernel's committed (u, v): only the
+    three per-vertex normal rows are gathered — the smooth flag rides the
+    kernel's flag bits and the face normal is the committed flat normal
+    un-flipped (nrm = fn·flip)."""
+    tri = scene.triangles
+    safe = row.long()
+    u, v = det["u"][:, None], det["v"][:, None]
+    n_int = tri.n0[safe] * u + tri.n1[safe] * v + tri.n2[safe] * (u + v)
+    n_int = vm.normalize(n_int, eps=1e-30)
+    geo = det["inside_geo"][:, None]
+    fn = det["nrm"] * torch.where(geo, -1.0, 1.0)
+    refl = n_int - fn * (2.0 * vm.dot(n_int, fn))[:, None]
+    n_sm = torch.where(geo, refl, n_int)
+    return dict(det, nrm=torch.where(det["smooth"][:, None], n_sm,
+                                     det["nrm"]))
+
+
+def make_bvh_closest_fn(bvh, scene: SceneArrays | None = None,
+                        traversal: str = "auto"):
+    """Closest hit with the triangle selection routed through the skip-link
+    BVH ``bvh`` (:func:`..bvh.builder.build_bvh`), for scenes of any size.
+    Returns ``closest(scene, ray_o, ray_d, skip) → HitRecord``.
+
+    ``traversal``:
+      "walk"   — the hooks route: :func:`..bvh.traverse.traverse_closest`
+                 picks the winning triangle (a lockstep torch walk, on any
+                 device), the dense scans pick sphere and plane, and the
+                 winners are evaluated differentiably
+                 (:func:`_closest_from_tri_select`).  Slow at scale; its
+                 geometry has gradients.
+      "kernel" — the detail route (needs ``scene``, on the device the rays
+                 will be on, for the leaf packing): every accelerated tier
+                 returns its winner's full record from the traversal kernel
+                 (:mod:`..bvh.cuda_traverse`: the CUDA kernel on CUDA
+                 tensors, its plain version on CPU tensors).  Untransformed
+                 and transformed spheres get BVHs of their own from
+                 ``config.SPHERE_BVH_MIN_ROWS`` rows on; the spheres that
+                 stay dense and the planes (the dense tail) go through the
+                 select kernel in one launch, as a sub-scene with an empty
+                 triangle table.  Records merge with a strict ``t <`` in the
+                 order triangles → sphere BVH → ellipsoid BVH → dense tail.
+                 Geometry is stop-gradient: the material-gradient train
+                 path never differentiates geometry, and forward rendering
+                 takes no gradients.
+      "auto"   — "kernel" when ``scene`` is given and lies on a CUDA
+                 device, else "walk"; a walk picked this way refuses CUDA
+                 rays (``ValueError``): on the card the plain walk runs only
+                 when asked for by name.
+
+    The flags of the materials (invert, two-sided) are packed at build
+    time; the materials' colours are read from the scene given at call
+    time.  The JAX package's ``sort=`` is not carried over.
+
+    The detail route's function carries what it walks: ``closest.bvhs``, the
+    packed BVHs in merge order (``cuda_traverse.CudaBVH`` and its sphere
+    kinds), and ``closest.tail``, the dense tail's sub-scene or None.
+    """
+    if traversal not in ("auto", "walk", "kernel"):
+        raise ValueError(f"make_bvh_closest_fn: unknown traversal "
+                         f"{traversal!r}")
+    walk_by_name = traversal == "walk"
+    if traversal == "auto":
+        on_card = (scene is not None
+                   and scene.triangles.v0.device.type == "cuda")
+        traversal = "kernel" if on_card else "walk"
+    if traversal == "walk":
+        from ..bvh.traverse import traverse_closest
+
+        def tri_select_bvh(scene_sg, o_sg, d_sg, skip_sg, eps_behind,
+                           eps_pos):
+            best_idx, _ = traverse_closest(
+                bvh, scene_sg.triangles, scene_sg.materials, o_sg, d_sg,
+                skip_sg, eps_behind, eps_pos)
+            return torch.clamp(best_idx, min=0), best_idx >= 0
+
+        def closest_walk(scene: SceneArrays, ray_o, ray_d, skip):
+            if ray_o.device.type == "cuda" and not walk_by_name:
+                raise ValueError(
+                    'make_bvh_closest_fn(traversal="auto") got rays on a CUDA '
+                    "device but no scene on it to pack the kernel's leaves "
+                    'from: give scene=, or ask for traversal="walk"')
+            return _closest_from_tri_select(scene, ray_o, ray_d, skip,
+                                            tri_select_bvh)
+        return closest_walk
+    if scene is None:
+        raise ValueError('make_bvh_closest_fn(traversal="kernel") packs the '
+                         "leaves from the scene: give scene=")
+
+    from ..bvh import builder
+    from ..bvh import cuda_traverse as ct
+    from ..config import SPHERE_BVH_MIN_ROWS
+    from .cuda_select import closest_hit_fused
+
+    tri_bvh = ct.CudaBVH(bvh, scene.triangles, scene.materials,
+                         scene.n_prims)
+    any_smooth = bool(scene.triangles.smooth.any())
+
+    # Sphere acceleration (the reference bounds every primitive type,
+    # Scene.cs:39-49): a BVH over the UNTRANSFORMED spheres and one over
+    # the TRANSFORMED ones (exact affine world AABBs); small tables stay
+    # dense.
+    sph = scene.spheres
+    pid = sph.prim_id.cpu().numpy()
+    transformed = sph.transformed.cpu().numpy()
+    keep = pid >= 0
+    sphere_bvhs = []
+    for mask, cls, build in (
+            (~transformed & (pid >= 0), ct.CudaSphereBVH,
+             lambda m: builder.build_sphere_bvh(
+                 sph.center.cpu().numpy(), sph.radius.cpu().numpy(), m)),
+            (transformed & (pid >= 0), ct.CudaEllipsoidBVH,
+             lambda m: builder.build_ellipsoid_bvh(
+                 sph.center.cpu().numpy(), sph.radius.cpu().numpy(),
+                 sph.obj_to_world.cpu().numpy(), m))):
+        if int(mask.sum()) >= SPHERE_BVH_MIN_ROWS:
+            sphere_bvhs.append(cls(build(mask), sph, scene.materials,
+                                   scene.n_prims))
+            keep &= ~mask
+
+    # The dense tail: the spheres no BVH took and the planes, as a scene of
+    # their own with an empty triangle table (COMPACT: a masked full-size
+    # table would still cost its every row).
+    def take(table, rows, masked):
+        """Rows ``rows`` of a primitive table, as padding when ``masked``."""
+        cols = {f.name: getattr(table, f.name)[rows]
+                for f in dataclasses.fields(table)}
+        if masked:
+            cols["prim_id"] = torch.full_like(cols["prim_id"], -1)
+        return dataclasses.replace(table, **cols)
+
+    tail = None
+    if keep.any() or bool((scene.planes.prim_id >= 0).any()):
+        rows = torch.tensor(np.nonzero(keep)[0] if keep.any() else [0],
+                            device=sph.prim_id.device)
+        tail = dataclasses.replace(
+            scene, spheres=take(sph, rows, not keep.any()),
+            triangles=take(scene.triangles, slice(0, 1), True))
+
+    def closest_kernel(scene_arg: SceneArrays, ray_o, ray_d, skip):
+        dtype = ray_o.dtype
+        eps_behind = vm.near_enough(torch.float32)
+        eps_pos = _position_eps(torch.float32)
+        with torch.no_grad():
+            o_sg, d_sg = ray_o.detach(), ray_d.detach()
+            skip_sg = None if skip is None else skip.detach()
+            row, any_t, t_t, det = tri_bvh.select(
+                o_sg, d_sg, skip_sg, eps_behind, eps_pos, want_detail=True)
+            if any_smooth:
+                det = _tri_smooth_fixup(scene_arg, row, det)
+            rec = _rec_from_detail(any_t, t_t, det)
+            for b in sphere_bvhs:
+                _, any_b, t_b, det_b = b.select(
+                    o_sg, d_sg, skip_sg, eps_behind, eps_pos,
+                    want_detail=True)
+                rec = _merge2(rec, _rec_from_detail(any_b, t_b, det_b))
+            if tail is not None:
+                hit = closest_hit_fused(tail, o_sg, d_sg, skip_sg)
+                rec = _merge2(rec, {
+                    "t": hit.t.to(torch.float32), "any": hit.prim >= 0,
+                    "prim": hit.prim, "inside": hit.inside,
+                    "position": hit.position.to(torch.float32),
+                    "normal": hit.normal.to(torch.float32)})
+        prim = torch.where(rec["any"], rec["prim"], -1)
+        return HitRecord(prim=prim.to(torch.int32), t=rec["t"].to(dtype),
+                         position=rec["position"].to(dtype),
+                         normal=rec["normal"].to(dtype),
+                         inside=rec["inside"])
+
+    closest_kernel.bvhs = [tri_bvh, *sphere_bvhs]
+    closest_kernel.tail = tail
+    return closest_kernel

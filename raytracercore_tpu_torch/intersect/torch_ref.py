@@ -1,6 +1,6 @@
 """Batched torch intersection functions (counterpart of
 ``raytracercore_tpu.intersect.jnp_ref``, which this module mirrors function
-by function; ``aabb_slab`` comes with the BVH).
+by function).
 
 Every candidate function evaluates a dense ``[R rays × N primitives]`` grid
 with masks; the hit-detail functions evaluate ``[R]`` chosen winners.  They
@@ -229,3 +229,30 @@ def plane_hit_detail(pl: Planes, idx, ray_o, ray_d, t, inside):
     position = ray_o + ray_d * t[:, None]
     normal = torch.where(inside[:, None], -n, n)
     return position, normal
+
+
+def aabb_slab(box_min, box_max, ray_o, ray_d):
+    """AABB slab test over all (ray, box) pairs (AABB.Intersect,
+    AABB.cs:107-142 AVX / :154-197 scalar).
+
+    Zero direction components map to ±inf slab distances (the AVX blend at
+    AABB.cs:116-123).  Returns (near [R, B], far [R, B]); miss ⇔ empty
+    interval — callers test ``near <= far``.
+    """
+    near = far = None
+    for k in range(3):
+        o, d = ray_o[:, k, None], ray_d[:, k, None]
+        lo_b, hi_b = box_min[None, :, k], box_max[None, :, k]
+        zero_d = d == 0
+        inv = 1.0 / torch.where(zero_d, 1.0, d)
+        t0 = (lo_b - o) * inv
+        t1 = (hi_b - o) * inv
+        # When d == 0: inside the slab ⇒ (-inf, +inf); outside ⇒ empty.
+        inside_slab = (o >= lo_b) & (o <= hi_b)
+        lo = torch.where(zero_d, torch.where(inside_slab, -INF, INF),
+                         torch.minimum(t0, t1))
+        hi = torch.where(zero_d, torch.where(inside_slab, INF, -INF),
+                         torch.maximum(t0, t1))
+        near = lo if near is None else torch.maximum(near, lo)
+        far = hi if far is None else torch.minimum(far, hi)
+    return near, far

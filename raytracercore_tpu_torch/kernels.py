@@ -50,18 +50,24 @@ SIGNATURES = {
         + [_P]),                       # stream
     "rtc_replay_fwd": (
         [_P] * 11                      # 9 inputs, color, miss
-        + [_I] * 5                     # R N n_bounces n_blocks
-                                       # ambient_is_miss
+        + [_I] * 6                     # R N n_bounces n_blocks
+                                       # ambient_is_miss global_table
         + [_P]),                       # stream
     "rtc_replay_bwd": (
         [_P] * 11                      # 9 inputs, color cotangent, partial
-        + [_I] * 5                     # R N n_bounces n_blocks
-                                       # ambient_is_miss
+        + [_I] * 6                     # R N n_bounces n_blocks
+                                       # ambient_is_miss global_table
         + [_P]),                       # stream
     "rtc_select": (
         [_P] * 21                      # 2 rays, 4 skip (null: none),
                                        # 6 tables, 9 outputs
         + [_I] * 4                     # R T S P
+        + [_F, _F]                     # eps_behind, eps_pos²
+        + [_P]),                       # stream
+    "rtc_traverse": (
+        [_P] * 17                      # nodes, leaves, 2 rays, 4 skip (null:
+                                       # none), 8 outputs, stats (null: none)
+        + [_I] * 4                     # R n_nodes K leaf kind
         + [_F, _F]                     # eps_behind, eps_pos²
         + [_P]),                       # stream
 }

@@ -4,7 +4,8 @@
 Replaces the reference's ``FullRaytracer`` (Raytracing/FullRaytracer.cs):
 one full-frame render pass per sample, the whole image traced at once — by
 the megakernel in one launch for scenes it takes, else by the integrator's
-bounce loop with one closest-hit kernel launch per bounce.  Progressive
+bounce loop with one closest-hit kernel launch per bounce (the select
+kernel up to 768 table rows, the BVH traversal kernel above).  Progressive
 refinement = calling ``step``
 repeatedly; every pass adds +1 sample/pixel, like the reference's
 wraparound tile loop (Raytracer.cs:302-327).
@@ -25,8 +26,10 @@ import numpy as np
 import torch
 
 from ..config import BVH_AUTO_THRESHOLD, SELECT_MAX_PRIMS
+from ..bvh.builder import build_bvh
 from ..intersect.cuda_select import closest_hit_fused
-from ..intersect.dispatch import closest_hit, n_table_rows
+from ..intersect.dispatch import (closest_hit, make_bvh_closest_fn,
+                                  n_table_rows)
 from ..scene.types import HostScene, SceneArrays, freeze_scene, init_camera
 from . import camera as cam_mod
 from . import fused
@@ -123,12 +126,16 @@ class Renderer:
 
         ``accelerator``: "brute" (dense scan), "bvh", or "auto" — the BVH
         once the triangle table outgrows the dense tier
-        (``config.BVH_AUTO_THRESHOLD``).  The BVH is not ported yet, so
-        "bvh" and scenes above ``config.SELECT_MAX_PRIMS`` table rows
-        raise ``NotImplementedError``.  Within the dense tier, scenes that
-        :func:`.fused.fits` run the megakernel; the others (65 to
-        ``SELECT_MAX_PRIMS`` rows, or ``debug geom``) run
-        :func:`.integrator.trace` with the select kernel's
+        (``config.BVH_AUTO_THRESHOLD``) or the three tables together
+        outgrow the select kernel (``config.SELECT_MAX_PRIMS`` rows: there
+        is no dense tier above it, and "brute" raises
+        ``NotImplementedError`` there).  The BVH route builds the triangle
+        BVH (:func:`..bvh.builder.build_bvh`) and runs
+        :func:`.integrator.trace` with
+        :func:`..intersect.dispatch.make_bvh_closest_fn`'s closest hit.
+        Within the dense tier, scenes that :func:`.fused.fits` run the
+        megakernel; the others (65 to ``SELECT_MAX_PRIMS`` rows, or ``debug
+        geom``) run ``trace`` with the select kernel's
         :func:`..intersect.cuda_select.closest_hit_fused`.  A given
         ``closest_fn`` overrides the pick and runs through ``trace``."""
         if accelerator not in ("auto", "brute", "bvh"):
@@ -147,30 +154,36 @@ class Renderer:
             self.cameras = scene.cameras
         self.camera_index = camera_index
         self.trace_fn = None
+        self.bvh = None
         if closest_fn is not None:
             self.closest_fn = closest_fn
         else:
             rows = n_table_rows(self.arrays)
-            use_bvh = accelerator == "bvh" or (
-                accelerator == "auto"
-                and int((self.arrays.triangles.prim_id >= 0).sum())
-                > BVH_AUTO_THRESHOLD)
-            if use_bvh or rows > SELECT_MAX_PRIMS:
+            n_tris = int((self.arrays.triangles.prim_id >= 0).sum())
+            if accelerator == "bvh" or (accelerator == "auto" and (
+                    n_tris > BVH_AUTO_THRESHOLD or rows > SELECT_MAX_PRIMS)):
+                self.bvh = build_bvh(self.arrays)
+                self.closest_fn = make_bvh_closest_fn(
+                    self.bvh, self.arrays, traversal="kernel")
+            elif rows > SELECT_MAX_PRIMS:
                 raise NotImplementedError(
                     f"accelerator {accelerator!r} on a scene of {rows} table "
-                    "rows needs the BVH, which is not ported yet; the dense "
-                    f"tier takes up to SELECT_MAX_PRIMS ({SELECT_MAX_PRIMS}) "
-                    "rows (ROADMAP.md queue 1, item 3)")
-            self.closest_fn = closest_hit_fused
-            if fused.fits(self.arrays):
-                self.trace_fn = fused.trace_fused
+                    "rows: the dense tier takes up to SELECT_MAX_PRIMS "
+                    f"({SELECT_MAX_PRIMS}) rows; use \"auto\" or \"bvh\"")
+            else:
+                self.closest_fn = closest_hit_fused
+                if fused.fits(self.arrays):
+                    self.trace_fn = fused.trace_fused
         self.reset()
 
     @property
     def route(self) -> str:
-        """Which tracer a pass runs: "megakernel", or "trace" (the bounce
-        loop with one closest-hit query per bounce)."""
-        return "megakernel" if self.trace_fn is not None else "trace"
+        """Which tracer a pass runs: "megakernel", "bvh" (the bounce loop
+        with one traversal per BVH and bounce), or "trace" (the bounce loop
+        with one dense closest-hit query per bounce)."""
+        if self.trace_fn is not None:
+            return "megakernel"
+        return "bvh" if self.bvh is not None else "trace"
 
     # -- lifecycle ---------------------------------------------------------
 

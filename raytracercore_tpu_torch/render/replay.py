@@ -7,7 +7,8 @@ The train path is:
    inside/Fresnel-live bits and hit normal of every path — one megakernel
    pass with the tape on (:func:`record_tape_fused`) for scenes the
    megakernel takes, else the integrator's own loop with the tape on
-   (:func:`record_tape`), its closest hit from the select kernel.
+   (:func:`record_tape`), its closest hit from the select kernel or, for
+   scenes above the dense tier, from the BVH traversal kernel.
 2. **Replay** (differentiable): re-walk the recorded path with shading math
    only.  Given the tape, a path's colour is a closed-form function of the
    material table, so its gradient needs no intersection at all.
@@ -28,7 +29,7 @@ from ..intersect.dispatch import closest_hit, n_table_rows
 from ..scene.types import SceneArrays
 from . import fused
 from .integrator import PathTape, trace
-from .replay_kernel import (MAX_KERNEL_MATS, material_table, replay_fused,
+from .replay_kernel import (material_table, replay_fused,
                             replay_fwd_reference)
 from .uniforms_kernel import prepare_uniforms_kernel
 
@@ -96,14 +97,15 @@ def trace_replay(scene: SceneArrays, ray_o, ray_d, seed: int | None = None,
     then values and gradients equal ``trace``'s for the same uniforms.
     ``debug geom`` scenes have no bounce loop to replay and return
     ``trace``.  With the default ``closest_fn`` a scene above
-    ``config.SELECT_MAX_PRIMS`` table rows needs the BVH, which is not
-    ported yet: ``NotImplementedError``.
+    ``config.SELECT_MAX_PRIMS`` table rows raises ``NotImplementedError``:
+    give it the BVH tier's closest hit
+    (:func:`..intersect.dispatch.make_bvh_closest_fn`), which then records
+    the tape.
 
-    The replay: :func:`.replay_kernel.replay_fused` for material tables of
-    at most ``MAX_KERNEL_MATS`` rows (every scene of the dense tier).  A
-    larger table, which only a caller's own ``closest_fn`` can bring,
-    raises ``NotImplementedError`` on CUDA tensors; on CPU tensors the
-    wrappers run their plain versions, which take any table.
+    The replay: :func:`.replay_kernel.replay_fused`, whose kernels keep a
+    material table of up to ``MAX_KERNEL_MATS`` rows in shared memory and
+    read a larger one (a mesh has one material row per triangle) from
+    device memory.
 
     ``record_as_primal`` picks the route of the forward value on the
     megakernel-recorder route.  True (the default, and the only route of
@@ -117,19 +119,11 @@ def trace_replay(scene: SceneArrays, ray_o, ray_d, seed: int | None = None,
     rows = n_table_rows(scene)
     if closest_fn is closest_hit and rows > SELECT_MAX_PRIMS:
         raise NotImplementedError(
-            f"trace_replay on a scene of {rows} table rows needs the BVH, "
-            "which is not ported yet; the dense tier takes up to "
-            f"SELECT_MAX_PRIMS ({SELECT_MAX_PRIMS}) rows (ROADMAP.md queue "
-            "1, item 3)")
+            f"trace_replay on a scene of {rows} table rows: the dense tier "
+            f"takes up to SELECT_MAX_PRIMS ({SELECT_MAX_PRIMS}) rows; give "
+            "closest_fn=make_bvh_closest_fn(build_bvh(scene), scene)")
     if scene.debug_geom:
         return trace(scene, ray_o, ray_d, None, closest_fn=closest_fn)
-    n_mats = scene.materials.emission.shape[0]
-    if n_mats > MAX_KERNEL_MATS and ray_o.device.type != "cpu":
-        raise NotImplementedError(
-            f"trace_replay: the replay kernels take material tables of up "
-            f"to MAX_KERNEL_MATS ({MAX_KERNEL_MATS}) rows, this scene has "
-            f"{n_mats}; the train step of such scenes comes with the BVH "
-            "(ROADMAP.md queue 1, item 3)")
     R = ray_o.shape[0]
     if uniforms is None:
         if seed is None:

@@ -46,7 +46,10 @@ C = 14                   # material channels (integrator._material_matrix)
 # Material rows the kernels keep in shared memory: the whole dense tier
 # (config.SELECT_MAX_PRIMS table rows, one material row per primitive).  The
 # backward kernel holds the table and its gradient accumulator, 2 · 768 ·
-# 14 · 4 B = 86,016 B a block, so two blocks fit in an SM's 227 KB.
+# 14 · 4 B = 86,016 B a block, so two blocks fit in an SM's 227 KB.  A
+# larger table (the BVH tier: a mesh has one row per triangle) is read from
+# device memory, and the backward then adds into one [N, 14] accumulator of
+# doubles there (the kernels' global-table mode).
 MAX_KERNEL_MATS = 768
 # Up to this many rows a launch has one block per REPLAY_BLOCK paths; above,
 # copying the table in (and the accumulator out) would cost a block more
@@ -470,9 +473,8 @@ def _kernel_args(ray_d, uniforms, tape, matf, scf):
     B = tape.prim.shape[0]
     N = matf.shape[0]
     f32, i32 = torch.float32, torch.int32
-    if not 0 < N <= MAX_KERNEL_MATS:
-        raise ValueError(f"replay kernels take 1 to {MAX_KERNEL_MATS} "
-                         f"material rows (got {N})")
+    if N < 1:
+        raise ValueError("replay kernels take at least 1 material row")
     if B > MAX_KERNEL_BOUNCES:
         raise ValueError(f"replay kernels take at most {MAX_KERNEL_BOUNCES} "
                          f"bounces (got {B})")
@@ -490,9 +492,10 @@ def _kernel_args(ray_d, uniforms, tape, matf, scf):
 
 def launch_blocks(R: int, N: int, device) -> int:
     """Blocks of a replay launch over ``R`` paths and ``N`` material rows
-    (see ``SMALL_TABLE_MATS``)."""
+    (see ``SMALL_TABLE_MATS``; in the global-table mode no block copies the
+    table, so there is again one block per ``REPLAY_BLOCK`` paths)."""
     n_blocks = -(-R // REPLAY_BLOCK)
-    if N > SMALL_TABLE_MATS:
+    if SMALL_TABLE_MATS < N <= MAX_KERNEL_MATS:
         sms = torch.cuda.get_device_properties(device).multi_processor_count
         n_blocks = min(n_blocks, RESIDENT_BLOCKS_PER_SM * sms)
     return n_blocks
@@ -518,6 +521,7 @@ def replay_fwd(ray_d, uniforms, tape: PathTape, matf, scf,
     err = kernels.load().rtc_replay_fwd(
         *ptrs, color.data_ptr(), miss.data_ptr(), R, N, B,
         launch_blocks(R, N, ray_d.device), int(ambient_is_miss),
+        int(N > MAX_KERNEL_MATS),
         torch.cuda.current_stream(ray_d.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"replay forward kernel launch failed: CUDA "
@@ -534,8 +538,9 @@ def replay_bwd(ray_d, uniforms, tape: PathTape, matf, scf,
     On CUDA tensors this launches ``csrc/replay.cu``'s backward kernel
     (counted in ``replay_bwd.launches``), which sums each block's paths
     into a ``[N, 14]`` slice of a ``[blocks, N, 14]`` buffer that torch then
-    sums; it raises if it cannot launch.  On CPU tensors it runs
-    :func:`replay_bwd_reference`."""
+    sums — or, above ``MAX_KERNEL_MATS`` rows, adds every path into one
+    ``[N, 14]`` accumulator of doubles; it raises if it cannot launch.  On
+    CPU tensors it runs :func:`replay_bwd_reference`."""
     if ray_d.device.type == "cpu":
         return replay_bwd_reference(ray_d, uniforms, tape, matf, scf,
                                     ambient_is_miss, color_ct)
@@ -546,16 +551,23 @@ def replay_bwd(ray_d, uniforms, tape: PathTape, matf, scf,
     ptrs, R, N, B = _kernel_args(ray_d, uniforms, tape, matf, scf)
     _check("color_ct", color_ct, (R, 3), torch.float32, ray_d.device)
     n_blocks = launch_blocks(R, N, ray_d.device)
-    partial = torch.empty((n_blocks, N, C), dtype=torch.float32,
-                          device=ray_d.device)
+    global_table = N > MAX_KERNEL_MATS
+    if global_table:
+        partial = torch.zeros((N, C), dtype=torch.float64,
+                              device=ray_d.device)
+    else:
+        partial = torch.empty((n_blocks, N, C), dtype=torch.float32,
+                              device=ray_d.device)
     err = kernels.load().rtc_replay_bwd(
         *ptrs, color_ct.data_ptr(), partial.data_ptr(), R, N, B, n_blocks,
-        int(ambient_is_miss),
+        int(ambient_is_miss), int(global_table),
         torch.cuda.current_stream(ray_d.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"replay backward kernel launch failed: CUDA "
                            f"error {err}")
     replay_bwd.launches += 1
+    if global_table:
+        return partial.to(torch.float32)
     return partial.sum(dim=0, dtype=torch.float64).to(torch.float32)
 
 

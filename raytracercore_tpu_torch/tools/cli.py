@@ -12,8 +12,8 @@ Usage:
       --target target.png --steps 100 -o materials.npz
 All run on ``--device cuda`` (the default) or ``--device cpu``.  Scenes of
 at most 64 table rows go through the megakernel, scenes of up to 768 rows
-bounce by bounce through the select kernel (``--accelerator auto|brute``;
-``bvh`` is not ported yet).
+bounce by bounce through the select kernel, larger ones through the BVH
+traversal kernel (``--accelerator auto|brute|bvh``).
 """
 
 from __future__ import annotations
@@ -85,7 +85,11 @@ def cmd_optimize(args):
     import numpy as np
     import torch
 
+    from ..bvh.builder import build_bvh
+    from ..config import SELECT_MAX_PRIMS
     from ..diff import get_material_params
+    from ..intersect.dispatch import (closest_hit, make_bvh_closest_fn,
+                                      n_table_rows)
     from ..parallel import make_train_step
     from ..render.renderer import _resolve_device, pass_seed
     from ..scene.types import freeze_scene, init_camera
@@ -101,7 +105,11 @@ def cmd_optimize(args):
 
     params = get_material_params(arrays)
     optimizer = torch.optim.Adam(params.values(), lr=args.lr)
-    step = make_train_step(None, optimizer)
+    closest_fn = closest_hit
+    if n_table_rows(arrays) > SELECT_MAX_PRIMS:  # above the dense tier
+        closest_fn = make_bvh_closest_fn(build_bvh(arrays), arrays,
+                                         traversal="kernel")
+    step = make_train_step(None, optimizer, closest_fn=closest_fn)
     for i in range(args.steps):
         loss = step(params, arrays, camera, target, pass_seed(args.seed, i))
         if i % 10 == 0:
@@ -128,7 +136,8 @@ def main(argv=None):
     def accelerator(sp):
         sp.add_argument("--accelerator", default="auto",
                         choices=("auto", "brute", "bvh"),
-                        help="closest-hit tier (bvh is not ported yet)")
+                        help="closest-hit tier: brute (dense, up to 768 "
+                        "table rows), bvh, or auto (bvh above 768)")
 
     sp = sub.add_parser("render")
     common(sp)

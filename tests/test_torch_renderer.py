@@ -159,9 +159,9 @@ def test_renderer_cuda_device_needs_a_card():
 
 
 def test_renderer_rejects_scenes_the_megakernel_cannot_trace():
-    """Scenes the megakernel cannot trace now take the per-bounce route;
-    what is still rejected is what needs the BVH: ``accelerator="bvh"`` and
-    scenes above the dense tier's cap."""
+    """Scenes the megakernel cannot trace take the per-bounce route, and
+    ``accelerator="bvh"`` or a scene above the dense tier's cap the BVH
+    route; what is still rejected is ``"brute"`` above that cap."""
     from raytracercore_tpu_torch.config import SELECT_MAX_PRIMS
 
     _, thost = _small("fused", 8, 2)
@@ -171,16 +171,17 @@ def test_renderer_rejects_scenes_the_megakernel_cannot_trace():
     spheres = "size 4 4\ncamera 0 0 5  0 0 0  0 1 0  40\n" + "".join(
         f"sphere {i} 0 0 .1\n" for i in range(65))
     assert Renderer(tloader.parse(spheres), device="cpu").route == "trace"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        Renderer(thost, device="cpu", accelerator="bvh")
+    assert Renderer(thost, device="cpu", accelerator="bvh").route == "bvh"
     with pytest.raises(ValueError, match="accelerator"):
         Renderer(thost, device="cpu", accelerator="kd-tree")
     big = "size 4 4\ncamera 0 0 5  0 0 0  0 1 0  40\n" + "".join(
         f"sphere {i} 0 0 .1\n" for i in range(SELECT_MAX_PRIMS))
-    for accelerator in ("auto", "brute"):
-        with pytest.raises(NotImplementedError, match="SELECT_MAX_PRIMS"):
-            Renderer(tloader.parse(big), device="cpu",
-                     accelerator=accelerator)
+    field = Renderer(tloader.parse(big), device="cpu", accelerator="auto")
+    assert field.route == "bvh"
+    field.step(1)
+    assert float(field.film.samples.sum() + field.film.misses.sum()) == 16
+    with pytest.raises(NotImplementedError, match="SELECT_MAX_PRIMS"):
+        Renderer(tloader.parse(big), device="cpu", accelerator="brute")
 
 
 def test_cli_render_and_bench(tmp_path):

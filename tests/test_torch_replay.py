@@ -382,7 +382,7 @@ def test_trace_replay_rejects_scenes_the_recorder_cannot_trace():
     huge = meshgen.make_mesh_scene(grid=4, subdiv=1, recursion=2)[0]
     assert huge.materials.emission.shape[0] > max(SELECT_MAX_PRIMS,
                                                   rk.MAX_KERNEL_MATS)
-    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
+    with pytest.raises(NotImplementedError, match="make_bvh_closest_fn"):
         trace_replay(huge, o, d, seed=0)
     color, _ = trace_replay(huge, o, d, seed=0,
                             closest_fn=lambda *a: closest_hit(*a))
@@ -398,7 +398,7 @@ def test_kernel_wrappers_reject_bad_inputs():
         (d.double(), u, tape, matf, scf),                       # dtype
         (d[:-1], u, tape, matf, scf),                           # shape
         (d, u[:-1], tape, matf, scf),                           # bounces
-        (d, u, tape, matf.repeat(rk.MAX_KERNEL_MATS // 4 + 1, 1), scf),  # rows
+        (d, u, tape, matf[:0], scf),                            # no rows
         (d.t().contiguous().t(), u, tape, matf, scf),           # layout
     ]
     for args in bad:
@@ -409,6 +409,9 @@ def test_kernel_wrappers_reject_bad_inputs():
                             tape.nz)))
     with pytest.raises(ValueError, match="bounces"):
         rk._kernel_args(d, u.repeat(9, 1, 1), long_tape, matf, scf)
+    # A table above the shared-memory cap is taken (the global-table mode).
+    big = matf.repeat(rk.MAX_KERNEL_MATS // 4 + 1, 1)
+    assert rk._kernel_args(d, u, tape, big, scf)[2] == big.shape[0]
 
 
 def test_replay_on_cpu_runs_the_plain_versions():

@@ -278,5 +278,5 @@ def test_dense_closest_hit_on_card_launches_or_raises(cuda_device):  # noqa: F81
     with pytest.raises(ValueError, match="dtype"):
         tdispatch.closest_hit(scene, o.double(), d.double(), None)
     big = tmeshgen.make_mesh_scene(grid=4, subdiv=1, device=cuda_device)[0]
-    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
+    with pytest.raises(NotImplementedError, match="make_bvh_closest_fn"):
         tdispatch.closest_hit(big, o, d, None)

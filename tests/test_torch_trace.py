@@ -461,8 +461,15 @@ def test_renderer_on_a_mesh_scene_takes_the_per_bounce_route(tmp_path):
                                b.film.color_sum.numpy(), rtol=5e-2,
                                atol=5e-2)
 
-    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
-        renderer(accelerator="bvh")
+    # The BVH route takes the same scene: same misses, same film but for
+    # knife edges.
+    v = renderer(seed=3, accelerator="bvh")
+    assert v.route == "bvh" and v.bvh is not None
+    v.step(4)
+    assert torch.equal(v.film.misses, b.film.misses)
+    np.testing.assert_allclose(v.film.color_sum.numpy(),
+                               b.film.color_sum.numpy(), rtol=5e-2,
+                               atol=5e-2)
     assert renderer(accelerator="brute").route == "trace"
 
 
@@ -496,10 +503,17 @@ def test_cli_on_a_mid_size_scene(tmp_path):
                          check=True, cwd=REPO_ROOT, capture_output=True,
                          text=True, timeout=300)
     assert '"route": "trace"' in res.stdout
-    res = subprocess.run(base + ["render", *common, "--accelerator", "bvh"],
-                         cwd=REPO_ROOT, capture_output=True, text=True,
-                         timeout=300)
-    assert res.returncode != 0 and "NotImplementedError" in res.stderr
+    res = subprocess.run(base + ["bench", *common, "--spp", "1",
+                                 "--accelerator", "bvh"],
+                         check=True, cwd=REPO_ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert '"route": "bvh"' in res.stdout
+    out_bvh = tmp_path / "mesh_bvh.png"
+    subprocess.run(base + ["render", *common, "--spp", "2", "--accelerator",
+                           "bvh", "-o", str(out_bvh)],
+                   check=True, cwd=REPO_ROOT, capture_output=True,
+                   timeout=300)
+    assert read_png(str(out_bvh)).shape == (8, 8, 4)
 
     target = tmp_path / "target.png"
     target.write_bytes(out.read_bytes())
