@@ -28,7 +28,13 @@ and drives the main paths, the first three at 700×700, recursion 10:
    → replay forward and backward kernels reading the 46,082-row material
    table from device memory);
 
-and prints what it measured.
+and prints what it measured: for the two closest-hit kernels every
+bounce's launch beside its own bound, each kernel the wrapper launches
+(the select kernel's list, main and finish kernels) by the profiler, and
+the per-pass sums; both kernels are also held against their
+plain versions with parked lanes mixed in, all lanes parked, none parked
+and a ragged ray count, and one call of each runs under
+``torch.cuda.set_sync_debug_mode("error")``.
 The last two lines of standard output are a JSON object describing the
 kernels and a JSON object ``{"ok": true, "device": ...}``.  Any failed
 check exits non-zero before those lines.  Without a CUDA device it exits
@@ -241,6 +247,9 @@ BVH_BIG_MESH, BVH_BIG_SIZE = (14, 4), 1024   # 196 x 5120 + 2 = 1,003,522
 BVH_FIELD_GRID = 17                   # 289 spheres: a BVH of their own
 BVH_LEAF_SIZES = (1, 2, 3, 4, 8, 16)  # timed in turn on main path 4
 ORACLE_SAMPLE = 16384
+# The port's kernels one wrapper call launches: the select kernel's list,
+# main and finish kernels; the traversal's walk.
+SELECT_KERNELS, TRAVERSE_KERNELS = 3, 1
 # Peak rates of one H100 SXM (NVIDIA's data sheet): fp32 outside the tensor
 # cores, and device memory.
 PEAK_FP32 = 67e12
@@ -299,6 +308,112 @@ def bound(ops, n_bytes):
 
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def kernel_us(fn, n, expect):
+    """Device time of every kernel that ``n`` calls ``fn()`` launch, by
+    torch.profiler: ``{kernel name: us per call}`` (the name without its
+    argument list).  ``expect`` is the number of the port's kernels one
+    call launches; a trace that holds fewer (the profiler may drop events)
+    is taken again, up to three times, and then reported empty."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        by_name, ours = {}, 0
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA and not getattr(
+                    e, "is_user_annotation", False):
+                name = e.name.split("(")[0].replace("void ", "")
+                by_name[name] = by_name.get(name, 0.0) + \
+                    e.time_range.elapsed_us() / n
+                ours += name.startswith("rtc::")
+        if ours == expect * n:
+            return by_name
+    return {}
+
+
+def graph_ms(fn, n):
+    """Device time of one call ``fn()``: the call captured once in a CUDA
+    graph, the graph replayed ``n`` times between CUDA events, so that no
+    host work sits between the launches.  None where the capture fails."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            fn()
+    except RuntimeError as err:
+        print(f"[time] CUDA graph capture failed "
+              f"({str(err).splitlines()[0][:120]}): not measured")
+        return None
+    graph.replay()
+    ms = cuda_ms(graph.replay, n)
+    del graph
+    return ms
+
+
+def fmt_ms(ms):
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
+def parts_text(parts):
+    return " ".join(f"{name}={us:.1f}" for name, us in sorted(parts.items()))
+
+
+def check_no_sync(what, fn):
+    """One call of ``fn`` under ``torch.cuda.set_sync_debug_mode("error")``:
+    any host synchronisation PyTorch sees in it raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print(f"[sync] {what}: one call under torch.cuda.set_sync_debug_mode("
+          f"'error') ran without a host synchronisation")
+
+
+def parked(o):
+    """Lanes whose origin is the integrator's parking point in all three
+    coordinates (finished paths)."""
+    from raytracercore_tpu_torch.config import PARKED_ORIGIN
+
+    return (o == PARKED_ORIGIN).all(1)
+
+
+def lane_variants(query, seed):
+    """Queries made from ``query`` for the kernel-vs-plain gates: parked
+    lanes mixed in at random, every lane parked, no lane parked, and a
+    ragged R (not a multiple of a warp or a block): ``[(name, query)]``."""
+    from raytracercore_tpu_torch.config import PARKED_ORIGIN
+
+    o, d, skip = query
+    R = o.shape[0]
+    gen = torch.Generator(device=o.device)
+    gen.manual_seed(seed)
+    mix = torch.rand(R, generator=gen, device=o.device) < 0.5
+    p_o = torch.full_like(o, PARKED_ORIGIN)
+    p_d = torch.zeros_like(d)
+    p_d[:, 0] = 1.0
+
+    def park(mask):
+        return (torch.where(mask[:, None], p_o, o).contiguous(),
+                torch.where(mask[:, None], p_d, d).contiguous(), skip)
+    live = torch.nonzero(~parked(o))[:, 0]
+    n_rag = R - 37 if R > 64 else R - 1
+    return [("parked at random", park(mix)),
+            ("all parked", park(torch.ones_like(mix))),
+            (f"none parked (R={live.numel()})", take_rays(query, live)),
+            (f"ragged R={n_rag}", take_rays(query, torch.arange(
+                n_rag, device=o.device)))]
 
 
 def row_ops(scene, coplanar=True):
@@ -462,12 +577,39 @@ def select_outputs(select_all, closest_hit, scene, o, d, skip):
             "normal": rec.normal}
 
 
+def select_case(label, scene, o, d, skip):
+    """The select kernel against its plain version on one query: all 13
+    outputs bit for bit, through the wrappers ``select_all`` and
+    ``closest_hit_fused``.  Returns the max abs error of the floats."""
+    from raytracercore_tpu_torch.intersect import cuda_select as cs
+
+    got = select_outputs(cs.select_all, cs.closest_hit_fused, scene, o, d,
+                         skip)
+    ref = select_outputs(cs.select_all_reference,
+                         cs.closest_hit_fused_reference, scene, o, d, skip)
+    torch.cuda.synchronize()
+    differing = {f: int((got[f] != ref[f]).sum()) for f in ref
+                 if not torch.equal(got[f], ref[f])}
+    max_err = 0.0
+    for f in ("t", "position", "normal"):
+        if got[f].numel():
+            max_err = max(max_err, float((got[f] - ref[f]).abs().max()))
+        check(bool(torch.isfinite(got[f]).all()),
+              f"{label}: kernel outputs finite")
+    print(f"[select] {label}: R={o.shape[0]} kernel==plain on all 13 "
+          f"outputs={not differing} {differing or ''}")
+    check(not differing, f"{label}: select kernel bit-equal to its plain "
+          f"version ({differing})")
+    return max_err
+
+
 def compare_select(label, scene, queries, bounces=(0, 1, 2, 3)):
     """Select kernel against its plain version (all 13 outputs, bit for
     bit, through the wrappers ``select_all`` and ``closest_hit_fused``) and
     against the grid oracle, on the closest-hit queries of a trace: bounce
     0 without a skip record (camera rays) and with the empty one the trace
-    passes, later bounces with their previous hit.  Returns the max abs
+    passes, later bounces with their previous hit; then on the lane
+    variants (:func:`lane_variants`) of bounce 1.  Returns the max abs
     error over the float outputs."""
     from raytracercore_tpu_torch.intersect import cuda_select as cs
 
@@ -476,31 +618,75 @@ def compare_select(label, scene, queries, bounces=(0, 1, 2, 3)):
                            if b < len(queries)]
     for b, skip in cases:
         o, d, _ = queries[b]
-        got = select_outputs(cs.select_all, cs.closest_hit_fused, scene, o,
-                             d, skip)
-        ref = select_outputs(cs.select_all_reference,
-                             cs.closest_hit_fused_reference, scene, o, d,
-                             skip)
-        torch.cuda.synchronize()
-        differing = {f: int((got[f] != ref[f]).sum()) for f in ref
-                     if not torch.equal(got[f], ref[f])}
-        for f in ("t", "position", "normal"):
-            max_err = max(max_err, float((got[f] - ref[f]).abs().max()))
-            check(bool(torch.isfinite(got[f]).all()),
-                  f"{label} bounce {b}: kernel outputs finite")
-        print(f"[select] {label} bounce {b} skip={skip is not None}: "
-              f"kernel==plain on all 13 outputs={not differing} "
-              f"{differing or ''}")
-        check(not differing,
-              f"{label} bounce {b}: select kernel bit-equal to its plain "
-              f"version ({differing})")
+        max_err = max(max_err, select_case(
+            f"{label} bounce {b} skip={skip is not None}", scene, o, d,
+            skip))
         against_oracle("select", f"{label} bounce {b} vs grid oracle",
                        cs.closest_hit_fused(scene, o, d, skip),
                        grid_closest_hit(scene, o, d, skip), d)
     b = min(1, len(queries) - 1)
+    for name, query in lane_variants(queries[b], 51 + b):
+        max_err = max(max_err, select_case(f"{label} bounce {b} {name}",
+                                           scene, *query))
     k_ms = cuda_ms(lambda: cs.closest_hit_fused(scene, *queries[b]), 10)
     print(f"[select] {label}: kernel ms per launch (bounce {b})={k_ms:.3f}")
     return max_err
+
+
+def select_times(label, scene, queries, card):
+    """Every bounce's select launch at the main path's shapes: the wrapper
+    by CUDA events over 10 calls, its device time by CUDA-graph replay
+    (:func:`graph_ms`), each kernel it launches by the profiler, and the
+    launch's own bound (the rows scanned for the lanes the kernel scans,
+    the winners' extra work, the bytes this query needs).  Returns
+    ``[{"ms", "device_ms", "bound"}]`` per bounce."""
+    from raytracercore_tpu_torch.intersect import cuda_select as cs
+
+    tables = nbytes(*scene.fused_tables[:6])
+    rows = []
+    for b, (o, d, skip) in enumerate(queries):
+        def call(o=o, d=d, skip=skip):
+            return cs.closest_hit_fused(scene, o, d, skip)
+        ms = cuda_ms(call, 10)
+        dev_ms = graph_ms(call, 20)
+        parts = kernel_us(call, 5, SELECT_KERNELS)
+        out = select_outputs(cs.select_all, cs.closest_hit_fused, scene, o,
+                             d, skip)
+        R = o.shape[0]
+        n_live = int((~parked(o)).sum())
+        winners = int(out["tri_any"].sum() + out["sph_any"].sum()
+                      + out["pl_any"].sum())
+        # Origins of every lane (the parking test), the rest of a live
+        # lane's query, the tables, and the 13 output planes of every lane
+        # (3 int32 rows, 2 bools, t, prim, position, normal: 46 bytes).
+        n_bytes = R * 12 + n_live * 12 + tables + R * 46
+        if skip is not None:
+            n_bytes += n_live * 29
+        bnd = bound(n_live * row_ops(scene) + winners * OPS_HIT, n_bytes)
+        rows.append({"ms": ms, "device_ms": dev_ms, "bound": bnd})
+        print(f"[time] select {label} bounce {b}: wrapper ms={ms:.4f} "
+              f"device ms (CUDA graph)={fmt_ms(dev_ms)} lanes scanned="
+              f"{n_live} of {R} winners={winners} bound ms={bnd[0]:.4f} "
+              f"(by {bnd[1]}) on {card}")
+        print(f"[time] select {label} bounce {b} kernels, us per launch "
+              f"(profiler): {parts_text(parts) or 'not measured'}")
+    print(f"[time] select {label} per pass ({len(rows)} launches): wrapper "
+          f"ms sum={sum(r['ms'] for r in rows):.4f} device ms sum="
+          f"{fmt_ms(sum_or_none(r['device_ms'] for r in rows))} bound ms "
+          f"sum={sum(r['bound'][0] for r in rows):.4f} on {card}")
+    return rows
+
+
+def stage_ms(row):
+    """A launch's time for the kernels line: the whole wrapper's device time
+    (CUDA-graph replay), or its CUDA-event time where the graph was not
+    measured."""
+    return row["device_ms"] if row["device_ms"] is not None else row["ms"]
+
+
+def sum_or_none(values):
+    values = list(values)
+    return None if any(v is None for v in values) else sum(values)
 
 
 def rays_and_uniforms(scene_text, size, recursion, seed, dev):
@@ -1017,7 +1203,6 @@ def mesh_path(card, dev):
     kernels' max abs errors there), the select kernel's stage numbers)."""
     from raytracercore_tpu_torch.intersect import cuda_select as cs
     from raytracercore_tpu_torch.intersect.dispatch import n_table_rows
-    from raytracercore_tpu_torch.render.integrator import trace
     from raytracercore_tpu_torch.render.renderer import Renderer
 
     scene, host_cam = lit_mesh_scene(MESH_GRID, MESH_SUBDIV, 700, 10, dev)
@@ -1073,21 +1258,29 @@ def mesh_path(card, dev):
           f"span on {card}")
     print(f"[profile] top kernels, device us per pass: {top}")
 
-    # The select kernel at the main path's shapes: its queries, compared,
-    # then timed with CUDA events on bounce 0 and on a late bounce.
+    stage = select_stage(card, dev, scene, host_cam)
+    return launches, mesh_train_path(card, dev, r), stage
+
+
+def select_stage(card, dev, scene, host_cam):
+    """The select kernel at main path 3's shapes (mesh-722 700x700 rec10):
+    its queries, compared, every bounce's launch timed beside its bound,
+    the plain version and the eager shading timed.  Returns the kernel's
+    stage numbers (bounce 0's time and bound)."""
+    from raytracercore_tpu_torch.intersect import cuda_select as cs
+    from raytracercore_tpu_torch.render.integrator import trace
+
+    n_bounces = scene.recursion + 1
     ray_o, ray_d, uniforms = camera_rays_and_uniforms(
         scene, host_cam, 700, 11, dev)
     queries = closest_hit_queries(scene, ray_o, ray_d, uniforms)
     check(len(queries) == n_bounces, "one closest-hit query per bounce")
     err = compare_select("mesh-722 700x700", scene, queries, (1, 3))
-    late = n_bounces - 3
-    k_ms = {b: cuda_ms(lambda b=b: cs.closest_hit_fused(scene, *queries[b]),
-                       10)
-            for b in (0, 1, late)}
+    check_no_sync("select kernel wrapper closest_hit_fused, mesh-722 bounce 1",
+                  lambda: cs.closest_hit_fused(scene, *queries[1]))
+    times = select_times("mesh-722 700x700", scene, queries, card)
     plain_ms = cuda_ms(
         lambda: cs.closest_hit_fused_reference(scene, *queries[1]), 1)
-    k_ms_again = cuda_ms(lambda: cs.closest_hit_fused(scene, *queries[0]),
-                         10)
     # Shading alone: the bounce loop fed the hits it was given before.
     with torch.no_grad():
         hits = [cs.closest_hit_fused(scene, *q) for q in queries]
@@ -1098,33 +1291,16 @@ def mesh_path(card, dev):
             trace(scene, ray_o, ray_d, None,
                   closest_fn=lambda *_: next(it), uniforms=uniforms)
     shade_ms = cuda_ms(shading_only, 5) / n_bounces
-    out = select_outputs(cs.select_all, cs.closest_hit_fused, scene,
-                         *queries[0])
-    winners = int(out["tri_any"].sum() + out["sph_any"].sum()
-                  + out["pl_any"].sum())
-    R = ray_o.shape[0]
-    skip = queries[0][2]
-    # The kernel writes its 13 planes: 3 int32 rows, 2 bools, t, prim,
-    # position and normal.
-    b_ms, b_by = bound(
-        R * row_ops(scene) + winners * OPS_HIT,
-        nbytes(ray_o, ray_d, skip.prim, skip.position, skip.normal,
-               skip.inside, *scene.fused_tables[:6], hits[0].t,
-               hits[0].prim, hits[0].position, hits[0].normal)
-        + R * (3 * 4 + 2))
-    alive = [float((q[0][:, 0] < 1e8).float().mean()) for q in queries]
-    print(f"[time] select kernel mesh-722 700x700: ms per launch bounce 0="
-          f"{k_ms[0]:.3f} (again {k_ms_again:.3f}) bounce 1={k_ms[1]:.3f} "
-          f"bounce {late}={k_ms[late]:.3f} plain ms (one launch)="
-          f"{plain_ms:.3f} bound ms={b_ms:.4f} (by {b_by}) eager shading ms "
-          f"per bounce={shade_ms:.3f} on {card}")
+    print(f"[time] select kernel mesh-722 700x700: plain ms (one launch, "
+          f"bounce 1)={plain_ms:.3f} eager shading ms per bounce="
+          f"{shade_ms:.3f} on {card}")
     print("[mesh] share of lanes not parked, per bounce: "
-          + " ".join(f"{a:.4f}" for a in alive))
-    stage = {"ms": k_ms[0], "plain_ms": plain_ms, "bound_ms": b_ms,
-             "bound_by": b_by, "max_abs_err": err}
-
+          + " ".join(f"{float((~parked(q[0])).float().mean()):.4f}"
+                     for q in queries))
     del queries, hits
-    return launches, mesh_train_path(card, dev, r), stage
+    return {"ms": stage_ms(times[0]), "plain_ms": plain_ms,
+            "bound_ms": times[0]["bound"][0],
+            "bound_by": times[0]["bound"][1], "max_abs_err": err}
 
 
 def take_rays(query, idx):
@@ -1162,19 +1338,52 @@ def in_sphere_bvh_metric(scene, want, d):
         on_plain, want.t * torch.linalg.vector_norm(d, dim=1), want.t))
 
 
+def traverse_case(label, bvh, o, d, skip):
+    """The traversal kernel against its plain version on one query through
+    ``bvh.select``: all 12 outputs and both counters bit for bit.  Returns
+    (max abs error of the floats where a hit was found, the counters)."""
+    from raytracercore_tpu_torch.core import vecmath as vm
+
+    eps = (vm.near_enough(torch.float32), vm.POSITION_EPS_F32)
+    got = select_flat(bvh.select(o, d, skip, *eps, want_detail=True,
+                                 want_stats=True))
+    ref = select_flat(bvh.select(o, d, skip, *eps, want_detail=True,
+                                 want_stats=True, reference=True))
+    torch.cuda.synchronize()
+    differing = {f: int((got[f] != ref[f]).sum()) for f in ref
+                 if not torch.equal(got[f], ref[f])}
+    hit = ref["any"]
+    max_err = 0.0
+    for f in ("t", "pos", "nrm", "u", "v"):
+        check(bool(torch.isfinite(got[f][hit]).all()),
+              f"{label}: kernel outputs finite")
+        if bool(hit.any()):
+            max_err = max(max_err, float(
+                (got[f][hit] - ref[f][hit]).abs().max()))
+    visited, tested = (got["stats"].float().mean(0).tolist()
+                       if o.shape[0] else (0.0, 0.0))
+    print(f"[traverse] {label} {bvh.leaf_kind} leaves ({bvh.n_nodes} "
+          f"nodes, leaf size {bvh.K}): R={o.shape[0]} "
+          f"found={float(hit.float().mean()):.4f} nodes visited per "
+          f"ray={visited:.2f} records tested per ray={tested:.2f} "
+          f"kernel==plain on all 12 outputs and both counters="
+          f"{not differing} {differing or ''}")
+    check(not differing, f"{label} {bvh.leaf_kind}: traversal kernel "
+          f"bit-equal to its plain version ({differing})")
+    return max_err, got["stats"]
+
+
 def compare_traverse(label, scene, closest, queries, bounces=(0, 1, 2, 3),
                      oracle_bounces=(0, 1)):
     """Traversal kernel against its plain version (all 12 outputs and the
     two counters, bit for bit, through ``select`` of every BVH that
     ``closest``, a ``make_bvh_closest_fn`` closure, walks) on the
     closest-hit queries of a trace: bounce 0 without a skip record and with
-    the empty one the trace passes, later bounces with their previous hit;
-    and the closure's merged record against the grid oracle on a sample of
+    the empty one the trace passes, later bounces with their previous hit,
+    then the lane variants (:func:`lane_variants`) of bounce 1; and the
+    closure's merged record against the grid oracle on a sample of
     ``ORACLE_SAMPLE`` rays.  Returns the max abs error over the float
     outputs."""
-    from raytracercore_tpu_torch.core import vecmath as vm
-
-    eps = (vm.near_enough(torch.float32), vm.POSITION_EPS_F32)
     R = queries[0][0].shape[0]
     max_err = 0.0
     cases = [(0, None)] + [(b, queries[b][2]) for b in bounces
@@ -1182,31 +1391,10 @@ def compare_traverse(label, scene, closest, queries, bounces=(0, 1, 2, 3),
     for b, skip in cases:
         o, d, _ = queries[b]
         for bvh in closest.bvhs:
-            got = select_flat(bvh.select(o, d, skip, *eps, want_detail=True,
-                                         want_stats=True))
-            ref = select_flat(bvh.select(o, d, skip, *eps, want_detail=True,
-                                         want_stats=True, reference=True))
-            torch.cuda.synchronize()
-            differing = {f: int((got[f] != ref[f]).sum()) for f in ref
-                         if not torch.equal(got[f], ref[f])}
-            hit = ref["any"]
-            for f in ("t", "pos", "nrm", "u", "v"):
-                check(bool(torch.isfinite(got[f][hit]).all()),
-                      f"{label} bounce {b}: kernel outputs finite")
-                if bool(hit.any()):
-                    max_err = max(max_err, float(
-                        (got[f][hit] - ref[f][hit]).abs().max()))
-            visited, tested = got["stats"].float().mean(0).tolist()
-            print(f"[traverse] {label} {bvh.leaf_kind} leaves ({bvh.n_nodes} "
-                  f"nodes, leaf size {bvh.K}) bounce {b} "
-                  f"skip={skip is not None}: R={R} "
-                  f"found={float(hit.float().mean()):.4f} nodes visited per "
-                  f"ray={visited:.2f} records tested per ray={tested:.2f} "
-                  f"kernel==plain on all 12 outputs and both counters="
-                  f"{not differing} {differing or ''}")
-            check(not differing,
-                  f"{label} {bvh.leaf_kind} bounce {b}: traversal kernel "
-                  f"bit-equal to its plain version ({differing})")
+            err, _ = traverse_case(
+                f"{label} bounce {b} skip={skip is not None}", bvh, o, d,
+                skip)
+            max_err = max(max_err, err)
         if b in oracle_bounces:
             gen = torch.Generator(device=o.device)
             gen.manual_seed(b)
@@ -1219,7 +1407,56 @@ def compare_traverse(label, scene, closest, queries, bounces=(0, 1, 2, 3),
                            f"skip={skip is not None} vs grid oracle",
                            closest(scene, *sample), want, sample[1],
                            max_curvature(scene))
+    b = min(1, len(queries) - 1)
+    for name, query in lane_variants(queries[b], 61 + b):
+        for bvh in closest.bvhs:
+            err, stats = traverse_case(f"{label} bounce {b} {name}", bvh,
+                                       *query)
+            max_err = max(max_err, err)
+            dead = parked(query[0])
+            if bool(dead.any()):
+                check(int(stats[dead, 0].max()) == 1
+                      and int(stats[dead, 1].max()) == 0,
+                      f"{label} {name}: a parked lane visits the root, "
+                      f"nothing else")
     return max_err
+
+
+def traverse_times(label, bvh, queries, card):
+    """Every bounce's traversal launch through ``bvh.select``: the wrapper
+    by CUDA events over 10 calls, its device time by CUDA-graph replay
+    (:func:`graph_ms`), each kernel it launches by the profiler, and the
+    launch's bound from the kernel's own counters.  Returns ``[{"ms",
+    "device_ms", "bound", "stats"}]`` per bounce."""
+    from raytracercore_tpu_torch.core import vecmath as vm
+
+    eps = (vm.near_enough(torch.float32), vm.POSITION_EPS_F32)
+    rows = []
+    for b, query in enumerate(queries):
+        def call(query=query):
+            return bvh.select(*query, *eps, want_detail=True)
+        ms = cuda_ms(call, 10)
+        dev_ms = graph_ms(call, 20)
+        parts = kernel_us(call, 5, TRAVERSE_KERNELS)
+        stats = bvh.select(*query, *eps, want_stats=True)[3]
+        bnd = traverse_bound(bvh, stats, query)
+        R = query[0].shape[0]
+        n_alive = max(float((~parked(query[0])).sum()), 1.0)
+        visited, tested = stats.float().mean(0).tolist()
+        rows.append({"ms": ms, "device_ms": dev_ms, "bound": bnd,
+                     "stats": stats})
+        print(f"[time] traversal {label} bounce {b}: wrapper ms={ms:.4f} "
+              f"device ms (CUDA graph)={fmt_ms(dev_ms)} bound ms="
+              f"{bnd[0]:.4f} (by {bnd[1]}) lanes not parked="
+              f"{n_alive / R:.4f} nodes visited per ray={visited:.2f} "
+              f"records tested per ray={tested:.2f} on {card}")
+        print(f"[time] traversal {label} bounce {b} kernels, us per launch "
+              f"(profiler): {parts_text(parts) or 'not measured'}")
+    print(f"[time] traversal {label} per pass ({len(rows)} launches): "
+          f"wrapper ms sum={sum(r['ms'] for r in rows):.4f} device ms sum="
+          f"{fmt_ms(sum_or_none(r['device_ms'] for r in rows))} bound ms "
+          f"sum={sum(r['bound'][0] for r in rows):.4f} on {card}")
+    return rows
 
 
 def bvh_closest(scene):
@@ -1384,23 +1621,22 @@ def bvh_render_path(card, dev):
     print(f"[profile] top kernels, device us per pass: {top}")
 
     # The traversal kernel at the main path's shapes: its queries,
-    # compared, then timed with CUDA events on every bounce.
+    # compared, then every bounce's launch timed beside its bound.
     rays = camera_rays_and_uniforms(scene, host_cam, BVH_SIZE, 11, dev)
     queries = closest_hit_queries(scene, *rays, closest_fn=r.closest_fn)
     check(len(queries) == n_bounces, "one closest-hit query per bounce")
     err = compare_traverse("mesh-184k 512x512", scene, r.closest_fn, queries)
     eps = (vm.near_enough(torch.float32), vm.POSITION_EPS_F32)
+    check_no_sync("traversal kernel wrapper CudaBVH.select, mesh-184k "
+                  "bounce 1", lambda: bvhs[0].select(
+                      *queries[1], *eps, want_detail=True))
     bvh = bvhs[0]
 
     def run(b, **kw):
         return bvh.select(*queries[b], *eps, want_detail=True, **kw)
-    k_ms = {b: cuda_ms(lambda b=b: run(b), 10) for b in range(n_bounces)}
+    times = traverse_times("mesh-184k 512x512", bvh, queries, card)
     k_ms_again = cuda_ms(lambda: run(0), 10)
     plain_ms = cuda_ms(lambda: run(0, reference=True), 1)
-    stats = [run(b, want_stats=True)[4] for b in range(n_bounces)]
-    bounds = [traverse_bound(bvh, stats[b], queries[b])
-              for b in range(n_bounces)]
-    alive = [float((q[0][:, 0] < 1e8).float().mean()) for q in queries]
     with torch.no_grad():
         hits = [r.closest_fn(scene, *q) for q in queries]
 
@@ -1411,16 +1647,6 @@ def bvh_render_path(card, dev):
                   closest_fn=lambda *_: next(it), uniforms=rays[2])
     shade_ms = cuda_ms(shading_only, 5) / n_bounces
     closest_ms = cuda_ms(lambda: r.closest_fn(scene, *queries[1]), 10)
-    for b in range(n_bounces):
-        visited, tested = stats[b].float().mean(0).tolist()
-        n_alive = max(alive[b] * R, 1.0)
-        print(f"[time] traversal kernel mesh-184k 512x512 bounce {b}: "
-              f"ms={k_ms[b]:.3f} bound ms={bounds[b][0]:.4f} (by "
-              f"{bounds[b][1]}) lanes not parked={alive[b]:.4f} nodes "
-              f"visited per ray={visited:.2f} records tested per ray="
-              f"{tested:.2f} ns per live ray="
-              f"{k_ms[b] * 1e6 / n_alive:.2f} ns per node visit="
-              f"{k_ms[b] * 1e6 / max(visited * R, 1.0):.3f} on {card}")
     print(f"[time] traversal kernel mesh-184k 512x512: bounce 0 again ms="
           f"{k_ms_again:.3f} plain ms (one walk, bounce 0)={plain_ms:.3f} "
           f"whole closest hit (kernel + record, bounce 1) ms={closest_ms:.3f} "
@@ -1428,15 +1654,17 @@ def bvh_render_path(card, dev):
     # A parked lane (a finished path, moved far outside the scene) fails the
     # root's slab test and ends its walk there.
     for b in range(1, n_bounces):
-        parked = queries[b][0][:, 0] >= 1e8
-        if bool(parked.any()):
-            check(int(stats[b][parked, 0].max()) == 1
-                  and int(stats[b][parked, 1].max()) == 0,
+        dead = parked(queries[b][0])
+        if bool(dead.any()):
+            stats = times[b]["stats"]
+            check(int(stats[dead, 0].max()) == 1
+                  and int(stats[dead, 1].max()) == 0,
                   f"bounce {b}: a parked lane visits the root, nothing else")
 
     # Leaf size: the same five queries through trees of these leaf sizes,
-    # each built anew and timed in turn (the winner does not depend on the
-    # leaf size but on exact ties); config.BVH_LEAF_SIZE is the fastest.
+    # each built anew and its device time taken in turn by CUDA-graph
+    # replay (the winner does not depend on the leaf size but on exact
+    # ties); config.BVH_LEAF_SIZE is the fastest.
     want_row = [run(b)[0] for b in range(n_bounces)]
     sums = {}
     for leaf in BVH_LEAF_SIZES:
@@ -1447,14 +1675,16 @@ def bvh_render_path(card, dev):
 
         def run_other(b, **kw):
             return other.select(*queries[b], *eps, want_detail=True, **kw)
-        ms = [cuda_ms(lambda b=b: run_other(b), 10) for b in range(n_bounces)]
+        ms = [graph_ms(lambda b=b: run_other(b), 20)
+              for b in range(n_bounces)]
+        check(None not in ms, f"leaf size {leaf}: device time measured")
         visited, tested = run_other(0, want_stats=True)[4].float().mean(
             0).tolist()
         same = min(float((run_other(b)[0] == want_row[b]).float().mean())
                    for b in range(n_bounces))
         print(f"[time] traversal kernel mesh-184k 512x512 leaf size {leaf} "
-              f"({other.n_nodes} nodes, build+pack s={leaf_s:.3f}): ms per "
-              f"bounce " + " ".join(f"{x:.3f}" for x in ms)
+              f"({other.n_nodes} nodes, build+pack s={leaf_s:.3f}): device "
+              f"ms per bounce " + " ".join(f"{x:.3f}" for x in ms)
               + f" sum={sum(ms):.3f} bounce 0 nodes visited per ray="
               f"{visited:.2f} records tested per ray={tested:.2f} rows equal "
               f"to leaf size {bvh.K}'s on >= {same:.6f} of the rays on {card}")
@@ -1467,14 +1697,16 @@ def bvh_render_path(card, dev):
           f"({sums.get(bvh.K, float('nan')):.3f} ms)")
     check(sums.get(bvh.K, float("inf")) <= 1.1 * sums[best],
           "config.BVH_LEAF_SIZE is within 10 % of the fastest leaf size")
-    stage = {"ms": k_ms[0], "plain_ms": plain_ms, "bound_ms": bounds[0][0],
-             "bound_by": bounds[0][1], "max_abs_err": err}
+    stage = {"ms": stage_ms(times[0]), "plain_ms": plain_ms,
+             "bound_ms": times[0]["bound"][0],
+             "bound_by": times[0]["bound"][1], "max_abs_err": err}
     return launches, stage
 
 
 def bvh_big_pass(card, dev):
     """One timed pass of the 1,003,522-triangle mesh scene at 1024x1024
-    rec4 through ``Renderer`` (after one untimed pass)."""
+    rec4 through ``Renderer`` (after one untimed pass), then the traversal
+    kernel alone on every bounce of that size."""
     from raytracercore_tpu_torch.bvh import cuda_traverse as ct
     from raytracercore_tpu_torch.render.renderer import Renderer
 
@@ -1511,6 +1743,11 @@ def bvh_big_pass(card, dev):
           f"scene generation s={gen_s:.3f} Renderer (BVH build + pack) s="
           f"{build_s:.3f} peak device memory MB="
           f"{torch.cuda.max_memory_allocated() / 2 ** 20:.0f} on {card}")
+    # The kernel alone on every bounce: this tree does not fit the L2.
+    rays = camera_rays_and_uniforms(r.arrays, host_cam, BVH_BIG_SIZE, 11, dev)
+    queries = closest_hit_queries(r.arrays, *rays, closest_fn=r.closest_fn)
+    del rays
+    traverse_times("mesh-1M 1024x1024", bvh, queries, card)
 
 
 def bvh_train_path(card, dev):

@@ -19,14 +19,24 @@ FUSED_MAX_PRIMS = 64
 FUSED_COPLANAR_BRANCH = False
 
 # Table-row cap of the per-bounce select kernel (csrc/select.cu), which
-# keeps every packed table row in a block's shared memory.  A row costs at
-# most 28·4 B of floats + 4·4 B of ints = 128 B (a sphere; a triangle
-# 21·4 + 16 = 100 B, a plane 32 B).  An H100 block may take 227 KB
-# (232,448 B) of dynamic shared memory, i.e. 1,816 sphere rows in one block
-# per SM; 768 rows are at most 768 · 128 B = 96 KB, so two blocks of 256
-# threads always fit on an SM (2 · 96 KB = 192 KB ≤ 227 KB).  768 is also
-# the JAX package's cap, so both packages route the same scenes alike.
+# keeps every row in a block's shared memory, in its own layout
+# (intersect/cuda_select.py: pack_select_tables): a triangle 4 float4 =
+# 64 B (its smooth normals stay in device memory), a sphere 8 float4 =
+# 128 B, a plane 2 float4 = 32 B.  An H100 block may take 227 KB
+# (232,448 B) of dynamic shared memory; 768 rows are at most 768 * 128 B =
+# 96 KB (all spheres), so the two blocks per SM that the kernel's registers
+# allow always fit (2 * 96 KB <= 227 KB); a 768-row triangle table takes
+# 48 KB.  768 is also the JAX package's cap, so both packages route the
+# same scenes alike.
 SELECT_MAX_PRIMS = 768
+
+# Where the integrator parks a finished path: origin (4e8, 4e8, 4e8), far
+# outside any scene, pointing +x (raytracercore_tpu/render/integrator.py
+# parks at the same point).  The select kernel reads a ray whose origin is
+# this point in all three coordinates as a dead lane and gives it the
+# no-hit record without a scan (intersect/cuda_select.py).  4e8 is exact in
+# f32.
+PARKED_ORIGIN = 4e8
 
 # Renderer(accelerator="auto") switches to the BVH above this many
 # triangles: the dense tier's own cap, as in the JAX package.

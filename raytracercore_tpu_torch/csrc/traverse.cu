@@ -53,7 +53,12 @@
 // live in registers; nothing is staged in shared memory, so occupancy is
 // set by registers alone and many warps hide each other's loads; a parked
 // ray (origin far outside, as the integrator parks finished paths) fails
-// the root's slab test and ends after one node.
+// the root's slab test and ends after one node.  -fmad=false halves what
+// the card's fp32 rate could give, but the operations are not what bounds
+// the walk.  Schedules that settle the parked rays in a list kernel first,
+// persistent warps that take new rays as theirs finish (one lane or a
+// whole batch at a time) and postponed leaves all measured slower on the
+// card than this one-ray-per-thread walk, and were not kept (PERF.md).
 // The TPU kernel's 8-chain block beam, pending-leaf flush, two-node
 // speculation, DMA path, bf16 node words, lane padding and ray sort answer
 // the TPU's lack of a per-lane gather and are not carried over.

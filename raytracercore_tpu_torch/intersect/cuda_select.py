@@ -16,16 +16,24 @@ On CUDA tensors both launch the hand-written kernel ``csrc/select.cu``
 run the plain version, :func:`select_reference`, which walks the same
 per-row passes (:mod:`.kernel_body`) in the kernel's operation order.
 Semantics are those of :mod:`.torch_ref` / :mod:`.dispatch`, the
-independent grid oracle.
+independent grid oracle, except on dead lanes: a ray whose origin is
+``config.PARKED_ORIGIN`` in all three coordinates (a path the integrator
+has finished and parked) gets the no-hit record without a scan, in the
+kernel and in its plain version alike.
+
+The kernel reads the tables in a layout of its own,
+:func:`pack_select_tables` (``SceneArrays.select_tables``, built once per
+geometry), whose rows load as 128-bit words.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import torch
 
-from ..config import SELECT_MAX_PRIMS
+from ..config import PARKED_ORIGIN, SELECT_MAX_PRIMS
 from ..core import vecmath as vm
 from ..kernels import check_tensor as _check
 from ..scene.types import SceneArrays
@@ -68,13 +76,108 @@ class _TableWinner:
             self.near = torch.where(better, extra["v_near"] != 0, self.near)
 
 
+# Flag bits of the select layout's rows.
+SF_MIRROR, SF_SMOOTH, SF_INVERT, SF_TWO_SIDED = 1, 2, 4, 8
+# Floats per row of the select layout: triangle (hot and cold), sphere,
+# plane.
+SEL_TRI_F, SEL_COLD_F, SEL_SPH_F, SEL_PL_F = 16, 12, 32, 8
+
+
+def _bits(ints):
+    """int32 columns as f32 words (the same 32 bits)."""
+    return ints.to(torch.int32).contiguous().view(torch.float32)
+
+
+def pack_select_tables(tables):
+    """The select kernel's layout of the packed tables ``(tf, ti, sf, si,
+    pf, pi)`` (:func:`.kernel_body.pack_tables`), f32, every row a whole
+    number of 16-byte words:
+
+    * ``tri`` ``[T, 16]``: v0, prim | e1, flags | e2, 0 | face normal, 0;
+    * ``cold`` ``[T, 12]``: n0, 0 | n1, 0 | n2, 0 — read only for a winner;
+    * ``sph`` ``[S, 32]``: w2o rows (12), o2w rows (12), center, radius |
+      prim, flags, 0, 0;
+    * ``pln`` ``[P, 8]``: normal, dist | prim, flags, 0, 0.
+
+    prim and flags are int32 bits in the f32 words; flags are mirror |
+    smooth << 1 | invert << 2 | two_sided << 3."""
+    tf, ti, sf, si, pf, pi = tables
+
+    def flags(i):
+        return i[:, 1] | (i[:, 2] << 2) | (i[:, 3] << 3)
+
+    def zeros(t, n):
+        return torch.zeros((t.shape[0], n), dtype=torch.float32,
+                           device=t.device)
+
+    def words(i):
+        return _bits(torch.stack([i[:, 0], flags(i)], dim=1))
+    tri = torch.cat([tf[:, 0:3], _bits(ti[:, 0:1]), tf[:, 3:6],
+                     _bits(flags(ti)[:, None]), tf[:, 6:9], zeros(tf, 1),
+                     tf[:, 9:12], zeros(tf, 1)], dim=1)
+    cold = torch.cat([tf[:, 12:15], zeros(tf, 1), tf[:, 15:18], zeros(tf, 1),
+                      tf[:, 18:21], zeros(tf, 1)], dim=1)
+    sph = torch.cat([sf, words(si), zeros(sf, 2)], dim=1)
+    pln = torch.cat([pf, words(pi), zeros(pf, 2)], dim=1)
+    return tuple(t.to(torch.float32).contiguous()
+                 for t in (tri, cold, sph, pln))
+
+
+def parked_lanes(ray_o):
+    """[R] bool: the rays whose origin is ``config.PARKED_ORIGIN`` in all
+    three coordinates — dead lanes, which the select kernel answers with
+    the no-hit record without a scan."""
+    return (ray_o == PARKED_ORIGIN).all(dim=1)
+
+
+def live_list_reference(ray_o):
+    """Plain version of the list kernel: the indices of the live lanes
+    (int64, ascending; the kernel's list holds the same indices in any
+    order)."""
+    return torch.nonzero(~parked_lanes(ray_o))[:, 0]
+
+
+def _no_hit(R, device) -> SelectOut:
+    i32 = torch.int32
+    return SelectOut(
+        tri_idx=torch.full((R,), -1, dtype=i32, device=device),
+        sph_idx=torch.full((R,), -1, dtype=i32, device=device),
+        sph_near=torch.zeros((R,), dtype=torch.bool, device=device),
+        pl_idx=torch.full((R,), -1, dtype=i32, device=device),
+        t=torch.zeros((R,), dtype=torch.float32, device=device),
+        prim=torch.full((R,), -1, dtype=i32, device=device),
+        inside=torch.zeros((R,), dtype=torch.bool, device=device),
+        position=torch.zeros((R, 3), dtype=torch.float32, device=device),
+        normal=torch.zeros((R, 3), dtype=torch.float32, device=device))
+
+
 def select_reference(scene: SceneArrays, ray_o, ray_d, skip, eps_behind,
                      eps_pos) -> SelectOut:
-    """Plain torch version of the select kernel (any device), f32: the
-    triangle pass (coplanar branch and smooth normals on), the sphere pass
-    and the plane pass over every row, each candidate committed to its
-    table's winner and to the global best (strict ``t <``: the earliest
-    row of the earliest table wins a tie)."""
+    """Plain torch version of the select kernel (any device), f32: dead
+    lanes (:func:`parked_lanes`) get the no-hit record; every live lane
+    gets :func:`scan_reference`."""
+    R = ray_o.shape[0]
+    live = live_list_reference(ray_o)
+    if live.numel() == R:
+        return scan_reference(scene, ray_o, ray_d, skip, eps_behind, eps_pos)
+    out = _no_hit(R, ray_o.device)
+    if live.numel():
+        sub_skip = None if skip is None else type(skip)(
+            *(getattr(skip, f.name)[live] for f in dataclasses.fields(skip)))
+        sub = scan_reference(scene, ray_o[live], ray_d[live], sub_skip,
+                             eps_behind, eps_pos)
+        for full, part in zip(out, sub):
+            full[live] = part
+    return out
+
+
+def scan_reference(scene: SceneArrays, ray_o, ray_d, skip, eps_behind,
+                   eps_pos) -> SelectOut:
+    """The scan of every ray, dead or not: the triangle pass (coplanar
+    branch and smooth normals on), the sphere pass and the plane pass over
+    every row, each candidate committed to its table's winner and to the
+    global best (strict ``t <``: the earliest row of the earliest table
+    wins a tie)."""
     f32 = torch.float32
     tf, ti, sf, si, pf, pi = scene.fused_tables[:6]
     o3 = tuple(ray_o[:, k].to(f32) for k in range(3))
@@ -110,8 +213,8 @@ def select_reference(scene: SceneArrays, ray_o, ray_d, skip, eps_behind,
         normal=torch.stack(best.nrm, dim=1))
 
 
-def _launch(scene: SceneArrays, ray_o, ray_d, skip, eps_behind, eps_pos
-            ) -> SelectOut:
+def _launch(scene: SceneArrays, ray_o, ray_d, skip, eps_behind,
+            eps_pos) -> SelectOut:
     from .. import kernels
 
     rows = n_table_rows(scene)
@@ -134,13 +237,11 @@ def _launch(scene: SceneArrays, ray_o, ray_d, skip, eps_behind, eps_pos
         _check("skip.inside", skip.inside, (R,), torch.bool, dev)
         skip_ptrs = [t.data_ptr() for t in (skip.prim, skip.position,
                                             skip.normal, skip.inside)]
-    tables = scene.fused_tables[:6]
-    for name, t, width, dtype in zip(
-            ("tf", "ti", "sf", "si", "pf", "pi"), tables,
-            (kb.TRI_F, kb.INT_F, kb.SPH_F, kb.INT_F, kb.PL_F, kb.INT_F),
-            (f32, i32, f32, i32, f32, i32)):
-        _check(name, t, (t.shape[0], width), dtype, dev)
-    tf, _, sf, _, pf, _ = tables
+    tables = scene.select_tables
+    for name, t, width in zip(("tri", "cold", "sph", "pln"), tables,
+                              (SEL_TRI_F, SEL_COLD_F, SEL_SPH_F, SEL_PL_F)):
+        _check(name, t, (t.shape[0], width), f32, dev)
+    tri, _, sph, pln = tables
 
     def empty(shape, dtype):
         return torch.empty(shape, dtype=dtype, device=dev)
@@ -150,12 +251,14 @@ def _launch(scene: SceneArrays, ray_o, ray_d, skip, eps_behind, eps_pos
         t=empty((R,), f32), prim=empty((R,), i32),
         inside=empty((R,), torch.bool), position=empty((R, 3), f32),
         normal=empty((R, 3), f32))
+    work = empty((R + 2,), i32)
+    keys = empty((R, 3), torch.int64)
     err = kernels.load().rtc_select(
         ray_o.data_ptr(), ray_d.data_ptr(), *skip_ptrs,
         *(t.data_ptr() for t in tables), *(t.data_ptr() for t in out),
-        R, tf.shape[0], sf.shape[0], pf.shape[0],
-        eps_behind, eps_pos * eps_pos,
-        torch.cuda.current_stream(dev).cuda_stream)
+        work.data_ptr(), keys.data_ptr(), R, tri.shape[0], sph.shape[0],
+        pln.shape[0],
+        eps_behind, eps_pos * eps_pos, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"select kernel launch failed: CUDA error {err}")
     closest_hit_fused.launches += 1
@@ -205,7 +308,13 @@ def closest_hit_fused(scene: SceneArrays, ray_o, ray_d,
     """Full :class:`.dispatch.HitRecord` straight from the kernel (the
     forward / rendering / recording path; not differentiable — use
     :func:`.dispatch.closest_hit` for gradients).  Launches the kernel on
-    CUDA tensors (or raises), runs the plain version on CPU tensors."""
+    CUDA tensors (or raises), runs the plain version on CPU tensors.
+
+    A dead lane (origin ``config.PARKED_ORIGIN``) gets the no-hit record
+    without a scan.  ``render.integrator.trace`` reads nothing from a dead
+    lane's record but its tape row, and the replay never reads that row.
+    The wrapper never synchronises with the host: the live lanes' count
+    stays on the device."""
     dtype = ray_o.dtype
     f32 = torch.float32
     if skip is not None:

@@ -60,7 +60,7 @@ SIGNATURES = {
         + [_P]),                       # stream
     "rtc_select": (
         [_P] * 21                      # 2 rays, 4 skip (null: none),
-                                       # 6 tables, 9 outputs
+                                       # 4 tables, 9 outputs, work, keys
         + [_I] * 4                     # R T S P
         + [_F, _F]                     # eps_behind, eps_pos²
         + [_P]),                       # stream

@@ -37,6 +37,7 @@ import dataclasses
 
 import torch
 
+from ..config import PARKED_ORIGIN
 from ..core import vecmath as vm
 from ..core.color import luminance
 from ..intersect.dispatch import HitRecord, closest_hit
@@ -285,7 +286,7 @@ def trace(scene: SceneArrays, ray_o, ray_d, generator=None,
     # Dead lanes are parked far outside any scene, pointing away (+x):
     # their results are already committed, and a parked ray misses
     # everything.  (Filled on the device: no copy from host memory.)
-    parked_o = torch.full((3,), 4e8, dtype=dtype, device=device)
+    parked_o = torch.full((3,), PARKED_ORIGIN, dtype=dtype, device=device)
     parked_d = torch.zeros((3,), dtype=dtype, device=device)
     parked_d[0] = 1.0
 

@@ -319,16 +319,26 @@ class SceneArrays(_Tensors):
         from ..render.fused import pack_scene
         return pack_scene(self)
 
+    @functools.cached_property
+    def select_tables(self):
+        """The select kernel's layout of the geometry tables
+        (intersect/cuda_select.py: ``pack_select_tables``), built once per
+        scene from :attr:`fused_tables`."""
+        from ..intersect.cuda_select import pack_select_tables
+        return pack_select_tables(self.fused_tables[:6])
+
     def with_materials(self, materials: "Materials") -> "SceneArrays":
         """The same scene with another material table.  The packed
-        geometry tables (built once for this scene) carry over and only the
-        ``[N, 14]`` material rows are packed again, so a train step that
-        swaps the materials on every step does not repack the geometry."""
+        geometry tables (built once for this scene: the megakernel's and
+        the select kernel's) carry over and only the ``[N, 14]`` material
+        rows are packed again, so a train step that swaps the materials on
+        every step does not repack the geometry."""
         from ..render.fused import with_material_rows
 
         new = dataclasses.replace(self, materials=materials)
         new.__dict__["fused_tables"] = with_material_rows(self.fused_tables,
                                                           materials)
+        new.__dict__["select_tables"] = self.select_tables
         return new
 
 
