@@ -28,17 +28,35 @@ and drives the main paths, the first three at 700×700, recursion 10:
    → replay forward and backward kernels reading the 46,082-row material
    table from device memory);
 
-and prints what it measured: for the two closest-hit kernels every
+and prints what it measured: every kernel's registers, spills and
+occupancy beside its time (from the build's ``-Xptxas -v`` log, at the
+block size and shared memory of its launch); the megakernel, the uniforms
+kernel and the replay kernels by CUDA-graph replay; for the two closest-hit kernels every
 bounce's launch beside its own bound, each kernel the wrapper launches
 (the select kernel's list, main and finish kernels) by the profiler, and
 the per-pass sums; both kernels are also held against their
 plain versions with parked lanes mixed in, all lanes parked, none parked
 and a ragged ray count, and one call of each runs under
-``torch.cuda.set_sync_debug_mode("error")``.
+``torch.cuda.set_sync_debug_mode("error")``.  A phase of its own runs the
+issue-rate probe (``tools/issue_probe.py``, the port of the TPU's VPU
+microbenchmark): every mix against its plain chains, then the operations
+per second the card sustains under ``-fmad=false``.
+The megakernel is held bit-equal to its plain version (colour, miss and
+all five tape planes, tape on and off).
 The last two lines of standard output are a JSON object describing the
 kernels and a JSON object ``{"ok": true, "device": ...}``.  Any failed
 check exits non-zero before those lines.  Without a CUDA device it exits
 non-zero at once.  It imports nothing of JAX.
+
+To compare two trees on one card, in one call::
+
+    python3 chip_smoke.py --times --root PARENT_CHECKOUT --label parent
+    python3 chip_smoke.py --times --label change
+
+``--times`` (:func:`times_main`) only builds the tree's kernels and times
+the megakernel, the replay backward and the select kernel at the main
+paths' shapes, each held against its plain version first; it prints one
+JSON line.
 """
 
 from __future__ import annotations
@@ -47,6 +65,7 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -195,8 +214,12 @@ sphere 0.8 1 0.5 0.6
 MAIN_PASSES = 16      # timed passes of the forward render
 WARM_PASSES = 2       # untimed passes before them (first use loads the kernel)
 COMPARE_SIZE = 256    # image size of the kernel-vs-plain comparisons
-# Kernel vs plain tolerances (those of tests/test_fused.py): knife-edge f32
-# branch flips may change a few whole paths, nothing else may differ.
+# The megakernel is held bit-equal to its plain version; where a colour
+# differs, rays are sorted into flip / graze / samepick
+# (fused.classify_mismatches) at 1e-3 abs + rel.  The trace + select route
+# against the megakernel (the tolerances of tests/test_fused.py):
+# knife-edge f32 branch flips may change a few whole paths, nothing else
+# may differ.
 CLOSE_ATOL = CLOSE_RTOL = 1e-3
 MIN_CLOSE_FRAC = 0.97
 MEAN_TOL = 5e-3
@@ -250,6 +273,12 @@ ORACLE_SAMPLE = 16384
 # The port's kernels one wrapper call launches: the select kernel's list,
 # main and finish kernels; the traversal's walk.
 SELECT_KERNELS, TRAVERSE_KERNELS = 3, 1
+# Registers, stack, spills and static shared memory of every kernel of the
+# build, from its log (main fills it), and the threads per block of their
+# launches (csrc/*.cu), for their occupancy.
+BUILD_REGS = {}
+FUSED_THREADS = TRAVERSE_THREADS = 128
+UNIFORMS_THREADS = SELECT_THREADS = LIST_THREADS = 256
 # Peak rates of one H100 SXM (NVIDIA's data sheet): fp32 outside the tensor
 # cores, and device memory.
 PEAK_FP32 = 67e12
@@ -271,6 +300,11 @@ OPS_UNIFORMS = 245        # per path and bounce: 5 Philox draws + 7 channels
 # ray and discriminant.
 OPS_NODE = 27
 OPS_LEAF = {"tri": OPS_TRI - 6, "sph": 24, "spht": OPS_SPH}
+
+
+# The issue-rate probe: chains checked against the plain version at a few
+# trips (relative error: exp may differ in its last bits), timed at many.
+PROBE_CHECK_ITERS, PROBE_ITERS, PROBE_RTOL = 4, 2048, 1e-6
 
 
 def check(cond, what):
@@ -357,6 +391,93 @@ def graph_ms(fn, n):
     ms = cuda_ms(graph.replay, n)
     del graph
     return ms
+
+
+def ptxas_registers(log):
+    """``{kernel: (registers, stack bytes, spill store bytes, static shared
+    bytes)}`` from nvcc's ``-Xptxas -v`` output, the kernel named as
+    ``rtc::name<template arguments>`` as far as the mangled name gives
+    it."""
+    import re
+
+    out, name, props = {}, None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, props = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
+                      line)
+        if name and m:
+            props = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if name and m:
+            stack = re.search(r"(\d+) bytes cumulative stack", line)
+            smem = re.search(r"(\d+) bytes smem", line)
+            short = re.sub(r"^_ZN3rtc\d+", "", name)
+            out[short] = (int(m.group(1)),
+                          max(props[0], int(stack.group(1)) if stack else 0),
+                          props[1], int(smem.group(1)) if smem else 0)
+            name = None
+    return out
+
+
+def occupancy(regs, threads, smem=0):
+    """``(blocks, share)``: blocks of ``threads`` threads with ``regs``
+    registers a thread and ``smem`` bytes of shared memory a block that stay
+    resident on one H100 SM, and the share of the SM's 64 warps they fill.
+    The SM has 64K registers (allocated in 256s a warp), 2048 threads, 32
+    blocks and 228 KB of shared memory (allocated in 128-byte units, 1 KB
+    of it reserved per block)."""
+    warps = -(-threads // 32)
+    per_warp = -(-max(regs, 1) * 32 // 256) * 256
+    per_block = -(-smem // 128) * 128 + 1024
+    blocks = min(65536 // per_warp // warps, 2048 // threads, 32,
+                 233472 // per_block)
+    return blocks, blocks * warps / 64
+
+
+def occupancy_text(prefix, threads, smem=0):
+    """Registers, stack, spills and occupancy of the build's kernels whose
+    name starts with ``prefix`` (a string or a tuple of them: every
+    template instantiation; occupancy at the most registers), at the block size and dynamic shared memory of
+    their launch, from the build log (:func:`ptxas_registers`)."""
+    rows = [v for k, v in BUILD_REGS.items() if k.startswith(prefix)]
+    if not rows:
+        return f"{prefix} not in the build log"
+    regs = sorted({r[0] for r in rows})
+    static = max(r[3] for r in rows)
+    blocks, share = occupancy(regs[-1], threads, smem + static)
+    reg_text = (f"{regs[0]}-{regs[-1]}" if len(regs) > 1 else f"{regs[0]}")
+    return (f"{reg_text} registers, {max(r[1] for r in rows)} bytes stack, "
+            f"{max(r[2] for r in rows)} bytes spilled; {blocks} blocks of "
+            f"{threads} threads per SM at {smem + static} bytes shared, "
+            f"occupancy {share:.3f}")
+
+
+def replay_occupancy(kind, n_mats, n_bounces, aim=False):
+    """:func:`occupancy_text` of the replay kernel ``kind`` ("fwd" or
+    "bwd") that a launch over ``n_mats`` material rows and ``n_bounces``
+    bounces runs (``aim``: the scene's ambient_is_miss), at its shared
+    memory (csrc/replay.cu: the table, and for the backward its accumulator
+    and, where the wrapper puts it there, the ``[bounce][6][thread]``
+    stash)."""
+    from raytracercore_tpu_torch.render import replay_kernel as rk
+
+    table = n_mats * rk.C * 4 if n_mats <= rk.MAX_KERNEL_MATS else 0
+    if kind == "fwd":
+        return occupancy_text("replay_fwd_kernel", rk.REPLAY_BLOCK, table)
+    regen = getattr(rk, "_regenerates", lambda n: False)(n_mats)
+    prefix = "replay_bwd_regen_kernel" if regen else "replay_bwd_kernel"
+    stash = 0  # a tree without shared_stash keeps it in local memory
+    if hasattr(rk, "shared_stash"):
+        # Template arguments <ambient_is_miss, global table, shared stash>.
+        sh = rk.shared_stash(n_mats, n_bounces, aim, "cuda")
+        stash = n_bounces * 6 * rk.REPLAY_BLOCK * 4 * sh
+        prefix = tuple(f"{prefix}ILb{a}ELb{int(table == 0)}ELb{int(sh)}E"
+                       for a in (0, 1))
+    return occupancy_text(prefix, rk.REPLAY_BLOCK, 2 * table + stash)
 
 
 def fmt_ms(ms):
@@ -670,6 +791,13 @@ def select_times(label, scene, queries, card):
               f"(by {bnd[1]}) on {card}")
         print(f"[time] select {label} bounce {b} kernels, us per launch "
               f"(profiler): {parts_text(parts) or 'not measured'}")
+    sel = scene.select_tables
+    print(f"[time] select {label} kernels: main "
+          + occupancy_text("select_kernel", SELECT_THREADS,
+                           nbytes(sel[0], *sel[2:]))
+          + "; list " + occupancy_text("select_list_kernel", LIST_THREADS)
+          + "; finish "
+          + occupancy_text("select_finish_kernel", LIST_THREADS))
     print(f"[time] select {label} per pass ({len(rows)} launches): wrapper "
           f"ms sum={sum(r['ms'] for r in rows):.4f} device ms sum="
           f"{fmt_ms(sum_or_none(r['device_ms'] for r in rows))} bound ms "
@@ -713,7 +841,9 @@ def rays_and_uniforms(scene_text, size, recursion, seed, dev):
 
 def compare(label, arrays, ray_o, ray_d, uniforms):
     """Kernel (tape on and off) against the plain version on the same rays
-    and uniforms; returns the max abs error over rays whose paths agree."""
+    and uniforms: colour, miss and the five tape planes (the unreached rows
+    too) must be equal bit for bit; returns the max abs colour error over
+    all rays (0)."""
     from raytracercore_tpu_torch.render.fused import (
         classify_mismatches, trace_fused, trace_fused_reference)
     from raytracercore_tpu_torch.render.integrator import PathTape
@@ -723,58 +853,37 @@ def compare(label, arrays, ray_o, ray_d, uniforms):
     got = trace_fused(arrays, ray_o, ray_d, uniforms, want_tape=True)
     got_nt = trace_fused(arrays, ray_o, ray_d, uniforms, want_tape=False)
     torch.cuda.synchronize()
+    planes = ("prim", "flags", "nx", "ny", "nz")
+    equal = {"color": torch.equal(got[0], ref[0]),
+             "miss": torch.equal(got[1], ref[1]),
+             **{f"tape.{k}": torch.equal(getattr(got[2], k),
+                                         getattr(ref[2], k))
+                for k in planes},
+             "color (tape off)": torch.equal(got_nt[0], ref[0]),
+             "miss (tape off)": torch.equal(got_nt[1], ref[1])}
+    # Where anything differs, the classification says why (flip, graze or
+    # samepick, each a count of rays).
     cls = classify_mismatches(ref, got, CLOSE_ATOL, CLOSE_RTOL)
-    R = ray_o.shape[0]
-    frac = {k: float(cls[k].mean()) for k in
-            ("close", "miss_eq", "flip", "graze", "samepick")}
-    ref_mean = ref[0].mean(0).cpu().numpy()
-    got_mean = got[0].mean(0).cpu().numpy()
-    mean_ok = np.all(np.abs(got_mean - ref_mean)
-                     <= MEAN_TOL + MEAN_TOL * np.abs(ref_mean))
-
-    # Tape: codes everywhere; prim and flag words where a replay reads them.
-    code_r = (ref[2].flags & PathTape.CODE_MASK).cpu().numpy()
-    code_g = (got[2].flags & PathTape.CODE_MASK).cpu().numpy()
-    agree = code_r == code_g
-    # Closest-hit queries the paths made (bounces reached), per path.
-    hits_per_path = float((code_r != 0).sum(0).mean())
-    bounced = agree & np.isin(code_r, (1, 2, 4))
-    live = agree & (code_r != 0)
-    prim_eq = np.all(ref[2].prim.cpu().numpy()[live]
-                     == got[2].prim.cpu().numpy()[live])
-    flags_eq = np.all(ref[2].flags.cpu().numpy()[bounced]
-                      == got[2].flags.cpu().numpy()[bounced])
-
-    # Tape-off specialization: same colours as tape-on, or at worst
-    # different only on rays already explained as flips/grazes.
-    same_nt = bool(torch.equal(got_nt[0], got[0])
-                   and torch.equal(got_nt[1], got[1]))
     cls_nt = classify_mismatches(ref, (got_nt[0], got_nt[1], got[2]),
                                  CLOSE_ATOL, CLOSE_RTOL)
-    nt_unexplained = int(((~cls_nt["close"] | ~cls_nt["miss_eq"])
-                          & ~(cls["flip"] | cls["graze"])).sum())
-
-    print(f"[compare] {label}: R={R} close_frac={frac['close']:.6f} "
-          f"miss_agree={frac['miss_eq']:.6f} flip={frac['flip']:.6f} "
-          f"graze={frac['graze']:.6f} samepick={frac['samepick']:.6f} "
-          f"codes_agree={agree.mean():.6f} prim_eq={prim_eq} "
-          f"bounces_per_path={hits_per_path:.4f} "
-          f"flags_eq={flags_eq} means_ref={ref_mean.tolist()} "
-          f"means_kernel={got_mean.tolist()} "
-          f"max_abs_err_same_path={cls['max_abs_err_same_path']:.3e} "
-          f"tape_off_bitwise_equal={same_nt} "
-          f"tape_off_unexplained={nt_unexplained}")
-    check(np.all(cls["miss_eq"] | cls["flip"]),
-          f"{label}: miss flags equal outside flip rays")
-    check(frac["close"] >= MIN_CLOSE_FRAC,
-          f"{label}: close_frac {frac['close']:.4f} >= {MIN_CLOSE_FRAC}")
-    check(mean_ok, f"{label}: channel means within {MEAN_TOL}")
-    check(cls["samepick"].sum() == 0, f"{label}: samepick == 0")
-    check(agree.mean() >= 0.99, f"{label}: tape codes agree >= 0.99")
-    check(prim_eq and flags_eq, f"{label}: tape prim/flags equal where read")
-    check(nt_unexplained == 0,
-          f"{label}: tape-off kernel differs only on flip/graze rays")
-    return cls["max_abs_err_same_path"]
+    counts = {k: int(cls[k].sum() + cls_nt[k].sum())
+              for k in ("flip", "graze", "samepick")}
+    err = max(float((got[0] - ref[0]).abs().max()),
+              float((got_nt[0] - ref[0]).abs().max()))
+    code = ref[2].flags & PathTape.CODE_MASK
+    per_path = float((code != 0).sum(0).double().mean())
+    print(f"[compare] {label}: R={ray_o.shape[0]} bit-equal: "
+          + " ".join(f"{k}={v}" for k, v in equal.items())
+          + f" flip={counts['flip']} graze={counts['graze']} "
+          f"samepick={counts['samepick']} max_abs_err={err:.3e} "
+          f"bounces_per_path={per_path:.4f}")
+    check(bool(torch.isfinite(got[0]).all()), f"{label}: colour finite")
+    for what, same in equal.items():
+        check(same, f"{label}: megakernel {what} bit-equal to the plain "
+              f"version")
+    check(counts == {"flip": 0, "graze": 0, "samepick": 0} and err == 0.0,
+          f"{label}: flip, graze, samepick and max abs err all 0")
+    return err
 
 
 def device_busy(fn, n):
@@ -835,11 +944,60 @@ def compare_uniforms(dev, n, bounces):
     check(ch3_equal, "uniforms channel 3 bit-equal to the plain Philox")
     check(bool((err <= tol).all()),
           f"uniforms within {UNI_ATOL} abs + {UNI_ULPS} ulp rel")
-    kernel_ms = cuda_ms(
-        lambda: uk.prepare_uniforms_kernel(seed, n, bounces, dev), 10)
+    kernel_ms = graph_ms(
+        lambda: uk.prepare_uniforms_kernel(seed, n, bounces, dev), 20)
     plain_ms = cuda_ms(
         lambda: uk.prepare_uniforms_reference(seed, n, bounces, dev), 3)
     return float(err.max()), kernel_ms, plain_ms
+
+
+def probe_phase(card, dev):
+    """The issue-rate probe (``tools/issue_probe.py``, the port of
+    ``scripts/vpu_issue_bench.py``): every mix held against its plain
+    chains, then each timed on a full card of threads.  Returns the
+    kernels-line numbers and the rates (operations per second, the bounds'
+    convention)."""
+    from raytracercore_tpu_torch.tools import issue_probe as ip
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n = sms * 8 * ip.THREADS
+    abc = ip.probe_inputs(n, device=dev)
+    worst = 0.0
+    for mix in ip.MIXES:
+        got = ip.issue_probe(abc, mix, PROBE_CHECK_ITERS)
+        want = ip.probe_reference(abc, mix, PROBE_CHECK_ITERS)
+        torch.cuda.synchronize()
+        err = float(((got - want).abs() / want.abs()).max())
+        check(bool(torch.isfinite(got).all()) and err <= PROBE_RTOL,
+              f"issue probe {mix}: chains within {PROBE_RTOL} of the plain "
+              f"version ({err:.3e})")
+        worst = max(worst, err)
+    ip.issue_probe.launches = 0
+    rates = {}
+    for mix in ip.MIXES:
+        rates[mix], ms = ip.probe_rate(mix, n, PROBE_ITERS)
+        print(f"[probe] {mix}: {rates[mix]:.4e} operations/s "
+              f"({ms:.3f} ms for {n} threads x {PROBE_ITERS} trips) on "
+              f"{card}")
+    launches = ip.issue_probe.launches
+    check(launches == 6 * len(ip.MIXES), "issue probe: 6 launches a mix")
+    k_ms = graph_ms(lambda: ip.issue_probe(abc, "megakernel",
+                                           PROBE_CHECK_ITERS), 20)
+    p_ms = cuda_ms(lambda: ip.probe_reference(abc, "megakernel",
+                                              PROBE_CHECK_ITERS), 1)
+    bnd = bound(n * ip.ops_per_thread("megakernel", PROBE_CHECK_ITERS),
+                nbytes(abc) + abc[0].numel() * 4)
+    print(f"[probe] ceiling under -fmad=false: the megakernel's mix "
+          f"{rates['megakernel'] / 1e12:.3f} T operations/s, separate "
+          f"multiplies {rates['mul'] / 1e12:.3f}, adds "
+          f"{rates['add'] / 1e12:.3f} (against {PEAK_FP32 / 1e12:.0f} "
+          f"TFLOP/s, which counts an FMA as two) on {card}; max rel err vs "
+          f"plain {worst:.3e}; megakernel mix at {PROBE_CHECK_ITERS} trips: "
+          f"kernel device ms (CUDA graph)={fmt_ms(k_ms)} plain ms="
+          f"{p_ms:.3f} bound ms={bnd[0]:.4f} (by {bnd[1]}); "
+          + occupancy_text("issue_probe_kernel", ip.THREADS))
+    return {"launches": launches, "max_abs_err": worst, "ms": k_ms,
+            "plain_ms": p_ms, "bound": bnd, "rates": rates}
 
 
 def compare_replay(label, arrays, ray_o, ray_d, uniforms, record=None):
@@ -1107,13 +1265,16 @@ def replay_on_path(label, r, closest_fn, card, dev):
     n_mats = matf.shape[0]
     ct = torch.full((n_paths, 3), 1e-6, device=dev)
     aim = scene.ambient_is_miss
-    n_blocks = rk.launch_blocks(n_paths, n_mats, dev)
+    grids = {"forward": rk.launch_blocks(n_paths, n_mats, dev),
+             "backward": rk.launch_blocks(
+                 n_paths, n_mats, dev,
+                 lambda: rk.bwd_blocks_per_sm(n_mats, n_bounces, aim, dev))}
     live = int(((tape.flags & PathTape.CODE_MASK) != 0).sum())
     tape_bytes = nbytes(tape.prim, tape.flags, tape.nx, tape.ny, tape.nz)
     # The backward writes its [blocks, N, 14] slices of floats, or above the
     # shared-memory cap one [N, 14] accumulator of doubles.
     grad_bytes = (matf.numel() * 8 if n_mats > rk.MAX_KERNEL_MATS
-                  else n_blocks * matf.numel() * 4)
+                  else grids["backward"] * matf.numel() * 4)
     bounds = {
         "forward": bound(live * OPS_SHADE, nbytes(d, u, matf, scf)
                          + tape_bytes + n_paths * 16),
@@ -1127,13 +1288,16 @@ def replay_on_path(label, r, closest_fn, card, dev):
                                  rk.replay_bwd_reference)):
         args = (d, u, tape, matf, scf, aim) + ((ct,) if name == "backward"
                                                else ())
-        times[name] = (cuda_ms(lambda: kernel(*args), 10),
+        times[name] = (graph_ms(lambda: kernel(*args), 20),
                        cuda_ms(lambda: plain(*args), 2), bounds[name])
+        attrs = (" (" + replay_occupancy(
+            "bwd" if name == "backward" else "fwd", n_mats, n_bounces, aim)
+            + ")")
         print(f"[time] replay {name} {label} ({n_mats} material rows, "
-              f"{n_blocks} blocks, {live / n_paths:.4f} live bounces per "
-              f"path): kernel ms={times[name][0]:.3f} plain ms="
-              f"{times[name][1]:.3f} bound ms={bounds[name][0]:.4f} (by "
-              f"{bounds[name][1]}) on {card}")
+              f"{grids[name]} blocks, {live / n_paths:.4f} live bounces per "
+              f"path): kernel device ms (CUDA graph)={fmt_ms(times[name][0])}"
+              f"{attrs} plain ms={times[name][1]:.3f} bound ms="
+              f"{bounds[name][0]:.4f} (by {bounds[name][1]}) on {card}")
     return errs, times
 
 
@@ -1452,6 +1616,8 @@ def traverse_times(label, bvh, queries, card):
               f"records tested per ray={tested:.2f} on {card}")
         print(f"[time] traversal {label} bounce {b} kernels, us per launch "
               f"(profiler): {parts_text(parts) or 'not measured'}")
+    print(f"[time] traversal {label} kernel: "
+          + occupancy_text("traverse_kernel", TRAVERSE_THREADS))
     print(f"[time] traversal {label} per pass ({len(rows)} launches): "
           f"wrapper ms sum={sum(r['ms'] for r in rows):.4f} device ms sum="
           f"{fmt_ms(sum_or_none(r['device_ms'] for r in rows))} bound ms "
@@ -1948,14 +2114,26 @@ def train_path(card, dev):
         ("whole step", lambda: step(params, scene, camera, target, 5),
          lambda: plain_step(params, scene, camera, target, 7), 10, 2),
     ]
+    # One kernel launch each: device time by CUDA-graph replay (CUDA events
+    # around such a short call read the host's time).
+    one_kernel = {"uniforms", "record (megakernel, tape on)",
+                  "replay forward", "replay backward"}
     times = {}
     for name, kernel_fn, plain_fn, n_k, n_p in stages:
-        k_ms = cuda_ms(kernel_fn, n_k)
+        graph = name in one_kernel
+        k_ms = graph_ms(kernel_fn, n_k) if graph else cuda_ms(kernel_fn, n_k)
         p_ms = cuda_ms(plain_fn, n_p) if plain_fn is not None else None
         times[name] = (k_ms, p_ms)
-        print(f"[stage] {name}: kernel path ms={k_ms:.3f} plain ms="
+        print(f"[stage] {name}: kernel path ms"
+              + (" (device, CUDA graph)" if graph else "")
+              + f"={fmt_ms(k_ms)} plain ms="
               + (f"{p_ms:.3f}" if p_ms is not None else "n/a")
               + f" on {card}")
+    for kind in ("fwd", "bwd"):
+        print(f"[stage] replay {kind} kernel: "
+              f"{replay_occupancy(kind, matf.shape[0], n_bounces, aim)}")
+    print(f"[stage] uniforms kernel: "
+          f"{occupancy_text('uniforms_kernel', UNIFORMS_THREADS)}")
 
     busy, top = device_busy(
         lambda i: step(params, scene, camera, target, 100 + i), PROFILE_STEPS)
@@ -1965,11 +2143,182 @@ def train_path(card, dev):
     return launches, times, bounds
 
 
+# --- --times: device times of two trees in one call ----------------------
+
+def warp_row_share(tape):
+    """Share of the live bounces whose warp (32 paths in index order, all
+    at the same bounce) has >= 8 live lanes on the same material row."""
+    prim = tape.prim.long()
+    live = (tape.flags & 0xF) != 0
+    B, R = prim.shape
+    p = torch.where(live, prim, -1)[:, :R // 32 * 32].reshape(B, -1, 32)
+    same = (p[..., :, None] == p[..., None, :]).sum(-1)
+    return float(((same >= 8) & (p >= 0)).sum()) / max(1, int((p >= 0).sum()))
+
+
+def bwd_times(label, scene, d, u, tape):
+    """The replay backward on a recorded tape: held within ``GRAD_TOL`` of
+    max|g| per field of the plain version (fails the run otherwise), then
+    timed twice by CUDA-graph replay; on a tree that can place the bounce
+    entries (``STASH_IN_SHARED``), with them in shared memory and in local
+    memory in turn."""
+    from raytracercore_tpu_torch.render import replay_kernel as rk
+
+    matf, scf = rk.material_table(scene)
+    aim = scene.ambient_is_miss
+    B = tape.prim.shape[0]
+    color, miss = rk.replay_fwd(d, u, tape, matf, scf, aim)
+    ct = (torch.where(miss[:, None], 0.0, 2.0 * color)
+          / color.numel()).contiguous()
+    ref = rk.replay_bwd_reference(d, u, tape, matf, scf, aim, ct)
+    row = {"material_rows": matf.shape[0], "bounces": B,
+           "live_bounces": int(((tape.flags & 0xF) != 0).sum()),
+           "warp_row_share_ge8": warp_row_share(tape), "worst_rel": 0.0,
+           "ms": {}, "occupancy": {}}
+    placements = {"as built": None}
+    if hasattr(rk, "STASH_IN_SHARED"):
+        placements = {"chosen": None, "shared stash": True,
+                      "local stash": False}
+    try:
+        for name, force in placements.items():
+            if force is not None:
+                rk.STASH_IN_SHARED = force
+            g = rk.replay_bwd(d, u, tape, matf, scf, aim, ct)
+            torch.cuda.synchronize()
+            worst = max(float((g[:, a:b] - ref[:, a:b]).abs().max())
+                        / max(float(ref[:, a:b].abs().max()), 1e-30)
+                        for a, b in FIELD_COLS.values())
+            check(bool(torch.isfinite(g).all()) and worst <= GRAD_TOL,
+                  f"{label}, {name}: replay backward within {GRAD_TOL} of "
+                  f"max|g| ({worst:.3e})")
+            row["worst_rel"] = max(row["worst_rel"], worst)
+            row["ms"][name] = [graph_ms(lambda: rk.replay_bwd(
+                d, u, tape, matf, scf, aim, ct), 20) for _ in range(2)]
+            row["occupancy"][name] = replay_occupancy("bwd", matf.shape[0], B,
+                                                      aim)
+    finally:
+        if hasattr(rk, "STASH_IN_SHARED"):
+            rk.STASH_IN_SHARED = None
+    print(f"[times] replay backward {label}: {row}", flush=True)
+    return row
+
+
+def traced_tape(scene, camera, closest_fn, seed):
+    """A tape recorded by the bounce loop (``trace``) on the camera's rays
+    and the uniforms kernel's draws: ``(ray_d, uniforms, tape)``."""
+    from raytracercore_tpu_torch.parallel.shard import step_rays
+    from raytracercore_tpu_torch.render import uniforms_kernel as uk
+    from raytracercore_tpu_torch.render.integrator import trace
+    from raytracercore_tpu_torch.render.renderer import pass_seed
+
+    h, w = scene.height, scene.width
+    o, d, path_seed = step_rays(camera, h, w, pass_seed(seed, 999))
+    u = uk.prepare_uniforms_kernel(path_seed, h * w, scene.recursion + 1,
+                                   o.device)
+    with torch.no_grad():
+        tape = trace(scene, o, d, None, closest_fn=closest_fn, uniforms=u,
+                     want_tape=True)[2]
+    return d, u, tape
+
+
+def times_main(label, card):
+    """``--times``: the megakernel on cornell 700x700 rec10, tape on and
+    off (held bit-equal first); the replay backward on cornell (24 material
+    rows) at rec 10, 20 and 31, mesh-722 700x700 (722 rows) at rec 10 and
+    31, and mesh-46k 512x512 rec4 (global table); the select kernel on every bounce of a
+    mesh-722 pass: each by CUDA-graph replay, twice.  Prints one JSON
+    line; a failed check exits non-zero."""
+    import raytracercore_tpu_torch as pkg
+    from raytracercore_tpu_torch import kernels
+    from raytracercore_tpu_torch.intersect import cuda_select
+    from raytracercore_tpu_torch.render import fused
+    from raytracercore_tpu_torch.render.renderer import Renderer
+
+    dev = torch.device("cuda", 0)
+    info = kernels.build()
+    kernels.load()
+    BUILD_REGS.update(ptxas_registers(info["log"]))
+    res = {"label": label, "package": str(Path(pkg.__file__).parent),
+           "card": card, "build_s": info["seconds"], "bwd": {}}
+    print(f"[times] {label}: {res['package']} on {card}", flush=True)
+
+    arrays, o, d, u = rays_and_uniforms(CORNELL_SCENE, 700, 10, 7, dev)
+    compare(f"{label} cornell 700x700 rec10", arrays, o, d, u)
+    tape = fused.trace_fused(arrays, o, d, u, want_tape=True)[2]
+    res["path_length_histogram"] = torch.bincount(
+        ((tape.flags & 0xF) != 0).sum(0), minlength=12).tolist()
+    res["fused"] = {"tape" if want else "no_tape": [graph_ms(
+        lambda: fused.trace_fused(arrays, o, d, u, want_tape=want), 20)
+        for _ in range(2)] for want in (False, True)}
+    res["fused"]["occupancy"] = occupancy_text(
+        "trace_fused_kernel", FUSED_THREADS,
+        nbytes(*arrays.fused_tables))
+    print(f"[times] megakernel: {res['fused']}", flush=True)
+    res["bwd"]["cornell rec10"] = bwd_times("cornell rec10", arrays, d, u,
+                                            tape)
+    del tape
+    for rec in (20, 31):
+        arrays, o, d, u = rays_and_uniforms(CORNELL_SCENE, 700, rec, 7, dev)
+        tape = fused.trace_fused(arrays, o, d, u, want_tape=True)[2]
+        res["bwd"][f"cornell rec{rec}"] = bwd_times(f"cornell rec{rec}",
+                                                    arrays, d, u, tape)
+        del tape
+
+    mesh, cam = lit_mesh_scene(MESH_GRID, MESH_SUBDIV, 700, 10, dev)
+    r = Renderer(mesh, device="cuda", seed=0, cameras=[cam])
+    d, u, tape = traced_tape(r.arrays, r.camera,
+                             cuda_select.closest_hit_fused, TRAIN_SEED)
+    res["bwd"]["mesh-722"] = bwd_times("mesh-722", r.arrays, d, u, tape)
+    ro, rd, ru = camera_rays_and_uniforms(r.arrays, cam, 700, 11, dev)
+    sel = [graph_ms(lambda q=q: cuda_select.closest_hit_fused(r.arrays, *q),
+                    20) for q in closest_hit_queries(r.arrays, ro, rd, ru)]
+    res["select_mesh722"] = {"per_bounce": sel, "per_pass": sum(sel)}
+    print(f"[times] select mesh-722 per pass {sum(sel)}", flush=True)
+    del tape, r
+    mesh, cam = lit_mesh_scene(MESH_GRID, MESH_SUBDIV, 700, 31, dev)
+    r = Renderer(mesh, device="cuda", seed=0, cameras=[cam])
+    d, u, tape = traced_tape(r.arrays, r.camera,
+                             cuda_select.closest_hit_fused, TRAIN_SEED)
+    res["bwd"]["mesh-722 rec31"] = bwd_times("mesh-722 rec31", r.arrays, d,
+                                             u, tape)
+    del tape, r
+
+    big, cam = lit_mesh_scene(*BVH_TRAIN_MESH, BVH_SIZE, BVH_REC, dev)
+    r = Renderer(big, device="cuda", seed=0, cameras=[cam])
+    d, u, tape = traced_tape(r.arrays, r.camera, r.closest_fn, TRAIN_SEED)
+    res["bwd"]["mesh-46k"] = bwd_times("mesh-46k", r.arrays, d, u, tape)
+    print(json.dumps(res))
+
+
 def main():
+    import argparse
+
+    ap = argparse.ArgumentParser(
+        description="Chip smoke test of the PyTorch + CUDA port.")
+    ap.add_argument("--times", action="store_true",
+                    help="only time the megakernel, the replay backward "
+                    "and the select kernel (times_main), for a "
+                    "parent-vs-change comparison in one call")
+    ap.add_argument("--root", default=None,
+                    help="with --times: the checkout whose "
+                    "raytracercore_tpu_torch is built and timed (default: "
+                    "the one this file lies in)")
+    ap.add_argument("--label", default="tree",
+                    help="with --times: the name of the tree in the output")
+    args = ap.parse_args()
+    if args.root and not args.times:
+        ap.error("--root goes with --times")
+
     # --- 1. device ---------------------------------------------------------
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device "
                          "(torch.cuda.is_available() is False)")
+    if args.times:
+        if args.root:
+            sys.path.insert(0, str(Path(args.root).resolve()))
+        card = card_line()
+        print(card)
+        return times_main(args.label, card)
     # The port's own modules; in a directory without the repository this
     # import fails and the run ends here.
     from raytracercore_tpu_torch import kernels
@@ -1991,9 +2340,9 @@ def main():
     kernels.load()
     print(f"[build] {info['path']} built={info['built']} "
           f"seconds={info['seconds']:.1f}")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] {line.strip()}")
+    BUILD_REGS.update(ptxas_registers(info["log"]))
+    print(f"[build] {len(BUILD_REGS)} kernels in the build log; registers "
+          f"and occupancy stand beside each kernel's time")
 
     # --- 3. kernel vs plain on the card -----------------------------------
     max_err = 0.0
@@ -2014,8 +2363,11 @@ def main():
     fwd_err, bwd_err = max(fwd_err, errs[0]), max(bwd_err, errs[1])
     del inputs
     uni_err, uni_ms, uni_plain_ms = compare_uniforms(dev, 700 * 700, 11)
-    print(f"[time] prepare_uniforms_kernel [11,7,490000]: kernel ms="
-          f"{uni_ms:.3f} plain ms={uni_plain_ms:.3f} on {card}")
+    print(f"[time] prepare_uniforms_kernel [11,7,490000]: kernel device ms "
+          f"(CUDA graph)={fmt_ms(uni_ms)} plain ms={uni_plain_ms:.3f} on "
+          f"{card}; "
+          + occupancy_text("uniforms_kernel", UNIFORMS_THREADS))
+    probe = probe_phase(card, dev)
 
     # The select kernel on five scenes at 256x256 (all three tables, an
     # ellipsoid and a two-sided plane; triangles only, with smooth normals;
@@ -2103,13 +2455,15 @@ def main():
         CORNELL_SCENE, 700, 10, 7, dev)
     max_err = max(max_err, compare("cornell 700x700 rec10", arrays, ray_o,
                                    ray_d, uniforms))
-    kernel_ms = cuda_ms(
-        lambda: fused.trace_fused(arrays, ray_o, ray_d, uniforms), 10)
+    kernel_ms = graph_ms(
+        lambda: fused.trace_fused(arrays, ray_o, ray_d, uniforms), 20)
     plain_ms = cuda_ms(
         lambda: fused.trace_fused_reference(arrays, ray_o, ray_d, uniforms),
         2)
-    kernel_ms2 = cuda_ms(
-        lambda: fused.trace_fused(arrays, ray_o, ray_d, uniforms), 10)
+    kernel_ms2 = graph_ms(
+        lambda: fused.trace_fused(arrays, ray_o, ray_d, uniforms), 20)
+    kernel_tape_ms = graph_ms(lambda: fused.trace_fused(
+        arrays, ray_o, ray_d, uniforms, want_tape=True), 20)
     _, _, tape = fused.trace_fused(arrays, ray_o, ray_d, uniforms,
                                    want_tape=True)
     reached = int(((tape.flags & 0xF) != 0).sum())  # bounces the paths reach
@@ -2118,10 +2472,14 @@ def main():
         nbytes(ray_o, ray_d, uniforms, *arrays.fused_tables)
         + ray_o.shape[0] * 16)
     del tape
-    print(f"[time] trace_fused cornell 700x700 rec10: kernel ms="
-          f"{kernel_ms:.3f} (again {kernel_ms2:.3f}) plain ms={plain_ms:.3f} "
+    print(f"[time] trace_fused cornell 700x700 rec10: kernel device ms "
+          f"(CUDA graph)={fmt_ms(kernel_ms)} (again {fmt_ms(kernel_ms2)}; "
+          f"with the tape {fmt_ms(kernel_tape_ms)}) plain ms={plain_ms:.3f} "
           f"bound ms={fused_bound[0]:.4f} (by {fused_bound[1]}, "
           f"{reached / ray_o.shape[0]:.4f} bounces per path) on {card}")
+    print(f"[time] trace_fused kernel: " + occupancy_text(
+        "trace_fused_kernel", FUSED_THREADS,
+        nbytes(*arrays.fused_tables)))
 
     # The whole pass with the plain version, for the end-to-end comparison.
     jitter = torch.rand((700 * 700, 4), device=dev)
@@ -2166,9 +2524,11 @@ def main():
     # over three primitive tables, a BVH walk), so there is no library time
     # to report.
     def entry(name, source, replaces, launched, err, ms, p_ms, bound_ms):
+        if not replaces.startswith("scripts/"):
+            replaces = f"raytracercore_tpu/{replaces}"
         return {"name": name, "route": "cuda",
                 "source": f"raytracercore_tpu_torch/csrc/{source}",
-                "replaces": f"raytracercore_tpu/{replaces}",
+                "replaces": replaces,
                 "launches": launched, "max_abs_err": err, "ms": ms,
                 "plain_ms": p_ms, "bound_ms": bound_ms[0],
                 "bound_by": bound_ms[1], "library_ms": None}
@@ -2203,6 +2563,10 @@ def main():
               max(traverse_err, traverse_stage["max_abs_err"]),
               traverse_stage["ms"], traverse_stage["plain_ms"],
               (traverse_stage["bound_ms"], traverse_stage["bound_by"])),
+        entry("issue_probe", "issue_probe.cu",
+              "scripts/vpu_issue_bench.py:106",
+              probe["launches"], probe["max_abs_err"], probe["ms"],
+              probe["plain_ms"], probe["bound"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

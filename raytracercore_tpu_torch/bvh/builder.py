@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..config import BVH_LEAF_SIZE
+from ..core.device import DEFAULT_DEVICE, resolve_device
 from ..scene.types import HostScene, SceneArrays, _Tensors
 
 # "auto" takes the native builder from this many rows on: below, the numpy
@@ -62,10 +63,12 @@ def _arrays(bmin, bmax, skip, slot, prims, dtype, device) -> BVHArrays:
                      leaf_slot=i32(slot), leaf_prims=i32(prims))
 
 
-def bvh_arrays_from_numpy(d, device="cpu", dtype=torch.float32) -> BVHArrays:
+def bvh_arrays_from_numpy(d, device=DEFAULT_DEVICE,
+                          dtype=torch.float32) -> BVHArrays:
     """Build a :class:`BVHArrays` from the JAX package's ``BVHArrays``
     fields given as numpy arrays (a mapping, or any object with those
     attributes), so that both packages can walk one tree."""
+    device = resolve_device(device, "bvh_arrays_from_numpy")
     def get(name):
         return d[name] if isinstance(d, Mapping) else getattr(d, name)
     return _arrays(*(get(f.name) for f in dataclasses.fields(BVHArrays)),
@@ -153,7 +156,8 @@ def _build(idx, bmin, bmax, centers, leaf_size, n_bins=16):
 
 def build_boxes_bvh(bmin: np.ndarray, bmax: np.ndarray, valid: np.ndarray,
                     leaf_size: int = BVH_LEAF_SIZE, dtype=torch.float32,
-                    backend: str = "auto", device="cpu") -> BVHArrays:
+                    backend: str = "auto",
+                    device=DEFAULT_DEVICE) -> BVHArrays:
     """Build a skip-link BVH over arbitrary per-row AABBs.
 
     Generic core shared by the triangle and sphere builders (the reference
@@ -166,6 +170,7 @@ def build_boxes_bvh(bmin: np.ndarray, bmax: np.ndarray, valid: np.ndarray,
     built), or "auto" (native from ``NATIVE_MIN_ROWS`` rows on when it can
     be built, else numpy).
     """
+    device = resolve_device(device, "build_boxes_bvh")
     if backend not in ("auto", "numpy", "native"):
         raise ValueError(f"build_boxes_bvh: unknown backend {backend!r}")
     row_idx = np.nonzero(valid)[0]
@@ -236,7 +241,8 @@ def build_boxes_bvh(bmin: np.ndarray, bmax: np.ndarray, valid: np.ndarray,
 def build_triangle_bvh(v0: np.ndarray, e1: np.ndarray, e2: np.ndarray,
                        mirror: np.ndarray, valid: np.ndarray,
                        leaf_size: int = BVH_LEAF_SIZE, dtype=torch.float32,
-                       backend: str = "auto", device="cpu") -> BVHArrays:
+                       backend: str = "auto",
+                       device=DEFAULT_DEVICE) -> BVHArrays:
     """Build a skip-link BVH over the valid rows of a triangle table."""
     bmin, bmax = triangle_bounds(v0, e1, e2, mirror)
     return build_boxes_bvh(bmin, bmax, valid, leaf_size, dtype, backend,
@@ -273,7 +279,8 @@ def ellipsoid_bounds(center: np.ndarray, radius: np.ndarray,
 def build_ellipsoid_bvh(center: np.ndarray, radius: np.ndarray,
                         obj_to_world: np.ndarray, valid: np.ndarray,
                         leaf_size: int = BVH_LEAF_SIZE, dtype=torch.float32,
-                        backend: str = "auto", device="cpu") -> BVHArrays:
+                        backend: str = "auto",
+                        device=DEFAULT_DEVICE) -> BVHArrays:
     """Skip-link BVH over TRANSFORMED spheres (leaf_prims = sphere-table
     rows); the kernel leaf test runs the full object-space quadratic with
     the matrices packed into the leaf record
@@ -286,7 +293,7 @@ def build_ellipsoid_bvh(center: np.ndarray, radius: np.ndarray,
 def build_sphere_bvh(center: np.ndarray, radius: np.ndarray,
                      valid: np.ndarray, leaf_size: int = BVH_LEAF_SIZE,
                      dtype=torch.float32, backend: str = "auto",
-                     device="cpu") -> BVHArrays:
+                     device=DEFAULT_DEVICE) -> BVHArrays:
     """Skip-link BVH over untransformed spheres (leaf_prims = sphere-table
     rows); its leaf test is the plain-sphere quadratic."""
     bmin, bmax = sphere_bounds(center, radius)
@@ -310,17 +317,17 @@ def build_bvh(scene: HostScene | SceneArrays, leaf_size: int | None = None,
             t.detach().cpu().numpy() for t in
             (tri.v0, tri.e1, tri.e2, tri.mirror, tri.prim_id))
         return build_triangle_bvh(v0, e1, e2, mirror, prim_id >= 0,
-                                  leaf_size, dtype, backend)
+                                  leaf_size, dtype, backend, device="cpu")
     tris = scene.triangles
     if not tris:
         return build_triangle_bvh(np.zeros((0, 3)), np.zeros((0, 3)),
                                   np.zeros((0, 3)), np.zeros(0, bool),
                                   np.zeros(0, bool), leaf_size, dtype,
-                                  backend)
+                                  backend, device="cpu")
     v0 = np.stack([t.v0 for t in tris])
     e1 = np.stack([t.edge01 for t in tris])
     e2 = np.stack([t.edge02 for t in tris])
     mirror = np.array([t.mirror for t in tris], bool)
     valid = np.ones(len(tris), bool)
     return build_triangle_bvh(v0, e1, e2, mirror, valid, leaf_size, dtype,
-                              backend)
+                              backend, device="cpu")

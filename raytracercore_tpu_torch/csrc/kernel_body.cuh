@@ -94,6 +94,22 @@ __device__ __forceinline__ bool skip_match(const Skip& k, int prim, float px,
   return pos_close && parity;
 }
 
+// True only where fl(fl(1 / det) * num) is certain to lie outside [0, 1]
+// (or to be NaN), so that the exact test rejects the row: below 0 where the
+// signs differ and the quotient is too large to round to -0; above 1 where
+// the signs agree and |num| exceeds |det| by more than the two roundings
+// (2^-23 together) can take back.  det == 0 is never rejected here.  The
+// select kernel's division-free pre-reject of u (select.cu tri_scan);
+// intersect/kernel_body.py: surely_outside is the plain version the tests
+// hold against the exact test.
+__device__ __forceinline__ bool surely_outside(float num, float det) {
+  const float an = fabsf(num), ad = fabsf(det);
+  const bool opposite = (__float_as_int(num) ^ __float_as_int(det)) < 0;
+  const bool below = opposite && an >= fmaxf(ad, 1.f) * 0x1p-100f;
+  const bool above = !opposite && an > ad * (1.f + 0x1p-20f);
+  return det != 0.f && (below || above);
+}
+
 // Moller-Trumbore over all triangle rows (Triangle.cs:148-224): mirrored-
 // quad UV rule, optional coplanar ray-in-plane branch, optional smooth
 // normals.  inv = det != 0 ? 1/det : 0 (the reference's AVX path scrubs

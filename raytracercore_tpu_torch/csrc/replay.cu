@@ -19,8 +19,10 @@
 // What bounds them on Hopper: per bounce a path reads 7 floats of
 // uniforms and 5 words of tape (48 bytes) and does ~150 flops of shading
 // (~3x that for the adjoint), so by these counts the forward sits near the
-// memory side and the backward on fp32 issue and divergence; no hardware
-// counter has confirmed it.  What the design does about it:
+// memory side and the backward on fp32 issue and divergence.  Paths end
+// after 1 to n_bounces bounces (5.93 of 11 on average on the Cornell scene
+// of chip_smoke.py), and a warp runs until its longest path ends.  What the
+// design does about it:
 //   * the material table sits in dynamic shared memory (N <= 768 rows,
 //     43 KB; with the backward's accumulator 86 KB, above the 48 KB
 //     default, hence cudaFuncSetAttribute below) and is read by row,
@@ -39,13 +41,30 @@
 //     once per 128 paths;
 //   * the path state lives in registers; bounces the path never reached
 //     (code Skipped) only renormalize;
-//   * the backward keeps each bounce's entry (direction, tint) in a
-//     per-thread array of MAX_REPLAY_BOUNCES entries (the wrapper raises
-//     beyond it), sweeps back through the adjoint and adds dL/dg straight
-//     into a per-block [N,14] shared accumulator (shared-memory atomics;
-//     threads past R never touch it), which the block writes to its slice
-//     of a [blocks,N,14] buffer that torch sums.  The TPU's [B*14,R]
-//     cotangent tensor (302 MB at 700^2 rec10) never exists.
+//   * the backward keeps each bounce's entry (direction, tint) in shared
+//     memory, [bounce][6][thread] (33.8 KB a block at 11 bounces), where
+//     that leaves as many blocks resident as a stash in local memory (the
+//     wrapper asks rtc_replay_bwd_blocks_per_sm for both), else in local
+//     memory (up to MAX_REPLAY_BOUNCES, which the wrapper enforces; deeper
+//     shared stashes cost blocks and time), sweeps back through
+//     the adjoint and adds dL/dg straight into a per-block [N,14] shared
+//     accumulator (shared-memory atomics; threads past R never touch it),
+//     which the block writes to its slice of a [blocks,N,14] buffer that
+//     torch sums.  The TPU's [B*14,R] cotangent tensor (302 MB at 700^2
+//     rec10) never exists;
+//   * for 65-768 material rows, where at most two blocks of 128 threads
+//     fit on an SM beside their table, accumulator and stash (one above
+//     ~730 rows at 11 bounces), the backward regenerates paths
+//     (replay_bwd_regen_kernel): a lane that finishes its path's reverse
+//     sweep takes the next path index from a counter, so the few resident
+//     warps do not idle on short paths.  Its persistent grid has as many
+//     blocks per SM as rtc_replay_bwd_blocks_per_sm reports.  With a small
+//     table, or the global one, more warps are resident and the plain
+//     kernel is faster (PERF.md section 6).
+// Tried and not kept (PERF.md section 6): the lanes of a warp on one row
+// summed with shuffles before one atomic, per-warp private accumulators,
+// a persistent grid for a small table, path regeneration at every table
+// size.
 // The TPU kernels' (8,128) tiles, padding to BLOCK, unrolled N-way select
 // gather and one-hot matmul scatter are not carried over.
 //
@@ -432,37 +451,69 @@ __global__ void __launch_bounds__(REPLAY_BLOCK)
   }
 }
 
+constexpr unsigned FULL_MASK = 0xffffffffu;
+constexpr int STASH_F = 6;  // a bounce's entry direction and tint
+
+// A bounce's entry (direction, tint) in the thread's stash `my`, and
+// back: SH, the thread's column of the shared stash [bounce][6][thread]
+// (stride REPLAY_BLOCK); else the thread's own array in local memory
+// (stride 1).
+template <bool SH>
+__device__ __forceinline__ void stash_entry(float* my, int i, V3 d, V3 t) {
+  constexpr int S = SH ? REPLAY_BLOCK : 1;
+  float* e = my + STASH_F * i * S;
+  e[0] = d.x;
+  e[S] = d.y;
+  e[2 * S] = d.z;
+  e[3 * S] = t.x;
+  e[4 * S] = t.y;
+  e[5 * S] = t.z;
+}
+
+template <bool SH>
+__device__ __forceinline__ void stashed_entry(const float* my, int i, V3& d,
+                                              V3& t) {
+  constexpr int S = SH ? REPLAY_BLOCK : 1;
+  const float* e = my + STASH_F * i * S;
+  d = {e[0], e[S], e[2 * S]};
+  t = {e[3 * S], e[4 * S], e[5 * S]};
+}
 // `partial`: [blocks,N,14] floats, one slice per block; GLOBAL: one [N,14]
 // accumulator of doubles, zeroed by the caller, that every block adds into.
-template <bool AIM, bool GLOBAL>
+// SH: the bounce entries (direction, tint) live in shared memory,
+// [bounce][6][thread]; else in local memory.
+template <bool AIM, bool GLOBAL, bool SH>
 __global__ void __launch_bounds__(REPLAY_BLOCK)
     replay_bwd_kernel(ReplayParams p, const float* ct, void* partial) {
-  extern __shared__ float s_tab[];  // [N,14] table, then [N,14] accumulator
+  // [N,14] table, then the [N,14] accumulator (both only without GLOBAL),
+  // then the stash (SH).
+  extern __shared__ float s_tab[];
   const float* s_mf = p.matf;
   float* s_acc = nullptr;
+  float* stash = s_tab;
   double* g_acc = static_cast<double*>(partial);
   if (!GLOBAL) {
     s_acc = s_tab + p.N * RP_MAT_F;
+    stash = s_acc + p.N * RP_MAT_F;
     load_table(p, s_tab);
     for (int k = threadIdx.x; k < p.N * RP_MAT_F; k += blockDim.x)
       s_acc[k] = 0.f;
     __syncthreads();
     s_mf = s_tab;
   }
+  float loc[SH ? 1 : MAX_REPLAY_BOUNCES * STASH_F];
+  float* my = SH ? stash + threadIdx.x : loc;
 
   const float air = p.scf[0];
   const V3 ambient = {p.scf[1], p.scf[2], p.scf[3]};
   for (int r = blockIdx.x * blockDim.x + threadIdx.x; r < p.R;
        r += gridDim.x * blockDim.x) {
-    V3 d_st[MAX_REPLAY_BOUNCES], t_st[MAX_REPLAY_BOUNCES];
-
     // Forward sweep: keep each bounce's entry (direction, tint).
     V3 d = {p.ray_d[3 * r], p.ray_d[3 * r + 1], p.ray_d[3 * r + 2]};
     V3 tint = {1.f, 1.f, 1.f};
     V3 result = {0.f, 0.f, 0.f};
     for (int i = 0; i < p.n_bounces; ++i) {
-      d_st[i] = d;
-      t_st[i] = tint;
+      stash_entry<SH>(my, i, d, tint);
       if (i % 3 == 0) d = renorm(d);
       const size_t at = (size_t)i * p.R + r;
       const int flags = p.flags[at];
@@ -473,12 +524,13 @@ __global__ void __launch_bounds__(REPLAY_BLOCK)
       advance<AIM>(p, i, r, sh, g, ambient, d, tint, result);
     }
 
-    // Reverse sweep through the adjoint, adding dL/dg into the block's
-    // [N,14] accumulator.
+    // Reverse sweep through the adjoint, adding dL/dg into the
+    // accumulator.
     V3 d_ct = {0.f, 0.f, 0.f}, t_ct = {0.f, 0.f, 0.f};
     V3 r_ct = {ct[3 * r], ct[3 * r + 1], ct[3 * r + 2]};
     for (int i = p.n_bounces - 1; i >= 0; --i) {
-      const V3 d_in = d_st[i];
+      V3 d_in, t_in;
+      stashed_entry<SH>(my, i, d_in, t_in);
       const bool rn = i % 3 == 0;
       const size_t at = (size_t)i * p.R + r;
       const int flags = p.flags[at];
@@ -489,7 +541,7 @@ __global__ void __launch_bounds__(REPLAY_BLOCK)
         Shade sh;
         shade(p, i, r, dn, g, flags, air, sh);
         float gct[RP_MAT_F];
-        bounce_adjoint<AIM>(i, sh, dn, t_st[i], g, d_ct, t_ct, r_ct, gct);
+        bounce_adjoint<AIM>(i, sh, dn, t_in, g, d_ct, t_ct, r_ct, gct);
 #pragma unroll
         for (int c = 0; c < RP_MAT_F; ++c) {
           if (gct[c] == 0.f) continue;
@@ -501,6 +553,124 @@ __global__ void __launch_bounds__(REPLAY_BLOCK)
       }
       if (rn) d_ct = renorm_adjoint(d_in, d_ct);
     }
+  }
+  if (GLOBAL) return;
+  __syncthreads();
+  float* out =
+      static_cast<float*>(partial) + (size_t)blockIdx.x * p.N * RP_MAT_F;
+  for (int k = threadIdx.x; k < p.N * RP_MAT_F; k += blockDim.x)
+    out[k] = s_acc[k];
+}
+
+// The backward with path regeneration: a lane runs its path's forward
+// sweep up to the path's last live bounce, then the reverse sweep, then
+// takes the next path index from a counter in device memory (one atomic
+// per warp), so that a warp does not idle the lanes whose path is short
+// while its longest path runs on.  The bounce entries live in shared
+// memory ([bounce][6][thread]) with SH, else in local memory; every lane
+// adds its own dL/dg.  The grid is persistent; `work` is one int32, zeroed
+// by the caller on the stream.
+template <bool AIM, bool GLOBAL, bool SH>
+__global__ void __launch_bounds__(REPLAY_BLOCK)
+    replay_bwd_regen_kernel(ReplayParams p, const float* ct, void* partial,
+                            int* work) {
+  extern __shared__ float s_tab[];
+  const float* s_mf = p.matf;
+  float* s_acc = nullptr;
+  float* stash = s_tab;
+  double* g_acc = static_cast<double*>(partial);
+  if (!GLOBAL) {
+    s_acc = s_tab + p.N * RP_MAT_F;
+    stash = s_acc + p.N * RP_MAT_F;
+    load_table(p, s_tab);
+    for (int k = threadIdx.x; k < p.N * RP_MAT_F; k += blockDim.x)
+      s_acc[k] = 0.f;
+    __syncthreads();
+    s_mf = s_tab;
+  }
+  float loc[SH ? 1 : MAX_REPLAY_BOUNCES * STASH_F];
+  float* my = SH ? stash + threadIdx.x : loc;
+  const float air = p.scf[0];
+  const V3 ambient = {p.scf[1], p.scf[2], p.scf[3]};
+
+  int r = -1, i = 0;
+  bool fwd = true, more = true;
+  V3 d = {0.f, 0.f, 1.f}, tint = {1.f, 1.f, 1.f}, result = {0.f, 0.f, 0.f};
+  V3 d_ct = {0.f, 0.f, 0.f}, t_ct = {0.f, 0.f, 0.f}, r_ct = {0.f, 0.f, 0.f};
+  while (true) {
+    // Lanes without a path take the next one (warp-aggregated).
+    const bool want = r < 0 && more;
+    const unsigned m = __ballot_sync(FULL_MASK, want);
+    if (m) {
+      int base = 0;
+      if ((threadIdx.x & 31) == 0) base = atomicAdd(work, __popc(m));
+      base = __shfl_sync(FULL_MASK, base, 0);
+      if (want) {
+        r = base + __popc(m & ((1u << (threadIdx.x & 31)) - 1u));
+        if (r >= p.R) {
+          r = -1;
+          more = false;
+        } else {
+          i = 0;
+          fwd = true;
+          d = {p.ray_d[3 * r], p.ray_d[3 * r + 1], p.ray_d[3 * r + 2]};
+          tint = {1.f, 1.f, 1.f};
+          result = {0.f, 0.f, 0.f};
+        }
+      }
+    }
+    if (!__any_sync(FULL_MASK, r >= 0)) break;
+    if (r < 0) continue;
+
+    if (fwd) {
+      // Forward sweep: keep the entry (direction, tint) of bounce i; the
+      // sweep ends at the first bounce the path never reached.
+      int flags = 0;
+      if (i < p.n_bounces) flags = p.flags[(size_t)i * p.R + r];
+      if ((flags & CODE_MASK) == SKIPPED) {
+        fwd = false;
+        --i;
+        d_ct = {0.f, 0.f, 0.f};
+        t_ct = {0.f, 0.f, 0.f};
+        r_ct = {ct[3 * r], ct[3 * r + 1], ct[3 * r + 2]};
+        continue;
+      }
+      stash_entry<SH>(my, i, d, tint);
+      if (i % 3 == 0) d = renorm(d);
+      const float* g = s_mf + max(p.prim[(size_t)i * p.R + r], 0) * RP_MAT_F;
+      Shade sh;
+      shade(p, i, r, d, g, flags, air, sh);
+      advance<AIM>(p, i, r, sh, g, ambient, d, tint, result);
+      ++i;
+      continue;
+    }
+    if (i < 0) {
+      r = -1;  // the path is done
+      continue;
+    }
+    // Reverse sweep, bounce i (live: the sweep starts at the last live one).
+    V3 d_in, t_in;
+    stashed_entry<SH>(my, i, d_in, t_in);
+    const bool rn = i % 3 == 0;
+    const size_t at = (size_t)i * p.R + r;
+    const int flags = p.flags[at];
+    const int row = max(p.prim[at], 0);
+    const float* g = s_mf + row * RP_MAT_F;
+    const V3 dn = rn ? renorm(d_in) : d_in;
+    Shade sh;
+    shade(p, i, r, dn, g, flags, air, sh);
+    float gct[RP_MAT_F];
+    bounce_adjoint<AIM>(i, sh, dn, t_in, g, d_ct, t_ct, r_ct, gct);
+#pragma unroll
+    for (int c = 0; c < RP_MAT_F; ++c) {
+      if (gct[c] == 0.f) continue;
+      if (GLOBAL)
+        atomicAdd(g_acc + (size_t)row * RP_MAT_F + c, (double)gct[c]);
+      else
+        atomicAdd(s_acc + row * RP_MAT_F + c, gct[c]);
+    }
+    if (rn) d_ct = renorm_adjoint(d_in, d_ct);
+    --i;
   }
   if (GLOBAL) return;
   __syncthreads();
@@ -538,6 +708,63 @@ int launch(void (*kernel)(rtc::ReplayParams, Args...), int n_blocks,
 
 }  // namespace
 
+namespace {
+
+// The backward kernel of a table mode and stash; regeneration takes one
+// more argument (the path counter).
+template <bool AIM, bool GLOBAL>
+auto bwd_kernel_of(bool sh) {
+  return sh ? rtc::replay_bwd_kernel<AIM, GLOBAL, true>
+            : rtc::replay_bwd_kernel<AIM, GLOBAL, false>;
+}
+
+auto bwd_kernel(bool aim, bool global_table, bool sh) {
+  if (aim)
+    return global_table ? bwd_kernel_of<true, true>(sh)
+                        : bwd_kernel_of<true, false>(sh);
+  return global_table ? bwd_kernel_of<false, true>(sh)
+                      : bwd_kernel_of<false, false>(sh);
+}
+
+template <bool AIM, bool GLOBAL>
+auto regen_kernel_of(bool sh) {
+  return sh ? rtc::replay_bwd_regen_kernel<AIM, GLOBAL, true>
+            : rtc::replay_bwd_regen_kernel<AIM, GLOBAL, false>;
+}
+
+auto regen_kernel(bool aim, bool global_table, bool sh) {
+  if (aim)
+    return global_table ? regen_kernel_of<true, true>(sh)
+                        : regen_kernel_of<true, false>(sh);
+  return global_table ? regen_kernel_of<false, true>(sh)
+                      : regen_kernel_of<false, false>(sh);
+}
+
+// The table and its accumulator (without the global table) and the stash
+// (with the shared stash).
+size_t bwd_smem(int N, int n_bounces, int global_table, int shared_stash) {
+  size_t floats = 0;
+  if (shared_stash)
+    floats += (size_t)n_bounces * rtc::STASH_F * rtc::REPLAY_BLOCK;
+  if (!global_table) floats += 2 * (size_t)N * rtc::RP_MAT_F;
+  return floats * sizeof(float);
+}
+
+// Blocks of `kernel` that stay resident on an SM with `smem` bytes of
+// dynamic shared memory, as the card reports it.
+template <typename K>
+int blocks_per_sm(K kernel, size_t smem, int* out) {
+  if (smem > rtc::DEFAULT_SMEM) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out, kernel, rtc::REPLAY_BLOCK, smem);
+}
+
+}  // namespace
+
 // C entry points, loaded with ctypes.  Each launches `n_blocks` blocks (at
 // most one per REPLAY_BLOCK paths; fewer walk the paths in strides) on
 // `stream` and returns the cudaGetLastError() after the launch (0 =
@@ -567,24 +794,48 @@ extern "C" int rtc_replay_fwd(const float* ray_d, const float* u,
                 n_blocks, smem, stream, p, color, miss);
 }
 
+// `regen` != 0 launches the kernel with path regeneration (the grid is
+// then persistent); `work` is one int32 of scratch, its path counter,
+// zeroed here on the stream.  `shared_stash` != 0 keeps the bounce entries
+// in shared memory, else in local memory.
 extern "C" int rtc_replay_bwd(const float* ray_d, const float* u,
                               const int* prim, const int* flags,
                               const float* nx, const float* ny,
                               const float* nz, const float* matf,
                               const float* scf, const float* ct,
-                              void* partial, int R, int N, int n_bounces,
-                              int n_blocks, int ambient_is_miss,
-                              int global_table, void* stream) {
+                              void* partial, int* work, int R, int N,
+                              int n_bounces, int n_blocks,
+                              int ambient_is_miss, int global_table,
+                              int regen, int shared_stash, void* stream) {
   if (bad_sizes(R, N, n_bounces, n_blocks, global_table))
     return (int)cudaErrorInvalidValue;
   rtc::ReplayParams p{ray_d, u, prim, flags, nx, ny, nz, matf, scf,
                       R, N, n_bounces};
-  if (global_table)
-    return launch(ambient_is_miss ? rtc::replay_bwd_kernel<true, true>
-                                  : rtc::replay_bwd_kernel<false, true>,
-                  n_blocks, 0, stream, p, ct, partial);
-  const size_t smem = 2 * (size_t)N * rtc::RP_MAT_F * sizeof(float);
-  return launch(ambient_is_miss ? rtc::replay_bwd_kernel<true, false>
-                                : rtc::replay_bwd_kernel<false, false>,
-                n_blocks, smem, stream, p, ct, partial);
+  const size_t smem = bwd_smem(N, n_bounces, global_table, shared_stash);
+  const bool aim = ambient_is_miss != 0, gt = global_table != 0,
+             sh = shared_stash != 0;
+  if (regen) {
+    cudaError_t err = cudaMemsetAsync(work, 0, sizeof(int),
+                                      static_cast<cudaStream_t>(stream));
+    if (err != cudaSuccess) return (int)err;
+    return launch(regen_kernel(aim, gt, sh), n_blocks, smem, stream, p, ct,
+                  partial, work);
+  }
+  return launch(bwd_kernel(aim, gt, sh), n_blocks, smem, stream, p, ct,
+                partial);
+}
+
+// Resident blocks per SM of the backward kernel that rtc_replay_bwd
+// launches with these arguments, at its shared memory (table, accumulator
+// and stash): out[0].  A persistent (regenerating) grid has this many
+// blocks on each SM.
+extern "C" int rtc_replay_bwd_blocks_per_sm(int N, int n_bounces,
+                                            int ambient_is_miss,
+                                            int global_table, int regen,
+                                            int shared_stash, int* out) {
+  const size_t smem = bwd_smem(N, n_bounces, global_table, shared_stash);
+  const bool aim = ambient_is_miss != 0, gt = global_table != 0,
+             sh = shared_stash != 0;
+  if (regen) return blocks_per_sm(regen_kernel(aim, gt, sh), smem, out);
+  return blocks_per_sm(bwd_kernel(aim, gt, sh), smem, out);
 }

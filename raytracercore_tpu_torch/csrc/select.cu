@@ -51,7 +51,8 @@
 //     two independent chains hide the division's latency;
 //   * a row that no ray of the warp can still hit (u, then v, out of range
 //     for every ray, which the commit would discard) is left after a warp
-//     vote;
+//     vote; the vote on u is taken on a division-free pre-reject
+//     (kernel_body.cuh surely_outside), before the correctly rounded 1/det;
 //   * the scans keep only each table's (t, row); the winner's position and
 //     normal are recomputed once, in the scans' own arithmetic.
 // The TPU kernel's (8,128) ray tiles, its 128-lane padding and its unrolled
@@ -223,6 +224,8 @@ __device__ __forceinline__ bool tri_candidate(float4 A, float4 B, float4 C,
 // arithmetic in three stages.  After u, and again after v, a row that no
 // ray of the warp can still take is left (a warp vote): where det == 0 the
 // coplanar branch may still replace u and v, so such a ray keeps its row.
+// The first vote is on the division-free pre-reject of u (kernel_body.cuh
+// surely_outside), so a row the warp leaves costs no division.
 __device__ __forceinline__ void tri_scan(const float4* rows, int lo, int hi,
                                          SelRay (&s)[RPT], float eps_behind,
                                          float eps2) {
@@ -249,11 +252,15 @@ __device__ __forceinline__ void tri_scan(const float4* rows, int lo, int hi,
       fx[j] = o.x - v0x;
       fy[j] = o.y - v0y;
       fz[j] = o.z - v0z;
-      inv[j] = det[j] != 0.f ? 1.f / det[j] : 0.f;
-      u[j] = inv[j] * (fx[j] * sx + fy[j] * sy + fz[j] * sz);
-      go = go || det[j] == 0.f || (u[j] >= 0.f && u[j] <= 1.f);
+      u[j] = fx[j] * sx + fy[j] * sy + fz[j] * sz;  // u's numerator
+      go = go || det[j] == 0.f || !surely_outside(u[j], det[j]);
     }
     if (!__any_sync(FULL_MASK, go)) continue;
+#pragma unroll
+    for (int j = 0; j < RPT; ++j) {
+      inv[j] = det[j] != 0.f ? 1.f / det[j] : 0.f;
+      u[j] = inv[j] * u[j];
+    }
 
     const bool mirror = (fl & SF_MIRROR) != 0;
     float ocx[RPT], ocy[RPT], ocz[RPT], v[RPT];

@@ -15,6 +15,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..core.device import DEFAULT_DEVICE, resolve_device
 from ..scene.types import SceneArrays
 
 MATERIAL_FIELDS = ("emission", "diffuse", "specular", "refraction",
@@ -36,11 +37,12 @@ def with_material_params(scene: SceneArrays, params: dict) -> SceneArrays:
         dataclasses.replace(scene.materials, **params))
 
 
-def material_params_from_numpy(params, device="cpu",
+def material_params_from_numpy(params, device=DEFAULT_DEVICE,
                                dtype=torch.float32) -> dict:
     """Leaf tensors that require grad from the JAX package's material
     params (a mapping of field → array, e.g. ``get_material_params`` of a
     JAX scene with numpy leaves), copied value for value."""
+    device = resolve_device(device, "material_params_from_numpy")
     return {f: torch.tensor(np.asarray(params[f]), dtype=dtype,
                             device=device).requires_grad_(True)
             for f in MATERIAL_FIELDS}

@@ -558,11 +558,12 @@ def make_bvh_closest_fn(bvh, scene: SceneArrays | None = None,
     for mask, cls, build in (
             (~transformed & (pid >= 0), ct.CudaSphereBVH,
              lambda m: builder.build_sphere_bvh(
-                 sph.center.cpu().numpy(), sph.radius.cpu().numpy(), m)),
+                 sph.center.cpu().numpy(), sph.radius.cpu().numpy(), m,
+                 device="cpu")),
             (transformed & (pid >= 0), ct.CudaEllipsoidBVH,
              lambda m: builder.build_ellipsoid_bvh(
                  sph.center.cpu().numpy(), sph.radius.cpu().numpy(),
-                 sph.obj_to_world.cpu().numpy(), m))):
+                 sph.obj_to_world.cpu().numpy(), m, device="cpu"))):
         if int(mask.sum()) >= SPHERE_BVH_MIN_ROWS:
             sphere_bvhs.append(cls(build(mask), sph, scene.materials,
                                    scene.n_prims))

@@ -91,6 +91,27 @@ def _not_skipped(skip_match, ok, prim, px, py, pz, inside):
     return ok & ~skip_match(prim, px, py, pz, inside)
 
 
+def surely_outside(num, det):
+    """The division-free pre-reject of the select kernel's triangle scan
+    (``csrc/kernel_body.cuh`` ``surely_outside``), f32: True only where the
+    exact test's ``u = inv * num`` (or ``v``), with ``inv = 1 / det``
+    correctly rounded, is certain to fall outside ``[0, 1]`` or to be NaN,
+    so that :func:`triangle_pass` rejects the row.
+
+    Below 0: the signs differ and ``|num| >= max(|det|, 1) * 2^-100``, so
+    the product cannot round to -0 (for ``|det| <= 1``, ``|inv| >= 1``
+    keeps any nonzero ``num`` nonzero; above, the quotient is at least
+    2^-100).  Above 1: the signs agree and ``|num| > |det| * (1 + 2^-20)``,
+    more than the two roundings (2^-23 together) can take back.  ``det ==
+    0`` is never rejected here (the coplanar branch may keep the row)."""
+    an, ad = torch.abs(num), torch.abs(det)
+    opposite = torch.signbit(num) != torch.signbit(det)
+    below = opposite & (an >= torch.fmax(ad, torch.ones_like(ad))
+                        * 2.0 ** -100)
+    above = ~opposite & (an > ad * (1.0 + 2.0 ** -20))
+    return (det != 0) & (below | above)
+
+
 def triangle_pass(tf, ti, o3, d3, eps_behind, skip_match, emit,
                   coplanar=True, any_smooth=True):
     """Möller–Trumbore over all triangle rows (Triangle.cs:148-224,

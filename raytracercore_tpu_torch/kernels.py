@@ -38,7 +38,7 @@ _U = ctypes.c_uint32
 # C signatures of the library's entry points.
 SIGNATURES = {
     "rtc_trace_fused": (
-        [_P] * 18                      # 11 inputs, 7 outputs
+        [_P] * 19                      # 11 inputs, 7 outputs, work
         + [_I] * 7                     # R T S P N n_bounces recursion
         + [_F, _F]                     # eps_behind, eps_pos²
         + [_I] * 4                     # ambient_is_miss want_tape
@@ -54,9 +54,19 @@ SIGNATURES = {
                                        # ambient_is_miss global_table
         + [_P]),                       # stream
     "rtc_replay_bwd": (
-        [_P] * 11                      # 9 inputs, color cotangent, partial
-        + [_I] * 6                     # R N n_bounces n_blocks
-                                       # ambient_is_miss global_table
+        [_P] * 12                      # 9 inputs, color cotangent, partial,
+                                       # work
+        + [_I] * 8                     # R N n_bounces n_blocks
+                                       # ambient_is_miss global_table regen
+                                       # shared_stash
+        + [_P]),                       # stream
+    "rtc_replay_bwd_blocks_per_sm": (
+        [_I] * 6                       # N n_bounces ambient_is_miss
+                                       # global_table regen shared_stash
+        + [_P]),                       # out [1]
+    "rtc_issue_probe": (
+        [_P, _P]                       # abc, out
+        + [_I] * 3                     # n iters mix
         + [_P]),                       # stream
     "rtc_select": (
         [_P] * 21                      # 2 rays, 4 skip (null: none),

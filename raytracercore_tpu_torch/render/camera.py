@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from ..core import vecmath as vm
+from ..core.device import DEFAULT_DEVICE, resolve_device
 from ..scene.types import CameraRT
 
 TWO_PI = 6.283185307179586
@@ -89,8 +90,9 @@ def center_rays(cam: CameraRT, px, py):
     return o + d * cam.image_plane, d
 
 
-def pixel_grid(width: int, height: int, device="cpu"):
+def pixel_grid(width: int, height: int, device=DEFAULT_DEVICE):
     """Linear pixel index grids [H*W] in row-major (y, x) order."""
+    device = resolve_device(device, "pixel_grid")
     ys, xs = torch.meshgrid(torch.arange(height, device=device),
                             torch.arange(width, device=device),
                             indexing="ij")

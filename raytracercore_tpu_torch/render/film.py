@@ -17,6 +17,7 @@ from typing import Optional
 import torch
 
 from ..core.color import to_uint8, tonemap
+from ..core.device import DEFAULT_DEVICE, resolve_device
 
 
 def _neumaier_add(s, c, x):
@@ -37,8 +38,10 @@ class Film:
     color_c: Optional[torch.Tensor] = None
 
     @classmethod
-    def create(cls, height: int, width: int, device="cpu",
+    def create(cls, height: int, width: int, device=DEFAULT_DEVICE,
                dtype=torch.float32, compensated: bool = False):
+        device = resolve_device(device, "Film.create")
+
         def z(*shape):
             return torch.zeros(shape, dtype=dtype, device=device)
         return cls(color_sum=z(height, width, 3), samples=z(height, width),

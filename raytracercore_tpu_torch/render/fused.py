@@ -340,6 +340,24 @@ def classify_mismatches(ref, got, atol=1e-3, rtol=1e-3):
     }
 
 
+def kernel_tables(scene: SceneArrays):
+    """What the kernel reads of ``scene``, checked, in its argument order:
+    ``(tf, ti, sf, si, pf, pi, mf, scf)`` — :attr:`SceneArrays.fused_tables`
+    (the :func:`.kernel_body.pack_tables` rows, the ``[N, 14]`` material
+    rows and ``(air ior, ambient rgb)``; a train step's ``with_materials``
+    repacks only the material rows)."""
+    f32, i32 = torch.float32, torch.int32
+    tables = scene.fused_tables
+    dev = tables[0].device
+    for name, t, width, dtype in zip(
+            ("tf", "ti", "sf", "si", "pf", "pi", "mf"), tables,
+            (kb.TRI_F, kb.INT_F, kb.SPH_F, kb.INT_F, kb.PL_F, kb.INT_F,
+             MAT_F), (f32, i32, f32, i32, f32, i32, f32)):
+        _check(name, t, (t.shape[0], width), dtype, dev)
+    _check("scf", tables[7], (SC_F,), f32, dev)
+    return tables
+
+
 def _launch(scene: SceneArrays, ray_o, ray_d, uniforms, want_tape):
     from .. import kernels
 
@@ -354,18 +372,14 @@ def _launch(scene: SceneArrays, ray_o, ray_d, uniforms, want_tape):
     _check("ray_o", ray_o, (R, 3), f32, dev)
     _check("ray_d", ray_d, (R, 3), f32, dev)
     _check("uniforms", uniforms, (n_bounces, 7, R), f32, dev)
-
-    tables = scene.fused_tables
-    for name, t, width, dtype in zip(
-            ("tf", "ti", "sf", "si", "pf", "pi", "mf"), tables,
-            (kb.TRI_F, kb.INT_F, kb.SPH_F, kb.INT_F, kb.PL_F, kb.INT_F,
-             MAT_F), (f32, i32, f32, i32, f32, i32, f32)):
-        _check(name, t, (t.shape[0], width), dtype, dev)
-    tf, ti, sf, si, pf, pi, mf, scf = tables
-    _check("scf", scf, (SC_F,), f32, dev)
+    tables = kernel_tables(scene)
+    if tables[0].device != dev:
+        raise ValueError(f"scene tables on {tables[0].device}, rays on {dev}")
+    tf, _, sf, _, pf, _, mf, _ = tables
 
     color = torch.empty((R, 3), dtype=f32, device=dev)
     miss = torch.empty((R,), dtype=i32, device=dev)
+    work = torch.empty((1,), dtype=i32, device=dev)
     if want_tape:
         tape = PathTape(
             prim=torch.empty((n_bounces, R), dtype=i32, device=dev),
@@ -383,9 +397,8 @@ def _launch(scene: SceneArrays, ray_o, ray_d, uniforms, want_tape):
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = kernels.load().rtc_trace_fused(
         ray_o.data_ptr(), ray_d.data_ptr(), uniforms.data_ptr(),
-        tf.data_ptr(), ti.data_ptr(), sf.data_ptr(), si.data_ptr(),
-        pf.data_ptr(), pi.data_ptr(), mf.data_ptr(), scf.data_ptr(),
-        color.data_ptr(), miss.data_ptr(), *tape_ptrs,
+        *(t.data_ptr() for t in tables),
+        color.data_ptr(), miss.data_ptr(), *tape_ptrs, work.data_ptr(),
         R, tf.shape[0], sf.shape[0], pf.shape[0], mf.shape[0],
         n_bounces, scene.recursion,
         vm.near_enough(f32), eps_pos * eps_pos,

@@ -27,6 +27,7 @@ import torch
 
 from ..config import BVH_AUTO_THRESHOLD, SELECT_MAX_PRIMS
 from ..bvh.builder import build_bvh
+from ..core.device import resolve_device
 from ..intersect.cuda_select import closest_hit_fused
 from ..intersect.dispatch import (closest_hit, make_bvh_closest_fn,
                                   n_table_rows)
@@ -94,17 +95,6 @@ def render_passes(scene: SceneArrays, camera, film: Film, seed: int,
     return film
 
 
-def _resolve_device(device) -> torch.device:
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "Renderer: device 'cuda' requested but no CUDA device is "
-            "available (torch.cuda.is_available() is False)")
-    if device.type not in ("cuda", "cpu"):
-        raise ValueError(f"Renderer: unsupported device {device}")
-    return device
-
-
 class Renderer:
     """Progressive scene renderer with pause/resume/checkpoint.
 
@@ -140,7 +130,7 @@ class Renderer:
         ``closest_fn`` overrides the pick and runs through ``trace``."""
         if accelerator not in ("auto", "brute", "bvh"):
             raise ValueError(f"Renderer: unknown accelerator {accelerator!r}")
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device, "Renderer")
         self.seed = seed
         self.compensated = compensated
         if isinstance(scene, SceneArrays):

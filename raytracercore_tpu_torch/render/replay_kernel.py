@@ -54,11 +54,17 @@ MAX_KERNEL_MATS = 768
 # Up to this many rows a launch has one block per REPLAY_BLOCK paths; above,
 # copying the table in (and the accumulator out) would cost a block more
 # than its 128 paths' shading, so the launch has only the blocks that stay
-# resident, RESIDENT_BLOCKS_PER_SM on each SM, and each walks the paths in
-# strides.
+# resident and each walks the paths in strides: the forward
+# RESIDENT_BLOCKS_PER_SM on each SM, the backward as many as the card
+# reports for its shared memory (bwd_blocks_per_sm: two up to ~730 rows at
+# 11 bounces, one above, fewer the deeper the recursion).
 SMALL_TABLE_MATS = 64
 RESIDENT_BLOCKS_PER_SM = 2
 MAX_KERNEL_BOUNCES = 32  # bounces the backward kernel stashes per thread
+# Where the backward keeps each bounce's entry (direction, tint: 24 B a
+# thread and bounce): None lets shared_stash choose by occupancy; True or
+# False forces shared or local memory (to time both places).
+STASH_IN_SHARED = None
 REPLAY_BLOCK = 128       # threads per block (csrc/replay.cu REPLAY_BLOCK)
 _LUM = (LUM_R, LUM_G, LUM_B)
 _SQRT_FLOOR = 1e-20      # vecmath.safe_sqrt's floor
@@ -490,15 +496,74 @@ def _kernel_args(ray_d, uniforms, tape, matf, scf):
     return ptrs, R, N, B
 
 
-def launch_blocks(R: int, N: int, device) -> int:
-    """Blocks of a replay launch over ``R`` paths and ``N`` material rows
-    (see ``SMALL_TABLE_MATS``; in the global-table mode no block copies the
-    table, so there is again one block per ``REPLAY_BLOCK`` paths)."""
+def launch_blocks(R: int, N: int, device, per_sm=None) -> int:
+    """Blocks of a replay launch over ``R`` paths and ``N`` material rows:
+    one per ``REPLAY_BLOCK`` paths, except at ``SMALL_TABLE_MATS`` < N <=
+    ``MAX_KERNEL_MATS`` rows, where the grid is persistent: ``per_sm()``
+    blocks on each SM (default ``RESIDENT_BLOCKS_PER_SM``, the forward's).
+    The SM count (and ``per_sm``) is asked of the card only there."""
     n_blocks = -(-R // REPLAY_BLOCK)
     if SMALL_TABLE_MATS < N <= MAX_KERNEL_MATS:
         sms = torch.cuda.get_device_properties(device).multi_processor_count
-        n_blocks = min(n_blocks, RESIDENT_BLOCKS_PER_SM * sms)
+        blocks = RESIDENT_BLOCKS_PER_SM if per_sm is None else per_sm()
+        n_blocks = min(n_blocks, blocks * sms)
     return n_blocks
+
+
+def _regenerates(N: int) -> bool:
+    """The backward regenerates paths (``csrc/replay.cu``
+    ``replay_bwd_regen_kernel``) where its grid is persistent:
+    ``SMALL_TABLE_MATS`` < N <= ``MAX_KERNEL_MATS``."""
+    return SMALL_TABLE_MATS < N <= MAX_KERNEL_MATS
+
+
+_bwd_per_sm: dict = {}
+
+
+def _per_sm(N: int, n_bounces: int, ambient_is_miss: bool, device,
+            shared: bool) -> int:
+    """Blocks of the backward kernel for these arguments that stay
+    resident on one SM, at its real shared memory (the table and its
+    accumulator, and with ``shared`` the ``n_bounces`` stash), as the card
+    reports it; cached per device and arguments."""
+    import ctypes
+
+    from .. import kernels
+
+    key = (torch.device(device).index, N, n_bounces, bool(ambient_is_miss),
+           shared)
+    if key not in _bwd_per_sm:
+        out = ctypes.c_int(0)
+        err = kernels.load().rtc_replay_bwd_blocks_per_sm(
+            N, n_bounces, int(ambient_is_miss), int(N > MAX_KERNEL_MATS),
+            int(_regenerates(N)), int(shared), ctypes.byref(out))
+        if err != 0 or out.value < 1:
+            raise RuntimeError(f"replay backward occupancy: CUDA error {err}"
+                               f", {out.value} blocks per SM")
+        _bwd_per_sm[key] = out.value
+    return _bwd_per_sm[key]
+
+
+def shared_stash(N: int, n_bounces: int, ambient_is_miss: bool,
+                 device) -> bool:
+    """The backward keeps its bounce entries in shared memory where that
+    leaves as many of its blocks resident as a stash in local memory does,
+    else in local memory (measured: shared is faster at equal occupancy,
+    slower where it costs blocks; PERF.md section 6).
+    ``STASH_IN_SHARED`` overrides the choice."""
+    if STASH_IN_SHARED is not None:
+        return STASH_IN_SHARED
+    return (_per_sm(N, n_bounces, ambient_is_miss, device, True)
+            >= _per_sm(N, n_bounces, ambient_is_miss, device, False))
+
+
+def bwd_blocks_per_sm(N: int, n_bounces: int, ambient_is_miss: bool,
+                      device) -> int:
+    """Blocks of the backward kernel that :func:`replay_bwd` launches that
+    stay resident on one SM (its stash where :func:`shared_stash` puts
+    it)."""
+    return _per_sm(N, n_bounces, ambient_is_miss, device,
+                   shared_stash(N, n_bounces, ambient_is_miss, device))
 
 
 def replay_fwd(ray_d, uniforms, tape: PathTape, matf, scf,
@@ -550,7 +615,11 @@ def replay_bwd(ray_d, uniforms, tape: PathTape, matf, scf,
 
     ptrs, R, N, B = _kernel_args(ray_d, uniforms, tape, matf, scf)
     _check("color_ct", color_ct, (R, 3), torch.float32, ray_d.device)
-    n_blocks = launch_blocks(R, N, ray_d.device)
+    n_blocks = launch_blocks(R, N, ray_d.device, lambda: bwd_blocks_per_sm(
+        N, B, ambient_is_miss, ray_d.device))
+    regen = _regenerates(N)
+    work = (torch.empty((1,), dtype=torch.int32, device=ray_d.device)
+            if regen else None)
     global_table = N > MAX_KERNEL_MATS
     if global_table:
         partial = torch.zeros((N, C), dtype=torch.float64,
@@ -559,8 +628,10 @@ def replay_bwd(ray_d, uniforms, tape: PathTape, matf, scf,
         partial = torch.empty((n_blocks, N, C), dtype=torch.float32,
                               device=ray_d.device)
     err = kernels.load().rtc_replay_bwd(
-        *ptrs, color_ct.data_ptr(), partial.data_ptr(), R, N, B, n_blocks,
-        int(ambient_is_miss), int(global_table),
+        *ptrs, color_ct.data_ptr(), partial.data_ptr(),
+        None if work is None else work.data_ptr(), R, N, B, n_blocks,
+        int(ambient_is_miss), int(global_table), int(regen),
+        int(shared_stash(N, B, ambient_is_miss, ray_d.device)),
         torch.cuda.current_stream(ray_d.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"replay backward kernel launch failed: CUDA "

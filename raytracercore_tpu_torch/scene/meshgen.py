@@ -16,6 +16,7 @@ import numpy as np
 
 import torch
 
+from ..core.device import DEFAULT_DEVICE, resolve_device
 from .types import (HostCamera, Materials, Planes, SceneArrays, Spheres,
                     Triangles)
 
@@ -116,7 +117,7 @@ def icosphere(subdiv: int):
 def make_mesh_scene(grid: int = 14, subdiv: int = 4, seed: int = 0,
                     recursion: int = 4, width: int = 1024,
                     height: int = 1024, smooth: bool = True,
-                    device="cpu", dtype=torch.float32):
+                    device=DEFAULT_DEVICE, dtype=torch.float32):
     """A grid x grid field of replicated icospheres + floor + quad light.
 
     grid=14, subdiv=4 → 14*14*5120 + 2 = 1,003,522 triangles; grid=1,
@@ -128,6 +129,7 @@ def make_mesh_scene(grid: int = 14, subdiv: int = 4, seed: int = 0,
     construction consumes — kept on host so callers can build the BVH without
     pulling the device arrays back.
     """
+    device = resolve_device(device, "make_mesh_scene")
     rng = np.random.default_rng(seed)
     sv, sf = icosphere(subdiv)
 
@@ -216,7 +218,7 @@ def make_mesh_scene(grid: int = 14, subdiv: int = 4, seed: int = 0,
 
 def make_sphere_field_scene(grid: int = 20, seed: int = 0,
                             recursion: int = 4, width: int = 512,
-                            height: int = 512, device="cpu",
+                            height: int = 512, device=DEFAULT_DEVICE,
                             dtype=torch.float32, ellipsoid: bool = False):
     """A grid x grid field of ANALYTIC (untransformed) spheres over a floor
     quad with an emissive quad light — the mixed sphere+triangle stress
@@ -227,6 +229,7 @@ def make_sphere_field_scene(grid: int = 20, seed: int = 0,
 
     Returns (SceneArrays, HostCamera).
     """
+    device = resolve_device(device, "make_sphere_field_scene")
     rng = np.random.default_rng(seed)
     S = grid * grid
     spacing = 2.6

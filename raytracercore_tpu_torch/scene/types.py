@@ -21,6 +21,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from ..core.device import DEFAULT_DEVICE, resolve_device
 from . import transforms as T
 
 AIR_REFRACTIVE_INDEX = 1.000293  # Scene.cs:35
@@ -348,7 +349,8 @@ def _pad_to(n: int, pad: int) -> int:
     return ((n + pad - 1) // pad) * pad
 
 
-def freeze_scene(scene: HostScene, device="cpu", dtype=torch.float32,
+def freeze_scene(scene: HostScene, device=DEFAULT_DEVICE,
+                 dtype=torch.float32,
                  pad: int = 1) -> SceneArrays:
     """Convert a HostScene into padded SoA tensors on ``device``.
 
@@ -356,6 +358,7 @@ def freeze_scene(scene: HostScene, device="cpu", dtype=torch.float32,
     ``freeze_scene``: ``pad`` is the table-size granularity (1 keeps tables
     exact-sized), and empty tables still get one masked row.
     """
+    device = resolve_device(device, "freeze_scene")
     def f(x):
         return torch.tensor(np.asarray(x, dtype=np.float64), dtype=dtype,
                             device=device)
@@ -491,10 +494,12 @@ def freeze_scene(scene: HostScene, device="cpu", dtype=torch.float32,
     )
 
 
-def init_camera(cam: HostCamera, width: int, height: int, device="cpu",
+def init_camera(cam: HostCamera, width: int, height: int,
+                device=DEFAULT_DEVICE,
                 dtype=torch.float32) -> CameraRT:
     """Build the render-ready camera basis (Camera.InitRender,
     Camera.cs:54-63) plus per-mode projection scalars."""
+    device = resolve_device(device, "init_camera")
     pos = np.asarray(cam.position, dtype=np.float64)
     look_at = np.asarray(cam.look_at, dtype=np.float64)
     up0 = np.asarray(cam.up, dtype=np.float64)
@@ -555,12 +560,13 @@ def _tensors_from_numpy(cls, d, device, float_dtype):
     return cls(**out)
 
 
-def scene_arrays_from_numpy(d, device="cpu", dtype=torch.float32
+def scene_arrays_from_numpy(d, device=DEFAULT_DEVICE, dtype=torch.float32
                             ) -> SceneArrays:
     """Build a :class:`SceneArrays` from the JAX package's ``SceneArrays``
     fields given as numpy arrays (``d`` is a nested mapping or any object
     with those attributes, e.g. the JAX pytree with numpy leaves).  Values
     are copied bit for bit, so both packages compute on the same scene."""
+    device = resolve_device(device, "scene_arrays_from_numpy")
     tables = {
         "triangles": Triangles, "spheres": Spheres, "planes": Planes,
         "materials": Materials}
@@ -577,10 +583,12 @@ def scene_arrays_from_numpy(d, device="cpu", dtype=torch.float32
     return SceneArrays(**kw)
 
 
-def camera_from_numpy(d, device="cpu", dtype=torch.float32) -> CameraRT:
+def camera_from_numpy(d, device=DEFAULT_DEVICE,
+                      dtype=torch.float32) -> CameraRT:
     """Build a :class:`CameraRT` from the JAX package's ``CameraRT`` fields
     given as numpy arrays (mapping or attributes, like
     :func:`scene_arrays_from_numpy`)."""
+    device = resolve_device(device, "camera_from_numpy")
     kw = {f.name: torch.tensor(np.asarray(_field(d, f.name)), dtype=dtype,
                                device=device)
           for f in dataclasses.fields(CameraRT) if f.name != "mode"}

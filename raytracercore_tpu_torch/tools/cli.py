@@ -91,11 +91,12 @@ def cmd_optimize(args):
     from ..intersect.dispatch import (closest_hit, make_bvh_closest_fn,
                                       n_table_rows)
     from ..parallel import make_train_step
-    from ..render.renderer import _resolve_device, pass_seed
+    from ..core.device import resolve_device
+    from ..render.renderer import pass_seed
     from ..scene.types import freeze_scene, init_camera
     from .png import read_png
 
-    device = _resolve_device(args.device)
+    device = resolve_device(args.device, "cli")
     scene = _load(args)
     arrays = freeze_scene(scene, device=device)
     camera = init_camera(scene.cameras[args.camera], scene.width,

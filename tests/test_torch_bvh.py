@@ -70,10 +70,11 @@ def mesh_case(grid=2, subdiv=1, size=16, leaf_size=4, two_sided=False):
         ja = ja.replace(materials=ja.materials.replace(
             two_sided=jnp.ones_like(ja.materials.two_sided)))
     ta = ttypes.scene_arrays_from_numpy(
-        jax.tree_util.tree_map(np.asarray, ja))
+        jax.tree_util.tree_map(np.asarray, ja), device="cpu")
     jbvh = jbuilder.build_triangle_bvh(*host, leaf_size=leaf_size,
                                        backend="numpy")
-    tbvh = bvh_arrays_from_numpy(jax.tree_util.tree_map(np.asarray, jbvh))
+    tbvh = bvh_arrays_from_numpy(jax.tree_util.tree_map(np.asarray, jbvh),
+                                 device="cpu")
     camera = jtypes.init_camera(host_cam, size, size)
     px, py = jcam.pixel_grid(size, size)
     o, d = jcam.center_rays(camera, px, py)
@@ -103,10 +104,10 @@ def boxes_of(kind):
     the port's bounds functions."""
     if kind == "tri":
         _, _, (v0, e1, e2, mirror, valid) = tmeshgen.make_mesh_scene(
-            grid=2, subdiv=1)
+            grid=2, subdiv=1, device="cpu")
         return (*builder.triangle_bounds(v0, e1, e2, mirror), valid)
     arrays, _ = tmeshgen.make_sphere_field_scene(
-        grid=7, ellipsoid=kind == "spht")
+        grid=7, ellipsoid=kind == "spht", device="cpu")
     sph = arrays.spheres
     c, r = sph.center.numpy(), sph.radius.numpy()
     valid = sph.prim_id.numpy() >= 0
@@ -125,14 +126,14 @@ def test_numpy_triangle_builder_equals_jax(leaf_size):
     want = jbuilder.build_triangle_bvh(*host, leaf_size=leaf_size,
                                        backend="numpy")
     got = builder.build_triangle_bvh(*host, leaf_size=leaf_size,
-                                     backend="numpy")
+                                     backend="numpy", device="cpu")
     assert got.n_nodes == want.n_nodes > 3
     assert_bvh_equal(got, want)
     # Carried over from the JAX arrays, the tree is the same again.
     assert_bvh_equal(bvh_arrays_from_numpy(
-        jax.tree_util.tree_map(np.asarray, want)), want)
+        jax.tree_util.tree_map(np.asarray, want), device="cpu"), want)
     assert_bvh_equal(bvh_arrays_from_numpy(
-        {f: np.asarray(getattr(want, f)) for f in FIELDS}), want)
+        {f: np.asarray(getattr(want, f)) for f in FIELDS}, device="cpu"), want)
 
 
 @pytest.mark.parametrize("ellipsoid", [False, True])
@@ -145,14 +146,15 @@ def test_numpy_sphere_builders_equal_jax(ellipsoid):
         want = jbuilder.build_ellipsoid_bvh(*args, leaf_size=4,
                                             backend="numpy")
         got = builder.build_ellipsoid_bvh(*args, leaf_size=4,
-                                          backend="numpy")
+                                          backend="numpy", device="cpu")
         for a, b in zip(builder.ellipsoid_bounds(*args[:3]),
                         jbuilder.ellipsoid_bounds(*args[:3])):
             np.testing.assert_array_equal(a, b)
     else:
         args = (sph.center, sph.radius, valid)
         want = jbuilder.build_sphere_bvh(*args, leaf_size=4, backend="numpy")
-        got = builder.build_sphere_bvh(*args, leaf_size=4, backend="numpy")
+        got = builder.build_sphere_bvh(*args, leaf_size=4, backend="numpy",
+                                       device="cpu")
     assert got.n_nodes > 3
     assert_bvh_equal(got, want)
 
@@ -169,7 +171,7 @@ def test_build_bvh_takes_host_scenes_and_frozen_arrays():
     assert_bvh_equal(got, want)
     # The frozen table is f32, so a split may fall otherwise: the same
     # rows under the same root box, in a tree that keeps the contract.
-    arrays = ttypes.freeze_scene(thost)
+    arrays = ttypes.freeze_scene(thost, device="cpu")
     frozen = build_bvh(arrays, leaf_size=4, backend="numpy")
     tri = arrays.triangles
     bmin, bmax = builder.triangle_bounds(
@@ -230,7 +232,7 @@ def test_builder_contract(kind, leaf_size, backend):
     valid = valid.copy()
     valid[1::7] = False
     bvh = builder.build_boxes_bvh(bmin, bmax, valid, leaf_size,
-                                  backend=backend)
+                                  backend=backend, device="cpu")
     check_contract(bvh, bmin.astype(np.float32), bmax.astype(np.float32),
                    valid, leaf_size)
 
@@ -247,8 +249,10 @@ def test_native_builder_builds_from_the_ports_own_source(tmp_path,
     assert out[4].shape[1] == 4 and out[0].shape == out[1].shape
     # "auto" takes the numpy builder for a small table, "native" the
     # library: both find the rows.
-    auto = builder.build_boxes_bvh(bmin, bmax, valid, 4, backend="auto")
-    nat = builder.build_boxes_bvh(bmin, bmax, valid, 4, backend="native")
+    auto = builder.build_boxes_bvh(bmin, bmax, valid, 4, backend="auto",
+                                   device="cpu")
+    nat = builder.build_boxes_bvh(bmin, bmax, valid, 4, backend="native",
+                                  device="cpu")
     assert (auto.leaf_prims >= 0).sum() == (nat.leaf_prims >= 0).sum()
 
     # Without a compiler (and nothing built) "native" raises; it does not
@@ -257,7 +261,8 @@ def test_native_builder_builds_from_the_ports_own_source(tmp_path,
     monkeypatch.setattr(native, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(native, "_compiler", lambda: "/nonexistent/c++")
     with pytest.raises((RuntimeError, OSError)):
-        builder.build_boxes_bvh(bmin, bmax, valid, 4, backend="native")
+        builder.build_boxes_bvh(bmin, bmax, valid, 4, backend="native",
+                                device="cpu")
 
 
 # ---------------------------------------------------------------------------

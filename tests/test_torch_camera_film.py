@@ -36,12 +36,12 @@ def test_camera_rays_match_jax(name, index):
     jhost, thost = host_scenes(name)
     w, h = jhost.width, jhost.height
     jc = jtypes.init_camera(jhost.cameras[index], w, h)
-    tc = ttypes.init_camera(thost.cameras[index], w, h)
+    tc = ttypes.init_camera(thost.cameras[index], w, h, device="cpu")
     if name == "dof":
         assert float(tc.dof_amount) != 0
 
     jpx, jpy = jcam.pixel_grid(w, h)
-    tpx, tpy = tcam.pixel_grid(w, h)
+    tpx, tpy = tcam.pixel_grid(w, h, device="cpu")
     np.testing.assert_array_equal(tpx.numpy(), np.asarray(jpx))
     np.testing.assert_array_equal(tpy.numpy(), np.asarray(jpy))
 
@@ -61,8 +61,9 @@ def test_camera_rays_match_jax(name, index):
 
 def test_jittered_rays_draw_from_generator():
     _, thost = host_scenes("dof")
-    tc = ttypes.init_camera(thost.cameras[0], thost.width, thost.height)
-    px, py = tcam.pixel_grid(thost.width, thost.height)
+    tc = ttypes.init_camera(thost.cameras[0], thost.width, thost.height,
+                            device="cpu")
+    px, py = tcam.pixel_grid(thost.width, thost.height, device="cpu")
     g = torch.Generator().manual_seed(3)
     o, d = tcam.jittered_rays(tc, px, py, g)
     u = torch.rand((px.shape[0], 4), generator=torch.Generator().manual_seed(3))
@@ -83,7 +84,7 @@ def _frames(h, w, n, seed):
 def test_add_full_frame_matches_jax(compensated):
     h, w = 6, 5
     jf = JFilm.create(h, w, compensated=compensated)
-    tf = TFilm.create(h, w, compensated=compensated)
+    tf = TFilm.create(h, w, compensated=compensated, device="cpu")
     for color, miss in _frames(h, w, 4, 1):
         jf = jf.add_full_frame(jnp.asarray(color), jnp.asarray(miss))
         tf = tf.add_full_frame(_t(color), _t(miss))
@@ -99,7 +100,7 @@ def test_add_full_frame_matches_jax(compensated):
 def test_tonemap_and_to_uint8_match_jax():
     h, w = 6, 5
     jf = JFilm.create(h, w)
-    tf = TFilm.create(h, w)
+    tf = TFilm.create(h, w, device="cpu")
     for color, miss in _frames(h, w, 3, 2):
         color = np.minimum(color, 2.0)
         miss[0] = True  # a pixel with misses only shows the background

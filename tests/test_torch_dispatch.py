@@ -61,7 +61,7 @@ def scene_pair(name, **overrides):
             setattr(jhost, k, v)
         ja = jtypes.freeze_scene(jhost)
     ta = ttypes.scene_arrays_from_numpy(
-        jax.tree_util.tree_map(np.asarray, ja))
+        jax.tree_util.tree_map(np.asarray, ja), device="cpu")
     return ja, ta
 
 

@@ -56,7 +56,7 @@ def traced_pair(name, size, recursion, seed, ambient_miss=False):
     uniforms = jprep(k_path, ray_o.shape[0], recursion + 1, jnp.float32)
     ref = jtrace(ja, ray_o, ray_d, None, uniforms=uniforms, want_tape=True)
 
-    ta = ttypes.freeze_scene(thost)
+    ta = ttypes.freeze_scene(thost, device="cpu")
     inputs = (ta, _t(ray_o), _t(ray_d), _t(uniforms))
     got = fused.trace_fused_reference(*inputs, want_tape=True)
     return ref, got, inputs
@@ -166,10 +166,10 @@ def test_fits_routes_like_jax():
     from raytracercore_tpu.render.fused import fits as jfits
     for name in ("fused", "cornell", "stress"):
         jhost, thost = host_scenes(name)
-        assert fused.fits(ttypes.freeze_scene(thost)) == jfits(
+        assert fused.fits(ttypes.freeze_scene(thost, device="cpu")) == jfits(
             jtypes.freeze_scene(jhost)) is True
         jhost.debug_geom = thost.debug_geom = True
-        assert fused.fits(ttypes.freeze_scene(thost)) == jfits(
+        assert fused.fits(ttypes.freeze_scene(thost, device="cpu")) == jfits(
             jtypes.freeze_scene(jhost)) is False
 
 
@@ -221,3 +221,198 @@ def test_kernel_wrapper_rejects_bad_inputs():
     debug_scene = dataclasses.replace(scene, debug_geom=True)
     with pytest.raises(ValueError, match="megakernel cannot trace"):
         fused._launch(debug_scene, ray_o, ray_d, uniforms, want_tape=False)
+
+
+# --- the kernel's inputs -------------------------------------------------
+
+def test_kernel_tables():
+    """The megakernel reads ``SceneArrays.fused_tables``: the
+    ``pack_tables`` rows, the ``[N, 14]`` material rows and ``(air ior,
+    ambient rgb)``, in that order, each dtype and width the C side reads,
+    contiguous; a train step's ``with_materials`` repacks only the
+    material rows."""
+    from raytracercore_tpu_torch.intersect import kernel_body as kb
+
+    for name in ("fused", "cornell", "smooth"):
+        _, thost = host_scenes(name)
+        ta = ttypes.freeze_scene(thost, device="cpu")
+        tables = fused.kernel_tables(ta)
+        tf, ti, sf, si, pf, pi, mf, scf = tables
+        for got, want in zip(tables[:6], kb.pack_tables(ta)):
+            assert torch.equal(got, want)
+        assert torch.equal(mf, fused.pack_materials(ta.materials))
+        assert torch.equal(scf, torch.cat([
+            ta.air_refractive_index.reshape(1), ta.ambient_rgb.reshape(3)]))
+        assert [t.dtype for t in tables] == [torch.float32, torch.int32] * 3 \
+            + [torch.float32] * 2
+        assert all(t.is_contiguous() for t in tables)
+        T, S, P, N = tf.shape[0], sf.shape[0], pf.shape[0], mf.shape[0]
+        assert [tuple(t.shape) for t in tables] == [
+            (T, kb.TRI_F), (T, kb.INT_F), (S, kb.SPH_F), (S, kb.INT_F),
+            (P, kb.PL_F), (P, kb.INT_F), (N, 14), (4,)]
+        mats = dataclasses.replace(ta.materials,
+                                   diffuse=ta.materials.diffuse * 0.5)
+        swapped = fused.kernel_tables(ta.with_materials(mats))
+        assert all(a is b for a, b in zip(swapped[:6], tables[:6]))
+        assert torch.equal(swapped[6], fused.pack_materials(mats))
+
+
+# --- the division-free pre-reject of the triangle test -------------
+
+def _exact_u(num, det):
+    """``triangle_pass``'s u: ``inv * num``, ``inv = 1 / det`` (0 where
+    det == 0), in f32."""
+    nz = det != 0
+    inv = torch.where(nz, 1.0 / torch.where(nz, det, torch.ones_like(det)),
+                      torch.zeros_like(det))
+    return inv * num
+
+
+def _ulps(x, k):
+    """``x`` moved ``k`` f32 ulps."""
+    x = np.float32(x)
+    for _ in range(abs(k)):
+        x = np.nextafter(x, np.float32(np.inf if k > 0 else -np.inf),
+                         dtype=np.float32)
+    return x
+
+
+_EDGE_F32 = [0.0, -0.0, 1e-45, -1e-45, 2.0 ** -149, 2.0 ** -126,
+             -(2.0 ** -126), 2.0 ** -100, 1e-30, 1.0, -1.0, 2.0, 1e20,
+             3.4e38, -3.4e38, float("inf"), float("-inf"), float("nan")]
+
+
+def _f32s(**kw):
+    """f32 floats; bounds rounded to f32 first."""
+    from hypothesis import strategies as st
+    return st.floats(width=32, **{k: float(np.float32(v))
+                                  for k, v in kw.items()})
+
+
+def _det_strategy():
+    from hypothesis import strategies as st
+    return st.one_of(st.sampled_from(_EDGE_F32), _f32s(),
+                     _f32s(min_value=-1e-30, max_value=1e-30),
+                     _f32s(min_value=-4.0, max_value=4.0))
+
+
+def _ratio_strategy():
+    from hypothesis import strategies as st
+    return st.one_of(st.sampled_from([0.0, -0.0, 1.0, -1.0]),
+                     _f32s(min_value=-1e-6, max_value=1e-6),
+                     _f32s(min_value=1 - 1e-5, max_value=1 + 1e-5),
+                     _f32s(min_value=-1e-40, max_value=1e-40), _f32s())
+
+
+def test_pre_reject_never_rejects_an_accepted_u():
+    """``kernel_body.surely_outside`` (the kernel's pre-reject, before the
+    division) rejects a (numerator, det) pair only where the exact
+    ``u = (1 / det) * num`` of ``triangle_pass`` falls outside [0, 1] (or
+    is NaN): u near 0 and near 1 to a few ulps, det near ±0, subnormal,
+    huge, infinite, NaN, ±0.0."""
+    from hypothesis import given, settings
+    from hypothesis import strategies as st
+
+    from raytracercore_tpu_torch.intersect.kernel_body import surely_outside
+
+    @settings(max_examples=600, deadline=None)
+    @given(st.lists(st.tuples(_det_strategy(), _ratio_strategy(),
+                              st.integers(-3, 3), _f32s()),
+                    min_size=1, max_size=32))
+    def check(cases):
+        dets, nums = [], []
+        for det, ratio, k, free in cases:
+            with np.errstate(all="ignore"):
+                num = np.float32(det) * np.float32(ratio)
+            dets += [det, det]
+            nums += [_ulps(num, k), free]
+        det = torch.tensor(dets, dtype=torch.float32)
+        num = torch.tensor(np.asarray(nums, np.float32))
+        u = _exact_u(num, det)
+        accepted = (u >= 0) & (u <= 1)
+        bad = surely_outside(num, det) & accepted
+        assert not bad.any(), (num[bad], det[bad], u[bad])
+
+    check()
+
+
+def test_pre_reject_keeps_every_row_triangle_pass_accepts():
+    """On single triangle rows hit near their edges (u, v at 0 or 1 to a
+    few ulps, rays from any direction, both triangle-branch settings), no
+    row that ``triangle_pass`` accepts is pre-rejected on u."""
+    from hypothesis import given, settings
+    from hypothesis import strategies as st
+
+    from raytracercore_tpu_torch.intersect import kernel_body as kb
+
+    bary = st.one_of(st.sampled_from([0.0, 1.0, 0.5]),
+                     _f32s(min_value=0.0, max_value=1e-6),
+                     _f32s(min_value=1 - 1e-6, max_value=1.0),
+                     _f32s(min_value=0.0, max_value=1.0))
+    coord = _f32s(min_value=-8.0, max_value=8.0)
+
+    @settings(max_examples=300, deadline=None)
+    @given(st.lists(coord, min_size=9, max_size=9), bary, bary,
+           st.integers(-2, 2), st.lists(coord, min_size=3, max_size=3),
+           _f32s(min_value=0.01, max_value=20.0), st.booleans(),
+           st.booleans())
+    def check(tri, bu, bv, k, dvec, t, mirror, coplanar):
+        v0, e1, e2 = (np.asarray(tri[3 * i:3 * i + 3], np.float32)
+                      for i in range(3))
+        if not mirror:
+            bv = min(bv, 1.0 - bu)
+        bu = _ulps(bu, k)
+        p = v0 + e1 * np.float32(bu) + e2 * np.float32(bv)
+        d = np.asarray(dvec, np.float32)
+        if not np.any(d):
+            return
+        o = (p - d * np.float32(t)).astype(np.float32)
+        n = np.cross(e1, e2).astype(np.float32)
+        tf = torch.tensor(np.concatenate([v0, e1, e2, n, n, n, n])[None])
+        ti = torch.tensor([[0, int(mirror), 0, 1]], dtype=torch.int32)
+        o3 = tuple(torch.tensor([x]) for x in o)
+        d3 = tuple(torch.tensor([x]) for x in d)
+        got = {}
+
+        def emit(row, ok, *_):
+            got["ok"] = ok
+        kb.triangle_pass(tf, ti, o3, d3, 1e-4, None, emit,
+                         coplanar=coplanar, any_smooth=False)
+        f = [o3[c] - tf[0, c] for c in range(3)]
+        e1t, e2t = tf[0, 3:6], tf[0, 6:9]
+        sx = d3[1] * e2t[2] - d3[2] * e2t[1]
+        sy = d3[2] * e2t[0] - d3[0] * e2t[2]
+        sz = d3[0] * e2t[1] - d3[1] * e2t[0]
+        det = e1t[0] * sx + e1t[1] * sy + e1t[2] * sz
+        num = f[0] * sx + f[1] * sy + f[2] * sz
+        assert not (got["ok"] & kb.surely_outside(num, det)).any()
+
+    check()
+
+
+def test_pre_reject_sweep_near_u_one():
+    """A sweep that hypothesis's draws rarely reach: 2^20 dets of random
+    mantissa (the quotient's rounding at its worst near the top of a
+    binade) and exponent, numerators 0-3 ulps from ±det and from ±tiny:
+    no pre-rejected pair is accepted by the exact test."""
+    from raytracercore_tpu_torch.intersect.kernel_body import surely_outside
+
+    rng = np.random.default_rng(7)
+    n = 1 << 20
+    mant = rng.integers(0, 1 << 23, n, dtype=np.int64)
+    mant[: n // 4] = (1 << 23) - 1 - mant[: n // 4] % 64   # top of binade
+    expo = rng.integers(-140, 130, n)
+    det = np.ldexp((1 + mant / 2.0 ** 23), expo).astype(np.float32)
+    det *= rng.choice(np.float32([-1, 1]), n)
+    det_t = torch.tensor(det)
+    for base in (det, np.float32(2.0 ** -149) * np.sign(det)):
+        for k in range(-3, 4):
+            for sign in (1, -1):
+                num = np.float32(sign) * base
+                step = np.float32(np.inf if k > 0 else -np.inf)
+                for _ in range(abs(k)):
+                    num = np.nextafter(num, step, dtype=np.float32)
+                num_t = torch.tensor(num)
+                u = _exact_u(num_t, det_t)
+                bad = surely_outside(num_t, det_t) & (u >= 0) & (u <= 1)
+                assert not bad.any(), (num_t[bad][:4], det_t[bad][:4])

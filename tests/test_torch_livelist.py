@@ -45,9 +45,10 @@ def _t(a):
 
 def _scene(name):
     if name == "spheres":
-        return tmeshgen.make_sphere_field_scene(grid=5)[0]
+        return tmeshgen.make_sphere_field_scene(grid=5, device="cpu")[0]
     if name == "ellipsoids":
-        return tmeshgen.make_sphere_field_scene(grid=5, ellipsoid=True)[0]
+        return tmeshgen.make_sphere_field_scene(grid=5, ellipsoid=True,
+                                                device="cpu")[0]
     return scene_pair(name)[1]
 
 

@@ -31,7 +31,8 @@ CASES = {
 def both(name):
     """(JAX result tuple, port result tuple) of one case."""
     fn, kw = CASES[name]
-    return getattr(jmeshgen, fn)(**kw), getattr(tmeshgen, fn)(**kw)
+    return (getattr(jmeshgen, fn)(**kw),
+            getattr(tmeshgen, fn)(**kw, device="cpu"))
 
 
 @pytest.mark.parametrize("name", list(CASES))
@@ -40,7 +41,7 @@ def test_scene_fields_equal_jax(name):
     assert_tensors_equal(tres[0], jres[0])
     # The JAX arrays carried over are the port's own arrays.
     carried = ttypes.scene_arrays_from_numpy(
-        jax.tree_util.tree_map(np.asarray, jres[0]))
+        jax.tree_util.tree_map(np.asarray, jres[0]), device="cpu")
     assert_tensors_equal(carried, tres[0])
 
 
@@ -74,9 +75,9 @@ def test_scene_sizes_and_tiers():
     """mesh-82 sits just above the megakernel's cap, mesh-722 near the top
     of the dense tier; single-table scenes carry one masked padding row in
     each empty table."""
-    small = tmeshgen.make_mesh_scene(grid=1, subdiv=1)[0]
+    small = tmeshgen.make_mesh_scene(grid=1, subdiv=1, device="cpu")[0]
     big = tmeshgen.make_mesh_scene(grid=3, subdiv=1, recursion=10,
-                                   width=700, height=700)[0]
+                                   width=700, height=700, device="cpu")[0]
     assert small.triangles.v0.shape[0] == 82 and n_table_rows(small) == 84
     assert big.triangles.v0.shape[0] == 722 and n_table_rows(big) == 724
     assert (big.width, big.height, big.recursion) == (700, 700, 10)
@@ -86,7 +87,7 @@ def test_scene_sizes_and_tiers():
         assert scene.planes.prim_id.tolist() == [-1]
         assert bool(scene.triangles.smooth[:-2].all())
         assert not bool(scene.triangles.smooth[-2:].any())
-    field = tmeshgen.make_sphere_field_scene(grid=4)[0]
+    field = tmeshgen.make_sphere_field_scene(grid=4, device="cpu")[0]
     assert fused.fits(field) and n_table_rows(field) == 16 + 2 + 1
 
 

@@ -56,9 +56,10 @@ def test_render_pass_matches_jax_chain(name, size, recursion):
     color, miss = jtrace(ja, ray_o, ray_d, None, uniforms=uniforms)
     jf = JFilm.create(size, size).add_full_frame(color, miss)
 
-    ta = ttypes.freeze_scene(thost)
-    tc = ttypes.init_camera(thost.cameras[0], size, size)
-    tf = render_pass(ta, tc, TFilm.create(size, size), _t(jitter),
+    ta = ttypes.freeze_scene(thost, device="cpu")
+    tc = ttypes.init_camera(thost.cameras[0], size, size, device="cpu")
+    tf = render_pass(ta, tc, TFilm.create(size, size,
+                                          device="cpu"), _t(jitter),
                      _t(uniforms))
 
     # Discrete outputs exactly; colours to the megakernel tolerances.

@@ -90,7 +90,7 @@ def case(name, size, recursion, seed=3, ambient_miss=False):
     k_cam, k_path = jax.random.split(jax.random.PRNGKey(seed))
     ray_o, ray_d = jcam.camera_rays(jc, px, py, k_cam)
     uniforms = jprep(k_path, ray_o.shape[0], recursion + 1, jnp.float32)
-    ta = ttypes.freeze_scene(thost)
+    ta = ttypes.freeze_scene(thost, device="cpu")
     o, d, u = _t(ray_o), _t(ray_d), _t(uniforms)
     tape = record_tape_fused(ta, o, d, u)
     jtape = JTape(*(jnp.asarray(getattr(tape, f).numpy())
@@ -358,7 +358,7 @@ def test_trace_replay_rejects_scenes_the_recorder_cannot_trace():
            "emission 4 4 4\nsphere 0 0 40 30\nemission 0 0 0\n"
            "diffuse .5 .5 .5\n"
            + "".join(f"sphere {i - 32} 0 0 .4\n" for i in range(65)))
-    ta = ttypes.freeze_scene(tloader.parse(big))
+    ta = ttypes.freeze_scene(tloader.parse(big), device="cpu")
     assert not fused.fits(ta)
     assert fused.MAX_PRIMS < ta.materials.emission.shape[0] \
         <= rk.MAX_KERNEL_MATS
@@ -379,7 +379,8 @@ def test_trace_replay_rejects_scenes_the_recorder_cannot_trace():
     from raytracercore_tpu_torch.config import SELECT_MAX_PRIMS
     from raytracercore_tpu_torch.intersect.dispatch import closest_hit
     from raytracercore_tpu_torch.scene import meshgen
-    huge = meshgen.make_mesh_scene(grid=4, subdiv=1, recursion=2)[0]
+    huge = meshgen.make_mesh_scene(grid=4, subdiv=1, recursion=2,
+                                   device="cpu")[0]
     assert huge.materials.emission.shape[0] > max(SELECT_MAX_PRIMS,
                                                   rk.MAX_KERNEL_MATS)
     with pytest.raises(NotImplementedError, match="make_bvh_closest_fn"):
@@ -448,3 +449,75 @@ def test_replay_kernels_match_reference_on_card(  # noqa: F811
     assert torch.isfinite(got).all()
     assert float((got - want).abs().max()) <= 1e-5 * float(
         want.abs().max())
+
+
+@pytest.mark.parametrize("R", [490_000, 262_144])
+@pytest.mark.parametrize("N", [24, 722, 46_082])
+def test_launch_blocks_per_table_mode(monkeypatch, R, N):
+    """The replay grids in each of the three table modes: up to 64
+    material rows one block per 128 paths; 65-768 rows (the table in shared
+    memory; the backward regenerates paths) the blocks that stay resident,
+    two per SM for the forward and as many as the card reports for the
+    backward (here 1); above 768 rows (the global table) again one per 128
+    paths.  The SM count and the backward's occupancy are asked of the card
+    only in the middle mode (mocked here: 132 SMs)."""
+    asked, asked_bwd = [], []
+
+    class Props:
+        multi_processor_count = 132
+
+    def props(device):
+        asked.append(device)
+        return Props()
+
+    def bwd_per_sm():
+        asked_bwd.append(True)
+        return 1
+
+    monkeypatch.setattr(torch.cuda, "get_device_properties", props)
+    n = rk.launch_blocks(R, N, "cuda")
+    n_bwd = rk.launch_blocks(R, N, "cuda", bwd_per_sm)
+    per_128 = -(-R // rk.REPLAY_BLOCK)
+    if rk.SMALL_TABLE_MATS < N <= rk.MAX_KERNEL_MATS:
+        assert n == min(per_128, rk.RESIDENT_BLOCKS_PER_SM * 132) == 264
+        assert n_bwd == 132 and asked_bwd == [True]
+        assert asked == ["cuda", "cuda"] and rk._regenerates(N)
+    else:
+        assert n == n_bwd == per_128
+        assert not asked and not asked_bwd and not rk._regenerates(N)
+    assert per_128 == {490_000: 3829, 262_144: 2048}[R]
+
+
+@pytest.mark.parametrize("N", [24, 722, 46_082])
+def test_bwd_blocks_per_sm_asks_the_card_once(monkeypatch, N):
+    """The backward's resident blocks come from the kernel library's
+    occupancy query, with the table mode of N (global table above 768
+    rows, regeneration at 65-768), once per device and arguments; the
+    bounce entries go to shared memory where that keeps as many blocks
+    resident as local memory (here at 11 bounces, not at 32), unless
+    ``STASH_IN_SHARED`` forces a place."""
+    from raytracercore_tpu_torch import kernels
+
+    calls = []
+
+    class Lib:
+        @staticmethod
+        def rtc_replay_bwd_blocks_per_sm(n, bounces, aim, global_table,
+                                         regen, shared, out):
+            calls.append((n, bounces, aim, global_table, regen, shared))
+            out._obj.value = 2 if shared and bounces > 11 else 3
+            return 0
+
+    monkeypatch.setattr(kernels, "load", lambda: Lib)
+    monkeypatch.setattr(rk, "_bwd_per_sm", {})
+    for _ in range(2):
+        assert rk.shared_stash(N, 11, True, "cuda:0")
+        assert not rk.shared_stash(N, 32, True, "cuda:0")
+        assert rk.bwd_blocks_per_sm(N, 11, True, "cuda:0") == 3
+        assert rk.bwd_blocks_per_sm(N, 32, True, "cuda:0") == 3
+    mode = (1, int(N > rk.MAX_KERNEL_MATS), int(rk._regenerates(N)))
+    assert sorted(calls) == sorted((N, b, *mode, sh) for b in (11, 32)
+                                   for sh in (1, 0))
+    monkeypatch.setattr(rk, "STASH_IN_SHARED", True)
+    assert rk.shared_stash(N, 32, True, "cuda:0")
+    assert rk.bwd_blocks_per_sm(N, 32, True, "cuda:0") == 2

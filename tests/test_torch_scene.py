@@ -129,7 +129,7 @@ def assert_tensors_equal(port, ref, where=""):
 def test_freeze_scene_matches_jax(name):
     jhost, thost = host_scenes(name)
     ja = jtypes.freeze_scene(jhost)
-    ta = ttypes.freeze_scene(thost)
+    ta = ttypes.freeze_scene(thost, device="cpu")
     assert_tensors_equal(ta, ja)
     for got, want in zip(tkb.pack_tables(ta), jkb.pack_tables(ja)):
         assert got.dtype == torch.float32 or got.dtype == torch.int32
@@ -142,7 +142,7 @@ def test_init_camera_matches_jax(name):
     assert len(thost.cameras) == len(jhost.cameras) > 0
     for jc, tc in zip(jhost.cameras, thost.cameras):
         want = jtypes.init_camera(jc, jhost.width, jhost.height)
-        got = ttypes.init_camera(tc, thost.width, thost.height)
+        got = ttypes.init_camera(tc, thost.width, thost.height, device="cpu")
         assert_tensors_equal(got, want)
 
 
@@ -150,17 +150,18 @@ def test_init_camera_matches_jax(name):
 def test_state_from_numpy_equals_port_freeze(name):
     jhost, thost = host_scenes(name)
     ja = jax.tree_util.tree_map(np.asarray, jtypes.freeze_scene(jhost))
-    assert_tensors_equal(ttypes.scene_arrays_from_numpy(ja),
-                         ttypes.freeze_scene(thost))
+    assert_tensors_equal(ttypes.scene_arrays_from_numpy(ja, device="cpu"),
+                         ttypes.freeze_scene(thost, device="cpu"))
     jc = jax.tree_util.tree_map(np.asarray, jtypes.init_camera(
         jhost.cameras[0], jhost.width, jhost.height))
     assert_tensors_equal(
-        ttypes.camera_from_numpy(jc),
-        ttypes.init_camera(thost.cameras[0], thost.width, thost.height))
+        ttypes.camera_from_numpy(jc, device="cpu"),
+        ttypes.init_camera(thost.cameras[0], thost.width, thost.height,
+                           device="cpu"))
 
 
 def test_scene_arrays_to_device_keeps_metadata():
-    ta = ttypes.freeze_scene(tloader.parse(CORNELL_SCENE))
+    ta = ttypes.freeze_scene(tloader.parse(CORNELL_SCENE), device="cpu")
     moved = ta.to("cpu")
     assert moved.recursion == ta.recursion == 10
     assert moved.n_prims == ta.n_prims

@@ -214,7 +214,8 @@ def test_kernel_wrapper_rejects_bad_inputs():
     for ray_o, ray_d, k in bad:
         with pytest.raises(ValueError):
             cuda_select._launch(ta, ray_o, ray_d, k, EPS_B, EPS_P)
-    big = tmeshgen.make_mesh_scene(grid=4, subdiv=1)[0]  # 1,282 triangles
+    big = tmeshgen.make_mesh_scene(grid=4, subdiv=1,
+                                   device="cpu")[0]  # 1,282 triangles
     with pytest.raises(ValueError, match="SELECT_MAX_PRIMS"):
         cuda_select._launch(big, o, d, None, EPS_B, EPS_P)
 
@@ -253,7 +254,7 @@ def test_dense_closest_hit_above_the_cap_scans_the_grid_on_cpu_tensors():
     """Above ``SELECT_MAX_PRIMS`` rows the plain grid scan still answers on
     CPU tensors (on CUDA tensors the dispatch raises: the card-only case
     below)."""
-    big = tmeshgen.make_mesh_scene(grid=4, subdiv=1)[0]
+    big = tmeshgen.make_mesh_scene(grid=4, subdiv=1, device="cpu")[0]
     assert tdispatch.n_table_rows(big) > config.SELECT_MAX_PRIMS
     o = torch.tensor([[0.0, -20.0, 8.0]]).repeat(32, 1)
     d = torch.nn.functional.normalize(

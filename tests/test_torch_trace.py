@@ -88,7 +88,7 @@ def case(name, size, recursion, seed=7, **overrides):
         jhost, thost = host_scenes(name)
         jhc, thc = jhost.cameras[0], thost.cameras[0]
     jc = jtypes.init_camera(jhc, size, size)
-    tc = ttypes.init_camera(thc, size, size)
+    tc = ttypes.init_camera(thc, size, size, device="cpu")
     px, py = jcam.pixel_grid(size, size)
     k_cam, k_path = jax.random.split(jax.random.PRNGKey(seed))
     jitter = jax.random.uniform(k_cam, (size * size, 4), dtype=jnp.float32)
@@ -349,7 +349,7 @@ def test_one_step_without_replay_matches_jax():
     moved = 0
     for use_replay in (False, True):
         tparams = material_params_from_numpy(
-            {k: np.asarray(v) for k, v in params.items()})
+            {k: np.asarray(v) for k, v in params.items()}, device="cpu")
         step = make_train_step(None, torch.optim.SGD(tparams.values(),
                                                      lr=1e-2),
                                use_replay=use_replay)
@@ -387,7 +387,8 @@ def _lit_mesh(size=8, recursion=2):
     """mesh-82 from the port's generator with its light quad made two-sided
     (see ``scene_pair``): ``(SceneArrays, [HostCamera])``."""
     arrays, cam, _ = tmeshgen.make_mesh_scene(
-        grid=1, subdiv=1, width=size, height=size, recursion=recursion)
+        grid=1, subdiv=1, width=size, height=size, recursion=recursion,
+        device="cpu")
     two_sided = arrays.materials.two_sided.clone()
     two_sided[-1] = True
     return dataclasses.replace(arrays, materials=dataclasses.replace(
@@ -408,7 +409,7 @@ def test_renderer_takes_frozen_arrays_with_their_cameras():
     _, host = host_scenes("cornell")
     host.width = host.height = 8
     a = Renderer(host, device="cpu", seed=2)
-    b = Renderer(ttypes.freeze_scene(host), device="cpu", seed=2,
+    b = Renderer(ttypes.freeze_scene(host, device="cpu"), device="cpu", seed=2,
                  cameras=host.cameras)
     assert a.route == b.route == "megakernel"
     for r in (a, b):
@@ -420,7 +421,7 @@ def test_renderer_takes_frozen_arrays_with_their_cameras():
     b.step(1)
     assert torch.equal(a.film.color_sum, b.film.color_sum)
     with pytest.raises(ValueError, match="cameras"):
-        Renderer(ttypes.freeze_scene(host), device="cpu")
+        Renderer(ttypes.freeze_scene(host, device="cpu"), device="cpu")
 
 
 def test_renderer_on_a_mesh_scene_takes_the_per_bounce_route(tmp_path):

@@ -59,8 +59,8 @@ def _scenes(name="rough", size=12, recursion=3):
         host.recursion = recursion
     ja = jtypes.freeze_scene(jhost)
     jc = jtypes.init_camera(jhost.cameras[0], size, size)
-    ta = ttypes.freeze_scene(thost)
-    tc = ttypes.init_camera(thost.cameras[0], size, size)
+    ta = ttypes.freeze_scene(thost, device="cpu")
+    tc = ttypes.init_camera(thost.cameras[0], size, size, device="cpu")
     return ja, jc, ta, tc
 
 
@@ -106,7 +106,7 @@ def test_one_step_matches_jax(name, size, recursion, record_as_primal):
     px, py = jcam.pixel_grid(size, size)
     ray_o, ray_d = jcam.camera_rays(jc, px, py, k_cam)
     jtape = jrecord_tape(ja, ray_o, ray_d, uniforms)
-    tpx, tpy = tcam.pixel_grid(size, size)
+    tpx, tpy = tcam.pixel_grid(size, size, device="cpu")
     to, td = tcam.camera_rays(tc, tpx, tpy, _t(jitter))
     ttape = record_tape_fused(ta, to, td, _t(uniforms))
     jcode = np.asarray(jtape.flags) & JTape.CODE_MASK
@@ -123,7 +123,7 @@ def test_one_step_matches_jax(name, size, recursion, record_as_primal):
                                  optimizer.init(params), key)
 
     tparams = material_params_from_numpy(
-        {k: np.asarray(v) for k, v in params.items()})
+        {k: np.asarray(v) for k, v in params.items()}, device="cpu")
     step = _train_step(torch.optim.SGD(tparams.values(), lr=1e-2),
                        record_as_primal)
     loss = step(tparams, ta, tc, torch.tensor(target), seed=0,
@@ -148,7 +148,7 @@ def test_adam_matches_optax_adam():
     opt = optax.adam(1e-2)
     jp = {k: jnp.asarray(v) for k, v in init.items()}
     state = opt.init(jp)
-    tp = material_params_from_numpy(init)
+    tp = material_params_from_numpy(init, device="cpu")
     adam = torch.optim.Adam(tp.values(), lr=1e-2)
     for g in grads:
         updates, state = opt.update({k: jnp.asarray(v) for k, v in
@@ -194,7 +194,7 @@ def test_step_draws_its_own_random_numbers_from_the_seed():
 def test_material_params_carry_over_from_jax():
     ja, _, ta, _ = _scenes()
     jp = {k: np.asarray(v) for k, v in jget_params(ja).items()}
-    tp = material_params_from_numpy(jp)
+    tp = material_params_from_numpy(jp, device="cpu")
     assert tuple(tp) == MATERIAL_FIELDS == tuple(jp)
     for k in MATERIAL_FIELDS:
         assert tp[k].requires_grad and tp[k].is_leaf
@@ -217,8 +217,8 @@ def test_train_step_rejections():
            "diffuse .5 .5 .5\n"
            + "".join(f"sphere {(i - 32) * .02} 0 0 1\n" for i in range(65)))
     host = tloader.parse(big)
-    sa = ttypes.freeze_scene(host)
-    sc = ttypes.init_camera(host.cameras[0], 4, 4)
+    sa = ttypes.freeze_scene(host, device="cpu")
+    sc = ttypes.init_camera(host.cameras[0], 4, 4, device="cpu")
     sp = get_material_params(sa)
     # A scene above the megakernel's cap is no longer rejected: it trains
     # through the integrator's recorder and the replay kernels' route.

@@ -81,7 +81,7 @@ def field_case(ellipsoid, grid=8, size=16):
     ``(ja, ta, jsel, tsel, o, d)``."""
     ja, host_cam = jmeshgen.make_sphere_field_scene(
         grid=grid, width=size, height=size, ellipsoid=ellipsoid)
-    ta = ttypes.scene_arrays_from_numpy(_np_tree(ja))
+    ta = ttypes.scene_arrays_from_numpy(_np_tree(ja), device="cpu")
     sph = _np_tree(ja.spheres)
     valid = sph.prim_id >= 0
     if ellipsoid:
@@ -97,7 +97,7 @@ def field_case(ellipsoid, grid=8, size=16):
         jsel = jpt.PallasSphereBVH(jbvh, ja.spheres, ja.materials,
                                    ja.n_prims)
         cls = ct.CudaSphereBVH
-    tsel = cls(bvh_arrays_from_numpy(_np_tree(jbvh)), ta.spheres,
+    tsel = cls(bvh_arrays_from_numpy(_np_tree(jbvh), device="cpu"), ta.spheres,
                ta.materials, ta.n_prims)
     camera = jtypes.init_camera(host_cam, size, size)
     o, d = jcam.center_rays(camera, *jcam.pixel_grid(size, size))
@@ -184,11 +184,12 @@ def test_every_primitive_owns_one_row():
     own-table row (through ``prim_to_row``) in the JAX kernel: the same rule
     as long as no primitive owns two rows.  None does, in any scene of the
     loader or of ``meshgen``."""
-    scenes = [ttypes.freeze_scene(host_scenes(name)[1])
+    scenes = [ttypes.freeze_scene(host_scenes(name)[1], device="cpu")
               for name in ("cornell", "smooth", "fused", "dof", "stress")]
-    scenes.append(tmeshgen.make_mesh_scene(grid=2, subdiv=1)[0])
-    scenes.append(tmeshgen.make_sphere_field_scene(grid=5)[0])
-    scenes.append(tmeshgen.make_sphere_field_scene(grid=5, ellipsoid=True)[0])
+    scenes.append(tmeshgen.make_mesh_scene(grid=2, subdiv=1, device="cpu")[0])
+    scenes.append(tmeshgen.make_sphere_field_scene(grid=5, device="cpu")[0])
+    scenes.append(tmeshgen.make_sphere_field_scene(grid=5, ellipsoid=True,
+                                                   device="cpu")[0])
     for scene in scenes:
         seen = []
         for table in (scene.triangles, scene.spheres, scene.planes):
@@ -336,7 +337,8 @@ def test_traverse_wrapper_rejects_bad_inputs():
         ct.traverse(tsel.nodes, tsel.leaves, "box", o, d, None, EPS_B, EPS_P)
     with pytest.raises(ValueError, match="nodes"):
         ct.pack_nodes(dataclasses.replace(
-            build_bvh(tmeshgen.make_mesh_scene(grid=1, subdiv=0)[0]),
+            build_bvh(tmeshgen.make_mesh_scene(grid=1, subdiv=0,
+                                               device="cpu")[0]),
             bmin=torch.zeros((1 << 24, 3))))
 
 
@@ -375,12 +377,12 @@ def test_bvh_closest_fn_sends_the_dense_tail_through_select():
     scene of its own with an empty triangle table."""
     _, thost = host_scenes("cornell")
     thost.width = thost.height = 24
-    ta = ttypes.freeze_scene(thost)
+    ta = ttypes.freeze_scene(thost, device="cpu")
     tfn = tdispatch.make_bvh_closest_fn(build_bvh(thost, leaf_size=4), ta,
                                         traversal="kernel")
-    cam = ttypes.init_camera(thost.cameras[0], 24, 24)
+    cam = ttypes.init_camera(thost.cameras[0], 24, 24, device="cpu")
     from raytracercore_tpu_torch.render import camera as tcam
-    o, d = tcam.camera_rays(cam, *tcam.pixel_grid(24, 24),
+    o, d = tcam.camera_rays(cam, *tcam.pixel_grid(24, 24, device="cpu"),
                             torch.full((576, 4), 0.5))
     def assert_same(got, want):
         # Every camera ray hits (the room is open only behind the camera).
@@ -422,7 +424,7 @@ def test_sphere_field_bvh_matches_dense(ellipsoid):
     the dense scan, primary rays and one skip-carrying bounce."""
     ja, host_cam = jmeshgen.make_sphere_field_scene(
         grid=16, width=24, height=24, ellipsoid=ellipsoid)
-    ta = ttypes.scene_arrays_from_numpy(_np_tree(ja))
+    ta = ttypes.scene_arrays_from_numpy(_np_tree(ja), device="cpu")
     n_sph = int((ta.spheres.prim_id >= 0).sum())
     assert n_sph == 256 >= SPHERE_BVH_MIN_ROWS
     tfn = tdispatch.make_bvh_closest_fn(build_bvh(ta, leaf_size=4), ta,
@@ -461,7 +463,7 @@ def lit_mesh(grid, subdiv, size, recursion):
     generator's lights nothing below it): ``(SceneArrays, HostCamera)``."""
     arrays, cam, _ = tmeshgen.make_mesh_scene(
         grid=grid, subdiv=subdiv, width=size, height=size,
-        recursion=recursion)
+        recursion=recursion, device="cpu")
     two_sided = arrays.materials.two_sided.clone()
     two_sided[-1] = True
     return dataclasses.replace(arrays, materials=dataclasses.replace(
@@ -502,7 +504,7 @@ def test_train_step_through_bvh_matches_dense():
         ttypes.HostCamera(
             mode="frustum", position=np.array([0.0, -5.0, 3.0]),
             look_at=np.array([0.0, 0.0, 0.9]), up=np.array([0.0, 0.0, 1.0]),
-            fov_or_size=np.deg2rad(45.0)), 16, 16)
+            fov_or_size=np.deg2rad(45.0)), 16, 16, device="cpu")
     bvh = build_bvh(arrays, leaf_size=4)
     target = torch.zeros((16, 16, 3))
     out = {}
@@ -540,10 +542,10 @@ def test_replay_above_768_material_rows():
     assert n_mats == 1282 > rk.MAX_KERNEL_MATS
     fn = tdispatch.make_bvh_closest_fn(build_bvh(arrays), arrays,
                                        traversal="kernel")
-    camera = ttypes.init_camera(cam, 16, 16)
+    camera = ttypes.init_camera(cam, 16, 16, device="cpu")
     from raytracercore_tpu_torch.render import camera as tcam
     gen = torch.Generator().manual_seed(3)
-    o, d = tcam.camera_rays(camera, *tcam.pixel_grid(16, 16),
+    o, d = tcam.camera_rays(camera, *tcam.pixel_grid(16, 16, device="cpu"),
                             torch.rand((256, 4), generator=gen))
     u = prepare_uniforms(gen, 256, arrays.recursion + 1, "cpu")
 
