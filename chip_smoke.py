@@ -54,9 +54,10 @@ To compare two trees on one card, in one call::
     python3 chip_smoke.py --times --label change
 
 ``--times`` (:func:`times_main`) only builds the tree's kernels and times
-the megakernel, the replay backward and the select kernel at the main
-paths' shapes, each held against its plain version first; it prints one
-JSON line.
+the megakernel, the replay forward and backward and the select kernel at
+the main paths' shapes, each held against its plain version first (the
+replay forward bit-equal, with the bytes of the bounces the paths reach
+and the rate achieved over them); it prints one JSON line.
 """
 
 from __future__ import annotations
@@ -344,6 +345,29 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def fwd_reached_bytes(tape, matf, scf):
+    """Bytes the replay forward's function needs on this tape, by each
+    bounce's code (csrc/replay.cu ``shade_v`` and ``advance_with``): the
+    flags of every bounce a path reaches (4 bytes; all a Missed bounce
+    needs); the prim of every other one (4: its material row; a terminal
+    code needs no more); the normal and uniform channels 0-2 of a bounce
+    that goes on (Diffuse, Specular, Transmitted: 24), and channels 4-6 of
+    a Diffuse one (12; channel 3 is never read); per path its direction,
+    colour and miss (28); the table and scalars once."""
+    from raytracercore_tpu_torch.render.integrator import BounceType as BT
+
+    code = tape.flags & 0xF
+
+    def count(*codes):
+        return sum(int((code == c).sum()) for c in codes)
+
+    reached = tape.flags.numel() - count(BT.SKIPPED)
+    return (4 * reached + 4 * (reached - count(BT.MISSED))
+            + 24 * count(BT.DIFFUSE, BT.SPECULAR, BT.TRANSMITTED)
+            + 12 * count(BT.DIFFUSE)
+            + tape.flags.shape[1] * 28 + nbytes(matf, scf))
+
+
 def kernel_us(fn, n, expect):
     """Device time of every kernel that ``n`` calls ``fn()`` launch, by
     torch.profiler: ``{kernel name: us per call}`` (the name without its
@@ -456,27 +480,40 @@ def occupancy_text(prefix, threads, smem=0):
             f"occupancy {share:.3f}")
 
 
-def replay_occupancy(kind, n_mats, n_bounces, aim=False):
+def replay_occupancy(kind, n_mats, n_bounces, aim=False, n_paths=None):
     """:func:`occupancy_text` of the replay kernel ``kind`` ("fwd" or
     "bwd") that a launch over ``n_mats`` material rows and ``n_bounces``
     bounces runs (``aim``: the scene's ambient_is_miss), at its shared
     memory (csrc/replay.cu: the table, and for the backward its accumulator
     and, where the wrapper puts it there, the ``[bounce][6][thread]``
-    stash)."""
+    stash; the forward has none).  For the forward over ``n_paths`` paths
+    (one block per ``REPLAY_BLOCK``) also the resident warps per SM of the
+    grid really launched: the block occupancy or the grid's blocks per SM,
+    whichever is smaller."""
     from raytracercore_tpu_torch.render import replay_kernel as rk
 
-    table = n_mats * rk.C * 4 if n_mats <= rk.MAX_KERNEL_MATS else 0
     if kind == "fwd":
-        return occupancy_text("replay_fwd_kernel", rk.REPLAY_BLOCK, table)
-    regen = getattr(rk, "_regenerates", lambda n: False)(n_mats)
-    prefix = "replay_bwd_regen_kernel" if regen else "replay_bwd_kernel"
-    stash = 0  # a tree without shared_stash keeps it in local memory
-    if hasattr(rk, "shared_stash"):
-        # Template arguments <ambient_is_miss, global table, shared stash>.
-        sh = rk.shared_stash(n_mats, n_bounces, aim, "cuda")
-        stash = n_bounces * 6 * rk.REPLAY_BLOCK * 4 * sh
-        prefix = tuple(f"{prefix}ILb{a}ELb{int(table == 0)}ELb{int(sh)}E"
-                       for a in (0, 1))
+        # Template argument <ambient_is_miss>.
+        prefix = f"replay_fwd_kernelILb{int(aim)}E"
+        text = occupancy_text(prefix, rk.REPLAY_BLOCK)
+        rows = [v for k, v in BUILD_REGS.items() if k.startswith(prefix)]
+        if not rows:
+            return text
+        blocks, _ = occupancy(max(r[0] for r in rows), rk.REPLAY_BLOCK,
+                              max(r[3] for r in rows))
+        grid = -(-n_paths // rk.REPLAY_BLOCK)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        warps = min(blocks, grid / sms) * rk.REPLAY_BLOCK / 32
+        return (f"{text}; grid {grid} blocks = {grid / sms:.2f} per SM, "
+                f"resident warps per SM {warps:.2f} ({warps / 64:.3f})")
+    table = n_mats * rk.C * 4 if n_mats <= rk.MAX_KERNEL_MATS else 0
+    prefix = ("replay_bwd_regen_kernel" if rk._regenerates(n_mats)
+              else "replay_bwd_kernel")
+    # Template arguments <ambient_is_miss, global table, shared stash>.
+    sh = rk.shared_stash(n_mats, n_bounces, aim, "cuda")
+    stash = n_bounces * 6 * rk.REPLAY_BLOCK * 4 * sh
+    prefix = tuple(f"{prefix}ILb{a}ELb{int(table == 0)}ELb{int(sh)}E"
+                   for a in (0, 1))
     return occupancy_text(prefix, rk.REPLAY_BLOCK, 2 * table + stash)
 
 
@@ -1003,12 +1040,15 @@ def probe_phase(card, dev):
 def compare_replay(label, arrays, ray_o, ray_d, uniforms, record=None):
     """Replay forward and backward kernels against their plain versions
     on a tape that ``record(arrays, ray_o, ray_d, uniforms) → (color, miss,
-    tape)`` records (by default the megakernel); returns (max abs colour
-    err, max abs gradient err)."""
+    tape)`` records (by default the megakernel, and then the forward's
+    colour is held bit-equal; on the train paths' recorders within
+    ``REPLAY_ATOL`` + ``REPLAY_RTOL``); returns (max abs colour err, max
+    abs gradient err)."""
     from raytracercore_tpu_torch.render import fused
     from raytracercore_tpu_torch.render import replay_kernel as rk
 
-    if record is None:
+    exact = record is None
+    if exact:
         def record(*args):
             return fused.trace_fused(*args, want_tape=True)
     color_r, miss_r, tape = record(arrays, ray_o, ray_d, uniforms)
@@ -1024,6 +1064,8 @@ def compare_replay(label, arrays, ray_o, ray_d, uniforms, record=None):
     check(torch.equal(got_m, ref_m), f"{label}: replay miss equal")
     check(fwd_ok, f"{label}: replay colour within {REPLAY_ATOL} abs + "
           f"{REPLAY_RTOL} rel")
+    check(not exact or fwd_err == 0.0,
+          f"{label}: replay colour bit-equal ({fwd_err:.3e})")
 
     # dL/d(material table) of L = mean(where(miss, 0, colour)^2): autograd
     # through the plain replay, the hand-written plain backward, the kernel.
@@ -1265,8 +1307,8 @@ def replay_on_path(label, r, closest_fn, card, dev):
     n_mats = matf.shape[0]
     ct = torch.full((n_paths, 3), 1e-6, device=dev)
     aim = scene.ambient_is_miss
-    grids = {"forward": rk.launch_blocks(n_paths, n_mats, dev),
-             "backward": rk.launch_blocks(
+    grids = {"forward": -(-n_paths // rk.REPLAY_BLOCK),
+             "backward": rk.bwd_launch_blocks(
                  n_paths, n_mats, dev,
                  lambda: rk.bwd_blocks_per_sm(n_mats, n_bounces, aim, dev))}
     live = int(((tape.flags & PathTape.CODE_MASK) != 0).sum())
@@ -1291,8 +1333,12 @@ def replay_on_path(label, r, closest_fn, card, dev):
         times[name] = (graph_ms(lambda: kernel(*args), 20),
                        cuda_ms(lambda: plain(*args), 2), bounds[name])
         attrs = (" (" + replay_occupancy(
-            "bwd" if name == "backward" else "fwd", n_mats, n_bounces, aim)
-            + ")")
+            "bwd" if name == "backward" else "fwd", n_mats, n_bounces, aim,
+            n_paths) + ")")
+        if name == "forward":
+            reached = fwd_reached_bytes(tape, matf, scf)
+            attrs += (f" reached-bytes bound ms="
+                      f"{reached / PEAK_BYTES * 1e3:.4f} ({reached} bytes)")
         print(f"[time] replay {name} {label} ({n_mats} material rows, "
               f"{grids[name]} blocks, {live / n_paths:.4f} live bounces per "
               f"path): kernel device ms (CUDA graph)={fmt_ms(times[name][0])}"
@@ -2073,16 +2119,29 @@ def train_path(card, dev):
     live = int(((tape.flags & PathTape.CODE_MASK) != 0).sum())
     tape_bytes = nbytes(tape.prim, tape.flags, tape.nx, tape.ny, tape.nz)
     n_blocks = -(-n_paths // rk.REPLAY_BLOCK)
+    # The forward stops a path at its end, so its bound counts the bytes
+    # this run's tape needs, by each bounce's code (fwd_reached_bytes);
+    # beside it the bound of every input and output once, as before the
+    # forward stopped early.
+    fwd_every_byte = bound(
+        live * OPS_SHADE,
+        nbytes(ray_d, u, matf, scf, color) + tape_bytes + n_paths * 4)
+    fwd_reached = fwd_reached_bytes(tape, matf, scf)
     bounds = {
         "uniforms": bound(n_paths * n_bounces * OPS_UNIFORMS, nbytes(u)),
-        "replay forward": bound(
-            live * OPS_SHADE,
-            nbytes(ray_d, u, matf, scf, color) + tape_bytes + n_paths * 4),
+        "replay forward": bound(live * OPS_SHADE, fwd_reached),
         "replay backward": bound(
             live * (OPS_SHADE + OPS_SHADE_BWD),
             nbytes(ray_d, u, matf, scf, ct) + tape_bytes
             + n_blocks * matf.numel() * 4),
     }
+
+    print(f"[bound] replay forward cornell 700x700 rec10: "
+          f"{fwd_every_byte[0]:.4f} ms (every input and output once, by "
+          f"{fwd_every_byte[1]}); reached-bytes bound "
+          f"{bounds['replay forward'][0]:.4f} ms (by "
+          f"{bounds['replay forward'][1]}; {fwd_reached} bytes the tape's "
+          f"codes need), the kernels line's")
 
     def autograd_bwd():
         m = matf.clone().requires_grad_(True)
@@ -2130,8 +2189,8 @@ def train_path(card, dev):
               + (f"{p_ms:.3f}" if p_ms is not None else "n/a")
               + f" on {card}")
     for kind in ("fwd", "bwd"):
-        print(f"[stage] replay {kind} kernel: "
-              f"{replay_occupancy(kind, matf.shape[0], n_bounces, aim)}")
+        occ = replay_occupancy(kind, matf.shape[0], n_bounces, aim, n_paths)
+        print(f"[stage] replay {kind} kernel: {occ}")
     print(f"[stage] uniforms kernel: "
           f"{occupancy_text('uniforms_kernel', UNIFORMS_THREADS)}")
 
@@ -2156,12 +2215,58 @@ def warp_row_share(tape):
     return float(((same >= 8) & (p >= 0)).sum()) / max(1, int((p >= 0).sum()))
 
 
+def fwd_times(label, scene, d, u, tape):
+    """The replay forward on a recorded tape: held bit-equal (colour and
+    miss) to the plain version (fails the run otherwise), then timed twice
+    by CUDA-graph replay, with the achieved rate over the bytes the bounces
+    reached need (:func:`fwd_reached_bytes`), the share of warps (32 paths
+    in index order) whose paths end on different bounces, registers and
+    the launched grid's resident warps."""
+    from raytracercore_tpu_torch.render import replay_kernel as rk
+
+    matf, scf = rk.material_table(scene)
+    aim = scene.ambient_is_miss
+    B, R = tape.prim.shape
+    n_mats = matf.shape[0]
+    ref_c, ref_m = rk.replay_fwd_reference(d, u, tape, matf, scf, aim)
+    live = (tape.flags & 0xF) != 0
+    ends = live.sum(0)[:R // 32 * 32].reshape(-1, 32)
+    reached = fwd_reached_bytes(tape, matf, scf)
+    row = {"material_rows": n_mats, "bounces": B,
+           "live_bounces": int(live.sum()),
+           "live_bounces_per_path": float(live.sum()) / R,
+           "warps_ending_apart": float(
+               (ends.max(1).values != ends.min(1).values).float().mean()),
+           "reached_bytes": reached,
+           "reached_bound_ms": reached / PEAK_BYTES * 1e3}
+    c, m = rk.replay_fwd(d, u, tape, matf, scf, aim)
+    torch.cuda.synchronize()
+    check(torch.equal(c, ref_c) and torch.equal(m, ref_m),
+          f"{label}: replay forward colour and miss bit-equal to the plain "
+          f"version (max abs diff {float((c - ref_c).abs().max()):.3e})")
+    ms = [graph_ms(lambda: rk.replay_fwd(d, u, tape, matf, scf, aim), 20)
+          for _ in range(2)]
+    row["ms"] = ms
+    row["reached_GB_per_s"] = [None if t is None else reached / t * 1e-6
+                               for t in ms]
+    row["occupancy"] = replay_occupancy("fwd", n_mats, B, aim, R)
+    print(f"[times] replay forward {label}: {row}", flush=True)
+    return row
+
+
+def replay_times(res, label, scene, d, u, tape):
+    """:func:`fwd_times` and :func:`bwd_times` at one point, into
+    ``res["fwd"]`` and ``res["bwd"]``."""
+    res["fwd"][label] = fwd_times(label, scene, d, u, tape)
+    res["bwd"][label] = bwd_times(label, scene, d, u, tape)
+
+
 def bwd_times(label, scene, d, u, tape):
     """The replay backward on a recorded tape: held within ``GRAD_TOL`` of
     max|g| per field of the plain version (fails the run otherwise), then
-    timed twice by CUDA-graph replay; on a tree that can place the bounce
-    entries (``STASH_IN_SHARED``), with them in shared memory and in local
-    memory in turn."""
+    timed twice by CUDA-graph replay: as the wrapper places the bounce
+    entries, and with them forced (``STASH_IN_SHARED``) into shared memory
+    and into local memory in turn."""
     from raytracercore_tpu_torch.render import replay_kernel as rk
 
     matf, scf = rk.material_table(scene)
@@ -2175,10 +2280,8 @@ def bwd_times(label, scene, d, u, tape):
            "live_bounces": int(((tape.flags & 0xF) != 0).sum()),
            "warp_row_share_ge8": warp_row_share(tape), "worst_rel": 0.0,
            "ms": {}, "occupancy": {}}
-    placements = {"as built": None}
-    if hasattr(rk, "STASH_IN_SHARED"):
-        placements = {"chosen": None, "shared stash": True,
-                      "local stash": False}
+    placements = {"chosen": None, "shared stash": True,
+                  "local stash": False}
     try:
         for name, force in placements.items():
             if force is not None:
@@ -2197,8 +2300,7 @@ def bwd_times(label, scene, d, u, tape):
             row["occupancy"][name] = replay_occupancy("bwd", matf.shape[0], B,
                                                       aim)
     finally:
-        if hasattr(rk, "STASH_IN_SHARED"):
-            rk.STASH_IN_SHARED = None
+        rk.STASH_IN_SHARED = None
     print(f"[times] replay backward {label}: {row}", flush=True)
     return row
 
@@ -2223,11 +2325,12 @@ def traced_tape(scene, camera, closest_fn, seed):
 
 def times_main(label, card):
     """``--times``: the megakernel on cornell 700x700 rec10, tape on and
-    off (held bit-equal first); the replay backward on cornell (24 material
-    rows) at rec 10, 20 and 31, mesh-722 700x700 (722 rows) at rec 10 and
-    31, and mesh-46k 512x512 rec4 (global table); the select kernel on every bounce of a
-    mesh-722 pass: each by CUDA-graph replay, twice.  Prints one JSON
-    line; a failed check exits non-zero."""
+    off (held bit-equal first); the replay forward and backward
+    (:func:`replay_times`) on cornell (24 material rows) at rec 10, 20 and
+    31, mesh-722 700x700 (722 rows) at rec 10 and 31, and mesh-46k 512x512
+    rec4 (global table); the select kernel on every bounce of a mesh-722
+    pass: each by CUDA-graph replay, twice.  Prints one JSON line; a failed
+    check exits non-zero."""
     import raytracercore_tpu_torch as pkg
     from raytracercore_tpu_torch import kernels
     from raytracercore_tpu_torch.intersect import cuda_select
@@ -2239,7 +2342,7 @@ def times_main(label, card):
     kernels.load()
     BUILD_REGS.update(ptxas_registers(info["log"]))
     res = {"label": label, "package": str(Path(pkg.__file__).parent),
-           "card": card, "build_s": info["seconds"], "bwd": {}}
+           "card": card, "build_s": info["seconds"], "fwd": {}, "bwd": {}}
     print(f"[times] {label}: {res['package']} on {card}", flush=True)
 
     arrays, o, d, u = rays_and_uniforms(CORNELL_SCENE, 700, 10, 7, dev)
@@ -2254,21 +2357,19 @@ def times_main(label, card):
         "trace_fused_kernel", FUSED_THREADS,
         nbytes(*arrays.fused_tables))
     print(f"[times] megakernel: {res['fused']}", flush=True)
-    res["bwd"]["cornell rec10"] = bwd_times("cornell rec10", arrays, d, u,
-                                            tape)
+    replay_times(res, "cornell rec10", arrays, d, u, tape)
     del tape
     for rec in (20, 31):
         arrays, o, d, u = rays_and_uniforms(CORNELL_SCENE, 700, rec, 7, dev)
         tape = fused.trace_fused(arrays, o, d, u, want_tape=True)[2]
-        res["bwd"][f"cornell rec{rec}"] = bwd_times(f"cornell rec{rec}",
-                                                    arrays, d, u, tape)
+        replay_times(res, f"cornell rec{rec}", arrays, d, u, tape)
         del tape
 
     mesh, cam = lit_mesh_scene(MESH_GRID, MESH_SUBDIV, 700, 10, dev)
     r = Renderer(mesh, device="cuda", seed=0, cameras=[cam])
     d, u, tape = traced_tape(r.arrays, r.camera,
                              cuda_select.closest_hit_fused, TRAIN_SEED)
-    res["bwd"]["mesh-722"] = bwd_times("mesh-722", r.arrays, d, u, tape)
+    replay_times(res, "mesh-722", r.arrays, d, u, tape)
     ro, rd, ru = camera_rays_and_uniforms(r.arrays, cam, 700, 11, dev)
     sel = [graph_ms(lambda q=q: cuda_select.closest_hit_fused(r.arrays, *q),
                     20) for q in closest_hit_queries(r.arrays, ro, rd, ru)]
@@ -2279,14 +2380,13 @@ def times_main(label, card):
     r = Renderer(mesh, device="cuda", seed=0, cameras=[cam])
     d, u, tape = traced_tape(r.arrays, r.camera,
                              cuda_select.closest_hit_fused, TRAIN_SEED)
-    res["bwd"]["mesh-722 rec31"] = bwd_times("mesh-722 rec31", r.arrays, d,
-                                             u, tape)
+    replay_times(res, "mesh-722 rec31", r.arrays, d, u, tape)
     del tape, r
 
     big, cam = lit_mesh_scene(*BVH_TRAIN_MESH, BVH_SIZE, BVH_REC, dev)
     r = Renderer(big, device="cuda", seed=0, cameras=[cam])
     d, u, tape = traced_tape(r.arrays, r.camera, r.closest_fn, TRAIN_SEED)
-    res["bwd"]["mesh-46k"] = bwd_times("mesh-46k", r.arrays, d, u, tape)
+    replay_times(res, "mesh-46k", r.arrays, d, u, tape)
     print(json.dumps(res))
 
 
@@ -2296,8 +2396,8 @@ def main():
     ap = argparse.ArgumentParser(
         description="Chip smoke test of the PyTorch + CUDA port.")
     ap.add_argument("--times", action="store_true",
-                    help="only time the megakernel, the replay backward "
-                    "and the select kernel (times_main), for a "
+                    help="only time the megakernel, the replay forward "
+                    "and backward and the select kernel (times_main), for a "
                     "parent-vs-change comparison in one call")
     ap.add_argument("--root", default=None,
                     help="with --times: the checkout whose "

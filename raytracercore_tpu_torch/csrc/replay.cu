@@ -17,30 +17,42 @@
 // for line.
 //
 // What bounds them on Hopper: per bounce a path reads 7 floats of
-// uniforms and 5 words of tape (48 bytes) and does ~150 flops of shading
-// (~3x that for the adjoint), so by these counts the forward sits near the
-// memory side and the backward on fp32 issue and divergence.  Paths end
-// after 1 to n_bounces bounces (5.93 of 11 on average on the Cornell scene
-// of chip_smoke.py), and a warp runs until its longest path ends.  What the
-// design does about it:
-//   * the material table sits in dynamic shared memory (N <= 768 rows,
-//     43 KB; with the backward's accumulator 86 KB, above the 48 KB
-//     default, hence cudaFuncSetAttribute below) and is read by row,
+// uniforms and 5 words of tape (48 bytes; the forward needs 44 of them:
+// uniform channel 3 was spent by the recorder) and does ~150 flops of
+// shading (~3x that for the adjoint), so by these counts the forward sits
+// on the memory side and the backward on fp32 issue and divergence.  Paths
+// end after 1 to n_bounces bounces (5.93 of 11 on average on the Cornell
+// scene of chip_smoke.py), and a warp runs until its longest path ends.
+// One thread per path with a chain of dependent loads per bounce (the code,
+// then the rest, then the material row) keeps few bytes in flight: the
+// forward was latency-bound.  What the design does about it:
+//   * the forward stops a path after its end code (every recorder writes
+//     Skipped on each bounce after it) and so reads only the bounces a
+//     path reaches; it reads bounce i + 1's tape and uniforms (none of it
+//     depends on the path's state) before it shades bounce i, so two
+//     bounces' loads are in flight per thread; it reads the material rows
+//     from device memory through L1 at every table size (a row is 56
+//     bytes, the table at most 2.6 MB on the main paths) and launches one
+//     block per 128 paths, which leaves the resident blocks to the card
+//     (6 per SM by its registers);
+//   * the backward keeps the material table in dynamic shared memory
+//     (N <= 768 rows, with its accumulator 86 KB, above the 48 KB default,
+//     hence cudaFuncSetAttribute below) and reads it by row,
 //     max(prim, 0) * 14 + c;
 //   * a larger table (a mesh has one material row per triangle: 46,082
-//     rows are 2.6 MB) fits no shared memory: in the kernels' global-table
-//     mode the rows are read from device memory through the read-only path
-//     (they stay in the 50 MB L2), one block per 128 paths, and the
-//     backward adds dL/dg with atomics into ONE [N,14] accumulator in
-//     device memory, in double (native on sm_90): an f32 atomic sum over
-//     10^6 paths is ~2e-5 off, more than the gradient gate of 1e-5;
+//     rows are 2.6 MB) fits no shared memory: in the backward's
+//     global-table mode the rows are read from device memory, one block
+//     per 128 paths, and dL/dg goes with atomics into ONE [N,14]
+//     accumulator in device memory, in double (native on sm_90): an f32
+//     atomic sum over 10^6 paths is ~2e-5 off, more than the gradient gate
+//     of 1e-5;
 //   * a block walks the paths in strides of the grid, so the caller picks
-//     the grid: one block per 128 paths for a small table, and for a large
-//     one only as many blocks as stay resident, so that the table is copied
-//     (and the accumulator written out) once per resident block and not
-//     once per 128 paths;
-//   * the path state lives in registers; bounces the path never reached
-//     (code Skipped) only renormalize;
+//     the grid: for the backward one block per 128 paths for a small
+//     table, and for a large one only as many blocks as stay resident, so
+//     that the table is copied (and the accumulator written out) once per
+//     resident block and not once per 128 paths;
+//   * the path state lives in registers; in the backward, bounces the path
+//     never reached (code Skipped) only renormalize;
 //   * the backward keeps each bounce's entry (direction, tint) in shared
 //     memory, [bounce][6][thread] (33.8 KB a block at 11 bounces), where
 //     that leaves as many blocks resident as a stash in local memory (the
@@ -61,10 +73,14 @@
 //     blocks per SM as rtc_replay_bwd_blocks_per_sm reports.  With a small
 //     table, or the global one, more warps are resident and the plain
 //     kernel is faster (PERF.md section 6).
-// Tried and not kept (PERF.md section 6): the lanes of a warp on one row
-// summed with shuffles before one atomic, per-warp private accumulators,
-// a persistent grid for a small table, path regeneration at every table
-// size.
+// Tried and not kept (PERF.md section 6): in the backward, the lanes of a
+// warp on one row summed with shuffles before one atomic, per-warp private
+// accumulators, a persistent grid for a small table, path regeneration at
+// every table size; in the forward, the table in shared memory (on a
+// persistent grid of the card's resident blocks or one block per 128
+// paths), a persistent grid with the table in device memory, a staging
+// ring of 1-D bulk copies (TMA) on mbarriers, and register caps of 72 and
+// 64 (7 and 8 blocks per SM).
 // The TPU kernels' (8,128) tiles, padding to BLOCK, unrolled N-way select
 // gather and one-hot matmul scatter are not carried over.
 //
@@ -121,19 +137,42 @@ struct Shade {
   float cos_f, cos_out_f, b_s, rs, b_p, rp, fres, total;
 };
 
-// _bounce_fwd up to total_lum.  d is the direction after renormalization.
-__device__ __forceinline__ void shade(const ReplayParams& p, int i, int r,
-                                      V3 d, const float* g, int flags,
-                                      float air, Shade& sh) {
+// What one bounce of one path reads of the tape and the uniforms: none of it
+// depends on the path's state, so it can be read ahead of the shading.
+struct BounceIn {
+  int flags, prim;
+  V3 nrm;
+  float u0, ct, st;  // uniform channels 0-2 (shine, azimuth cos and sin)
+  V3 du;             // channels 4-6 (the diffuse direction's z, cos, sin)
+};
+
+__device__ __forceinline__ BounceIn load_bounce(const ReplayParams& p, int i,
+                                                int r) {
   const float* u = p.u + (size_t)i * 7 * p.R + r;  // channel c at u[c * R]
   const size_t at = (size_t)i * p.R + r;
+  BounceIn b;
+  b.flags = p.flags[at];
+  b.prim = p.prim[at];
+  b.nrm = {p.nx[at], p.ny[at], p.nz[at]};
+  b.u0 = u[0];
+  b.ct = u[p.R];
+  b.st = u[2 * p.R];
+  b.du = {u[4 * p.R], u[5 * p.R], u[6 * p.R]};
+  return b;
+}
+
+// _bounce_fwd up to total_lum.  d is the direction after renormalization;
+// (u0, ct, st) are the bounce's uniform channels 0-2, nrm its hit normal.
+__device__ __forceinline__ void shade_v(V3 d, const float* g, int flags,
+                                        float u0, float ct, float st, V3 nrm,
+                                        float air, Shade& sh) {
   sh.code = flags & CODE_MASK;
   sh.inside = (flags & FLAG_INSIDE) != 0;
   sh.f_live = (flags & FLAG_FLIVE) != 0;
-  sh.u0 = u[0];
-  sh.ct = u[p.R];
-  sh.st = u[2 * p.R];
-  sh.nrm = {p.nx[at], p.ny[at], p.nz[at]};
+  sh.u0 = u0;
+  sh.ct = ct;
+  sh.st = st;
+  sh.nrm = nrm;
   const float ior = g[12], shin = g[13];
 
   // RandomShine (Raytracer.cs:51-56): z = exp(ln U / shininess); 1 for
@@ -179,17 +218,33 @@ __device__ __forceinline__ void shade(const ReplayParams& p, int i, int r,
   sh.total = l_d + spec_lum + refr_lum + l_e;
 }
 
+// shade_v on bounce i of path r, its inputs read from the tape and uniforms.
+__device__ __forceinline__ void shade(const ReplayParams& p, int i, int r,
+                                      V3 d, const float* g, int flags,
+                                      float air, Shade& sh) {
+  const float* u = p.u + (size_t)i * 7 * p.R + r;
+  const size_t at = (size_t)i * p.R + r;
+  shade_v(d, g, flags, u[0], u[p.R], u[2 * p.R],
+          V3{p.nx[at], p.ny[at], p.nz[at]}, air, sh);
+}
+
 __device__ __forceinline__ bool is_terminal(int code) {
   return code == EMISSION || code == SPECULAR_FAIL || code == PURE_BLACK ||
          code == RECURSION_COMPLETE;
 }
 
-// The rest of _bounce_fwd: result, direction and tint updates.
-template <bool AIM>
-__device__ __forceinline__ void advance(const ReplayParams& p, int i, int r,
-                                        const Shade& sh, const float* g,
-                                        V3 ambient, V3& d, V3& tint,
-                                        V3& result) {
+// The codes after which a path goes on to the next bounce.
+__device__ __forceinline__ bool is_bounce(int code) {
+  return code == TRANSMITTED || code == SPECULAR || code == DIFFUSE;
+}
+
+// The rest of _bounce_fwd: result, direction and tint updates.  diff_u()
+// gives uniform channels 4-6, read only on a Diffuse bounce.
+template <bool AIM, typename DiffU>
+__device__ __forceinline__ void advance_with(int i, const Shade& sh,
+                                             const float* g, V3 ambient,
+                                             V3& d, V3& tint, V3& result,
+                                             DiffU diff_u) {
   const int code = sh.code;
   if (is_terminal(code))
     result = {tint.x * g[0], tint.y * g[1], tint.z * g[2]};
@@ -207,8 +262,8 @@ __device__ __forceinline__ void advance(const ReplayParams& p, int i, int r,
     out = {d.x + rn.x * k2, d.y + rn.y * k2, d.z + rn.z * k2};
     nt0 = {g[6], g[7], g[8]};
   } else {
-    const float* u = p.u + (size_t)i * 7 * p.R + r;
-    out = create_horizon_cs(sh.nrm, u[4 * p.R], u[5 * p.R], u[6 * p.R]);
+    const V3 du = diff_u();
+    out = create_horizon_cs(sh.nrm, du.x, du.y, du.z);
     nt0 = {g[3], g[4], g[5]};
   }
   // Energy compensation (Raytracer.cs:238-240).
@@ -216,6 +271,18 @@ __device__ __forceinline__ void advance(const ReplayParams& p, int i, int r,
   tint = {tint.x * (nt0.x * comp), tint.y * (nt0.y * comp),
           tint.z * (nt0.z * comp)};
   d = out;
+}
+
+// advance_with on bounce i of path r, channels 4-6 read from the uniforms.
+template <bool AIM>
+__device__ __forceinline__ void advance(const ReplayParams& p, int i, int r,
+                                        const Shade& sh, const float* g,
+                                        V3 ambient, V3& d, V3& tint,
+                                        V3& result) {
+  advance_with<AIM>(i, sh, g, ambient, d, tint, result, [&]() {
+    const float* u = p.u + (size_t)i * 7 * p.R + r;
+    return V3{u[4 * p.R], u[5 * p.R], u[6 * p.R]};
+  });
 }
 
 // sqrt(max(x, floor))'s derivative times y_ct: 0 below the floor, half of
@@ -412,43 +479,53 @@ __device__ __forceinline__ void load_table(const ReplayParams& p,
     s_mf[k] = p.matf[k];
 }
 
-// GLOBAL: the material rows are read from device memory (p.matf), not from
-// a copy in shared memory.
-template <bool AIM, bool GLOBAL>
+// The forward of path r, the material rows read from device memory
+// (through L1; the table is at most 2.6 MB on the main paths and stays in
+// L2).  The path stops after its first code that does not bounce
+// (Emission, SpecularFail, PureBlack, RecursionComplete, Missed): every
+// recorder writes Skipped on each bounce after it
+// (tests/test_torch_replay_fwd.py), so no code past the path's end is
+// read.  Bounce i + 1's inputs (BounceIn) are loaded before bounce i is
+// shaded, where bounce i's code says the path goes on.
+template <bool AIM>
+__device__ __forceinline__ void fwd_path(const ReplayParams& p, int r,
+                                         float air, V3 ambient, float* color,
+                                         int* miss) {
+  V3 d = {p.ray_d[3 * r], p.ray_d[3 * r + 1], p.ray_d[3 * r + 2]};
+  V3 tint = {1.f, 1.f, 1.f};
+  V3 result = {0.f, 0.f, 0.f};
+  int m = 0;
+  BounceIn cur = load_bounce(p, 0, r);
+  for (int i = 0;; ++i) {
+    const int code = cur.flags & CODE_MASK;
+    if (code == SKIPPED) break;
+    const bool more = is_bounce(code) && i + 1 < p.n_bounces;
+    BounceIn nxt = cur;
+    if (more) nxt = load_bounce(p, i + 1, r);  // in flight while we shade
+    if (i % 3 == 0) d = renorm(d);             // Raytracer.cs:74-75
+    const float* g = p.matf + max(cur.prim, 0) * RP_MAT_F;
+    Shade sh;
+    shade_v(d, g, cur.flags, cur.u0, cur.ct, cur.st, cur.nrm, air, sh);
+    advance_with<AIM>(i, sh, g, ambient, d, tint, result,
+                      [&]() { return cur.du; });
+    if ((AIM || i == 0) && code == MISSED) m = 1;
+    if (!more) break;
+    cur = nxt;
+  }
+  color[3 * r] = result.x;
+  color[3 * r + 1] = result.y;
+  color[3 * r + 2] = result.z;
+  miss[r] = m;
+}
+
+template <bool AIM>
 __global__ void __launch_bounds__(REPLAY_BLOCK)
     replay_fwd_kernel(ReplayParams p, float* color, int* miss) {
-  extern __shared__ float s_tab[];  // [N,14] unless GLOBAL
-  const float* s_mf = p.matf;
-  if (!GLOBAL) {
-    load_table(p, s_tab);
-    __syncthreads();
-    s_mf = s_tab;
-  }
-
   const float air = p.scf[0];
   const V3 ambient = {p.scf[1], p.scf[2], p.scf[3]};
   for (int r = blockIdx.x * blockDim.x + threadIdx.x; r < p.R;
-       r += gridDim.x * blockDim.x) {
-    V3 d = {p.ray_d[3 * r], p.ray_d[3 * r + 1], p.ray_d[3 * r + 2]};
-    V3 tint = {1.f, 1.f, 1.f};
-    V3 result = {0.f, 0.f, 0.f};
-    int m = 0;
-    for (int i = 0; i < p.n_bounces; ++i) {
-      if (i % 3 == 0) d = renorm(d);  // Raytracer.cs:74-75
-      const size_t at = (size_t)i * p.R + r;
-      const int flags = p.flags[at];
-      if ((flags & CODE_MASK) == SKIPPED) continue;
-      const float* g = s_mf + max(p.prim[at], 0) * RP_MAT_F;
-      Shade sh;
-      shade(p, i, r, d, g, flags, air, sh);
-      advance<AIM>(p, i, r, sh, g, ambient, d, tint, result);
-      if ((AIM || i == 0) && sh.code == MISSED) m = 1;
-    }
-    color[3 * r] = result.x;
-    color[3 * r + 1] = result.y;
-    color[3 * r + 2] = result.z;
-    miss[r] = m;
-  }
+       r += gridDim.x * blockDim.x)
+    fwd_path<AIM>(p, r, air, ambient, color, miss);
 }
 
 constexpr unsigned FULL_MASK = 0xffffffffu;
@@ -769,29 +846,24 @@ int blocks_per_sm(K kernel, size_t smem, int* out) {
 // most one per REPLAY_BLOCK paths; fewer walk the paths in strides) on
 // `stream` and returns the cudaGetLastError() after the launch (0 =
 // launched), or cudaErrorInvalidValue for sizes the kernels do not take.
-// `global_table` != 0 reads the material rows from device memory (any N);
-// the backward's `partial` is then one zeroed [N,14] accumulator of doubles
-// instead of [n_blocks,N,14] floats.
+// The forward reads the material rows from device memory at every N; the
+// backward does so where `global_table` != 0 (any N), and its `partial` is
+// then one zeroed [N,14] accumulator of doubles instead of [n_blocks,N,14]
+// floats.
 extern "C" int rtc_replay_fwd(const float* ray_d, const float* u,
                               const int* prim, const int* flags,
                               const float* nx, const float* ny,
                               const float* nz, const float* matf,
                               const float* scf, float* color, int* miss,
                               int R, int N, int n_bounces, int n_blocks,
-                              int ambient_is_miss, int global_table,
-                              void* stream) {
-  if (bad_sizes(R, N, n_bounces, n_blocks, global_table))
+                              int ambient_is_miss, void* stream) {
+  if (bad_sizes(R, N, n_bounces, n_blocks, 1))
     return (int)cudaErrorInvalidValue;
   rtc::ReplayParams p{ray_d, u, prim, flags, nx, ny, nz, matf, scf,
                       R, N, n_bounces};
-  if (global_table)
-    return launch(ambient_is_miss ? rtc::replay_fwd_kernel<true, true>
-                                  : rtc::replay_fwd_kernel<false, true>,
-                  n_blocks, 0, stream, p, color, miss);
-  const size_t smem = (size_t)N * rtc::RP_MAT_F * sizeof(float);
-  return launch(ambient_is_miss ? rtc::replay_fwd_kernel<true, false>
-                                : rtc::replay_fwd_kernel<false, false>,
-                n_blocks, smem, stream, p, color, miss);
+  return launch(ambient_is_miss ? rtc::replay_fwd_kernel<true>
+                                : rtc::replay_fwd_kernel<false>,
+                n_blocks, 0, stream, p, color, miss);
 }
 
 // `regen` != 0 launches the kernel with path regeneration (the grid is

@@ -50,8 +50,8 @@ SIGNATURES = {
         + [_P]),                       # stream
     "rtc_replay_fwd": (
         [_P] * 11                      # 9 inputs, color, miss
-        + [_I] * 6                     # R N n_bounces n_blocks
-                                       # ambient_is_miss global_table
+        + [_I] * 5                     # R N n_bounces n_blocks
+                                       # ambient_is_miss
         + [_P]),                       # stream
     "rtc_replay_bwd": (
         [_P] * 12                      # 9 inputs, color cotangent, partial,

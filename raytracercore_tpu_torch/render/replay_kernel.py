@@ -43,23 +43,25 @@ from .integrator import BounceType as BT
 from .integrator import PathTape, _material_matrix
 
 C = 14                   # material channels (integrator._material_matrix)
-# Material rows the kernels keep in shared memory: the whole dense tier
-# (config.SELECT_MAX_PRIMS table rows, one material row per primitive).  The
-# backward kernel holds the table and its gradient accumulator, 2 · 768 ·
-# 14 · 4 B = 86,016 B a block, so two blocks fit in an SM's 227 KB.  A
-# larger table (the BVH tier: a mesh has one row per triangle) is read from
-# device memory, and the backward then adds into one [N, 14] accumulator of
-# doubles there (the kernels' global-table mode).
+# Material rows the backward kernel keeps in shared memory: the whole dense
+# tier (config.SELECT_MAX_PRIMS table rows, one material row per
+# primitive), the table and its gradient accumulator, 2 · 768 · 14 · 4 B =
+# 86,016 B a block, so two blocks fit in an SM's 227 KB.  A larger table
+# (the BVH tier: a mesh has one row per triangle) is read from device
+# memory, and the backward then adds into one [N, 14] accumulator of
+# doubles there (its global-table mode).  The forward reads the rows from
+# device memory at every size.
 MAX_KERNEL_MATS = 768
-# Up to this many rows a launch has one block per REPLAY_BLOCK paths; above,
-# copying the table in (and the accumulator out) would cost a block more
-# than its 128 paths' shading, so the launch has only the blocks that stay
-# resident and each walks the paths in strides: the forward
-# RESIDENT_BLOCKS_PER_SM on each SM, the backward as many as the card
-# reports for its shared memory (bwd_blocks_per_sm: two up to ~730 rows at
-# 11 bounces, one above, fewer the deeper the recursion).
+# The backward's grid: up to this many rows one block per REPLAY_BLOCK
+# paths; above, copying the table in (and the accumulator out) would cost a
+# block more than its 128 paths' shading, so the launch has only the blocks
+# that stay resident, as many on each SM as the card reports for its shared
+# memory (bwd_blocks_per_sm: two up to ~730 rows at 11 bounces, one above,
+# fewer the deeper the recursion), and each walks the paths in strides.
+# The forward keeps no table in shared memory and always has one block per
+# REPLAY_BLOCK paths: the card's block scheduler then keeps as many resident
+# as its registers allow (a persistent grid of that many measured slower).
 SMALL_TABLE_MATS = 64
-RESIDENT_BLOCKS_PER_SM = 2
 MAX_KERNEL_BOUNCES = 32  # bounces the backward kernel stashes per thread
 # Where the backward keeps each bounce's entry (direction, tint: 24 B a
 # thread and bounce): None lets shared_stash choose by occupancy; True or
@@ -496,17 +498,16 @@ def _kernel_args(ray_d, uniforms, tape, matf, scf):
     return ptrs, R, N, B
 
 
-def launch_blocks(R: int, N: int, device, per_sm=None) -> int:
-    """Blocks of a replay launch over ``R`` paths and ``N`` material rows:
+def bwd_launch_blocks(R: int, N: int, device, per_sm) -> int:
+    """Blocks of a backward launch over ``R`` paths and ``N`` material rows:
     one per ``REPLAY_BLOCK`` paths, except at ``SMALL_TABLE_MATS`` < N <=
     ``MAX_KERNEL_MATS`` rows, where the grid is persistent: ``per_sm()``
-    blocks on each SM (default ``RESIDENT_BLOCKS_PER_SM``, the forward's).
-    The SM count (and ``per_sm``) is asked of the card only there."""
+    blocks on each SM (the kernel's resident blocks).  The SM count and
+    ``per_sm`` are asked of the card only there."""
     n_blocks = -(-R // REPLAY_BLOCK)
     if SMALL_TABLE_MATS < N <= MAX_KERNEL_MATS:
         sms = torch.cuda.get_device_properties(device).multi_processor_count
-        blocks = RESIDENT_BLOCKS_PER_SM if per_sm is None else per_sm()
-        n_blocks = min(n_blocks, blocks * sms)
+        n_blocks = min(n_blocks, per_sm() * sms)
     return n_blocks
 
 
@@ -570,9 +571,10 @@ def replay_fwd(ray_d, uniforms, tape: PathTape, matf, scf,
                ambient_is_miss: bool):
     """Replay forward: ``(color [R, 3] f32, miss [R] bool)``.
 
-    On CUDA tensors this launches ``csrc/replay.cu``'s forward kernel (and
-    counts it in ``replay_fwd.launches``), raising if it cannot; on CPU
-    tensors it runs :func:`replay_fwd_reference`."""
+    On CUDA tensors this launches ``csrc/replay.cu``'s forward kernel (one
+    thread per path, one block per ``REPLAY_BLOCK`` paths, the material rows
+    read from device memory; counted in ``replay_fwd.launches``), raising if
+    it cannot; on CPU tensors it runs :func:`replay_fwd_reference`."""
     if ray_d.device.type == "cpu":
         return replay_fwd_reference(ray_d, uniforms, tape, matf, scf,
                                     ambient_is_miss)
@@ -585,8 +587,7 @@ def replay_fwd(ray_d, uniforms, tape: PathTape, matf, scf,
     miss = torch.empty((R,), dtype=torch.int32, device=ray_d.device)
     err = kernels.load().rtc_replay_fwd(
         *ptrs, color.data_ptr(), miss.data_ptr(), R, N, B,
-        launch_blocks(R, N, ray_d.device), int(ambient_is_miss),
-        int(N > MAX_KERNEL_MATS),
+        -(-R // REPLAY_BLOCK), int(ambient_is_miss),
         torch.cuda.current_stream(ray_d.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"replay forward kernel launch failed: CUDA "
@@ -615,8 +616,9 @@ def replay_bwd(ray_d, uniforms, tape: PathTape, matf, scf,
 
     ptrs, R, N, B = _kernel_args(ray_d, uniforms, tape, matf, scf)
     _check("color_ct", color_ct, (R, 3), torch.float32, ray_d.device)
-    n_blocks = launch_blocks(R, N, ray_d.device, lambda: bwd_blocks_per_sm(
-        N, B, ambient_is_miss, ray_d.device))
+    n_blocks = bwd_launch_blocks(R, N, ray_d.device,
+                                 lambda: bwd_blocks_per_sm(
+                                     N, B, ambient_is_miss, ray_d.device))
     regen = _regenerates(N)
     work = (torch.empty((1,), dtype=torch.int32, device=ray_d.device)
             if regen else None)

@@ -454,13 +454,14 @@ def test_replay_kernels_match_reference_on_card(  # noqa: F811
 @pytest.mark.parametrize("R", [490_000, 262_144])
 @pytest.mark.parametrize("N", [24, 722, 46_082])
 def test_launch_blocks_per_table_mode(monkeypatch, R, N):
-    """The replay grids in each of the three table modes: up to 64
-    material rows one block per 128 paths; 65-768 rows (the table in shared
-    memory; the backward regenerates paths) the blocks that stay resident,
-    two per SM for the forward and as many as the card reports for the
-    backward (here 1); above 768 rows (the global table) again one per 128
-    paths.  The SM count and the backward's occupancy are asked of the card
-    only in the middle mode (mocked here: 132 SMs)."""
+    """The backward's grid in each of the three table modes (the forward
+    keeps no table in shared memory and has one block per 128 paths in all
+    three): up to 64 material rows one block per 128 paths; 65-768 rows
+    (the table in shared memory; it regenerates paths) the blocks that stay
+    resident, as many on each SM as the card reports (here 1); above 768
+    rows (the global table) one per 128 paths.  The SM count and the
+    occupancy are asked of the card only in the middle mode (mocked here:
+    132 SMs)."""
     asked, asked_bwd = [], []
 
     class Props:
@@ -475,15 +476,13 @@ def test_launch_blocks_per_table_mode(monkeypatch, R, N):
         return 1
 
     monkeypatch.setattr(torch.cuda, "get_device_properties", props)
-    n = rk.launch_blocks(R, N, "cuda")
-    n_bwd = rk.launch_blocks(R, N, "cuda", bwd_per_sm)
     per_128 = -(-R // rk.REPLAY_BLOCK)
+    n_bwd = rk.bwd_launch_blocks(R, N, "cuda", bwd_per_sm)
     if rk.SMALL_TABLE_MATS < N <= rk.MAX_KERNEL_MATS:
-        assert n == min(per_128, rk.RESIDENT_BLOCKS_PER_SM * 132) == 264
         assert n_bwd == 132 and asked_bwd == [True]
-        assert asked == ["cuda", "cuda"] and rk._regenerates(N)
+        assert asked == ["cuda"] and rk._regenerates(N)
     else:
-        assert n == n_bwd == per_128
+        assert n_bwd == per_128
         assert not asked and not asked_bwd and not rk._regenerates(N)
     assert per_128 == {490_000: 3829, 262_144: 2048}[R]
 
