@@ -2390,6 +2390,551 @@ def times_main(label, card):
     print(json.dumps(res))
 
 
+# --- the parallel and debug phase --------------------------------------------
+# Ranks share the one card: two processes over gloo (NCCL refuses two ranks
+# on one device), and the parent alone over NCCL at world size 1.  Their
+# times measure correctness and collective cost, never scaling.
+PAR_SEED = 31
+PAR_PASSES = 4            # sharded cornell passes timed (after one warm)
+# The phase's sizes, handed to the ranks: the main paths' widths.
+PAR_SIZES = {"size": 700, "recursion": 10, "bvh_mesh": BVH_TRAIN_MESH,
+             "bvh_size": BVH_SIZE, "bvh_recursion": BVH_REC}
+HEATMAP_STRIDE = 49       # the CPU count takes every 49th pixel
+PAR_REPS = 20             # all-reduces timed per bucket
+PAR_JOIN_S = 600
+SHARE_NOTE = "2 ranks share one card: not a scaling number"
+HEATMAP_OFF_FRAC = 1e-3   # pixels whose node count may differ by one
+
+
+def kernel_counters():
+    """Every main-path kernel's wrapper (its ``launches`` counter), by
+    name."""
+    from raytracercore_tpu_torch.bvh import cuda_traverse as ct
+    from raytracercore_tpu_torch.intersect import cuda_select as cs
+    from raytracercore_tpu_torch.render import fused
+    from raytracercore_tpu_torch.render import replay_kernel as rk
+    from raytracercore_tpu_torch.render import uniforms_kernel as uk
+
+    return {"trace_fused": fused.trace_fused,
+            "prepare_uniforms_kernel": uk.prepare_uniforms_kernel,
+            "replay_fwd": rk.replay_fwd, "replay_bwd": rk.replay_bwd,
+            "closest_hit_fused": cs.closest_hit_fused,
+            "traverse": ct.traverse}
+
+
+def sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def zero_counts():
+    for fn in kernel_counters().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {k: fn.launches for k, fn in kernel_counters().items()}
+
+
+def add_counts(total, counts):
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+def one_step(mesh, scene, camera, seed, dev, closest_fn=None, adam=False,
+             overlapped=False):
+    """One ``make_train_step`` step on ``mesh`` (None: one device), or one
+    ``make_overlapped_train_step`` step, from the scene's materials with
+    every diffuse halved, against a flat 0.2 target: ``(loss, {field:
+    gradient}, {field: param after}, ms)``."""
+    from raytracercore_tpu_torch.diff import get_material_params
+    from raytracercore_tpu_torch.parallel import (make_overlapped_train_step,
+                                                  make_train_step)
+
+    params = get_material_params(scene)
+    with torch.no_grad():
+        params["diffuse"].mul_(0.5)
+    opt = (torch.optim.Adam(params.values(), lr=TRAIN_LR) if adam
+           else torch.optim.SGD(params.values(), lr=TRAIN_LR))
+    kw = {} if closest_fn is None else {"closest_fn": closest_fn}
+    step = (make_overlapped_train_step(mesh, opt) if overlapped
+            else make_train_step(mesh, opt, **kw))
+    target = torch.full((scene.height, scene.width, 3), 0.2, device=dev)
+    sync(dev)
+    t0 = time.perf_counter()
+    loss = step(params, scene, camera, target, seed)
+    sync(dev)
+    ms = (time.perf_counter() - t0) * 1e3
+    return (loss, {k: v.grad.clone() for k, v in params.items()},
+            {k: v.detach().clone() for k, v in params.items()}, ms)
+
+
+def steps_close(label, got, want):
+    """A sharded step against the single-device step: every field's
+    gradient and param within ``GRAD_TOL`` of the field's largest
+    gradient, the loss within 1e-5 relative.  Returns the worst gradient
+    error over max|g|."""
+    worst = 0.0
+    for k, g in want[1].items():
+        scale = float(g.abs().max())
+        err_g = float((got[1][k] - g).abs().max())
+        err_p = float((got[2][k] - want[2][k]).abs().max())
+        check(err_g <= GRAD_TOL * scale + 1e-12
+              and err_p <= GRAD_TOL * scale + 1e-12,
+              f"{label}: {k} gradient {err_g:.3e} / param {err_p:.3e} > "
+              f"{GRAD_TOL} * max|g| {scale:.3e}")
+        worst = max(worst, err_g / scale if scale else 0.0)
+    rel = abs(float(got[0]) - float(want[0])) / abs(float(want[0]))
+    check(rel <= 1e-5, f"{label}: loss rel diff {rel:.2e} > 1e-5")
+    check(sum(int((g != 0).sum()) for g in want[1].values()) > 50,
+          f"{label}: the gradient comparison is not vacuous")
+    return worst
+
+
+def bucket_ms(flat, group, n, events):
+    """Median ms of ``n`` all-reduces of ``flat`` over ``group``: by CUDA
+    events (NCCL, stream-ordered) or by the host clock around a
+    synchronised call (gloo, which returns when it is done)."""
+    import torch.distributed as dist
+
+    times = []
+    for _ in range(n):
+        if events and flat.is_cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            dist.all_reduce(flat, group=group)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        else:
+            sync(flat.device)
+            t0 = time.perf_counter()
+            dist.all_reduce(flat, group=group)
+            sync(flat.device)
+            times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def flat_grads(grads):
+    return torch.cat([g.reshape(-1) for g in grads.values()])
+
+
+def nccl_world_one(card, dev, tmp, par, backend="nccl"):
+    """NCCL at world size 1, in this process: the cornell sharded pass
+    bit-equal to ``render_passes``, a sharded Adam step bit-equal to the
+    ``mesh=None`` step (the sum over one rank is the identity), and the
+    material bucket's all-reduce timed.  Returns the main-path launches."""
+    import torch.distributed as dist
+
+    from raytracercore_tpu_torch.intersect.cuda_select import \
+        closest_hit_fused
+    from raytracercore_tpu_torch.parallel import (init_distributed,
+                                                  make_mesh, place_scene,
+                                                  worker)
+    from raytracercore_tpu_torch.render import fused
+    from raytracercore_tpu_torch.render.film import Film
+    from raytracercore_tpu_torch.render.renderer import render_passes
+
+    size = par["size"]
+    init_distributed(num_processes=1, process_id=0, backend=backend,
+                     init_method=(tmp / "nccl").as_uri())
+    try:
+        mesh = make_mesh(device=None if dev.type == "cuda" else dev)
+        check(mesh.device == dev, f"make_mesh put rank 0 on {mesh.device}")
+        arrays, camera = placed(mesh, "cornell", par, dev)
+        zero_counts()
+        film = worker.render_film(mesh, arrays, camera, 1, PAR_SEED)
+        got = one_step(mesh, arrays, camera, PAR_SEED, dev, adam=True)
+        got_ov = one_step(mesh, arrays, camera, PAR_SEED, dev, adam=True,
+                          overlapped=True)
+        sync(dev)
+        counts = read_counts()
+        want = render_passes(arrays, camera,
+                             Film.create(size, size, device=dev), PAR_SEED, 0,
+                             1, closest_fn=closest_hit_fused,
+                             trace_fn=fused.trace_fused)
+        same = {k: torch.equal(getattr(film, k), getattr(want, k))
+                for k in ("color_sum", "samples", "misses")}
+        ref = one_step(None, arrays, camera, PAR_SEED, dev, adam=True)
+        step_same = all(torch.equal(g[0], ref[0]) and all(
+            torch.equal(g[2][k], ref[2][k]) for k in ref[2])
+            for g in (got, got_ov))
+        flat = flat_grads(got[1])
+        ms = bucket_ms(flat, mesh.rays_group, PAR_REPS, events=True)
+    finally:
+        dist.destroy_process_group()
+    print(f"[parallel] {backend} world size 1: cornell {size}x{size} "
+          f"rec{par['recursion']} sharded "
+          f"pass bit-equal to render_passes: {same}; sharded and "
+          f"overlapped Adam steps' loss and params bit-equal to the "
+          f"mesh=None step: {step_same} "
+          f"(loss {float(got[0]):.8f}); launches {counts}")
+    print(f"[parallel] {backend} all_reduce of the material bucket "
+          f"({flat.numel()} f32, world size 1): median ms of {PAR_REPS} "
+          f"(CUDA events)={ms:.4f} on {card}")
+    check(all(same.values()), "NCCL world 1: sharded pass bit-equal")
+    check(step_same, "NCCL world 1: sharded step bit-equal")
+    check(counts["trace_fused"] == 3 and counts["replay_bwd"] == 2
+          and counts["prepare_uniforms_kernel"] == 2,
+          f"NCCL world 1: the pass and the step ran the kernels ({counts})")
+    return counts
+
+
+def placed(mesh, name, par, dev):
+    """A named scene of the worker placed on ``mesh``, and its camera."""
+    from raytracercore_tpu_torch.parallel import place_scene, worker
+    from raytracercore_tpu_torch.scene.types import init_camera
+
+    arrays, host_cam = worker.load_scene(name, par["size"], par["recursion"],
+                                         dev)
+    return (place_scene(mesh, arrays),
+            init_camera(host_cam, par["size"], par["size"], device=dev))
+
+
+def rank_main(rank, world, tmp, par, device="cuda"):
+    """One of two ranks on ``cuda:0`` over gloo: the sharded paths at the
+    sizes ``par``, its launches and times written to ``rank<r>.json``;
+    rank 0 then holds each path against the single-device path on the
+    same card."""
+    import torch.distributed as dist
+
+    from raytracercore_tpu_torch import kernels
+    from raytracercore_tpu_torch.parallel import (gather_film,
+                                                  init_distributed,
+                                                  make_mesh, place_scene,
+                                                  worker)
+    from raytracercore_tpu_torch.scene.types import init_camera
+
+    tmp = Path(tmp)
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        kernels.load()
+    size = par["size"]
+    init_distributed(num_processes=world, process_id=rank, backend="gloo",
+                     init_method=(tmp / "gloo").as_uri())
+    out = {"rank": rank}
+    try:
+        rays = make_mesh(device=dev)                      # (2 rays, 1)
+        prims = make_mesh(n_rays=1, n_prims=2, device=dev)  # (1, 2 prims)
+        cornell, cam = placed(rays, "cornell", par, dev)
+        mesh722, cam722 = placed(prims, "mesh-722", par, dev)
+        mesh46, host46 = lit_mesh_scene(*par["bvh_mesh"], par["bvh_size"],
+                                        par["bvh_recursion"], dev)
+        mesh46 = place_scene(rays, mesh46)
+        cam46 = init_camera(host46, par["bvh_size"], par["bvh_size"],
+                            device=dev)
+        bvh46, _ = bvh_closest(mesh46)
+        worker.render_film(rays, cornell, cam, 1, PAR_SEED)      # warm
+        sync(dev)
+
+        zero_counts()
+        t0 = time.perf_counter()
+        film = worker.render_film(rays, cornell, cam, PAR_PASSES, PAR_SEED)
+        sync(dev)
+        out["pass_ms"] = (time.perf_counter() - t0) * 1e3 / PAR_PASSES
+        t0 = time.perf_counter()
+        whole = gather_film(film, rays)
+        out["gather_ms"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        film722 = gather_film(worker.render_film(prims, mesh722, cam722, 1,
+                                                 PAR_SEED), prims)
+        out["prims_pass_ms"] = (time.perf_counter() - t0) * 1e3
+        steps = {}
+        for name, scene, camera, closest in (
+                ("cornell", cornell, cam, None),
+                ("mesh-722", mesh722, cam722, None),
+                ("mesh-46k", mesh46, cam46, bvh46),
+                ("cornell-overlapped", cornell, cam, None)):
+            steps[name] = one_step(rays, scene, camera, PAR_SEED + 1, dev,
+                                   closest_fn=closest,
+                                   overlapped=name.endswith("overlapped"))
+            out[f"step_ms {name}"] = steps[name][3]
+        out["counts"] = read_counts()
+        for name in ("cornell", "mesh-46k"):
+            flat = flat_grads(steps[name][1])
+            out[f"gloo_bucket_ms {name}"] = bucket_ms(
+                flat, rays.rays_group, PAR_REPS, events=False)
+            out[f"bucket_size {name}"] = flat.numel()
+        if rank == 0:
+            out.update(rank0_checks(rays, cornell, cam, whole, mesh722,
+                                    cam722, film722, steps, mesh46, cam46,
+                                    bvh46, dev, par))
+        (tmp / f"rank{rank}.json").write_text(json.dumps(out))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def rank0_checks(rays, cornell, cam, whole, mesh722, cam722, film722, steps,
+                 mesh46, cam46, bvh46, dev, par):
+    """Rank 0 after the sharded paths: each against the single-device path
+    on the same card and the same numbers."""
+    from raytracercore_tpu_torch.intersect.cuda_select import \
+        closest_hit_fused
+    from raytracercore_tpu_torch.parallel import ray_slice
+    from raytracercore_tpu_torch.render import camera as cam_mod
+    from raytracercore_tpu_torch.render import fused
+    from raytracercore_tpu_torch.render.film import Film
+    from raytracercore_tpu_torch.render.renderer import (pass_draws,
+                                                         render_passes)
+
+    size, n_bounces = par["size"], par["recursion"] + 1
+    res = {}
+    want = render_passes(cornell, cam, Film.create(size, size, device=dev),
+                         PAR_SEED, 0, PAR_PASSES,
+                         closest_fn=closest_hit_fused,
+                         trace_fn=fused.trace_fused)
+    same = {k: np.array_equal(getattr(whole, k),
+                              getattr(want, k).cpu().numpy())
+            for k in ("color_sum", "samples", "misses")}
+    # Per ray, pass 0: this rank's rows traced alone against the same rows
+    # of the whole frame, sorted by fused.classify_mismatches.
+    jitter, uniforms = pass_draws(PAR_SEED, 0, size * size, n_bounces, dev)
+    px, py = cam_mod.pixel_grid(size, size, device=dev)
+    o, d = cam_mod.camera_rays(cam, px, py, jitter)
+    full = fused.trace_fused(cornell, o.contiguous(), d.contiguous(),
+                             uniforms, want_tape=True)
+    rows = ray_slice(rays, size)
+    pix = slice(rows.start * size, rows.stop * size)
+    part = fused.trace_fused(cornell, o[pix].contiguous(),
+                             d[pix].contiguous(),
+                             uniforms[:, :, pix].contiguous(), want_tape=True)
+    tape = type(full[2])(*(getattr(full[2], k)[:, pix] for k in
+                           ("prim", "flags", "nx", "ny", "nz")))
+    cls = fused.classify_mismatches((full[0][pix], full[1][pix], tape), part,
+                                    CLOSE_ATOL, CLOSE_RTOL)
+    res["cornell"] = {"bit_equal": same,
+                      **{k: int(cls[k].sum())
+                         for k in ("flip", "graze", "samepick")},
+                      "miss_diff": int((~cls["miss_eq"]).sum())}
+    check(all(same.values()) and res["cornell"]["samepick"] == 0
+          and res["cornell"]["miss_diff"] == 0,
+          f"2 ranks: cornell sharded film equals the single-device film "
+          f"({res['cornell']})")
+
+    want722 = render_passes(mesh722, cam722,
+                            Film.create(size, size, device=dev), PAR_SEED,
+                            0, 1, closest_fn=closest_hit_fused)
+    err = float(np.abs(film722.color_sum
+                       - want722.color_sum.cpu().numpy()).max())
+    miss_eq = np.array_equal(film722.misses, want722.misses.cpu().numpy())
+    samples_eq = np.array_equal(film722.samples,
+                                want722.samples.cpu().numpy())
+    res["mesh-722 prims"] = {"max_abs_err": err, "misses_equal": miss_eq,
+                             "samples_equal": samples_eq}
+    check(miss_eq and samples_eq and err <= 1e-5,
+          f"2 prims ranks: mesh-722 film within 1e-5 of trace + select "
+          f"({res['mesh-722 prims']})")
+
+    for name, scene, camera, closest in (
+            ("cornell", cornell, cam, None),
+            ("mesh-722", mesh722, cam722, None),
+            ("mesh-46k", mesh46, cam46, bvh46),
+            ("cornell-overlapped", cornell, cam, None)):
+        ref = one_step(None, scene, camera, PAR_SEED + 1, dev,
+                       closest_fn=closest)
+        res[f"step {name} worst grad err / max|g|"] = steps_close(
+            f"2 ranks: {name} sharded step", steps[name], ref)
+        res[f"step {name} loss"] = [float(steps[name][0]), float(ref[0])]
+    return res
+
+
+def parallel_phase(card, dev, par=PAR_SIZES, backend="nccl"):
+    """The sharded paths and the debug views at full width (700x700 rec10;
+    the BVH step at 512x512 rec4): NCCL at world size 1 in this process,
+    then two ranks on the card over gloo, then the debug views.  Returns
+    the main-path launches of the phase, by kernel."""
+    import multiprocessing
+    import tempfile
+
+    from raytracercore_tpu_torch import kernels
+
+    if dev.type == "cuda":
+        kernels.build()  # the ranks load the library this process built
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        counts = nccl_world_one(card, dev, tmp, par, backend)
+        nccl_s = time.perf_counter() - t0
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=rank_main,
+                             args=(r, 2, str(tmp), par, dev.type))
+                 for r in range(2)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=PAR_JOIN_S)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        ranks_s = time.perf_counter() - t0
+        check([p.exitcode for p in procs] == [0, 0],
+              f"2 ranks on the card: exit codes "
+              f"{[p.exitcode for p in procs]}")
+        res = [json.loads((tmp / f"rank{r}.json").read_text())
+               for r in range(2)]
+    for r in res:
+        add_counts(counts, r["counts"])
+        print(f"[parallel] gloo rank {r['rank']} of 2 on cuda:0 ({SHARE_NOTE}"
+              f"): cornell {par['size']}² rec{par['recursion']} ms/pass="
+              f"{r['pass_ms']:.3f} (mean of {PAR_PASSES}, the megakernel on "
+              f"half the paths) gather_film ms={r['gather_ms']:.3f}; "
+              f"mesh-722 {par['size']}² "
+              f"prims-sharded pass + gather ms={r['prims_pass_ms']:.3f} "
+              f"(first pass, {par['recursion'] + 1} all_gathers); ms of one "
+              f"step (the first in the process) "
+              + " ".join(f"{k.split()[1]}={r[k]:.3f}" for k in r
+                         if k.startswith("step_ms"))
+              + f"; gloo all_reduce median ms of {PAR_REPS}: "
+              + " ".join(f"{k.split()[1]} ({r['bucket_size ' + k.split()[1]]}"
+                         f" f32)={r[k]:.3f}" for k in r
+                         if k.startswith("gloo_bucket_ms"))
+              + f"; launches {r['counts']} on {card}")
+    r0 = res[0]
+    print(f"[parallel] 2 ranks vs one device: cornell film {r0['cornell']}; "
+          f"mesh-722 prims film {r0['mesh-722 prims']}; steps "
+          + "; ".join(f"{k}={r0[k]}" for k in r0 if k.startswith("step ")))
+    t0 = time.perf_counter()
+    add_counts(counts, debug_views(card, dev, par))
+    debug_s = time.perf_counter() - t0
+    print(f"[parallel] phase s={time.perf_counter() - t_phase:.1f} (NCCL "
+          f"world 1 {nccl_s:.1f}, 2 ranks incl. start-up {ranks_s:.1f}, "
+          f"debug views {debug_s:.1f}); launches {counts}")
+    for k in ("trace_fused", "prepare_uniforms_kernel", "replay_fwd",
+              "replay_bwd", "closest_hit_fused", "traverse"):
+        check(counts.get(k, 0) > 0, f"parallel phase launched {k}")
+    return counts
+
+
+def debug_views(card, dev, par):
+    """The debug views on the card at 700x700: primitive ids (cornell:
+    against the megakernel tape's first-bounce prim on the same centre
+    rays; mesh-722: against the select kernel's plain version), the BVH
+    node counts of mesh-722 against the same count on CPU tensors, one
+    bounce listing, and a selection overlay of one prim and one node.
+    Returns the views' launches."""
+    from raytracercore_tpu_torch.bvh.builder import build_bvh
+    from raytracercore_tpu_torch.intersect.cuda_select import \
+        closest_hit_fused_reference
+    from raytracercore_tpu_torch.parallel import worker
+    from raytracercore_tpu_torch.render import camera as cam_mod
+    from raytracercore_tpu_torch.render import fused
+    from raytracercore_tpu_torch.render.renderer import pass_draws
+    from raytracercore_tpu_torch.scene import loader
+    from raytracercore_tpu_torch.scene.types import (freeze_scene,
+                                                     init_camera)
+    from raytracercore_tpu_torch.tools import debug
+
+    size = par["size"]
+    host = loader.parse(CORNELL_SCENE)
+    host.width = host.height = size
+    host.recursion = par["recursion"]
+    mesh, mesh_cam = worker.load_scene("mesh-722", size, par["recursion"],
+                                       dev)
+    bvh = build_bvh(mesh, backend="native")
+    ms = {}
+    zero_counts()
+
+    def timed(name, fn):
+        sync(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        sync(dev)
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    ids = timed("primitive_ids cornell",
+                lambda: debug.primitive_ids(host, device=dev))
+    img = timed("primitive_id_map cornell",
+                lambda: debug.primitive_id_map(host, device=dev))
+    ids722 = timed("primitive_ids mesh-722", lambda: debug.primitive_ids(
+        mesh, device=dev, cameras=[mesh_cam]))
+    counts722 = timed("bvh_hit_counts mesh-722", lambda: debug.bvh_hit_counts(
+        mesh, bvh=bvh, device=dev, cameras=[mesh_cam]))
+    heat = timed("bvh_heatmap mesh-722", lambda: debug.bvh_heatmap(
+        mesh, bvh=bvh, device=dev, cameras=[mesh_cam]))
+    listing = timed("trace_pixel cornell", lambda: debug.trace_pixel(
+        host, size // 2, size * 3 // 5, n_traces=2, seed=PAR_SEED,
+        device=dev))
+    sel = int(np.bincount(ids722[ids722 >= 0]).argmax())
+    overlay = timed(f"selection_map mesh-722 prim:{sel}",
+                    lambda: debug.selection_map(mesh, f"prim:{sel}",
+                                                device=dev,
+                                                cameras=[mesh_cam]))
+    node = timed("selection_map mesh-722 node:1", lambda: debug.selection_map(
+        mesh, "node:1", bvh=bvh, device=dev, cameras=[mesh_cam]))
+    counts = read_counts()
+
+    # The references (not counted).
+    arrays = freeze_scene(host, device=dev)
+    camera = init_camera(host.cameras[0], size, size, device=dev)
+    px, py = cam_mod.pixel_grid(size, size, device=dev)
+    o, d = cam_mod.center_rays(camera, px, py)
+    _, uniforms = pass_draws(PAR_SEED, 0, size * size,
+                             par["recursion"] + 1, dev)
+    tape = fused.trace_fused(arrays, o.contiguous(), d.contiguous(),
+                             uniforms, want_tape=True)[2]
+    first = tape.prim[0].cpu().numpy().reshape(size, size)
+    cam722 = init_camera(mesh_cam, size, size, device=dev)
+    o, d = cam_mod.center_rays(cam722, px, py)
+    plain722 = closest_hit_fused_reference(
+        mesh, o.contiguous(), d.contiguous(), None).prim.cpu().numpy()
+    # The plain count on CPU tensors (a dense [rays x nodes] slab test,
+    # minutes at 490,000 rays on a host's cores): every 49th pixel.
+    sample = torch.arange(0, size * size, HEATMAP_STRIDE)
+    counts_cpu = debug.node_hit_counts(bvh, o.cpu()[sample],
+                                       d.cpu()[sample]).numpy()
+    diff = np.abs(counts722.reshape(-1)[sample.numpy()].astype(np.int64)
+                  - counts_cpu)
+    vis = ids722 == sel
+    res = {"cornell ids != megakernel first prim": int((ids != first).sum()),
+           "mesh-722 ids != plain select": int(
+               (ids722.reshape(-1) != plain722).sum()),
+           "heatmap pixels off by one": int((diff == 1).sum()),
+           "heatmap pixels off by more": int((diff > 1).sum()),
+           "heatmap max count": int(counts722.max()),
+           "heatmap mean count": float(counts722.mean()),
+           "heatmap image mean": float(heat.mean()),
+           f"prim:{sel} overlay pixels": int((overlay[..., 3] == 255).sum()),
+           f"prim:{sel} visible pixels": int(vis.sum()),
+           "node:1 overlay pixels": int((node[..., 3] == 255).sum())}
+    print(f"[debug] views at {size}x{size} on {dev}: {res} (heat-map "
+          f"counts against the CPU on {sample.numel()} pixels); "
+          f"wall ms {{{', '.join(f'{k}: {v:.1f}' for k, v in ms.items())}}}"
+          f"; launches {counts} on {card}")
+    print(f"[debug] trace_pixel cornell ({size // 2}, {size * 3 // 5}), "
+          "2 traces:")
+    for t_i, lines in enumerate(listing):
+        print(f"[debug]   trace {t_i}: " + " | ".join(lines))
+    check(img.shape == (size, size, 3) and len(np.unique(
+        img.reshape(-1, 3), axis=0)) > 3, "primitive_id_map has its colours")
+    check(res["cornell ids != megakernel first prim"] == 0,
+          "primitive ids equal the megakernel's first-bounce prims")
+    check(res["mesh-722 ids != plain select"] == 0,
+          "mesh-722 primitive ids equal the plain select version's")
+    check(res["heatmap pixels off by more"] == 0
+          and res["heatmap pixels off by one"]
+          <= HEATMAP_OFF_FRAC * counts722.size,
+          "BVH node counts equal the counts on CPU tensors (to one count "
+          f"on at most {HEATMAP_OFF_FRAC} of the sampled pixels)")
+    check(all(lines[-1].startswith("color=") and len(lines) > 1
+              for lines in listing), "trace_pixel lists bounces")
+    check(bool((overlay[..., 3] == 255)[vis].all()) and vis.any(),
+          "the prim overlay covers every pixel where the prim is visible")
+    check(res["node:1 overlay pixels"] > 0, "the node overlay is not empty")
+    return counts
+
+
 def main():
     import argparse
 
@@ -2618,7 +3163,11 @@ def main():
     fwd_err = max(fwd_err, bvh_replay_errs[0])
     bwd_err = max(bwd_err, bvh_replay_errs[1])
 
-    # --- 8. result lines ---------------------------------------------------
+    # --- 8. the sharded paths and the debug views -------------------------
+    torch.cuda.empty_cache()
+    par_counts = parallel_phase(card, dev)
+
+    # --- 9. result lines ---------------------------------------------------
     # No single PyTorch call computes any of these six functions (a whole
     # path, Philox channels, a path replay and its adjoint, a closest hit
     # over three primitive tables, a BVH walk), so there is no library time
@@ -2636,30 +3185,36 @@ def main():
     print(card)
     print(json.dumps({"kernels": [
         entry("trace_fused", "fused.cu", "render/fused.py:56",
-              launches + train_launches["trace_fused"], max_err, kernel_ms,
+              launches + train_launches["trace_fused"]
+              + par_counts["trace_fused"], max_err, kernel_ms,
               plain_ms, fused_bound),
         entry("prepare_uniforms_kernel", "uniforms.cu",
               "render/uniforms_kernel.py:64",
               train_launches["prepare_uniforms_kernel"]
               + mesh_train_counts["prepare_uniforms_kernel"]
-              + bvh_train_counts["prepare_uniforms_kernel"], uni_err,
+              + bvh_train_counts["prepare_uniforms_kernel"]
+              + par_counts["prepare_uniforms_kernel"], uni_err,
               uni_ms, uni_plain_ms, train_bounds["uniforms"]),
         entry("replay_fwd", "replay.cu", "render/replay_kernel.py:163",
               train_launches["replay_fwd"] + mesh_train_counts["replay_fwd"]
-              + bvh_train_counts["replay_fwd"], fwd_err,
+              + bvh_train_counts["replay_fwd"] + par_counts["replay_fwd"],
+              fwd_err,
               *stage["replay forward"], train_bounds["replay forward"]),
         entry("replay_bwd", "replay.cu", "render/replay_kernel.py:193",
               train_launches["replay_bwd"] + mesh_train_counts["replay_bwd"]
-              + bvh_train_counts["replay_bwd"], bwd_err,
+              + bvh_train_counts["replay_bwd"] + par_counts["replay_bwd"],
+              bwd_err,
               *stage["replay backward"], train_bounds["replay backward"]),
         entry("closest_hit_fused", "select.cu",
               "intersect/pallas_select.py:42",
-              select_launches + mesh_train_counts["closest_hit_fused"],
+              select_launches + mesh_train_counts["closest_hit_fused"]
+              + par_counts["closest_hit_fused"],
               max(select_err, select_stage["max_abs_err"]),
               select_stage["ms"], select_stage["plain_ms"],
               (select_stage["bound_ms"], select_stage["bound_by"])),
         entry("traverse", "traverse.cu", "bvh/pallas_traverse.py:292",
-              traverse_launches + bvh_train_counts["traverse"],
+              traverse_launches + bvh_train_counts["traverse"]
+              + par_counts["traverse"],
               max(traverse_err, traverse_stage["max_abs_err"]),
               traverse_stage["ms"], traverse_stage["plain_ms"],
               (traverse_stage["bound_ms"], traverse_stage["bound_by"])),

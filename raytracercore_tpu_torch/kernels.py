@@ -165,7 +165,11 @@ def build() -> dict:
             tmp.unlink(missing_ok=True)
             raise RuntimeError(
                 f"nvcc failed (exit {rc}): {' '.join(cmd)}\n{text}")
-    log_path.write_text(log)
+    # Ranks that start together may each build: every file lands whole,
+    # by rename, the log before the library that shows the build is done.
+    tmp_log = BUILD_DIR / f"{tag}.tmp.log"
+    tmp_log.write_text(log)
+    os.replace(tmp_log, log_path)
     os.replace(tmp, out)
     return {"path": str(out), "seconds": seconds, "built": True, "log": log}
 

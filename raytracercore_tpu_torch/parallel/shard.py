@@ -1,37 +1,219 @@
-"""Material-optimization train step and loop (counterpart of
-``raytracercore_tpu.parallel.shard``'s ``make_train_step`` and
-``make_train_loop``), single device.
+"""Sharded render passes and material-optimization steps (counterpart of
+``raytracercore_tpu.parallel.shard``).
 
-A step renders the target's view through the train path
-(:func:`..render.replay.trace_replay`: uniforms kernel → recorder → replay
-backward) or, as the slow oracle, through the whole differentiable
-:func:`..render.integrator.trace`, takes the L2 image loss against the target and
-lets the caller's ``torch.optim`` optimizer update the material params in
-place.  The JAX step is stateless (params and optimizer state in, new ones
-out); here ``params`` is the dict of leaf tensors the optimizer was built
-over.  Multi-device training (a ``mesh``) is not ported yet.
+Every rank of a :class:`.mesh.Mesh` holds the scene (:func:`place_scene`)
+and its block of image rows (:func:`place_film`, :func:`.mesh.ray_slice`).
+A pass draws the whole frame's random numbers from the pass seed on every
+rank, exactly as :func:`..render.renderer.render_passes` does, and traces
+only its own rows, so the gathered film is the single-device film row for
+row.  On the ``prims`` axis each rank intersects its slice of the
+triangle table and the ranks agree on the closest hit at every bounce.
+A train step takes its rows of rays, target and uniforms; the loss and the
+material gradient are summed over ``rays`` with ``torch.distributed``
+collectives.  ``mesh=None`` is the single-device step.
+
+The JAX step is stateless (params and optimizer state in, new ones out);
+here ``params`` is the dict of leaf tensors the caller's ``torch.optim``
+optimizer was built over, updated in place.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
-from ..diff.params import with_material_params
-from ..intersect.dispatch import closest_hit
+from ..diff.params import MATERIAL_FIELDS, with_material_params
+from ..intersect.cuda_select import closest_hit_fused
+from ..intersect.dispatch import HitRecord, closest_hit
 from ..render import camera as cam_mod
+from ..render.film import Film
 from ..render.integrator import trace
-from ..render.renderer import pass_seed
+from ..render.renderer import pass_draws, pass_seed, pick_route, trace_pixels
 from ..render.replay import trace_replay
 from ..render.uniforms_kernel import prepare_uniforms_kernel
+from ..scene.types import SceneArrays, Triangles
+from .mesh import Mesh, block, ray_slice
 
 
-def _single_device(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "multi-device training is not ported yet (ROADMAP.md queue 1, "
-            "the parallel/ item); pass mesh=None")
+def place_scene(mesh: Mesh, scene: SceneArrays) -> SceneArrays:
+    """The scene on this rank's device, the same on every rank: a new
+    scene whose material rows are rank 0's (broadcast), so that ranks
+    whose copies were made apart cannot drift."""
+    s = scene.to(mesh.device)
+    mats = {f: getattr(s.materials, f).clone() for f in MATERIAL_FIELDS}
+    for t in mats.values():
+        dist.broadcast(t, src=0)
+    return dataclasses.replace(
+        s, materials=dataclasses.replace(s.materials, **mats))
+
+
+def place_film(mesh: Mesh, film: Film) -> Film:
+    """This rank's block of the film's rows (:func:`.mesh.ray_slice`), on
+    its device."""
+    rows = ray_slice(mesh, film.shape[0])
+
+    def cut(x):
+        return None if x is None else x[rows].to(mesh.device)
+    return Film(color_sum=cut(film.color_sum), samples=cut(film.samples),
+                misses=cut(film.misses), color_c=cut(film.color_c))
+
+
+def _pixels(mesh: Mesh, h: int, w: int, film=None):
+    """This rank's image rows and their pixels (row-major)."""
+    rows = ray_slice(mesh, h)
+    if film is not None and film.shape != (rows.stop - rows.start, w):
+        raise ValueError(
+            f"sharded pass: the film block is {film.shape}, this rank's "
+            f"rows of a {h}x{w} image are {rows.start}:{rows.stop} (make "
+            "it with place_film)")
+    return rows, slice(rows.start * w, rows.stop * w)
+
+
+def _rank_pass(mesh: Mesh, scene, camera, film, seed, pass_index, jitter,
+               uniforms, closest_fn, trace_fn):
+    """One progressive pass over this rank's pixels of the scene's
+    ``height x width`` frame; the frame's draws as in ``render_passes``
+    unless ``jitter`` [H·W, 4] and ``uniforms`` [B, 7, H·W] are given."""
+    h, w = scene.height, scene.width
+    _, pix = _pixels(mesh, h, w, film)
+    device = film.samples.device
+    if jitter is None or uniforms is None:
+        jitter, uniforms = pass_draws(seed, pass_index, h * w,
+                                      scene.recursion + 1, device)
+    px, py = cam_mod.pixel_grid(w, h, device=device)
+    with torch.no_grad():
+        color, miss = trace_pixels(scene, camera, px[pix], py[pix],
+                                   jitter[pix],
+                                   uniforms[:, :, pix].contiguous(),
+                                   closest_fn, trace_fn)
+    return film.add_full_frame(color, miss)
+
+
+class _PerScene:
+    """A value derived from the last scene it was asked about, kept while
+    that scene object is the one passed in (scenes are frozen)."""
+
+    def __init__(self, make):
+        self.make = make
+        self.scene = self.value = None
+
+    def __call__(self, scene):
+        if self.scene is not scene:
+            self.scene, self.value = scene, self.make(scene)
+        return self.value
+
+
+def make_sharded_render_pass(mesh: Mesh, closest_fn=None) -> Callable:
+    """A progressive pass with rays sharded over ``rays``.
+
+    Returns ``render_pass(scene, camera, film, seed, pass_index=0,
+    jitter=None, uniforms=None) → film``: ``film`` is this rank's block
+    (:func:`place_film`) of the scene's ``height x width`` film.  The rays
+    go through the route :class:`..render.renderer.Renderer` picks
+    (:func:`..render.renderer.pick_route`: the megakernel, ``trace`` with
+    the select kernel, or the BVH), unless ``closest_fn`` is given."""
+    route = _PerScene(lambda scene: pick_route(scene)[:2])
+
+    def render_pass(scene: SceneArrays, camera, film, seed: int,
+                    pass_index: int = 0, jitter=None, uniforms=None):
+        cfn, tfn = ((closest_fn, None) if closest_fn is not None
+                    else route(scene))
+        return _rank_pass(mesh, scene, camera, film, seed, pass_index,
+                          jitter, uniforms, cfn, tfn)
+
+    return render_pass
+
+
+def pad_triangles_for_prims(scene: SceneArrays, n_prims: int) -> SceneArrays:
+    """The scene with its triangle table padded to a multiple of
+    ``n_prims`` rows: padding rows are zeros with ``prim_id = -1``, which
+    every selection path skips.  A new scene object (its packed tables are
+    built anew)."""
+    tri = scene.triangles
+    pad = (-tri.v0.shape[0]) % n_prims
+    if pad == 0:
+        return scene
+
+    def grow(a, fill=0):
+        return torch.cat([a, torch.full((pad,) + tuple(a.shape[1:]), fill,
+                                        dtype=a.dtype, device=a.device)])
+
+    fields = {f.name: grow(getattr(tri, f.name))
+              for f in dataclasses.fields(tri) if f.name != "prim_id"}
+    return dataclasses.replace(
+        scene, triangles=Triangles(**fields, prim_id=grow(tri.prim_id, -1)))
+
+
+def _prims_closest(mesh: Mesh):
+    """The closest hit over the ``prims`` axis: this rank's select-kernel
+    query on its slice, then every rank's record all-gathered and the
+    nearest taken (the lowest rank on ties, as ``jnp.argmin``).  Spheres
+    and planes are on every rank, so their candidates tie exactly."""
+    group, n = mesh.prims_group, mesh.n_prims
+
+    def gather(x):
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.stack(parts)
+
+    def closest(scene, ray_o, ray_d, skip):
+        hit = closest_hit_fused(scene, ray_o, ray_d, skip)
+        t_key = torch.where(hit.found, hit.t, torch.inf)
+        f = gather(torch.cat([t_key[:, None], hit.t[:, None], hit.position,
+                              hit.normal], dim=1))             # [p, R, 8]
+        i = gather(torch.stack([hit.prim, hit.inside.to(torch.int32)],
+                               dim=1))                          # [p, R, 2]
+        win = torch.argmin(f[:, :, 0], dim=0)[None, :, None]
+
+        def pick(a):
+            return torch.gather(a, 0, win.expand(1, -1, a.shape[2]))[0]
+        f, i = pick(f), pick(i)
+        found = torch.isfinite(f[:, 0])
+        return HitRecord(prim=torch.where(found, i[:, 0], -1), t=f[:, 1],
+                         position=f[:, 2:5], normal=f[:, 5:8],
+                         inside=i[:, 1] != 0)
+
+    return closest
+
+
+def make_prims_sharded_render_pass(mesh: Mesh) -> Callable:
+    """A progressive pass with the TRIANGLE TABLE sharded over ``prims``
+    and the rays over ``rays``: each rank intersects its rays against its
+    contiguous slice of the triangle rows (spheres and planes stay on every
+    rank) with the select kernel, and the ranks of a ``prims`` group agree
+    on the closest hit at every bounce (:func:`_prims_closest`), inside the
+    integrator's bounce loop.  The film equals the single-device
+    ``trace`` + select pass.
+
+    Returns ``render_pass(scene, camera, film, seed, pass_index=0,
+    jitter=None, uniforms=None) → film`` as
+    :func:`make_sharded_render_pass`; ``scene`` must be padded with
+    :func:`pad_triangles_for_prims`."""
+
+    def slice_scene(scene):
+        tri = scene.triangles
+        rows = tri.v0.shape[0]
+        if rows % mesh.n_prims:
+            raise ValueError(f"prims-sharded pass: {rows} triangle rows do "
+                             f"not split over {mesh.n_prims} ranks; pad "
+                             "them with pad_triangles_for_prims")
+        mine = block(rows, mesh.n_prims, mesh.prims)
+        return dataclasses.replace(scene, triangles=Triangles(
+            **{f.name: getattr(tri, f.name)[mine]
+               for f in dataclasses.fields(tri)}))
+
+    local = _PerScene(slice_scene)
+    closest = _prims_closest(mesh)
+
+    def render_pass(scene: SceneArrays, camera, film, seed: int,
+                    pass_index: int = 0, jitter=None, uniforms=None):
+        return _rank_pass(mesh, local(scene), camera, film, seed,
+                          pass_index, jitter, uniforms, closest, None)
+
+    return render_pass
 
 
 def step_rays(camera, h: int, w: int, seed: int, jitter=None):
@@ -51,22 +233,57 @@ def step_rays(camera, h: int, w: int, seed: int, jitter=None):
     return ray_o.contiguous(), ray_d.contiguous(), path_seed
 
 
-def image_loss(color, miss, target):
+def image_loss(color, miss, target, n=None):
     """L2 loss of a traced image (misses black) against the linear
-    ``target`` [H, W, 3]."""
+    ``target`` [H, W, 3]: the sum of squares over ``n`` (default: the
+    target's size; a rank's block divides by the whole image's)."""
     img = torch.where(miss[:, None], 0.0, color).reshape(target.shape)
-    return torch.mean((img - target) ** 2)
+    return torch.sum((img - target) ** 2) / (target.numel() if n is None
+                                              else n)
 
 
-def make_train_step(mesh, optimizer: torch.optim.Optimizer,
+def _rank_inputs(mesh, scene, camera, target, seed, jitter, uniforms):
+    """A step's rays, uniforms (``None``: drawn by the route) and target,
+    cut to this rank's rows when there is a mesh, and the path seed.  With
+    a mesh the uniforms are drawn over all ``H·W`` paths, then cut, so
+    every rank holds the single-device step's numbers."""
+    h, w = target.shape[:2]
+    ray_o, ray_d, path_seed = step_rays(camera, h, w, seed, jitter)
+    if mesh is None:
+        return ray_o, ray_d, uniforms, target, path_seed
+    rows, pix = _pixels(mesh, h, w)
+    if uniforms is None:
+        uniforms = prepare_uniforms_kernel(path_seed, h * w,
+                                           scene.recursion + 1, ray_o.device)
+    return (ray_o[pix], ray_d[pix], uniforms[:, :, pix].contiguous(),
+            target[rows], path_seed)
+
+
+def _sum_grads(mesh: Mesh, params: dict) -> None:
+    """Sum every param's gradient over ``rays`` in one flattened bucket."""
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+             for p in params.values()]
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=mesh.rays_group)
+    for p, part in zip(params.values(),
+                       flat.split([g.numel() for g in grads])):
+        p.grad = part.view_as(p)
+
+
+def make_train_step(mesh: Mesh | None, optimizer: torch.optim.Optimizer,
                     closest_fn=closest_hit, use_replay: bool = True
                     ) -> Callable:
     """A material-optimization step: render → L2 image loss → gradients →
     ``optimizer.step()``.
 
     ``optimizer`` is built over the params dict the step will be given
-    (e.g. ``torch.optim.Adam(params.values(), lr)``).  ``mesh`` must be
-    ``None``.
+    (e.g. ``torch.optim.Adam(params.values(), lr)``).
+
+    ``mesh``: ``None`` for one device.  With a :class:`.mesh.Mesh`, each
+    rank traces its rows of the image, takes the sum of its squared errors
+    over the whole image's size, and after ``backward()`` the material
+    gradient is summed over ``rays`` in one flattened all-reduce (and the
+    loss in another); every rank then takes the same optimizer step.
 
     ``use_replay`` routes the loss through the path-replay estimator
     (:func:`..render.replay.trace_replay`): the values and gradients of
@@ -77,17 +294,17 @@ def make_train_step(mesh, optimizer: torch.optim.Optimizer,
     either route.
 
     Returns ``step(params, scene, camera, target, seed, jitter=None,
-    uniforms=None) → loss`` (a detached scalar tensor, the loss before the
-    update).  ``target`` is a linear ``[H, W, 3]`` image; ``seed`` keys the
-    step's camera jitter and path uniforms, unless ``jitter`` [H·W, 4] and
-    ``uniforms`` [B, 7, H·W] are given.
+    uniforms=None) → loss`` (a detached scalar tensor, the whole image's
+    loss before the update).  ``target`` is the whole linear ``[H, W, 3]``
+    image; ``seed`` keys the step's camera jitter and path uniforms, unless
+    ``jitter`` [H·W, 4] and ``uniforms`` [B, 7, H·W] are given.
     """
-    _single_device(mesh)
 
     def step(params: dict, scene, camera, target, seed: int,
              jitter=None, uniforms=None):
         h, w = target.shape[:2]
-        ray_o, ray_d, path_seed = step_rays(camera, h, w, seed, jitter)
+        ray_o, ray_d, uniforms, tgt, path_seed = _rank_inputs(
+            mesh, scene, camera, target, seed, jitter, uniforms)
         s = with_material_params(scene, params)
         if use_replay:
             color, miss = trace_replay(s, ray_o, ray_d, seed=path_seed,
@@ -99,16 +316,61 @@ def make_train_step(mesh, optimizer: torch.optim.Optimizer,
                     path_seed, h * w, scene.recursion + 1, ray_o.device)
             color, miss = trace(s, ray_o, ray_d, None, closest_fn=closest_fn,
                                 uniforms=uniforms)
-        loss = image_loss(color, miss, target)
+        loss = image_loss(color, miss, tgt, h * w * 3)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        loss = loss.detach()
+        if mesh is not None:
+            dist.all_reduce(loss, group=mesh.rays_group)
+            _sum_grads(mesh, params)
         optimizer.step()
-        return loss.detach()
+        return loss
 
     return step
 
 
-def make_train_loop(mesh, optimizer: torch.optim.Optimizer,
+def make_overlapped_train_step(mesh: Mesh, optimizer: torch.optim.Optimizer
+                               ) -> Callable:
+    """A sharded train step whose material-gradient all-reduce runs inside
+    the backward (the JAX step with ``grad_axis``): the loss goes through
+    :func:`..render.replay.trace_replay` with ``grad_group`` the ``rays``
+    group, so the gradients come out of ``backward()`` already summed, and
+    only the scalar loss has a collective of its own (issued before the
+    backward, waited on after it).
+
+    The schedule differs by device.  On CPU tensors the plain replay runs,
+    with one bucket per bounce (the JAX schedule: bounce ``k``'s bucket is
+    on the wire while bounce ``k - 1``'s backward computes).  On CUDA
+    tensors the replay backward is one kernel over all bounces, so there
+    is one bucket, issued after it: nothing inside the kernel is left to
+    overlap.  A backward split by ray blocks, each block's bucket
+    overlapping the next block, is open work that only more than one card
+    can measure.
+
+    Returns ``step(params, scene, camera, target, seed, jitter=None,
+    uniforms=None) → loss`` as :func:`make_train_step`."""
+
+    def step(params: dict, scene, camera, target, seed: int,
+             jitter=None, uniforms=None):
+        h, w = target.shape[:2]
+        ray_o, ray_d, uniforms, tgt, _ = _rank_inputs(
+            mesh, scene, camera, target, seed, jitter, uniforms)
+        color, miss = trace_replay(with_material_params(scene, params),
+                                   ray_o, ray_d, uniforms=uniforms,
+                                   grad_group=mesh.rays_group)
+        loss = image_loss(color, miss, tgt, h * w * 3)
+        total = loss.detach().clone()
+        work = dist.all_reduce(total, group=mesh.rays_group, async_op=True)
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        work.wait()
+        optimizer.step()
+        return total
+
+    return step
+
+
+def make_train_loop(mesh: Mesh | None, optimizer: torch.optim.Optimizer,
                     n_steps: int, closest_fn=closest_hit,
                     use_replay: bool = True) -> Callable:
     """``n_steps`` optimization steps; step ``i`` is seeded
@@ -118,8 +380,7 @@ def make_train_loop(mesh, optimizer: torch.optim.Optimizer,
 
     Returns ``loop(params, scene, camera, target, seed) → losses
     [n_steps]``."""
-    _single_device(mesh)
-    step = make_train_step(None, optimizer, closest_fn=closest_fn,
+    step = make_train_step(mesh, optimizer, closest_fn=closest_fn,
                            use_replay=use_replay)
 
     def loop(params: dict, scene, camera, target, seed: int):

@@ -62,33 +62,77 @@ def render_pass(scene: SceneArrays, camera, film: Film, jitter, uniforms,
     """
     h, w = film.shape
     px, py = cam_mod.pixel_grid(w, h, device=jitter.device)
+    color, miss = trace_pixels(scene, camera, px, py, jitter, uniforms,
+                               closest_fn, trace_fn)
+    return film.add_full_frame(color, miss)
+
+
+def trace_pixels(scene: SceneArrays, camera, px, py, jitter, uniforms,
+                 closest_fn=closest_hit, trace_fn=None):
+    """``(color [R, 3], miss [R])`` of one sample through each of the
+    pixels ``(px, py)`` [R]: camera rays from ``jitter`` [R, 4], then
+    ``trace_fn`` or :func:`.integrator.trace` with ``closest_fn`` on
+    ``uniforms`` [B, 7, R] (the body of :func:`render_pass`)."""
     ray_o, ray_d = cam_mod.camera_rays(camera, px, py, jitter)
     ray_o, ray_d = ray_o.contiguous(), ray_d.contiguous()
     if trace_fn is not None:
-        color, miss = trace_fn(scene, ray_o, ray_d, uniforms)
-    else:
-        # No early exit: at full-frame batches some ray nearly always
-        # survives to the recursion cap, and the test costs a host read of
-        # the device per bounce.
-        color, miss = trace(scene, ray_o, ray_d, None, closest_fn=closest_fn,
-                            uniforms=uniforms)
-    return film.add_full_frame(color, miss)
+        return trace_fn(scene, ray_o, ray_d, uniforms)
+    # No early exit: at full-frame batches some ray nearly always survives
+    # to the recursion cap, and the test costs a host read of the device
+    # per bounce.
+    return trace(scene, ray_o, ray_d, None, closest_fn=closest_fn,
+                 uniforms=uniforms)
+
+
+def pass_draws(seed: int, k: int, n: int, bounces: int, device):
+    """The random numbers of pass ``k`` of a run seeded ``seed`` over ``n``
+    pixels: ``(jitter [n, 4], uniforms [bounces, 7, n])``, drawn from a
+    generator on ``device`` seeded with :func:`pass_seed` ``(seed, k)``."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(pass_seed(seed, k))
+    jitter = torch.rand((n, 4), generator=gen, device=device)
+    return jitter, prepare_uniforms(gen, n, bounces, device)
+
+
+def pick_route(arrays: SceneArrays, accelerator: str = "auto"):
+    """The tracer of a scene, as :class:`Renderer` picks it: ``(closest_fn,
+    trace_fn, bvh)`` for :func:`render_pass`.  ``accelerator``: "brute"
+    (dense scan), "bvh", or "auto" — the BVH once the triangle table
+    outgrows the dense tier (``config.BVH_AUTO_THRESHOLD``) or the three
+    tables together outgrow the select kernel (``config.SELECT_MAX_PRIMS``
+    rows, where "brute" raises ``NotImplementedError``).  Within the dense
+    tier, scenes that :func:`.fused.fits` run the megakernel, the others
+    ``trace`` with the select kernel's closest hit."""
+    if accelerator not in ("auto", "brute", "bvh"):
+        raise ValueError(f"Renderer: unknown accelerator {accelerator!r}")
+    rows = n_table_rows(arrays)
+    n_tris = int((arrays.triangles.prim_id >= 0).sum())
+    if accelerator == "bvh" or (accelerator == "auto" and (
+            n_tris > BVH_AUTO_THRESHOLD or rows > SELECT_MAX_PRIMS)):
+        bvh = build_bvh(arrays)
+        return (make_bvh_closest_fn(bvh, arrays, traversal="kernel"), None,
+                bvh)
+    if rows > SELECT_MAX_PRIMS:
+        raise NotImplementedError(
+            f"accelerator {accelerator!r} on a scene of {rows} table "
+            "rows: the dense tier takes up to SELECT_MAX_PRIMS "
+            f"({SELECT_MAX_PRIMS}) rows; use \"auto\" or \"bvh\"")
+    trace_fn = fused.trace_fused if fused.fits(arrays) else None
+    return closest_hit_fused, trace_fn, None
 
 
 def render_passes(scene: SceneArrays, camera, film: Film, seed: int,
                   start: int, n: int = 1, closest_fn=closest_hit,
                   trace_fn=None) -> Film:
     """``n`` progressive passes, pass ``k`` (``start <= k < start + n``)
-    drawing from a generator seeded with :func:`pass_seed` ``(seed, k)``;
-    ``closest_fn`` and ``trace_fn`` as in :func:`render_pass`."""
+    drawing from a generator seeded with :func:`pass_seed` ``(seed, k)``
+    (:func:`pass_draws`); ``closest_fn`` and ``trace_fn`` as in
+    :func:`render_pass`."""
     h, w = film.shape
-    R = h * w
     device = film.samples.device
-    gen = torch.Generator(device=device)
     for k in range(start, start + n):
-        gen.manual_seed(pass_seed(seed, k))
-        jitter = torch.rand((R, 4), generator=gen, device=device)
-        uniforms = prepare_uniforms(gen, R, scene.recursion + 1, device)
+        jitter, uniforms = pass_draws(seed, k, h * w, scene.recursion + 1,
+                                      device)
         with torch.no_grad():
             film = render_pass(scene, camera, film, jitter, uniforms,
                                closest_fn=closest_fn, trace_fn=trace_fn)
@@ -114,18 +158,14 @@ class Renderer:
         ``compensated``: Neumaier-compensated film accumulation for runs of
         thousands of samples per pixel.
 
-        ``accelerator``: "brute" (dense scan), "bvh", or "auto" — the BVH
-        once the triangle table outgrows the dense tier
-        (``config.BVH_AUTO_THRESHOLD``) or the three tables together
-        outgrow the select kernel (``config.SELECT_MAX_PRIMS`` rows: there
-        is no dense tier above it, and "brute" raises
-        ``NotImplementedError`` there).  The BVH route builds the triangle
+        ``accelerator``: "brute" (dense scan), "bvh", or "auto", the
+        route :func:`pick_route` picks: the BVH route builds the triangle
         BVH (:func:`..bvh.builder.build_bvh`) and runs
         :func:`.integrator.trace` with
-        :func:`..intersect.dispatch.make_bvh_closest_fn`'s closest hit.
-        Within the dense tier, scenes that :func:`.fused.fits` run the
-        megakernel; the others (65 to ``SELECT_MAX_PRIMS`` rows, or ``debug
-        geom``) run ``trace`` with the select kernel's
+        :func:`..intersect.dispatch.make_bvh_closest_fn`'s closest hit;
+        within the dense tier, scenes that :func:`.fused.fits` run the
+        megakernel, the others (65 to ``SELECT_MAX_PRIMS`` rows, or ``debug
+        geom``) ``trace`` with the select kernel's
         :func:`..intersect.cuda_select.closest_hit_fused`.  A given
         ``closest_fn`` overrides the pick and runs through ``trace``."""
         if accelerator not in ("auto", "brute", "bvh"):
@@ -143,27 +183,11 @@ class Renderer:
             self.arrays = freeze_scene(scene, device=self.device)
             self.cameras = scene.cameras
         self.camera_index = camera_index
-        self.trace_fn = None
-        self.bvh = None
         if closest_fn is not None:
-            self.closest_fn = closest_fn
+            self.closest_fn, self.trace_fn, self.bvh = closest_fn, None, None
         else:
-            rows = n_table_rows(self.arrays)
-            n_tris = int((self.arrays.triangles.prim_id >= 0).sum())
-            if accelerator == "bvh" or (accelerator == "auto" and (
-                    n_tris > BVH_AUTO_THRESHOLD or rows > SELECT_MAX_PRIMS)):
-                self.bvh = build_bvh(self.arrays)
-                self.closest_fn = make_bvh_closest_fn(
-                    self.bvh, self.arrays, traversal="kernel")
-            elif rows > SELECT_MAX_PRIMS:
-                raise NotImplementedError(
-                    f"accelerator {accelerator!r} on a scene of {rows} table "
-                    "rows: the dense tier takes up to SELECT_MAX_PRIMS "
-                    f"({SELECT_MAX_PRIMS}) rows; use \"auto\" or \"bvh\"")
-            else:
-                self.closest_fn = closest_hit_fused
-                if fused.fits(self.arrays):
-                    self.trace_fn = fused.trace_fused
+            self.closest_fn, self.trace_fn, self.bvh = pick_route(
+                self.arrays, accelerator)
         self.reset()
 
     @property

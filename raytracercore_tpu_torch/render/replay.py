@@ -29,21 +29,30 @@ from ..intersect.dispatch import closest_hit, n_table_rows
 from ..scene.types import SceneArrays
 from . import fused
 from .integrator import PathTape, trace
-from .replay_kernel import (material_table, replay_fused,
+from .replay_kernel import (AllReduceInBackward, GradBuckets,  # noqa: F401
+                            material_table, replay_fused,
                             replay_fwd_reference)
 from .uniforms_kernel import prepare_uniforms_kernel
 
 
-def replay(scene: SceneArrays, ray_o, ray_d, uniforms, tape: PathTape):
+def replay(scene: SceneArrays, ray_o, ray_d, uniforms, tape: PathTape,
+           grad_group=None):
     """Differentiable re-walk of a recorded path: ``(color [R, 3], miss
     [R] bool)``, the JAX ``replay``'s contract and semantics.  Every
     discrete decision and every geometric quantity comes from ``tape``;
     gradients reach ``scene.materials`` (and air IOR and ambient) through
-    torch autograd.  Computes in ``ray_o``'s dtype."""
+    torch autograd.  Computes in ``ray_o``'s dtype.
+
+    ``grad_group``: a process group whose ranks hold other rays of the same
+    image.  Each bounce's material-gradient contribution is then all-reduced
+    over it inside the backward, one bucket per bounce
+    (:class:`.replay_kernel.AllReduceInBackward`), so the returned gradients
+    are already summed over the group."""
     dtype = ray_o.dtype
     matf, scf = material_table(scene, dtype)
     return replay_fwd_reference(ray_d.to(dtype), uniforms.to(dtype), tape,
-                                matf, scf, scene.ambient_is_miss)
+                                matf, scf, scene.ambient_is_miss,
+                                grad_group=grad_group)
 
 
 @torch.no_grad()
@@ -83,7 +92,7 @@ def _default_record_fn(scene: SceneArrays, closest_fn):
 
 def trace_replay(scene: SceneArrays, ray_o, ray_d, seed: int | None = None,
                  uniforms=None, record_as_primal: bool = True,
-                 closest_fn=closest_hit):
+                 closest_fn=closest_hit, grad_group=None):
     """The train path's trace: ``(color [R, 3], miss [R] bool)``,
     differentiable in ``scene.materials`` — the estimator of
     :func:`.integrator.trace` with a selection-free backward.
@@ -115,7 +124,13 @@ def trace_replay(scene: SceneArrays, ray_o, ray_d, seed: int | None = None,
     replay-forward kernel: the port of the JAX ``replay_fused(primal=None)``
     route, kept so that that kernel runs inside a whole train path
     (``chip_smoke.py`` builds a step on it and holds it to the default
-    route); its gradients are the same."""
+    route); its gradients are the same.
+
+    ``grad_group``: a process group whose ranks trace the other rays of
+    the same image; the material gradient comes back summed over it.  On
+    CUDA tensors :func:`.replay_kernel.replay_fused` sums it in one bucket
+    after its backward kernel; on CPU tensors the plain :func:`replay`
+    sums one bucket per bounce, the JAX package's schedule."""
     rows = n_table_rows(scene)
     if closest_fn is closest_hit and rows > SELECT_MAX_PRIMS:
         raise NotImplementedError(
@@ -138,4 +153,8 @@ def trace_replay(scene: SceneArrays, ray_o, ray_d, seed: int | None = None,
     else:
         tape = record_tape(scene, ray_o, ray_d, uniforms,
                            closest_fn=_default_record_fn(scene, closest_fn))
-    return replay_fused(scene, ray_o, ray_d, uniforms, tape, primal=primal)
+    if grad_group is not None and ray_o.device.type == "cpu":
+        return replay(scene, ray_o, ray_d, uniforms, tape,
+                      grad_group=grad_group)
+    return replay_fused(scene, ray_o, ray_d, uniforms, tape, primal=primal,
+                        grad_group=grad_group)

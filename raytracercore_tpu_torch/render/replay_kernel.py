@@ -29,12 +29,14 @@ and the two kernels built from them, each with its plain version:
 ``primal=`` it passes the recorder's own colour through instead of running
 the forward kernel (record-as-primal).  Only the material table gets a
 gradient: directions, air IOR and ambient get none, as in the JAX
-``_bwd_core``.
+``_bwd_core``.  With ``grad_group=`` the material gradient is summed over
+the ranks of a process group inside the backward (:class:`GradBuckets`).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from ..core import vecmath as vm
 from ..core.color import LUM_B, LUM_G, LUM_R
@@ -401,13 +403,17 @@ def _bounce_inputs(tape, uniforms, i):
 
 
 def replay_fwd_reference(ray_d, uniforms, tape: PathTape, matf, scf,
-                         ambient_is_miss: bool):
+                         ambient_is_miss: bool, grad_group=None):
     """Plain torch replay of every path: ``(color [R, 3], miss [R])``.
 
     ``ray_d`` [R, 3]; ``uniforms`` [B, 7, R]; ``matf`` [N, 14] (from
     :func:`.integrator._material_matrix`); ``scf`` = (air IOR, ambient
-    rgb).  Differentiable with torch autograd in any float dtype."""
+    rgb).  Differentiable with torch autograd in any float dtype.
+    ``grad_group``: each bounce reads ``matf`` through a bucket of its own
+    (:class:`GradBuckets`), so the material gradient is summed over the
+    group bounce by bounce, inside the backward."""
     B = tape.prim.shape[0]
+    buckets = None if grad_group is None else GradBuckets(matf, grad_group)
     air, ambient = _scalars(scf)
     d = tuple(ray_d[:, k] for k in range(3))
     one = torch.ones_like(d[0])
@@ -417,8 +423,9 @@ def replay_fwd_reference(ray_d, uniforms, tape: PathTape, matf, scf,
     for i in range(B):
         u, flags, normal = _bounce_inputs(tape, uniforms, i)
         d, tint, result, is_miss = _bounce_fwd(
-            i, d, tint, result, _gather(matf, tape.prim[i]), u, flags,
-            normal, air, ambient, ambient_is_miss)
+            i, d, tint, result,
+            _gather(matf if buckets is None else buckets(), tape.prim[i]),
+            u, flags, normal, air, ambient, ambient_is_miss)
         if ambient_is_miss or i == 0:
             miss = miss | is_miss
     return torch.stack(result, dim=1), miss
@@ -680,8 +687,68 @@ class _ReplayShade(torch.autograd.Function):
         return (matf_ct,) + (None,) * 11
 
 
+class _CollectBuckets(torch.autograd.Function):
+    """Identity forward.  Backward: waits on every all-reduce the buckets
+    above it issued and returns the sum of their results (plus whatever
+    reached it directly)."""
+
+    @staticmethod
+    def forward(ctx, x, buckets):
+        ctx.buckets = buckets
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, ct):
+        total = ct
+        for work, reduced in ctx.buckets.pending:
+            work.wait()
+            total = total + reduced
+        ctx.buckets.pending.clear()
+        return total, None
+
+
+class AllReduceInBackward(torch.autograd.Function):
+    """Identity forward; in the backward, the cotangent all-reduced over
+    the buckets' group (the JAX ``_allreduce_in_bwd``).  The all-reduce is
+    issued asynchronously the moment the cotangent exists and this node
+    passes zeros on; the reduced value reaches the input through
+    :class:`_CollectBuckets`, which waits on the handle.  So later backward
+    work overlaps the collective, and nothing reads the sum before it is
+    complete."""
+
+    @staticmethod
+    def forward(ctx, x, buckets):
+        ctx.buckets = buckets
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, ct):
+        reduced = ct.clone(memory_format=torch.contiguous_format)
+        work = dist.all_reduce(reduced, group=ctx.buckets.group,
+                               async_op=True)
+        ctx.buckets.pending.append((work, reduced))
+        return ct.new_zeros(()).expand_as(ct), None
+
+
+class GradBuckets:
+    """Gradient buckets of one tensor ``x`` over the process group
+    ``group``: each call returns ``x`` behind its own
+    :class:`AllReduceInBackward`, so the gradient of each use is summed
+    over the group as its own collective, as soon as the backward has
+    produced it; the gradient that reaches ``x`` is the group's sum over
+    every use."""
+
+    def __init__(self, x, group):
+        self.group = group
+        self.pending = []
+        self.root = _CollectBuckets.apply(x, self)
+
+    def __call__(self):
+        return AllReduceInBackward.apply(self.root, self)
+
+
 def replay_fused(scene, ray_o, ray_d, uniforms, tape: PathTape,
-                 primal=None):
+                 primal=None, grad_group=None):
     """Kernel-backed drop-in for :func:`.replay.replay` (f32): ``(color
     [R, 3], miss [R] bool)``, differentiable in ``scene.materials``.
 
@@ -690,8 +757,15 @@ def replay_fused(scene, ray_o, ray_d, uniforms, tape: PathTape,
     unchanged (the replay forward would recompute it to f32 round-off);
     the gradients are the same either way, since the backward kernel runs
     its own forward sweep from the tape.  Directions, air IOR and ambient
-    get no gradient (the JAX ``_bwd_core`` gives them zeros)."""
+    get no gradient (the JAX ``_bwd_core`` gives them zeros).
+
+    ``grad_group``: a process group whose ranks hold other rays of the same
+    image.  The material gradient is then summed over it in one bucket,
+    after the backward kernel (the kernel walks every bounce at once, so
+    nothing of it is left to overlap)."""
     matf, scf = material_table(scene)
+    if grad_group is not None:
+        matf = GradBuckets(matf, grad_group)()
     p_color, p_miss = (None, None) if primal is None else primal
     f32 = torch.float32
     color, miss = _ReplayShade.apply(

@@ -3,11 +3,17 @@
 Subcommands:
   render    progressive-render a scene to PNG
   bench     throughput measurement (samples/px/sec, the reference's metric)
+  inspect   debug views: primitive-id map, BVH heat map, selection
+            overlay, or the bounce listings of one pixel
   optimize  fit the material table to a target PNG (Adam on the train step)
 
 Usage:
   python -m raytracercore_tpu_torch.tools.cli render scene.txt -o out.png
   python -m raytracercore_tpu_torch.tools.cli bench scene.txt --spp 8
+  python -m raytracercore_tpu_torch.tools.cli inspect scene.txt -o ids.png \
+      [--mode prims|heatmap] [--select prim:<id>|node:<i>]
+  python -m raytracercore_tpu_torch.tools.cli inspect scene.txt \
+      --pixel x,y [--traces 4]
   python -m raytracercore_tpu_torch.tools.cli optimize scene.txt \
       --target target.png --steps 100 -o materials.npz
 All run on ``--device cuda`` (the default) or ``--device cpu``.  Scenes of
@@ -79,6 +85,35 @@ def cmd_bench(args):
         "device": device,
         "route": r.route,
     }))
+
+
+def cmd_inspect(args):
+    from .debug import (bvh_heatmap, primitive_id_map, selection_map,
+                        trace_pixel)
+    from .png import write_png
+
+    scene = _load(args)
+    if args.pixel:
+        x, y = (int(v) for v in args.pixel.split(","))
+        traces = trace_pixel(scene, x, y, camera_index=args.camera,
+                             n_traces=args.traces, seed=args.seed,
+                             device=args.device, accelerator=args.accelerator)
+        for t_i, bounces in enumerate(traces):
+            print(f"trace {t_i}:")
+            for b in bounces:
+                print("  " + b)
+        return
+    if args.select:
+        img = selection_map(scene, args.select, camera_index=args.camera,
+                            device=args.device, accelerator=args.accelerator)
+    elif args.mode == "heatmap":
+        img = bvh_heatmap(scene, camera_index=args.camera, device=args.device)
+    else:
+        img = primitive_id_map(scene, camera_index=args.camera,
+                               device=args.device,
+                               accelerator=args.accelerator)
+    write_png(args.output, img)
+    print(f"wrote {args.output}")
 
 
 def cmd_optimize(args):
@@ -154,6 +189,18 @@ def main(argv=None):
     accelerator(sp)
     sp.add_argument("--spp", type=int, default=8)
     sp.set_defaults(fn=cmd_bench)
+
+    sp = sub.add_parser("inspect")
+    common(sp)
+    accelerator(sp)
+    sp.add_argument("--pixel", default=None, help="x,y bounce trace")
+    sp.add_argument("--traces", type=int, default=4)
+    sp.add_argument("--mode", default="prims", choices=["prims", "heatmap"],
+                    help="overlay: primitive-id map or BVH heat map")
+    sp.add_argument("--select", default=None,
+                    help="Selection mode: prim:<id> or node:<index>")
+    sp.add_argument("-o", "--output", default="debug.png")
+    sp.set_defaults(fn=cmd_inspect)
 
     sp = sub.add_parser("optimize")
     common(sp)

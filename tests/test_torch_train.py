@@ -204,14 +204,33 @@ def test_material_params_carry_over_from_jax():
             get_material_params(ta)[k].detach().numpy(), jp[k])
 
 
-def test_train_step_rejections():
+def test_train_step_rejections(tmp_path):
+    # A mesh is no longer refused: on a one-rank mesh the step and the
+    # loop are the single-device ones (tests/test_torch_parallel.py holds
+    # the sharded steps on two ranks).
+    import torch.distributed as dist
+
+    from raytracercore_tpu_torch.parallel import (init_distributed,
+                                                  make_mesh)
     _, _, ta, tc = _scenes("rough", 8, 3)
-    p = get_material_params(ta)
-    opt = torch.optim.SGD(p.values(), lr=1e-2)
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        make_train_step(object(), opt)
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        make_train_loop(object(), opt, 2)
+    target = torch.full((8, 8, 3), 0.3)
+    init_distributed(num_processes=1, process_id=0, device="cpu",
+                     init_method=(tmp_path / "store").as_uri())
+    try:
+        mesh = make_mesh(device="cpu")
+        for make in (lambda m, o: make_train_step(m, o),
+                     lambda m, o: make_train_loop(m, o, 2)):
+            out = []
+            for m in (None, mesh):
+                p = get_material_params(ta)
+                run = make(m, torch.optim.SGD(p.values(), lr=1e-2))
+                out.append((run(p, ta, tc, target, 4),
+                            [v.detach() for v in p.values()]))
+            assert torch.equal(out[0][0], out[1][0])
+            for a, b in zip(out[0][1], out[1][1]):
+                assert torch.equal(a, b)
+    finally:
+        dist.destroy_process_group()
     big = ("size 4 4\ncamera 0 0 5  0 0 0  0 1 0  40\n"
            "emission 4 4 4\nsphere 0 0 40 30\nemission 0 0 0\n"
            "diffuse .5 .5 .5\n"
