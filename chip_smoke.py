@@ -71,72 +71,18 @@ from pathlib import Path
 import numpy as np
 import torch
 
-# Cornell-class scene in the reference's text format (the class of the
-# reference's bounce.txt: an inverted room of differently coloured walls,
-# an emissive light box at the ceiling, a rotated diffuse cube, a diffuse
-# sphere, a glass ellipsoid, a mirror sphere and one two-sided plane).
-CORNELL_SCENE = """
-size 700 700
-recursion 10
-background 0 0 0 1
-ambient color .03 .03 .04
-camera 0 2 6.5  0 1.8 0  0 1 0  45
-camera 2.5 3 6  0 1.2 0  0 1 0  50
 
-# Room: single-sided inverted walls, each side its own colour.
-twosided false
-invert true
-diffuse .75 .75 .75
-cube 0 2 0  4 4 4 only +y -z
-diffuse .75 .12 .12
-instance -x
-diffuse .12 .7 .15
-instance +x
-invert false
+def cornell_scene():
+    """The Cornell-class scene in the reference's text format (the class of
+    the reference's bounce.txt: an inverted room of differently coloured
+    walls, an emissive light box at the ceiling, a rotated diffuse cube, a
+    diffuse sphere, a glass ellipsoid, a mirror sphere and one two-sided
+    plane): the port's ``parallel.worker.CORNELL_SCENE``, imported at the
+    call so that ``--times --root`` reads the tree it times."""
+    from raytracercore_tpu_torch.parallel.worker import CORNELL_SCENE
 
-# Floor: a two-sided plane.
-twosided true
-diffuse .7 .7 .65
-plane 0  0 1 0
+    return CORNELL_SCENE
 
-# Light box at the ceiling.
-emission 9 9 8
-diffuse 0 0 0
-cube 0 3.85 -.2  1.2 .3 1.2 not +y
-emission 0 0 0
-
-# Rotated diffuse cube.
-diffuse .65 .6 .3
-pushtransform
-translate -1 .6 -.9
-rotate 0 1 0 30
-cube 0 0 0  1.2 1.2 1.2 all
-poptransform
-
-# Pedestal for the lens.
-diffuse .5 .5 .55
-cube .4 .25 .6  .9 .5 .9 not -y
-
-# Diffuse sphere.
-diffuse .25 .35 .8
-sphere 1.3 .5 -1.2 .5
-
-# Glass ellipsoid (a scaled sphere).
-diffuse 0 0 0
-specular .9 .9 .9
-shininess 100000
-refraction .9 .9 .9, 1.52
-pushtransform
-translate .4 1 .6
-scale 1 .6 1
-sphere 0 0 0 .5
-poptransform
-
-# Mirror sphere.
-refraction off
-shininess 1000000
-sphere -1.1 .45 1.1 .45
-"""
 
 # The small scene of the JAX package's megakernel test (every branch of the
 # bounce loop: emissive quad, two-sided plane, glass and mirror spheres).
@@ -1165,7 +1111,7 @@ def compare_routes(card, dev):
     from raytracercore_tpu_torch.render.integrator import trace
 
     arrays, ray_o, ray_d, uniforms = rays_and_uniforms(
-        CORNELL_SCENE, 700, 10, 7, dev)
+        cornell_scene(), 700, 10, 7, dev)
     ref = fused.trace_fused(arrays, ray_o, ray_d, uniforms, want_tape=True)
     with torch.no_grad():
         got = trace(arrays, ray_o, ray_d, None, closest_fn=closest_hit_fused,
@@ -1711,7 +1657,7 @@ def bvh_compare_scenes(card, dev):
     from raytracercore_tpu_torch.scene import loader, meshgen
     from raytracercore_tpu_torch.scene.types import freeze_scene
 
-    cornell = loader.parse(CORNELL_SCENE)
+    cornell = loader.parse(cornell_scene())
     cornell.recursion = BVH_REC
     scenes = [
         ("mesh-5k", meshgen.make_mesh_scene(
@@ -2017,7 +1963,7 @@ def train_path(card, dev):
     counters = {"trace_fused": fused.trace_fused,
                 "prepare_uniforms_kernel": uk.prepare_uniforms_kernel,
                 "replay_fwd": rk.replay_fwd, "replay_bwd": rk.replay_bwd}
-    host = loader.parse(CORNELL_SCENE)
+    host = loader.parse(cornell_scene())
     r = Renderer(host, device=dev, seed=TRAIN_SEED)
     r.step(TARGET_SPP)
     film = r.film
@@ -2345,7 +2291,7 @@ def times_main(label, card):
            "card": card, "build_s": info["seconds"], "fwd": {}, "bwd": {}}
     print(f"[times] {label}: {res['package']} on {card}", flush=True)
 
-    arrays, o, d, u = rays_and_uniforms(CORNELL_SCENE, 700, 10, 7, dev)
+    arrays, o, d, u = rays_and_uniforms(cornell_scene(), 700, 10, 7, dev)
     compare(f"{label} cornell 700x700 rec10", arrays, o, d, u)
     tape = fused.trace_fused(arrays, o, d, u, want_tape=True)[2]
     res["path_length_histogram"] = torch.bincount(
@@ -2360,7 +2306,7 @@ def times_main(label, card):
     replay_times(res, "cornell rec10", arrays, d, u, tape)
     del tape
     for rec in (20, 31):
-        arrays, o, d, u = rays_and_uniforms(CORNELL_SCENE, 700, rec, 7, dev)
+        arrays, o, d, u = rays_and_uniforms(cornell_scene(), 700, rec, 7, dev)
         tape = fused.trace_fused(arrays, o, d, u, want_tape=True)[2]
         replay_times(res, f"cornell rec{rec}", arrays, d, u, tape)
         del tape
@@ -2396,9 +2342,7 @@ def times_main(label, card):
 # times measure correctness and collective cost, never scaling.
 PAR_SEED = 31
 PAR_PASSES = 4            # sharded cornell passes timed (after one warm)
-# The phase's sizes, handed to the ranks: the main paths' widths.
-PAR_SIZES = {"size": 700, "recursion": 10, "bvh_mesh": BVH_TRAIN_MESH,
-             "bvh_size": BVH_SIZE, "bvh_recursion": BVH_REC}
+PAR_SIZE, PAR_REC = 700, 10  # the main paths' widths (BVH: BVH_TRAIN_MESH)
 HEATMAP_STRIDE = 49       # the CPU count takes every 49th pixel
 PAR_REPS = 20             # all-reduces timed per bucket
 PAR_JOIN_S = 600
@@ -2420,11 +2364,6 @@ def kernel_counters():
             "replay_fwd": rk.replay_fwd, "replay_bwd": rk.replay_bwd,
             "closest_hit_fused": cs.closest_hit_fused,
             "traverse": ct.traverse}
-
-
-def sync(dev):
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
 
 
 def zero_counts():
@@ -2461,10 +2400,10 @@ def one_step(mesh, scene, camera, seed, dev, closest_fn=None, adam=False,
     step = (make_overlapped_train_step(mesh, opt) if overlapped
             else make_train_step(mesh, opt, **kw))
     target = torch.full((scene.height, scene.width, 3), 0.2, device=dev)
-    sync(dev)
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     loss = step(params, scene, camera, target, seed)
-    sync(dev)
+    torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
     return (loss, {k: v.grad.clone() for k, v in params.items()},
             {k: v.detach().clone() for k, v in params.items()}, ms)
@@ -2500,7 +2439,7 @@ def bucket_ms(flat, group, n, events):
 
     times = []
     for _ in range(n):
-        if events and flat.is_cuda:
+        if events:
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -2509,10 +2448,10 @@ def bucket_ms(flat, group, n, events):
             torch.cuda.synchronize()
             times.append(start.elapsed_time(end))
         else:
-            sync(flat.device)
+            torch.cuda.synchronize()
             t0 = time.perf_counter()
             dist.all_reduce(flat, group=group)
-            sync(flat.device)
+            torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
     return float(np.median(times))
 
@@ -2521,7 +2460,7 @@ def flat_grads(grads):
     return torch.cat([g.reshape(-1) for g in grads.values()])
 
 
-def nccl_world_one(card, dev, tmp, par, backend="nccl"):
+def nccl_world_one(card, dev, tmp):
     """NCCL at world size 1, in this process: the cornell sharded pass
     bit-equal to ``render_passes``, a sharded Adam step bit-equal to the
     ``mesh=None`` step (the sum over one rank is the identity), and the
@@ -2531,25 +2470,24 @@ def nccl_world_one(card, dev, tmp, par, backend="nccl"):
     from raytracercore_tpu_torch.intersect.cuda_select import \
         closest_hit_fused
     from raytracercore_tpu_torch.parallel import (init_distributed,
-                                                  make_mesh, place_scene,
-                                                  worker)
+                                                  make_mesh, worker)
     from raytracercore_tpu_torch.render import fused
     from raytracercore_tpu_torch.render.film import Film
     from raytracercore_tpu_torch.render.renderer import render_passes
 
-    size = par["size"]
-    init_distributed(num_processes=1, process_id=0, backend=backend,
+    size = PAR_SIZE
+    init_distributed(num_processes=1, process_id=0, backend="nccl",
                      init_method=(tmp / "nccl").as_uri())
     try:
-        mesh = make_mesh(device=None if dev.type == "cuda" else dev)
+        mesh = make_mesh()
         check(mesh.device == dev, f"make_mesh put rank 0 on {mesh.device}")
-        arrays, camera = placed(mesh, "cornell", par, dev)
+        arrays, camera = placed(mesh, "cornell", dev)
         zero_counts()
         film = worker.render_film(mesh, arrays, camera, 1, PAR_SEED)
         got = one_step(mesh, arrays, camera, PAR_SEED, dev, adam=True)
         got_ov = one_step(mesh, arrays, camera, PAR_SEED, dev, adam=True,
                           overlapped=True)
-        sync(dev)
+        torch.cuda.synchronize()
         counts = read_counts()
         want = render_passes(arrays, camera,
                              Film.create(size, size, device=dev), PAR_SEED, 0,
@@ -2565,13 +2503,13 @@ def nccl_world_one(card, dev, tmp, par, backend="nccl"):
         ms = bucket_ms(flat, mesh.rays_group, PAR_REPS, events=True)
     finally:
         dist.destroy_process_group()
-    print(f"[parallel] {backend} world size 1: cornell {size}x{size} "
-          f"rec{par['recursion']} sharded "
+    print(f"[parallel] nccl world size 1: cornell {size}x{size} "
+          f"rec{PAR_REC} sharded "
           f"pass bit-equal to render_passes: {same}; sharded and "
           f"overlapped Adam steps' loss and params bit-equal to the "
           f"mesh=None step: {step_same} "
           f"(loss {float(got[0]):.8f}); launches {counts}")
-    print(f"[parallel] {backend} all_reduce of the material bucket "
+    print(f"[parallel] nccl all_reduce of the material bucket "
           f"({flat.numel()} f32, world size 1): median ms of {PAR_REPS} "
           f"(CUDA events)={ms:.4f} on {card}")
     check(all(same.values()), "NCCL world 1: sharded pass bit-equal")
@@ -2582,20 +2520,19 @@ def nccl_world_one(card, dev, tmp, par, backend="nccl"):
     return counts
 
 
-def placed(mesh, name, par, dev):
+def placed(mesh, name, dev):
     """A named scene of the worker placed on ``mesh``, and its camera."""
     from raytracercore_tpu_torch.parallel import place_scene, worker
     from raytracercore_tpu_torch.scene.types import init_camera
 
-    arrays, host_cam = worker.load_scene(name, par["size"], par["recursion"],
-                                         dev)
+    arrays, host_cam = worker.load_scene(name, PAR_SIZE, PAR_REC, dev)
     return (place_scene(mesh, arrays),
-            init_camera(host_cam, par["size"], par["size"], device=dev))
+            init_camera(host_cam, PAR_SIZE, PAR_SIZE, device=dev))
 
 
-def rank_main(rank, world, tmp, par, device="cuda"):
-    """One of two ranks on ``cuda:0`` over gloo: the sharded paths at the
-    sizes ``par``, its launches and times written to ``rank<r>.json``;
+def rank_main(rank, world, tmp):
+    """One of two ranks on ``cuda:0`` over gloo: the sharded paths, its
+    launches and times written to ``rank<r>.json``;
     rank 0 then holds each path against the single-device path on the
     same card."""
     import torch.distributed as dist
@@ -2608,34 +2545,30 @@ def rank_main(rank, world, tmp, par, device="cuda"):
     from raytracercore_tpu_torch.scene.types import init_camera
 
     tmp = Path(tmp)
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        dev = torch.device("cuda", 0)
-        torch.cuda.set_device(dev)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        kernels.load()
-    size = par["size"]
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernels.load()
     init_distributed(num_processes=world, process_id=rank, backend="gloo",
                      init_method=(tmp / "gloo").as_uri())
     out = {"rank": rank}
     try:
         rays = make_mesh(device=dev)                      # (2 rays, 1)
         prims = make_mesh(n_rays=1, n_prims=2, device=dev)  # (1, 2 prims)
-        cornell, cam = placed(rays, "cornell", par, dev)
-        mesh722, cam722 = placed(prims, "mesh-722", par, dev)
-        mesh46, host46 = lit_mesh_scene(*par["bvh_mesh"], par["bvh_size"],
-                                        par["bvh_recursion"], dev)
+        cornell, cam = placed(rays, "cornell", dev)
+        mesh722, cam722 = placed(prims, "mesh-722", dev)
+        mesh46, host46 = lit_mesh_scene(*BVH_TRAIN_MESH, BVH_SIZE, BVH_REC,
+                                        dev)
         mesh46 = place_scene(rays, mesh46)
-        cam46 = init_camera(host46, par["bvh_size"], par["bvh_size"],
-                            device=dev)
+        cam46 = init_camera(host46, BVH_SIZE, BVH_SIZE, device=dev)
         bvh46, _ = bvh_closest(mesh46)
         worker.render_film(rays, cornell, cam, 1, PAR_SEED)      # warm
-        sync(dev)
+        torch.cuda.synchronize()
 
         zero_counts()
         t0 = time.perf_counter()
         film = worker.render_film(rays, cornell, cam, PAR_PASSES, PAR_SEED)
-        sync(dev)
+        torch.cuda.synchronize()
         out["pass_ms"] = (time.perf_counter() - t0) * 1e3 / PAR_PASSES
         t0 = time.perf_counter()
         whole = gather_film(film, rays)
@@ -2663,7 +2596,7 @@ def rank_main(rank, world, tmp, par, device="cuda"):
         if rank == 0:
             out.update(rank0_checks(rays, cornell, cam, whole, mesh722,
                                     cam722, film722, steps, mesh46, cam46,
-                                    bvh46, dev, par))
+                                    bvh46, dev))
         (tmp / f"rank{rank}.json").write_text(json.dumps(out))
         dist.barrier()
     finally:
@@ -2671,7 +2604,7 @@ def rank_main(rank, world, tmp, par, device="cuda"):
 
 
 def rank0_checks(rays, cornell, cam, whole, mesh722, cam722, film722, steps,
-                 mesh46, cam46, bvh46, dev, par):
+                 mesh46, cam46, bvh46, dev):
     """Rank 0 after the sharded paths: each against the single-device path
     on the same card and the same numbers."""
     from raytracercore_tpu_torch.intersect.cuda_select import \
@@ -2683,7 +2616,7 @@ def rank0_checks(rays, cornell, cam, whole, mesh722, cam722, film722, steps,
     from raytracercore_tpu_torch.render.renderer import (pass_draws,
                                                          render_passes)
 
-    size, n_bounces = par["size"], par["recursion"] + 1
+    size, n_bounces = PAR_SIZE, PAR_REC + 1
     res = {}
     want = render_passes(cornell, cam, Film.create(size, size, device=dev),
                          PAR_SEED, 0, PAR_PASSES,
@@ -2744,7 +2677,7 @@ def rank0_checks(rays, cornell, cam, whole, mesh722, cam722, film722, steps,
     return res
 
 
-def parallel_phase(card, dev, par=PAR_SIZES, backend="nccl"):
+def parallel_phase(card, dev):
     """The sharded paths and the debug views at full width (700x700 rec10;
     the BVH step at 512x512 rec4): NCCL at world size 1 in this process,
     then two ranks on the card over gloo, then the debug views.  Returns
@@ -2754,20 +2687,18 @@ def parallel_phase(card, dev, par=PAR_SIZES, backend="nccl"):
 
     from raytracercore_tpu_torch import kernels
 
-    if dev.type == "cuda":
-        kernels.build()  # the ranks load the library this process built
+    kernels.build()  # the ranks load the library this process built
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         t0 = time.perf_counter()
-        counts = nccl_world_one(card, dev, tmp, par, backend)
+        counts = nccl_world_one(card, dev, tmp)
         nccl_s = time.perf_counter() - t0
-        if dev.type == "cuda":
-            torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
         t0 = time.perf_counter()
         ctx = multiprocessing.get_context("spawn")
         procs = [ctx.Process(target=rank_main,
-                             args=(r, 2, str(tmp), par, dev.type))
+                             args=(r, 2, str(tmp)))
                  for r in range(2)]
         for p in procs:
             p.start()
@@ -2786,12 +2717,12 @@ def parallel_phase(card, dev, par=PAR_SIZES, backend="nccl"):
     for r in res:
         add_counts(counts, r["counts"])
         print(f"[parallel] gloo rank {r['rank']} of 2 on cuda:0 ({SHARE_NOTE}"
-              f"): cornell {par['size']}² rec{par['recursion']} ms/pass="
+              f"): cornell {PAR_SIZE}² rec{PAR_REC} ms/pass="
               f"{r['pass_ms']:.3f} (mean of {PAR_PASSES}, the megakernel on "
               f"half the paths) gather_film ms={r['gather_ms']:.3f}; "
-              f"mesh-722 {par['size']}² "
+              f"mesh-722 {PAR_SIZE}² "
               f"prims-sharded pass + gather ms={r['prims_pass_ms']:.3f} "
-              f"(first pass, {par['recursion'] + 1} all_gathers); ms of one "
+              f"(first pass, {PAR_REC + 1} all_gathers); ms of one "
               f"step (the first in the process) "
               + " ".join(f"{k.split()[1]}={r[k]:.3f}" for k in r
                          if k.startswith("step_ms"))
@@ -2805,7 +2736,7 @@ def parallel_phase(card, dev, par=PAR_SIZES, backend="nccl"):
           f"mesh-722 prims film {r0['mesh-722 prims']}; steps "
           + "; ".join(f"{k}={r0[k]}" for k in r0 if k.startswith("step ")))
     t0 = time.perf_counter()
-    add_counts(counts, debug_views(card, dev, par))
+    add_counts(counts, debug_views(card, dev))
     debug_s = time.perf_counter() - t0
     print(f"[parallel] phase s={time.perf_counter() - t_phase:.1f} (NCCL "
           f"world 1 {nccl_s:.1f}, 2 ranks incl. start-up {ranks_s:.1f}, "
@@ -2816,7 +2747,7 @@ def parallel_phase(card, dev, par=PAR_SIZES, backend="nccl"):
     return counts
 
 
-def debug_views(card, dev, par):
+def debug_views(card, dev):
     """The debug views on the card at 700x700: primitive ids (cornell:
     against the megakernel tape's first-bounce prim on the same centre
     rays; mesh-722: against the select kernel's plain version), the BVH
@@ -2835,21 +2766,20 @@ def debug_views(card, dev, par):
                                                      init_camera)
     from raytracercore_tpu_torch.tools import debug
 
-    size = par["size"]
-    host = loader.parse(CORNELL_SCENE)
+    size = PAR_SIZE
+    host = loader.parse(worker.CORNELL_SCENE)
     host.width = host.height = size
-    host.recursion = par["recursion"]
-    mesh, mesh_cam = worker.load_scene("mesh-722", size, par["recursion"],
-                                       dev)
+    host.recursion = PAR_REC
+    mesh, mesh_cam = worker.load_scene("mesh-722", size, PAR_REC, dev)
     bvh = build_bvh(mesh, backend="native")
     ms = {}
     zero_counts()
 
     def timed(name, fn):
-        sync(dev)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fn()
-        sync(dev)
+        torch.cuda.synchronize()
         ms[name] = (time.perf_counter() - t0) * 1e3
         return out
 
@@ -2880,8 +2810,7 @@ def debug_views(card, dev, par):
     camera = init_camera(host.cameras[0], size, size, device=dev)
     px, py = cam_mod.pixel_grid(size, size, device=dev)
     o, d = cam_mod.center_rays(camera, px, py)
-    _, uniforms = pass_draws(PAR_SEED, 0, size * size,
-                             par["recursion"] + 1, dev)
+    _, uniforms = pass_draws(PAR_SEED, 0, size * size, PAR_REC + 1, dev)
     tape = fused.trace_fused(arrays, o.contiguous(), d.contiguous(),
                              uniforms, want_tape=True)[2]
     first = tape.prim[0].cpu().numpy().reshape(size, size)
@@ -2924,7 +2853,7 @@ def debug_views(card, dev, par):
           "mesh-722 primitive ids equal the plain select version's")
     check(res["heatmap pixels off by more"] == 0
           and res["heatmap pixels off by one"]
-          <= HEATMAP_OFF_FRAC * counts722.size,
+          <= HEATMAP_OFF_FRAC * sample.numel(),
           "BVH node counts equal the counts on CPU tensors (to one count "
           f"on at most {HEATMAP_OFF_FRAC} of the sampled pixels)")
     check(all(lines[-1].startswith("color=") and len(lines) > 1
@@ -2994,7 +2923,7 @@ def main():
     fwd_err = bwd_err = 0.0
     for name, text in (("test_fused", FUSED_TEST_SCENE),
                        ("smooth+ambient_miss", SMOOTH_SCENE),
-                       ("cornell", CORNELL_SCENE), ("rough", ROUGH_SCENE)):
+                       ("cornell", cornell_scene()), ("rough", ROUGH_SCENE)):
         for rec in (4, 10):
             inputs = rays_and_uniforms(text, COMPARE_SIZE, rec, 1000 + rec,
                                        dev)
@@ -3003,7 +2932,7 @@ def main():
                 max_err = max(max_err, compare(label, *inputs))
             errs = compare_replay(label, *inputs)
             fwd_err, bwd_err = max(fwd_err, errs[0]), max(bwd_err, errs[1])
-    inputs = rays_and_uniforms(CORNELL_SCENE, 700, 10, 17, dev)
+    inputs = rays_and_uniforms(cornell_scene(), 700, 10, 17, dev)
     errs = compare_replay("cornell 700x700 rec10", *inputs)
     fwd_err, bwd_err = max(fwd_err, errs[0]), max(bwd_err, errs[1])
     del inputs
@@ -3021,7 +2950,7 @@ def main():
     from raytracercore_tpu_torch.scene import meshgen
     from raytracercore_tpu_torch.scene.types import freeze_scene
 
-    cornell = loader.parse(CORNELL_SCENE)
+    cornell = loader.parse(cornell_scene())
     select_scenes = [
         ("cornell", freeze_scene(cornell, device=dev), cornell.cameras[0],
          COMPARE_SIZE),
@@ -3047,7 +2976,7 @@ def main():
     compare_routes(card, dev)
 
     # --- 4. main path 1: Renderer at 700x700, recursion 10 ----------------
-    host = loader.parse(CORNELL_SCENE)
+    host = loader.parse(cornell_scene())
     check((host.width, host.height, host.recursion) == (700, 700, 10),
           "main-path scene is 700x700 rec10")
     r = Renderer(host, device="cuda", seed=0)
@@ -3097,7 +3026,7 @@ def main():
     # Kernel and plain version at the main path's shapes: same rays and
     # uniforms, compared, then timed with CUDA events.
     arrays, ray_o, ray_d, uniforms = rays_and_uniforms(
-        CORNELL_SCENE, 700, 10, 7, dev)
+        cornell_scene(), 700, 10, 7, dev)
     max_err = max(max_err, compare("cornell 700x700 rec10", arrays, ray_o,
                                    ray_d, uniforms))
     kernel_ms = graph_ms(

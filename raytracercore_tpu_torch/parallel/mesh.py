@@ -62,8 +62,9 @@ def make_mesh(n_rays: Optional[int] = None, n_prims: int = 1,
     process group (:func:`.distributed.init_distributed` first); every
     rank must call it, in the same order as its other group creations.
     ``n_rays=None`` puts all remaining ranks on ``rays``.  ``device=None``
-    is ``cuda:<LOCAL_RANK % device_count>`` (ranks that share a card all
-    get it); the tests pass ``"cpu"``."""
+    or a bare ``"cuda"`` is ``cuda:<LOCAL_RANK % device_count>`` (ranks
+    that share a card all get it), made the current device; the tests pass
+    ``"cpu"``."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh: no process group; call "
                            "init_distributed first")
@@ -73,8 +74,11 @@ def make_mesh(n_rays: Optional[int] = None, n_prims: int = 1,
     if n_rays < 1 or n_prims < 1 or n_rays * n_prims != world:
         raise ValueError(f"make_mesh: a ({n_rays}, {n_prims}) mesh needs "
                          f"{n_rays * n_prims} ranks, the group has {world}")
-    device = resolve_device(_local_device() if device is None else device,
-                            "make_mesh")
+    if device is None or torch.device(device) == torch.device("cuda"):
+        device = _local_device()
+    device = resolve_device(device, "make_mesh")
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
     rank = dist.get_rank()
     r, p = divmod(rank, n_prims)
     # new_group is collective: every rank creates every group, in order.

@@ -27,9 +27,10 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-# The Cornell-class scene of chip_smoke.py (an inverted room of differently
-# coloured walls, an emissive light box, a rotated diffuse cube, a diffuse
-# sphere, a glass ellipsoid, a mirror sphere and one two-sided plane).
+# A Cornell-class scene in the reference's text format (an inverted room of
+# differently coloured walls, an emissive light box, a rotated diffuse cube,
+# a diffuse sphere, a glass ellipsoid, a mirror sphere and one two-sided
+# plane): the scene of chip_smoke.py and of the port's tests.
 CORNELL_SCENE = """
 size 700 700
 recursion 10

@@ -10,7 +10,6 @@ import sys
 import numpy as np
 import pytest
 
-from chip_smoke import CORNELL_SCENE
 from raytracercore_tpu_torch.intersect.cuda_select import closest_hit_fused
 from raytracercore_tpu_torch.parallel import worker
 from raytracercore_tpu_torch.render.film import Film
@@ -19,10 +18,6 @@ from raytracercore_tpu_torch.scene.types import init_camera
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 SIZE, REC, PASSES, SEED = 16, 3, 2, 4
-
-
-def test_worker_scene_is_the_chip_smoke_scene():
-    assert worker.CORNELL_SCENE == CORNELL_SCENE
 
 
 @pytest.mark.parametrize("prims", [1, 2])

@@ -388,6 +388,33 @@ def test_make_mesh_at_world_size_one(tmp_path):
         dist.destroy_process_group()
 
 
+@pytest.mark.parametrize("device,local_rank,want", [
+    (None, "3", "cuda:1"), ("cuda", "3", "cuda:1"), ("cuda", None, "cuda:0"),
+    ("cuda:0", "3", "cuda:0"), ("cpu", "3", "cpu")])
+def test_make_mesh_puts_each_rank_on_its_card(tmp_path, monkeypatch, device,
+                                              local_rank, want):
+    """The default and a bare ``"cuda"`` are ``cuda:<LOCAL_RANK %
+    device_count>`` (the rank without ``LOCAL_RANK``), made the current
+    device; an explicit card or the CPU stays as given.  Two cards are
+    mocked."""
+    current = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(torch.cuda, "set_device", current.append)
+    if local_rank is None:
+        monkeypatch.delenv("LOCAL_RANK", raising=False)
+    else:
+        monkeypatch.setenv("LOCAL_RANK", local_rank)
+    init_distributed(num_processes=1, process_id=0, device="cpu",
+                     init_method=(tmp_path / "store").as_uri())
+    try:
+        mesh = make_mesh(device=device)
+    finally:
+        dist.destroy_process_group()
+    assert mesh.device == torch.device(want)
+    assert current == ([] if want == "cpu" else [torch.device(want)])
+
+
 def test_gather_film_takes_uneven_blocks(rays_ranks):
     full = np.arange(15 * 4 * 3, dtype=np.float32).reshape(15, 4, 3)
     assert [r["rows"] for r in rays_ranks] == [(0, 8), (8, 15)]

@@ -14,13 +14,13 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import CORNELL_SCENE
 from raytracercore_tpu.render import camera as jcam
 from raytracercore_tpu.render.film import Film as JFilm
 from raytracercore_tpu.render.integrator import prepare_uniforms as jprep
 from raytracercore_tpu.render.integrator import trace as jtrace
 from raytracercore_tpu.render.renderer import Renderer as JRenderer
 from raytracercore_tpu.scene import types as jtypes
+from raytracercore_tpu_torch.parallel.worker import CORNELL_SCENE
 from raytracercore_tpu_torch.render import renderer as trenderer
 from raytracercore_tpu_torch.render.film import Film as TFilm
 from raytracercore_tpu_torch.render.renderer import Renderer, render_pass

@@ -11,12 +11,13 @@ such pixels are counted and must stay a handful."""
 import numpy as np
 import pytest
 
-from chip_smoke import CORNELL_SCENE, FUSED_TEST_SCENE
+from chip_smoke import FUSED_TEST_SCENE
 from raytracercore_tpu.bvh.builder import build_bvh as jbuild_bvh
 from raytracercore_tpu.scene import loader as jloader
 from raytracercore_tpu.tools import debug as jdebug
 from raytracercore_tpu.tools import inspect_tree as jinspect
 from raytracercore_tpu_torch.bvh.builder import build_bvh
+from raytracercore_tpu_torch.parallel.worker import CORNELL_SCENE
 from raytracercore_tpu_torch.render.integrator import BounceType
 from raytracercore_tpu_torch.scene import loader
 from raytracercore_tpu_torch.tools import cli, debug, inspect_tree, png
