@@ -22,7 +22,11 @@ and drives the main paths, the first three at 700×700, recursion 10:
 4. the forward render of a 184,322-triangle mesh scene at 512×512,
    recursion 4, above the dense tier (``Renderer`` → the native BVH
    builder → the bounce loop, one launch of the traversal kernel per
-   bounce), and one pass of a 1,003,522-triangle scene at 1024×1024;
+   bounce), in three forms: the default, the other ``sort=`` (the rays of
+   every BVH query ordered by the key kernel and ``torch.sort``, the
+   traversal kernel reading that order) with a bit-equal film, and 32×32
+   tiles with the sort, bit-equal to the row-major pass on the reordered
+   draws; and one pass of a 1,003,522-triangle scene at 1024×1024;
 5. the train step of a 46,082-triangle mesh scene at 512×512, recursion 4
    (uniforms kernel → the bounce loop with the traversal kernel as recorder
    → replay forward and backward kernels reading the 46,082-row material
@@ -37,7 +41,13 @@ bounce's launch beside its own bound, each kernel the wrapper launches
 the per-pass sums; both kernels are also held against their
 plain versions with parked lanes mixed in, all lanes parked, none parked
 and a ragged ray count, and one call of each runs under
-``torch.cuda.set_sync_debug_mode("error")``.  A phase of its own runs the
+``torch.cuda.set_sync_debug_mode("error")``.  The BVH tier's ray
+coherence: the key kernel bit-equal to its plain version, the sorted
+traversal bit-equal to the unsorted one (all 12 outputs and both
+counters) on three leaf kinds, mesh-184k and mesh-1M, each bounce of
+both scenes timed sorted and unsorted with its parts and the warp
+efficiency of both launch orders, and one mesh-46k train step sorted
+bit-equal to the unsorted one.  A phase of its own runs the
 issue-rate probe (``tools/issue_probe.py``, the port of the TPU's VPU
 microbenchmark): every mix against its plain chains, then the operations
 per second the card sustains under ``-fmad=false``.
@@ -218,8 +228,16 @@ BVH_FIELD_GRID = 17                   # 289 spheres: a BVH of their own
 BVH_LEAF_SIZES = (1, 2, 3, 4, 8, 16)  # timed in turn on main path 4
 ORACLE_SAMPLE = 16384
 # The port's kernels one wrapper call launches: the select kernel's list,
-# main and finish kernels; the traversal's walk.
+# main and finish kernels; the traversal's walk (and the key kernel before
+# it where the rays are sorted).
 SELECT_KERNELS, TRAVERSE_KERNELS = 3, 1
+# Ray coherence on the BVH tier: the tile of the JAX package's large-scene
+# configuration (tile 32 and the sort), the lanes of a warp for the warp
+# efficiency, and the largest key (direction bin 7, Morton code all ones:
+# a parked lane's).
+BVH_TILE = 32
+WARP = 32
+KEY_MAX = (1 << 27) - 1
 # Registers, stack, spills and static shared memory of every kernel of the
 # build, from its log (main fills it), and the threads per block of their
 # launches (csrc/*.cu), for their occupancy.
@@ -247,6 +265,10 @@ OPS_UNIFORMS = 245        # per path and bounce: 5 Philox draws + 7 channels
 # ray and discriminant.
 OPS_NODE = 27
 OPS_LEAF = {"tri": OPS_TRI - 6, "sph": 24, "spht": OPS_SPH}
+# csrc/traverse.cu sort_key_kernel per ray and axis: a subtraction, a
+# division, a clip (max, min) and a product for the origin, a product, a sum,
+# a clip and a product for the direction (the integer bit work aside).
+OPS_KEY = 30
 
 
 # The issue-rate probe: chains checked against the plain version at a few
@@ -343,22 +365,25 @@ def kernel_us(fn, n, expect):
     return {}
 
 
-def graph_ms(fn, n):
-    """Device time of one call ``fn()``: the call captured once in a CUDA
-    graph, the graph replayed ``n`` times between CUDA events, so that no
-    host work sits between the launches.  None where the capture fails."""
+def graph_ms(fn, n, calls=1):
+    """Device time of one call ``fn()``: ``calls`` calls captured once in a
+    CUDA graph, the graph replayed ``n`` times between CUDA events, so that
+    no host work sits between the launches (``calls`` > 1 for a kernel of a
+    few microseconds, shorter than the launch of a graph).  None where the
+    capture fails."""
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     try:
         with torch.cuda.graph(graph):
-            fn()
+            for _ in range(calls):
+                fn()
     except RuntimeError as err:
         print(f"[time] CUDA graph capture failed "
               f"({str(err).splitlines()[0][:120]}): not measured")
         return None
     graph.replay()
-    ms = cuda_ms(graph.replay, n)
+    ms = cuda_ms(graph.replay, n) / calls
     del graph
     return ms
 
@@ -979,6 +1004,22 @@ def probe_phase(card, dev):
           f"kernel device ms (CUDA graph)={fmt_ms(k_ms)} plain ms="
           f"{p_ms:.3f} bound ms={bnd[0]:.4f} (by {bnd[1]}); "
           + occupancy_text("issue_probe_kernel", ip.THREADS))
+    # The probe is built with -fmad=false, so nothing fuses: its ceiling is
+    # the SM's unfused fp32 issue rate, 128 lanes an SM a clock, at the
+    # card's highest SM clock (67 TFLOP/s counts an FMA as two).
+    clk = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0])
+    issue_peak = 128 * sms * clk * 1e6
+    issue_ms = n * ip.ops_per_thread("megakernel", PROBE_CHECK_ITERS) / \
+        issue_peak * 1e3
+    print(f"[probe] unfused fp32 issue peak 128 lanes x {sms} SMs x "
+          f"{clk:.0f} MHz (clocks.max.sm) = {issue_peak / 1e12:.3f} T "
+          f"operations/s: the megakernel's mix reaches "
+          f"{rates['megakernel'] / issue_peak:.3f} of it; bound at it of the "
+          f"{PROBE_CHECK_ITERS}-trip launch ms={issue_ms:.4f} (kernel "
+          f"{fmt_ms(k_ms)}) on {card}")
     return {"launches": launches, "max_abs_err": worst, "ms": k_ms,
             "plain_ms": p_ms, "bound": bnd, "rates": rates}
 
@@ -1505,9 +1546,13 @@ def traverse_case(label, bvh, o, d, skip):
                                  want_stats=True))
     ref = select_flat(bvh.select(o, d, skip, *eps, want_detail=True,
                                  want_stats=True, reference=True))
+    srt = select_flat(bvh.select(o, d, skip, *eps, want_detail=True,
+                                 want_stats=True, sort=True))
     torch.cuda.synchronize()
     differing = {f: int((got[f] != ref[f]).sum()) for f in ref
                  if not torch.equal(got[f], ref[f])}
+    sort_differing = {f: int((srt[f] != got[f]).sum()) for f in got
+                      if not torch.equal(srt[f], got[f])}
     hit = ref["any"]
     max_err = 0.0
     for f in ("t", "pos", "nrm", "u", "v"):
@@ -1523,10 +1568,60 @@ def traverse_case(label, bvh, o, d, skip):
           f"found={float(hit.float().mean()):.4f} nodes visited per "
           f"ray={visited:.2f} records tested per ray={tested:.2f} "
           f"kernel==plain on all 12 outputs and both counters="
-          f"{not differing} {differing or ''}")
+          f"{not differing} {differing or ''} sorted kernel==unsorted="
+          f"{not sort_differing} {sort_differing or ''}")
     check(not differing, f"{label} {bvh.leaf_kind}: traversal kernel "
           f"bit-equal to its plain version ({differing})")
+    check(not sort_differing, f"{label} {bvh.leaf_kind}: the sorted "
+          f"traversal bit-equal to the unsorted one ({sort_differing})")
     return max_err, got["stats"]
+
+
+def key_case(label, bvh, o, d):
+    """The key kernel against its plain version on one query's rays, bit
+    for bit, and every parked lane at the largest key.  Returns the max abs
+    difference (0)."""
+    from raytracercore_tpu_torch.bvh import cuda_traverse as ct
+
+    got = ct.sort_key(o, d, bvh.root_min, bvh.root_max)
+    ref = ct.sort_key_reference(o, d, bvh.root_min, bvh.root_max)
+    torch.cuda.synchronize()
+    n_diff = int((got != ref).sum())
+    err = (float((got.long() - ref.long()).abs().max()) if got.numel()
+           else 0.0)
+    dead = parked(o)
+    print(f"[key] {label}: R={o.shape[0]} parked={int(dead.sum())} distinct "
+          f"keys={int(torch.unique(got).numel())} kernel==plain="
+          f"{n_diff == 0} ({n_diff} differ)")
+    check(n_diff == 0, f"{label}: key kernel bit-equal to its plain version")
+    check(bool((got[dead] == KEY_MAX).all()),
+          f"{label}: every parked lane has the largest key")
+    return err
+
+
+def warps_of(x, fill):
+    """``x`` [R] as ``[ceil(R / 32), 32]`` warps, the ragged last warp
+    padded with ``fill``."""
+    pad = (-x.numel()) % WARP
+    return torch.nn.functional.pad(x, (0, pad), value=fill).view(-1, WARP)
+
+
+def warp_efficiency(visited, order=None):
+    """Sum of the nodes visited over the lanes / (32 x sum over warps of the
+    warp's largest count), the lanes in launch order (thread t walks ray
+    ``order[t]``; None: ray t): a warp runs as long as its longest lane."""
+    v = warps_of((visited if order is None else visited[order]).long(), 0)
+    return float(v.sum()) / float(WARP * v.max(1).values.sum())
+
+
+def parked_warps(o, visited, order=None):
+    """``(warps whose every lane is parked, the most nodes a lane of them
+    visited)`` in launch order."""
+    if order is not None:
+        o, visited = o[order], visited[order]
+    dead = warps_of(parked(o).to(torch.int32), 1).bool().all(1)
+    most = warps_of(visited.long(), 0).max(1).values
+    return int(dead.sum()), int(most[dead].max()) if bool(dead.any()) else 0
 
 
 def compare_traverse(label, scene, closest, queries, bounces=(0, 1, 2, 3),
@@ -1579,41 +1674,114 @@ def compare_traverse(label, scene, closest, queries, bounces=(0, 1, 2, 3),
 
 
 def traverse_times(label, bvh, queries, card):
-    """Every bounce's traversal launch through ``bvh.select``: the wrapper
-    by CUDA events over 10 calls, its device time by CUDA-graph replay
-    (:func:`graph_ms`), each kernel it launches by the profiler, and the
-    launch's bound from the kernel's own counters.  Returns ``[{"ms",
-    "device_ms", "bound", "stats"}]`` per bounce."""
+    """Every bounce's traversal launch through ``bvh.select``, unsorted and
+    sorted (``sort=True``: the key kernel, ``torch.sort`` and the
+    traversal kernel reading the order).  The sorted outputs and counters
+    are held bit-equal to the unsorted ones; then the unsorted wrapper by
+    CUDA events over 10 calls, the device time of both forms by CUDA-graph
+    replay (:func:`graph_ms`), and of the key, the sort and the walk in
+    key order each on its own (beside two diagnostic orders), every kernel
+    they launch by the profiler,
+    the launch's bound from the kernel's own counters (the same for both
+    forms: the counters are per ray), and the warp efficiency of both
+    launch orders (:func:`warp_efficiency`).  Returns ``[{"ms",
+    "device_ms", "sorted_ms", "key_ms", "sort_ms", "walk_ms",
+    "gathered_ms", "parked_last_ms", "bound", "stats", "eff",
+    "eff_sorted"}]`` per bounce."""
+    from raytracercore_tpu_torch.bvh import cuda_traverse as ct
     from raytracercore_tpu_torch.core import vecmath as vm
 
     eps = (vm.near_enough(torch.float32), vm.POSITION_EPS_F32)
     rows = []
     for b, query in enumerate(queries):
-        def call(query=query):
-            return bvh.select(*query, *eps, want_detail=True)
+        o, d, skip = query
+
+        def call(sort=False, query=query):
+            return bvh.select(*query, *eps, want_detail=True, sort=sort)
+        want = select_flat(bvh.select(*query, *eps, want_detail=True,
+                                      want_stats=True))
+        got = select_flat(bvh.select(*query, *eps, want_detail=True,
+                                     want_stats=True, sort=True))
+        differing = {f: int((got[f] != want[f]).sum()) for f in want
+                     if not torch.equal(got[f], want[f])}
+        check(not differing, f"{label} bounce {b}: the sorted traversal "
+              f"bit-equal to the unsorted one ({differing})")
+        key = ct.sort_key(o, d, bvh.root_min, bvh.root_max)
+        order = bvh.ray_order(o, d)
+        sk = bvh._skip(skip)
         ms = cuda_ms(call, 10)
         dev_ms = graph_ms(call, 20)
+        sorted_ms = graph_ms(lambda: call(True), 20)
+        key_ms = graph_ms(lambda: ct.sort_key(o, d, bvh.root_min,
+                                              bvh.root_max), 20, calls=20)
+        sort_ms = graph_ms(lambda: torch.sort(key, stable=True), 20)
+        walk_ms = graph_ms(lambda: ct.traverse(
+            bvh.nodes, bvh.leaves, bvh.leaf_kind, o, d, sk, *eps,
+            order=order), 20)
+        # Two orders that tell the sort's parts apart: the rays copied into
+        # key order beforehand (the walk without scattered reads and
+        # stores), and the parked lanes last, the others in image order
+        # (the compaction without the spatial sort).
+        go, gd, gsk = take_rays(query, order)
+        gathered_ms = graph_ms(lambda: ct.traverse(
+            bvh.nodes, bvh.leaves, bvh.leaf_kind, go, gd, bvh._skip(gsk),
+            *eps), 20)
+        del go, gd, gsk
+        last = torch.sort(parked(o).to(torch.int32), stable=True).indices
+        parked_last_ms = graph_ms(lambda: ct.traverse(
+            bvh.nodes, bvh.leaves, bvh.leaf_kind, o, d, sk, *eps,
+            order=last), 20)
         parts = kernel_us(call, 5, TRAVERSE_KERNELS)
-        stats = bvh.select(*query, *eps, want_stats=True)[3]
+        sorted_parts = kernel_us(lambda: call(True), 5, TRAVERSE_KERNELS + 1)
+        stats = want["stats"]
         bnd = traverse_bound(bvh, stats, query)
-        R = query[0].shape[0]
-        n_alive = max(float((~parked(query[0])).sum()), 1.0)
+        R = o.shape[0]
+        n_alive = max(float((~parked(o)).sum()), 1.0)
         visited, tested = stats.float().mean(0).tolist()
-        rows.append({"ms": ms, "device_ms": dev_ms, "bound": bnd,
-                     "stats": stats})
+        eff = warp_efficiency(stats[:, 0])
+        eff_sorted = warp_efficiency(stats[:, 0], order)
+        eff_last = warp_efficiency(stats[:, 0], last)
+        dead_w = parked_warps(o, stats[:, 0])
+        dead_ws = parked_warps(o, stats[:, 0], order)
+        check(dead_ws[1] <= 1, f"{label} bounce {b}: the warps of parked "
+              "lanes end at the root in key order")
+        rows.append({"ms": ms, "device_ms": dev_ms, "sorted_ms": sorted_ms,
+                     "key_ms": key_ms, "sort_ms": sort_ms,
+                     "walk_ms": walk_ms, "gathered_ms": gathered_ms,
+                     "parked_last_ms": parked_last_ms, "bound": bnd,
+                     "stats": stats, "eff": eff, "eff_sorted": eff_sorted})
         print(f"[time] traversal {label} bounce {b}: wrapper ms={ms:.4f} "
-              f"device ms (CUDA graph)={fmt_ms(dev_ms)} bound ms="
-              f"{bnd[0]:.4f} (by {bnd[1]}) lanes not parked="
+              f"device ms (CUDA graph) unsorted={fmt_ms(dev_ms)} sorted="
+              f"{fmt_ms(sorted_ms)} (key {fmt_ms(key_ms)}, sort "
+              f"{fmt_ms(sort_ms)}, walk in key order {fmt_ms(walk_ms)}; "
+              f"walk on rays copied into key order {fmt_ms(gathered_ms)}, "
+              f"walk with the parked lanes last {fmt_ms(parked_last_ms)}, "
+              f"warp efficiency {eff_last:.4f}) "
+              f"bound ms={bnd[0]:.4f} (by {bnd[1]}) lanes not parked="
               f"{n_alive / R:.4f} nodes visited per ray={visited:.2f} "
-              f"records tested per ray={tested:.2f} on {card}")
-        print(f"[time] traversal {label} bounce {b} kernels, us per launch "
-              f"(profiler): {parts_text(parts) or 'not measured'}")
+              f"records tested per ray={tested:.2f} warp efficiency "
+              f"unsorted={eff:.4f} sorted={eff_sorted:.4f} warps all parked "
+              f"unsorted={dead_w[0]} sorted={dead_ws[0]} of "
+              f"{-(-R // WARP)} (most nodes a lane of them visited: "
+              f"{dead_ws[1]}) sorted==unsorted on all 12 outputs and both "
+              f"counters=True on {card}")
+        print(f"[time] traversal {label} bounce {b} kernels, us per call "
+              f"(profiler): unsorted {parts_text(parts) or 'not measured'}; "
+              f"sorted {parts_text(sorted_parts) or 'not measured'}")
     print(f"[time] traversal {label} kernel: "
           + occupancy_text("traverse_kernel", TRAVERSE_THREADS))
+
+    def total(k):
+        return sum_or_none(r[k] for r in rows)
     print(f"[time] traversal {label} per pass ({len(rows)} launches): "
-          f"wrapper ms sum={sum(r['ms'] for r in rows):.4f} device ms sum="
-          f"{fmt_ms(sum_or_none(r['device_ms'] for r in rows))} bound ms "
-          f"sum={sum(r['bound'][0] for r in rows):.4f} on {card}")
+          f"wrapper ms sum={sum(r['ms'] for r in rows):.4f} device ms sum "
+          f"unsorted={fmt_ms(total('device_ms'))} sorted="
+          f"{fmt_ms(total('sorted_ms'))} (key {fmt_ms(total('key_ms'))}, "
+          f"sort {fmt_ms(total('sort_ms'))}, walk in key order "
+          f"{fmt_ms(total('walk_ms'))}; on rays copied into key order "
+          f"{fmt_ms(total('gathered_ms'))}, parked lanes last "
+          f"{fmt_ms(total('parked_last_ms'))}) bound ms sum="
+          f"{sum(r['bound'][0] for r in rows):.4f} on {card}")
     return rows
 
 
@@ -1702,11 +1870,129 @@ def bvh_compare_scenes(card, dev):
     return err
 
 
+def films_equal(a, b):
+    return all(torch.equal(getattr(a, f), getattr(b, f))
+               for f in ("color_sum", "samples", "misses"))
+
+
+def bvh_render_forms(card, dev, r, film):
+    """The mesh-184k pass in the two forms beside the default (whose film
+    after ``BVH_PASSES`` passes is ``film``): the other ``sort=`` than the
+    default's, whose film must be bit-equal to the default's; and
+    ``tile=BVH_TILE`` with the sort on, the JAX package's large-scene
+    configuration, one pass of
+    which must be bit-equal to the row-major pass drawn with the same
+    jitter and uniforms moved to the tile order's pixels.  Quartiles of
+    ``BVH_PASSES`` after ``WARM_PASSES`` each.  Returns the launches
+    ``{"traverse", "sort_key"}`` of their timed passes."""
+    from raytracercore_tpu_torch.bvh import cuda_traverse as ct
+    from raytracercore_tpu_torch.intersect.dispatch import \
+        make_bvh_closest_fn
+    from raytracercore_tpu_torch.render import camera as cam_mod
+    from raytracercore_tpu_torch.render.film import Film
+    from raytracercore_tpu_torch.render.renderer import (Renderer, pass_draws,
+                                                         render_pass,
+                                                         render_passes)
+
+    scene = r.arrays
+    n_bounces = scene.recursion + 1
+    R = BVH_SIZE * BVH_SIZE
+    launches = {"traverse": 0, "sort_key": 0}
+
+    def timed(step, reset):
+        """Host ms of ``BVH_PASSES`` synchronized calls ``step()`` after
+        ``WARM_PASSES`` untimed ones and ``reset()``, the launch counts
+        zeroed just before the timed calls."""
+        for _ in range(WARM_PASSES):
+            step()
+        reset()
+        ct.traverse.launches = ct.sort_key.launches = 0
+        ms = []
+        for _ in range(BVH_PASSES):
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return ms
+
+    # The other sort= through Renderer, the same seed: the same film.
+    other = not r.closest_fn.sort
+    r2 = Renderer(scene, device="cuda", seed=0, cameras=r.cameras,
+                  closest_fn=make_bvh_closest_fn(r.bvh, scene,
+                                                 traversal="kernel",
+                                                 sort=other))
+    ms2 = timed(lambda: r2.step(1), r2.reset)
+    got = (ct.traverse.launches, ct.sort_key.launches)
+    launches["traverse"] += got[0]
+    launches["sort_key"] += got[1]
+    check(got == (BVH_PASSES * n_bounces, BVH_PASSES * n_bounces * other),
+          f"mesh-184k sort={other}: one traversal launch per bounce, the key "
+          f"kernel before it where sorted ({got})")
+    same = films_equal(r2.film, film)
+    print(f"[coherence] mesh-184k 512x512 rec4 sort={other}, {BVH_PASSES} "
+          f"passes: ms/pass min/p25/median/p75/max={quartiles(ms2)} film "
+          f"bit-equal to the default's (sort={not other})={same} on {card}")
+    check(same, f"mesh-184k: the sort={other} film bit-equal to the "
+          "default's")
+    del r2
+
+    # tile=BVH_TILE with the sort on, pass k drawing as Renderer's pass k.
+    tiled = make_bvh_closest_fn(r.bvh, scene, traversal="kernel", sort=True)
+    box = {}
+
+    def reset():
+        box.update(film=Film.create(BVH_SIZE, BVH_SIZE, device=dev), k=0)
+
+    def step3():
+        box["film"] = render_passes(scene, r.camera, box["film"], 0,
+                                    box["k"], 1, closest_fn=tiled,
+                                    tile=BVH_TILE)
+        box["k"] += 1
+    reset()
+    ms3 = timed(step3, reset)
+    got = (ct.traverse.launches, ct.sort_key.launches)
+    launches["traverse"] += got[0]
+    launches["sort_key"] += got[1]
+    check(got == (BVH_PASSES * n_bounces,) * 2,
+          f"mesh-184k tile={BVH_TILE}: one key and one traversal launch per "
+          f"bounce ({got})")
+    tf = box["film"]
+    check(bool(torch.isfinite(tf.color_sum).all())
+          and float(tf.samples.sum() + tf.misses.sum()) == BVH_PASSES * R,
+          f"mesh-184k tile={BVH_TILE}: film finite, one sample per pixel "
+          "per pass")
+    jitter, uniforms = pass_draws(0, 0, R, n_bounces, dev)
+    px, py = cam_mod.pixel_grid_tiled(BVH_SIZE, BVH_SIZE, BVH_TILE,
+                                      device=dev)
+    perm = py * BVH_SIZE + px
+    j2, u2 = torch.empty_like(jitter), torch.empty_like(uniforms)
+    j2[perm] = jitter
+    u2[..., perm] = uniforms
+    blank = Film.create(BVH_SIZE, BVH_SIZE, device=dev)
+    with torch.no_grad():
+        a = render_pass(scene, r.camera, blank, jitter, uniforms,
+                        closest_fn=tiled, tile=BVH_TILE)
+        b = render_pass(scene, r.camera, blank, j2, u2, closest_fn=tiled)
+        c = render_passes(scene, r.camera, blank, 0, 0, 1, closest_fn=tiled,
+                          tile=BVH_TILE)
+    same = films_equal(a, b) and films_equal(a, c)
+    print(f"[coherence] mesh-184k 512x512 rec4 tile={BVH_TILE} + sort, "
+          f"{BVH_PASSES} passes: ms/pass min/p25/median/p75/max="
+          f"{quartiles(ms3)}; one pass bit-equal to the row-major pass on "
+          f"the draws moved to the tile order's pixels={same} on {card}")
+    check(same, f"mesh-184k tile={BVH_TILE}: the tiled pass bit-equal to "
+          "the row-major pass on the reordered draws")
+    return launches
+
+
 def bvh_render_path(card, dev):
     """Main path 4: ``Renderer(accelerator="auto")`` on the 184,322-triangle
     mesh scene at 512x512 rec4 (the native builder, the bounce loop, one
-    launch of the traversal kernel per bounce).  Returns (launches of the
-    traversal kernel during the timed passes, the kernel's stage numbers)."""
+    launch of the traversal kernel per bounce, after the key kernel where
+    ``make_bvh_closest_fn`` sorts), then its two other forms
+    (:func:`bvh_render_forms`).  Returns (launches ``{"traverse",
+    "sort_key"}`` during the timed passes, the traversal's stage numbers,
+    the key kernel's, the per-bounce rows of :func:`traverse_times`)."""
     from raytracercore_tpu_torch.bvh import cuda_traverse as ct
     from raytracercore_tpu_torch.bvh.builder import build_bvh
     from raytracercore_tpu_torch.bvh.cuda_traverse import CudaBVH
@@ -1736,20 +2022,25 @@ def bvh_render_path(card, dev):
     r.step(WARM_PASSES)
     warm_s = time.perf_counter() - t0
     r.reset()
-    ct.traverse.launches = 0
+    ct.traverse.launches = ct.sort_key.launches = 0
     pass_s = []
     for _ in range(BVH_PASSES):
         t0 = time.perf_counter()
         r.step(1)
         pass_s.append(time.perf_counter() - t0)
-    launches = ct.traverse.launches
+    launches = {"traverse": ct.traverse.launches,
+                "sort_key": ct.sort_key.launches}
     st = r.status()
-    print(f"[bvh] launches of the traversal kernel during {BVH_PASSES} "
-          f"passes: {launches} ({n_bounces} bounces per pass, one BVH)")
-    check(launches == BVH_PASSES * n_bounces,
-          f"main path 4 launched the traversal kernel once per bounce "
-          f"({launches} != {BVH_PASSES} * {n_bounces})")
+    sort_on = r.closest_fn.sort
+    print(f"[bvh] launches during {BVH_PASSES} passes: {launches} "
+          f"({n_bounces} bounces per pass, one BVH; sort by the rule: "
+          f"{sort_on}, {bvhs[0].n_nodes} nodes x {bvhs[0].K} records a leaf)")
+    check(launches == {"traverse": BVH_PASSES * n_bounces,
+                       "sort_key": BVH_PASSES * n_bounces * sort_on},
+          f"main path 4 launched the traversal kernel once per bounce, the "
+          f"key kernel before it where the rule sorts ({launches})")
     film = r.film
+    film_default = film   # Film.add_full_frame makes a new film
     check(all(bool(torch.isfinite(t).all()) for t in
               (film.color_sum, film.samples, film.misses)),
           "mesh-184k film is finite")
@@ -1773,6 +2064,8 @@ def bvh_render_path(card, dev):
           f"mean={float(img[..., :3].mean()):.3f} on {card}")
     print("[bvh] ms of each pass: "
           + " ".join(f"{x * 1e3:.3f}" for x in pass_s))
+    for k, v in bvh_render_forms(card, dev, r, film_default).items():
+        launches[k] += v
     busy, top = device_busy(lambda i: r.step(1), 4)
     print(f"[profile] 4 mesh-184k passes: device busy {busy:.1f} % of the "
           f"span on {card}")
@@ -1788,7 +2081,31 @@ def bvh_render_path(card, dev):
     check_no_sync("traversal kernel wrapper CudaBVH.select, mesh-184k "
                   "bounce 1", lambda: bvhs[0].select(
                       *queries[1], *eps, want_detail=True))
+    check_no_sync("CudaBVH.select(sort=True) (key kernel, torch.sort, "
+                  "traversal in key order), mesh-184k bounce 1",
+                  lambda: bvhs[0].select(*queries[1], *eps,
+                                         want_detail=True, sort=True))
     bvh = bvhs[0]
+    # The key kernel against its plain version on every bounce's rays and
+    # the lane variants of bounce 1, then timed on bounce 1's.
+    key_err = max(key_case(f"mesh-184k 512x512 bounce {b}", bvh, o, d)
+                  for b, (o, d, _) in enumerate(queries))
+    for name, (o, d, _) in lane_variants(queries[1], 62):
+        key_err = max(key_err, key_case(f"mesh-184k 512x512 bounce 1 {name}",
+                                         bvh, o, d))
+    o1, d1 = queries[1][0], queries[1][1]
+    key_args = (o1, d1, bvh.root_min, bvh.root_max)
+    key_stage = {
+        "ms": graph_ms(lambda: ct.sort_key(*key_args), 20, calls=20),
+        "plain_ms": cuda_ms(lambda: ct.sort_key_reference(*key_args), 5),
+        "bound": bound(o1.shape[0] * OPS_KEY,
+                       nbytes(o1, d1) + o1.shape[0] * 4),
+        "max_abs_err": key_err}
+    print(f"[time] sort_key mesh-184k bounce 1 (R={o1.shape[0]}): kernel "
+          f"device ms (CUDA graph)={fmt_ms(key_stage['ms'])} plain ms="
+          f"{key_stage['plain_ms']:.4f} bound ms={key_stage['bound'][0]:.5f} "
+          f"(by {key_stage['bound'][1]}) on {card}; "
+          + occupancy_text("sort_key_kernel", 256))
 
     def run(b, **kw):
         return bvh.select(*queries[b], *eps, want_detail=True, **kw)
@@ -1858,13 +2175,15 @@ def bvh_render_path(card, dev):
     stage = {"ms": stage_ms(times[0]), "plain_ms": plain_ms,
              "bound_ms": times[0]["bound"][0],
              "bound_by": times[0]["bound"][1], "max_abs_err": err}
-    return launches, stage
+    return launches, stage, key_stage, times
 
 
 def bvh_big_pass(card, dev):
     """One timed pass of the 1,003,522-triangle mesh scene at 1024x1024
     rec4 through ``Renderer`` (after one untimed pass), then the traversal
-    kernel alone on every bounce of that size."""
+    alone, unsorted and sorted, on every bounce of that size.  Returns
+    (launches ``{"traverse", "sort_key"}`` of the two passes, the rows of
+    :func:`traverse_times`)."""
     from raytracercore_tpu_torch.bvh import cuda_traverse as ct
     from raytracercore_tpu_torch.render.renderer import Renderer
 
@@ -1879,13 +2198,17 @@ def bvh_big_pass(card, dev):
     check(n_tris == 1003522 and r.route == "bvh",
           "mesh-1M has 1,003,522 triangles and takes the BVH route")
     times = []
-    ct.traverse.launches = 0
+    ct.traverse.launches = ct.sort_key.launches = 0
     for _ in range(2):
         t0 = time.perf_counter()
         r.step(1)
         times.append((time.perf_counter() - t0) * 1e3)
-    check(ct.traverse.launches == 2 * (BVH_REC + 1),
-          "mesh-1M launched the traversal kernel once per bounce")
+    launches = {"traverse": ct.traverse.launches,
+                "sort_key": ct.sort_key.launches}
+    check(launches == {"traverse": 2 * (BVH_REC + 1),
+                       "sort_key": 2 * (BVH_REC + 1) * r.closest_fn.sort},
+          f"mesh-1M launched the traversal kernel once per bounce, the key "
+          f"kernel before it where the rule sorts ({launches})")
     film = r.film
     check(bool(torch.isfinite(film.color_sum).all())
           and float(film.samples.sum() + film.misses.sum())
@@ -1900,12 +2223,40 @@ def bvh_big_pass(card, dev):
           f"{R * (BVH_REC + 1) / (times[1] * 1e-3):.4e} wavefront rays/sec; "
           f"scene generation s={gen_s:.3f} Renderer (BVH build + pack) s="
           f"{build_s:.3f} peak device memory MB="
-          f"{torch.cuda.max_memory_allocated() / 2 ** 20:.0f} on {card}")
+          f"{torch.cuda.max_memory_allocated() / 2 ** 20:.0f} sort by the "
+          f"rule: {r.closest_fn.sort} on {card}")
     # The kernel alone on every bounce: this tree does not fit the L2.
     rays = camera_rays_and_uniforms(r.arrays, host_cam, BVH_BIG_SIZE, 11, dev)
     queries = closest_hit_queries(r.arrays, *rays, closest_fn=r.closest_fn)
     del rays
-    traverse_times("mesh-1M 1024x1024", bvh, queries, card)
+    return launches, traverse_times("mesh-1M 1024x1024", bvh, queries, card)
+
+
+def coherence_verdict(card, scenes):
+    """The sorted ``select`` against the unsorted one, device ms summed
+    over every bounce of each scene (rows of :func:`traverse_times`) and
+    over both, with the warp efficiency per bounce: the measurement that
+    ``make_bvh_closest_fn(sort=None)`` is read against.  Returns (unsorted
+    ms, sorted ms) over both scenes."""
+    total = [0.0, 0.0]
+    for label, rows in scenes.items():
+        unsorted = sum_or_none(r["device_ms"] for r in rows)
+        srt = sum_or_none(r["sorted_ms"] for r in rows)
+        check(None not in (unsorted, srt),
+              f"{label}: both forms' device time measured")
+        total[0] += unsorted
+        total[1] += srt
+        print(f"[coherence] {label} per bounce, device ms unsorted / sorted "
+              f"(warp efficiency unsorted / sorted): "
+              + "; ".join(f"{r['device_ms']:.4f} / {r['sorted_ms']:.4f} "
+                          f"({r['eff']:.3f} / {r['eff_sorted']:.3f})"
+                          for r in rows)
+              + f"; sums {unsorted:.4f} / {srt:.4f} on {card}")
+    print(f"[coherence] both scenes, device ms summed over the bounces: "
+          f"unsorted {total[0]:.4f} sorted {total[1]:.4f} (sorted / "
+          f"unsorted {total[1] / total[0]:.3f}): the sort "
+          f"{'pays' if total[1] < total[0] else 'does not pay'} on {card}")
+    return tuple(total)
 
 
 def bvh_train_path(card, dev):
@@ -1934,13 +2285,53 @@ def bvh_train_path(card, dev):
           f"rows, Renderer (BVH build + pack) s={build_s:.3f}")
     label = "mesh-46k 512x512 rec4"
     errs, times = replay_on_path(label, r, r.closest_fn, card, dev)
+    n_bounces = r.arrays.recursion + 1
     counts = train_steps(
         "bvh-train", label, r, r.closest_fn, r.closest_fn,
-        {"traverse": (ct.traverse, r.arrays.recursion + 1),
+        {"traverse": (ct.traverse, n_bounces),
+         "sort_key": (ct.sort_key, n_bounces * r.closest_fn.sort),
          "prepare_uniforms_kernel": (uk.prepare_uniforms_kernel, 1),
          "replay_fwd": (rk.replay_fwd, 1), "replay_bwd": (rk.replay_bwd, 1)},
         MESH_TARGET_SPP, card, dev)
+    add_counts(counts, sorted_step(card, dev, r))
     return counts, errs, times
+
+
+def sorted_step(card, dev, r):
+    """One Adam step of the mesh-46k scene with ``sort=True`` against one
+    with ``sort=False`` from the same parameters and seed: the loss, every
+    gradient and every parameter after the step bit-equal.  Returns the
+    sorted step's launches ``{"traverse", "sort_key"}``."""
+    from raytracercore_tpu_torch.bvh import cuda_traverse as ct
+    from raytracercore_tpu_torch.intersect.dispatch import \
+        make_bvh_closest_fn
+    from raytracercore_tpu_torch.render.renderer import pass_seed
+
+    fns = {sort: make_bvh_closest_fn(r.bvh, r.arrays, traversal="kernel",
+                                     sort=sort) for sort in (False, True)}
+    seed = pass_seed(TRAIN_SEED, 500)
+    want = one_step(None, r.arrays, r.camera, seed, dev,
+                    closest_fn=fns[False], adam=True)
+    ct.traverse.launches = ct.sort_key.launches = 0
+    got = one_step(None, r.arrays, r.camera, seed, dev,
+                   closest_fn=fns[True], adam=True)
+    launches = {"traverse": ct.traverse.launches,
+                "sort_key": ct.sort_key.launches}
+    n_bounces = r.arrays.recursion + 1
+    check(launches == {"traverse": n_bounces, "sort_key": n_bounces},
+          f"mesh-46k sorted step: one key and one traversal launch per "
+          f"bounce ({launches})")
+    differ = [f"{what} {k}" for what, i in (("gradient", 1), ("param", 2))
+              for k in want[i] if not torch.equal(got[i][k], want[i][k])]
+    same_loss = float(got[0]) == float(want[0])
+    print(f"[bvh-train] mesh-46k 512x512 rec4 one Adam step sort=True vs "
+          f"sort=False: loss {float(got[0]):.9f} vs {float(want[0]):.9f} "
+          f"bit-equal={same_loss}; gradients and params bit-equal="
+          f"{not differ} {differ or ''}; ms {got[3]:.3f} vs {want[3]:.3f} "
+          f"(each the first step of its closest hit) on {card}")
+    check(same_loss and not differ, "mesh-46k: the sorted step bit-equal "
+          f"to the unsorted one (loss {same_loss}, differing {differ})")
+    return launches
 
 
 def quartiles(ms):
@@ -2363,7 +2754,7 @@ def kernel_counters():
             "prepare_uniforms_kernel": uk.prepare_uniforms_kernel,
             "replay_fwd": rk.replay_fwd, "replay_bwd": rk.replay_bwd,
             "closest_hit_fused": cs.closest_hit_fused,
-            "traverse": ct.traverse}
+            "traverse": ct.traverse, "sort_key": ct.sort_key}
 
 
 def zero_counts():
@@ -3084,9 +3475,14 @@ def main():
     import warnings
     warnings.filterwarnings("error", message="native BVH builder")
     traverse_err = bvh_compare_scenes(card, dev)
-    traverse_launches, traverse_stage = bvh_render_path(card, dev)
+    bvh_launches, traverse_stage, key_stage, rows_184k = bvh_render_path(
+        card, dev)
     torch.cuda.empty_cache()
-    bvh_big_pass(card, dev)
+    big_launches, rows_1m = bvh_big_pass(card, dev)
+    add_counts(bvh_launches, big_launches)
+    coherence_verdict(card, {"mesh-184k 512x512": rows_184k,
+                             "mesh-1M 1024x1024": rows_1m})
+    del rows_184k, rows_1m
     torch.cuda.empty_cache()
     bvh_train_counts, bvh_replay_errs, _ = bvh_train_path(card, dev)
     fwd_err = max(fwd_err, bvh_replay_errs[0])
@@ -3097,10 +3493,10 @@ def main():
     par_counts = parallel_phase(card, dev)
 
     # --- 9. result lines ---------------------------------------------------
-    # No single PyTorch call computes any of these six functions (a whole
-    # path, Philox channels, a path replay and its adjoint, a closest hit
-    # over three primitive tables, a BVH walk), so there is no library time
-    # to report.
+    # No single PyTorch call computes any of these functions (a whole path,
+    # Philox channels, a path replay and its adjoint, a closest hit over
+    # three primitive tables, a BVH walk, a Morton key, an issue-rate
+    # probe), so there is no library time to report.
     def entry(name, source, replaces, launched, err, ms, p_ms, bound_ms):
         if not replaces.startswith("scripts/"):
             replaces = f"raytracercore_tpu/{replaces}"
@@ -3142,11 +3538,17 @@ def main():
               select_stage["ms"], select_stage["plain_ms"],
               (select_stage["bound_ms"], select_stage["bound_by"])),
         entry("traverse", "traverse.cu", "bvh/pallas_traverse.py:292",
-              traverse_launches + bvh_train_counts["traverse"]
+              bvh_launches["traverse"] + bvh_train_counts["traverse"]
               + par_counts["traverse"],
               max(traverse_err, traverse_stage["max_abs_err"]),
               traverse_stage["ms"], traverse_stage["plain_ms"],
               (traverse_stage["bound_ms"], traverse_stage["bound_by"])),
+        # The counterpart of the XLA operations of PallasBVH._sort_key, not
+        # of a Pallas kernel.
+        entry("sort_key", "traverse.cu", "bvh/pallas_traverse.py:951",
+              bvh_launches["sort_key"] + bvh_train_counts["sort_key"]
+              + par_counts.get("sort_key", 0), key_stage["max_abs_err"],
+              key_stage["ms"], key_stage["plain_ms"], key_stage["bound"]),
         entry("issue_probe", "issue_probe.cu",
               "scripts/vpu_issue_bench.py:106",
               probe["launches"], probe["max_abs_err"], probe["ms"],

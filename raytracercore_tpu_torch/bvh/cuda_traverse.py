@@ -21,9 +21,24 @@ the primitive tables.
 * :func:`traverse_reference` — the plain version: a lockstep torch walk
   over the packed arrays with the kernel's leaf tests in the kernel's
   operation order, all 12 outputs and the optional counters;
+* :func:`sort_key`, :func:`sort_key_reference` — the ray-coherence key of
+  the JAX package's ``PallasBVH._sort_key`` (direction octant, then the
+  Morton code of the origin in the root box): the key kernel of
+  ``csrc/traverse.cu`` (counted in ``sort_key.launches``) and its plain
+  version;
 * :class:`CudaBVH`, :class:`CudaSphereBVH`, :class:`CudaEllipsoidBVH` — the
   packed tree of one table with the ``select`` entry that
   ``dispatch.make_bvh_closest_fn`` calls.
+
+Ray coherence (``select(sort=True)``, the JAX package's ``sort=``): the
+rays are ordered by their key (``torch.sort``, stable) and the traversal
+kernel reads that order: thread ``t`` walks ray ``order[t]`` and writes
+its outputs at that ray's index, so the outputs come back in the caller's
+order with no gather or scatter pass, bit-equal to the unsorted launch
+(one thread walks one ray whatever its position).  Only which rays share
+a warp changes: rays from nearby origins in one octant walk the same part
+of the tree, and parked rays (origin ``config.PARKED_ORIGIN``, +x) all get
+the largest key and fill whole warps that end at the root.
 
 Two choices where the JAX package's two walks differ.  A zero direction
 component gets the finite inverse ``3.4e38`` (the TPU kernel's; the XLA
@@ -55,6 +70,11 @@ BIG_INV = 3.4e38   # inverse of a zero direction component
 INF = float("inf")
 # flags plane bits
 FLAG_INSIDE, FLAG_INSIDE_GEO, FLAG_SMOOTH = 1, 2, 4
+# The sort key's shape (the JAX package's PallasBVH constants): bits per
+# axis of the origin's Morton code, and direction bits per axis beyond the
+# sign.
+SORT_MORTON_BITS = 8
+SORT_DIR_BITS = 0
 
 
 def _np(t):
@@ -390,7 +410,7 @@ _LEAF_TESTS = {"tri": _tri_test, "sph": _sph_test, "spht": _spht_test}
 @torch.no_grad()
 def traverse_reference(nodes, leaves, leaf_kind: str, ray_o, ray_d, skip,
                        eps_behind: float, eps_pos: float,
-                       want_stats: bool = False) -> TraverseOut:
+                       want_stats: bool = False, order=None) -> TraverseOut:
     """Plain torch version of the traversal kernel (any device), f32.
 
     ``nodes`` [N, 8] and ``leaves`` [L, K·F] are the packed arrays; ``skip``
@@ -399,7 +419,27 @@ def traverse_reference(nodes, leaves, leaf_kind: str, ray_o, ray_d, skip,
     the rays at a leaf test its K records one after another and commit with
     a strict ``t <``.  Per ray this is the kernel's walk and the kernel's
     arithmetic in the kernel's order, so the outputs are held bit-equal on
-    the card."""
+    the card.
+
+    ``order`` (int64 [R], a permutation, or None for the identity): as the
+    kernel's thread ``t`` walks ray ``order[t]``, the rays are walked in
+    that order and every output is put back at its ray's index."""
+    if order is not None:
+        if skip is not None:
+            skip = dataclasses.replace(skip, **{
+                f.name: getattr(skip, f.name)[order]
+                for f in dataclasses.fields(skip)})
+        out = traverse_reference(nodes, leaves, leaf_kind, ray_o[order],
+                                 ray_d[order], skip, eps_behind, eps_pos,
+                                 want_stats)
+
+        def back(x):
+            if x is None:
+                return None
+            y = torch.empty_like(x)
+            y[order] = x
+            return y
+        return TraverseOut(*(back(x) for x in out))
     f32, i32 = torch.float32, torch.int32
     _, F = LEAF_KINDS[leaf_kind]
     leaf_test = _LEAF_TESTS[leaf_kind]
@@ -499,7 +539,7 @@ def traverse_reference(nodes, leaves, leaf_kind: str, ray_o, ray_d, skip,
 # ---------------------------------------------------------------------------
 
 def _launch(nodes, leaves, leaf_kind, ray_o, ray_d, skip, eps_behind,
-            eps_pos, want_stats) -> TraverseOut:
+            eps_pos, want_stats, order=None) -> TraverseOut:
     from .. import kernels
 
     kind, F = LEAF_KINDS[leaf_kind]
@@ -522,6 +562,8 @@ def _launch(nodes, leaves, leaf_kind, ray_o, ray_d, skip, eps_behind,
         _check("skip.inside", skip.inside, (R,), torch.bool, dev)
         skip_ptrs = [t.data_ptr() for t in (skip.prim, skip.position,
                                             skip.normal, skip.inside)]
+    if order is not None:
+        _check("order", order, (R,), torch.int64, dev)
 
     def empty(shape, dtype):
         return torch.empty(shape, dtype=dtype, device=dev)
@@ -533,6 +575,7 @@ def _launch(nodes, leaves, leaf_kind, ray_o, ray_d, skip, eps_behind,
     err = kernels.load().rtc_traverse(
         nodes.data_ptr(), leaves.data_ptr(), ray_o.data_ptr(),
         ray_d.data_ptr(), *skip_ptrs,
+        None if order is None else order.data_ptr(),
         *(None if t is None else t.data_ptr() for t in out),
         R, nodes.shape[0], leaves.shape[1] // F, kind, eps_behind,
         eps_pos * eps_pos, torch.cuda.current_stream(dev).cuda_stream)
@@ -543,26 +586,104 @@ def _launch(nodes, leaves, leaf_kind, ray_o, ray_d, skip, eps_behind,
 
 
 def traverse(nodes, leaves, leaf_kind: str, ray_o, ray_d, skip,
-             eps_behind: float, eps_pos: float, want_stats: bool = False
-             ) -> TraverseOut:
+             eps_behind: float, eps_pos: float, want_stats: bool = False,
+             order=None) -> TraverseOut:
     """Closest hit of every ray in one packed BVH.  On CUDA tensors this
     launches ``csrc/traverse.cu`` (counted in ``traverse.launches``) or
     raises; on CPU tensors it runs :func:`traverse_reference`.  Rays and
-    the skip record are f32 and contiguous."""
+    the skip record are f32 and contiguous; ``order`` (int64 [R] or None)
+    is the order in which the rays are walked (:meth:`CudaBVH.ray_order`),
+    which changes no output."""
     if leaf_kind not in LEAF_KINDS:
         raise ValueError(f"traverse: unknown leaf kind {leaf_kind!r}")
     if ray_o.device.type == "cuda":
         return _launch(nodes, leaves, leaf_kind, ray_o, ray_d, skip,
-                       eps_behind, eps_pos, want_stats)
+                       eps_behind, eps_pos, want_stats, order)
     if ray_o.device.type == "cpu":
         return traverse_reference(nodes, leaves, leaf_kind, ray_o, ray_d,
-                                  skip, eps_behind, eps_pos, want_stats)
+                                  skip, eps_behind, eps_pos, want_stats,
+                                  order)
     raise ValueError(f"traverse: unsupported device {ray_o.device}")
 
 
 # Launches of the traversal kernel (set it to 0 before a run to see that
 # the run went through the kernel).
 traverse.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The ray-coherence key
+# ---------------------------------------------------------------------------
+
+def _spread(x):
+    """Bit ``i`` of ``x`` (int32, < 2^10) to bit ``3i``: the 3-D Morton
+    interleave."""
+    x = (x | (x << 16)) & 0x030000FF
+    x = (x | (x << 8)) & 0x0300F00F
+    x = (x | (x << 4)) & 0x030C30C3
+    x = (x | (x << 2)) & 0x09249249
+    return x
+
+
+@torch.no_grad()
+def sort_key_reference(ray_o, ray_d, root_min, root_max):
+    """int32 [R] coherence keys of f32 rays (any device): the JAX package's
+    ``PallasBVH._sort_key`` with its operations in its order.  The
+    direction bin (per axis ``d · 0.5 + 0.5`` clipped to [0, 1] and cut
+    into ``2^(SORT_DIR_BITS + 1)`` bins: the octant) sits above the Morton
+    code of the origin, each axis clipped to the root box ``root_min``,
+    ``root_max`` ([3] f32) and truncated to ``SORT_MORTON_BITS`` bits.  A
+    parked ray (far outside the box, direction +x) gets the largest key,
+    ``2^27 - 1``."""
+    mb, db = SORT_MORTON_BITS, SORT_DIR_BITS
+    ext = torch.clamp(root_max - root_min, min=1e-30)
+    q = torch.clamp((ray_o - root_min) / ext, 0.0, 1.0)
+    q = (q * ((1 << mb) - 1)).to(torch.int32)
+    morton = (_spread(q[:, 0]) | (_spread(q[:, 1]) << 1)
+              | (_spread(q[:, 2]) << 2))
+    dq = torch.clamp(ray_d * 0.5 + 0.5, 0.0, 1.0)
+    dbin = torch.clamp((dq * (1 << (db + 1))).to(torch.int32), 0,
+                       (1 << (db + 1)) - 1)
+    dirbin = (dbin[:, 0] + (1 << (db + 1)) * dbin[:, 1]
+              + (1 << (2 * (db + 1))) * dbin[:, 2])
+    return (dirbin << (3 * mb)) | morton
+
+
+def _launch_key(ray_o, ray_d, root_min, root_max):
+    from .. import kernels
+
+    dev = ray_o.device
+    R = ray_o.shape[0]
+    f32 = torch.float32
+    _check("ray_o", ray_o, (R, 3), f32, dev)
+    _check("ray_d", ray_d, (R, 3), f32, dev)
+    _check("root_min", root_min, (3,), f32, dev)
+    _check("root_max", root_max, (3,), f32, dev)
+    key = torch.empty((R,), dtype=torch.int32, device=dev)
+    err = kernels.load().rtc_sort_key(
+        ray_o.data_ptr(), ray_d.data_ptr(), root_min.data_ptr(),
+        root_max.data_ptr(), key.data_ptr(), R, SORT_MORTON_BITS,
+        SORT_DIR_BITS, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"sort key kernel launch failed: CUDA error {err}")
+    sort_key.launches += 1
+    return key
+
+
+def sort_key(ray_o, ray_d, root_min, root_max):
+    """The coherence key of every ray (:func:`sort_key_reference`).  On
+    CUDA tensors this launches the key kernel of ``csrc/traverse.cu``
+    (counted in ``sort_key.launches``) or raises; on CPU tensors it runs
+    the plain version.  Rays f32 [R, 3] and contiguous."""
+    if ray_o.device.type == "cuda":
+        return _launch_key(ray_o, ray_d, root_min, root_max)
+    if ray_o.device.type == "cpu":
+        return sort_key_reference(ray_o, ray_d, root_min, root_max)
+    raise ValueError(f"sort_key: unsupported device {ray_o.device}")
+
+
+# Launches of the key kernel.
+sort_key.launches = 0
 
 
 class CudaBVH:
@@ -583,6 +704,11 @@ class CudaBVH:
         self.leaves = torch.tensor(leaves, device=self.device)
         self.n_nodes = int(bvh.n_nodes)
         self.K = int(bvh.leaf_prims.shape[1])
+        # The root box, which the sort key's Morton code divides.
+        self.root_min = torch.tensor(_np(bvh.bmin)[0], dtype=torch.float32,
+                                     device=self.device)
+        self.root_max = torch.tensor(_np(bvh.bmax)[0], dtype=torch.float32,
+                                     device=self.device)
         self.prim_to_row = torch.tensor(prim_to_row(prim_id, n_prims),
                                         device=self.device)
 
@@ -596,17 +722,19 @@ class CudaBVH:
             normal=skip.normal.detach().to(f32).contiguous(),
             inside=skip.inside.contiguous())
 
-    def _traverse(self, fn, ray_o, ray_d, skip, eps_behind, eps_pos,
-                  want_stats):
-        f32 = torch.float32
-        return fn(self.nodes, self.leaves, self.leaf_kind,
-                  ray_o.detach().to(f32).contiguous(),
-                  ray_d.detach().to(f32).contiguous(), self._skip(skip),
-                  float(eps_behind), float(eps_pos), want_stats)
+    def ray_order(self, ray_o, ray_d, reference: bool = False):
+        """int64 [R]: the rays (f32, contiguous) in the order of their
+        coherence key against this tree's root box: :func:`sort_key` (or
+        its plain version with ``reference=True``), then ``torch.sort``,
+        stable so that the launch order is the same from run to run (no
+        output depends on it)."""
+        key = (sort_key_reference if reference else sort_key)(
+            ray_o, ray_d, self.root_min, self.root_max)
+        return torch.sort(key, stable=True).indices
 
     def select(self, ray_o, ray_d, skip, eps_behind, eps_pos,
                want_detail: bool = False, want_stats: bool = False,
-               reference: bool = False):
+               reference: bool = False, sort: bool = False):
         """``(best_row [R] int32 clamped to 0, any [R] bool, t [R])`` — the
         dispatch layer's triangle / sphere selection.
 
@@ -616,13 +744,21 @@ class CudaBVH:
         ``smooth`` (bool) and ``u`` / ``v`` — so the dispatch layer builds
         the HitRecord with no [R]-row gathers from the primitive tables.
         ``want_stats=True`` appends the ``[R, 2]`` int32 counters (nodes
-        visited, records tested).  ``reference=True`` runs the plain version
-        on whatever device the rays are on (the comparison's side of
-        ``chip_smoke.py``); otherwise CUDA tensors launch the kernel (or
-        raise) and CPU tensors run the plain version."""
-        out = self._traverse(traverse_reference if reference else traverse,
-                             ray_o, ray_d, skip, eps_behind, eps_pos,
-                             want_stats)
+        visited, records tested).  ``sort=True`` walks the rays in the
+        order of :meth:`ray_order` (on CUDA tensors the key kernel, then the
+        traversal kernel reading that order); every output, counters
+        included, is the same as with ``sort=False`` and in the caller's
+        ray order.  ``reference=True`` runs the plain versions on whatever
+        device the rays are on (the comparison's side of
+        ``chip_smoke.py``); otherwise CUDA tensors launch the kernels (or
+        raise) and CPU tensors run the plain versions."""
+        f32 = torch.float32
+        o = ray_o.detach().to(f32).contiguous()
+        d = ray_d.detach().to(f32).contiguous()
+        order = self.ray_order(o, d, reference) if sort else None
+        out = (traverse_reference if reference else traverse)(
+            self.nodes, self.leaves, self.leaf_kind, o, d, self._skip(skip),
+            float(eps_behind), float(eps_pos), want_stats, order)
         res = (torch.clamp(out.row, min=0), out.row >= 0, out.t)
         if want_detail:
             res += ({"prim": out.prim, "pos": out.position,

@@ -1,12 +1,15 @@
 // BVH traversal kernel: one thread walks one ray through a skip-link BVH
-// and commits the closest surviving hit of its leaves.
+// and commits the closest surviving hit of its leaves; and the key kernel
+// that orders the rays for it.
 //
 // Replaces the TPU kernel raytracercore_tpu/bvh/pallas_traverse.py:
 // _traverse_kernel (with tri_test, sph_test, spht_test and flush; launched
 // by _traverse_call through pl.pallas_call; public PallasBVH.select,
 // PallasSphereBVH, PallasEllipsoidBVH).  Its plain version is
 // traverse_reference in raytracercore_tpu_torch/bvh/cuda_traverse.py; the
-// Python wrapper traverse there launches this kernel.
+// Python wrapper traverse there launches this kernel.  The key kernel is
+// the counterpart of the XLA operations of PallasBVH._sort_key (no Pallas
+// kernel); its plain version is sort_key_reference, its wrapper sort_key.
 //
 // What it computes: for every ray the winning row of the leaves' table and
 // its t, plus the winner's detail (prim, position, flat normal, inside
@@ -60,8 +63,22 @@
 // whole batch at a time) and postponed leaves all measured slower on the
 // card than this one-ray-per-thread walk, and were not kept (PERF.md).
 // The TPU kernel's 8-chain block beam, pending-leaf flush, two-node
-// speculation, DMA path, bf16 node words, lane padding and ray sort answer
-// the TPU's lack of a per-lane gather and are not carried over.
+// speculation, DMA path, bf16 node words and lane padding answer the TPU's
+// lack of a per-lane gather and are not carried over.
+//
+// Ray coherence (the JAX package's sort=): a warp runs as long as its
+// longest lane, so which rays share a warp matters after the first bounce,
+// where neighbouring pixels' rays leave from far-apart points in unrelated
+// directions and finished paths are parked among live ones.  The caller
+// may pass `order` (int64, a permutation of the rays by the key that
+// sort_key_kernel computes and torch.sort orders): thread t then walks ray
+// order[t], reading that ray's inputs and writing its outputs at the ray's
+// own index.  The reads and stores scatter, but no gather or scatter pass
+// runs and the outputs stay in the caller's order; the walk is the same,
+// so every output is bit-equal to the unordered launch's.  The key: the
+// direction octant above an 8-bit-per-axis Morton code of the origin in
+// the root box, in PallasBVH._sort_key's operations and order (correctly
+// rounded division, no contraction, truncation to int as astype(int32)).
 //
 // Floating point: fp32, built with -fmad=false and no fast math, in the
 // plain version's operation order; rsqrt is written 1.0f / sqrtf.
@@ -87,6 +104,7 @@ struct TraverseParams {
   const float* sk_pos;             // [R,3]
   const float* sk_nrm;             // [R,3]
   const unsigned char* sk_inside;  // [R]   bool
+  const long long* order;          // [R]   ray of each thread; null: t
   int* row;                        // [R]
   float* t;                        // [R]
   int* prim;                       // [R]
@@ -325,8 +343,9 @@ __device__ __forceinline__ void spht_record(const float4* rec, const Ray& ray,
 template <int KIND, bool STATS>
 __global__ void __launch_bounds__(TRAVERSE_BLOCK)
     traverse_kernel(TraverseParams p) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= p.R) return;
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= p.R) return;
+  const int r = p.order != nullptr ? (int)__ldg(p.order + lane) : lane;
   constexpr int REC4 = KIND == KIND_TRI ? 4 : (KIND == KIND_SPH ? 2 : 8);
 
   Ray ray;
@@ -430,17 +449,75 @@ int launch_traverse(const TraverseParams& p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+constexpr int SORT_KEY_BLOCK = 256;
+
+// Bit i of x (< 2^10) to bit 3i: the 3-D Morton interleave.
+__device__ __forceinline__ int morton_spread(int x) {
+  x = (x | (x << 16)) & 0x030000FF;
+  x = (x | (x << 8)) & 0x0300F00F;
+  x = (x | (x << 4)) & 0x030C30C3;
+  x = (x | (x << 2)) & 0x09249249;
+  return x;
+}
+
+__device__ __forceinline__ float clip01(float x) {
+  return fminf(fmaxf(x, 0.f), 1.f);
+}
+
+// One thread per ray: key = direction bin << 3*mb | Morton code of the
+// origin, as sort_key_reference.  Bound by bytes: 24 read, 4 written.
+__global__ void __launch_bounds__(SORT_KEY_BLOCK)
+    sort_key_kernel(const float* ray_o, const float* ray_d,
+                    const float* root_min, const float* root_max, int* key,
+                    int R, int mb, int db) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= R) return;
+  const float q_max = (float)((1 << mb) - 1);
+  const int n_bins = 1 << (db + 1);
+  int morton = 0, dir_bin = 0, scale = 1;
+  for (int a = 0; a < 3; ++a) {
+    const float lo = __ldg(root_min + a);
+    const float ext = fmaxf(__ldg(root_max + a) - lo, 1e-30f);
+    const float q = clip01((ray_o[3 * r + a] - lo) / ext);
+    morton |= morton_spread((int)(q * q_max)) << a;
+    const float dq = clip01(ray_d[3 * r + a] * 0.5f + 0.5f);
+    dir_bin += scale * min(max((int)(dq * (float)n_bins), 0), n_bins - 1);
+    scale *= n_bins;
+  }
+  key[r] = (dir_bin << (3 * mb)) | morton;
+}
+
 }  // namespace rtc
+
+// C entry point, loaded with ctypes: the coherence key of every ray into
+// `key` [R] int32, on `stream`.  Returns cudaGetLastError() after the
+// launch, or cudaErrorInvalidValue for a key that would not fit 31 bits.
+extern "C" int rtc_sort_key(const float* ray_o, const float* ray_d,
+                            const float* root_min, const float* root_max,
+                            int* key, int R, int morton_bits, int dir_bits,
+                            void* stream) {
+  if (R <= 0) return 0;
+  if (morton_bits < 1 || morton_bits > 10 || dir_bits < 0 ||
+      3 * (morton_bits + dir_bits + 1) > 31)
+    return (int)cudaErrorInvalidValue;
+  const int blocks = (R + rtc::SORT_KEY_BLOCK - 1) / rtc::SORT_KEY_BLOCK;
+  rtc::sort_key_kernel<<<blocks, rtc::SORT_KEY_BLOCK, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      ray_o, ray_d, root_min, root_max, key, R, morton_bits, dir_bits);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // C entry point, loaded with ctypes.  Launches on `stream` and returns the
 // cudaGetLastError() after the launch (0 = launched), or
 // cudaErrorInvalidValue for a leaf kind or sizes the kernel does not take.
 // `kind`: 0 triangles (16 floats a record), 1 untransformed spheres (8),
-// 2 transformed spheres (32); `stats` null: no counters.
+// 2 transformed spheres (32); `stats` null: no counters; `order` null:
+// thread t walks ray t.
 extern "C" int rtc_traverse(
     const float* nodes, const float* leaves, const float* ray_o,
     const float* ray_d, const int* sk_prim, const float* sk_pos,
-    const float* sk_nrm, const unsigned char* sk_inside, int* row, float* t,
+    const float* sk_nrm, const unsigned char* sk_inside,
+    const long long* order, int* row, float* t,
     int* prim, float* pos, float* nrm, int* flags, float* u, float* v,
     int* stats, int R, int n_nodes, int K, int kind, float eps_behind,
     float eps2, void* stream) {
@@ -449,7 +526,7 @@ extern "C" int rtc_traverse(
   rtc::TraverseParams p{reinterpret_cast<const float4*>(nodes),
                         reinterpret_cast<const float4*>(leaves),
                         ray_o, ray_d, sk_prim, sk_pos, sk_nrm, sk_inside,
-                        row, t, prim, pos, nrm, flags, u, v, stats,
+                        order, row, t, prim, pos, nrm, flags, u, v, stats,
                         R, n_nodes, K, eps_behind, eps2};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (kind) {

@@ -39,6 +39,11 @@ from . import torch_ref
 
 INF = float("inf")
 
+# make_bvh_closest_fn(sort=None) sorts, off the card, the rays of trees that
+# cover more than this many leaf records (nodes x records a leaf): the JAX
+# package's rule, which keys on the records covered, not the node count.
+SORT_MIN_COVERED = 16384
+
 # Grid cells (rays × table rows) one chunk of the dense scan may hold: a
 # grid plane of 2^22 f32 cells is 16 MB, and a scan keeps a few dozen alive.
 _GRID_CHUNK_CELLS = 1 << 22
@@ -467,7 +472,7 @@ def _tri_smooth_fixup(scene, row, det):
 
 
 def make_bvh_closest_fn(bvh, scene: SceneArrays | None = None,
-                        traversal: str = "auto"):
+                        traversal: str = "auto", sort=None):
     """Closest hit with the triangle selection routed through the skip-link
     BVH ``bvh`` (:func:`..bvh.builder.build_bvh`), for scenes of any size.
     Returns ``closest(scene, ray_o, ray_d, skip) → HitRecord``.
@@ -500,11 +505,23 @@ def make_bvh_closest_fn(bvh, scene: SceneArrays | None = None,
 
     The flags of the materials (invert, two-sided) are packed at build
     time; the materials' colours are read from the scene given at call
-    time.  The JAX package's ``sort=`` is not carried over.
+    time.
+
+    ``sort``: walk the rays of every BVH query in the order of their
+    coherence key (``CudaBVH.select(sort=True)``: direction octant, then
+    the Morton code of the origin in that BVH's root box), which changes
+    which rays share a warp and no output; the decision holds for the
+    triangle, sphere and ellipsoid BVHs alike.  None decides once from the
+    triangle tree: off on a CUDA device, where the sorted walk measured
+    slower (the key and the sort included) than the unsorted one; else
+    the JAX package's rule, on when ``n_nodes * K > SORT_MIN_COVERED``
+    (16384; ``K`` the records a leaf holds).  The "walk" route ignores
+    it, as the JAX package's "xla" route does.
 
     The detail route's function carries what it walks: ``closest.bvhs``, the
     packed BVHs in merge order (``cuda_traverse.CudaBVH`` and its sphere
-    kinds), and ``closest.tail``, the dense tail's sub-scene or None.
+    kinds), ``closest.tail``, the dense tail's sub-scene or None, and
+    ``closest.sort``, the decision.
     """
     if traversal not in ("auto", "walk", "kernel"):
         raise ValueError(f"make_bvh_closest_fn: unknown traversal "
@@ -545,6 +562,13 @@ def make_bvh_closest_fn(bvh, scene: SceneArrays | None = None,
     tri_bvh = ct.CudaBVH(bvh, scene.triangles, scene.materials,
                          scene.n_prims)
     any_smooth = bool(scene.triangles.smooth.any())
+    if sort is None:
+        # On the card the sorted walk measured slower than the unsorted one
+        # on every bounce after the first (PERF.md §6): there None is off.
+        do_sort = (tri_bvh.device.type != "cuda"
+                   and tri_bvh.n_nodes * tri_bvh.K > SORT_MIN_COVERED)
+    else:
+        do_sort = bool(sort)
 
     # Sphere acceleration (the reference bounds every primitive type,
     # Scene.cs:39-49): a BVH over the UNTRANSFORMED spheres and one over
@@ -596,14 +620,15 @@ def make_bvh_closest_fn(bvh, scene: SceneArrays | None = None,
             o_sg, d_sg = ray_o.detach(), ray_d.detach()
             skip_sg = None if skip is None else skip.detach()
             row, any_t, t_t, det = tri_bvh.select(
-                o_sg, d_sg, skip_sg, eps_behind, eps_pos, want_detail=True)
+                o_sg, d_sg, skip_sg, eps_behind, eps_pos, want_detail=True,
+                sort=do_sort)
             if any_smooth:
                 det = _tri_smooth_fixup(scene_arg, row, det)
             rec = _rec_from_detail(any_t, t_t, det)
             for b in sphere_bvhs:
                 _, any_b, t_b, det_b = b.select(
                     o_sg, d_sg, skip_sg, eps_behind, eps_pos,
-                    want_detail=True)
+                    want_detail=True, sort=do_sort)
                 rec = _merge2(rec, _rec_from_detail(any_b, t_b, det_b))
             if tail is not None:
                 hit = closest_hit_fused(tail, o_sg, d_sg, skip_sg)
@@ -620,4 +645,5 @@ def make_bvh_closest_fn(bvh, scene: SceneArrays | None = None,
 
     closest_kernel.bvhs = [tri_bvh, *sphere_bvhs]
     closest_kernel.tail = tail
+    closest_kernel.sort = do_sort
     return closest_kernel

@@ -75,10 +75,15 @@ SIGNATURES = {
         + [_F, _F]                     # eps_behind, eps_pos²
         + [_P]),                       # stream
     "rtc_traverse": (
-        [_P] * 17                      # nodes, leaves, 2 rays, 4 skip (null:
-                                       # none), 8 outputs, stats (null: none)
+        [_P] * 18                      # nodes, leaves, 2 rays, 4 skip (null:
+                                       # none), order (null: identity),
+                                       # 8 outputs, stats (null: none)
         + [_I] * 4                     # R n_nodes K leaf kind
         + [_F, _F]                     # eps_behind, eps_pos²
+        + [_P]),                       # stream
+    "rtc_sort_key": (
+        [_P] * 5                       # 2 rays, root min and max, keys
+        + [_I] * 3                     # R morton_bits dir_bits
         + [_P]),                       # stream
 }
 

@@ -97,3 +97,32 @@ def pixel_grid(width: int, height: int, device=DEFAULT_DEVICE):
                             torch.arange(width, device=device),
                             indexing="ij")
     return xs.reshape(-1), ys.reshape(-1)
+
+
+def pixel_grid_tiled(width: int, height: int, tile: int,
+                     device=DEFAULT_DEVICE):
+    """Pixel index grids [H*W] in square-tile order: tiles row-major over
+    the tile grid, pixels row-major within each tile (the JAX package's
+    order, which traced tiles for its block-beam BVH walk): consecutive
+    rays then come from one square patch of the image.  Raises
+    ``ValueError`` unless ``tile`` divides ``width`` and ``height``;
+    :func:`untile` restores row-major order."""
+    if tile <= 0 or width % tile or height % tile:
+        raise ValueError(f"pixel_grid_tiled: tile {tile} does not divide "
+                         f"{width}x{height}")
+    device = resolve_device(device, "pixel_grid_tiled")
+    ar = [torch.arange(n, device=device)
+          for n in (height // tile, width // tile, tile, tile)]
+    ty, tx, iy, ix = torch.meshgrid(*ar, indexing="ij")
+    return (tx * tile + ix).reshape(-1), (ty * tile + iy).reshape(-1)
+
+
+def untile(a, width: int, height: int, tile: int):
+    """A [H*W, ...] tensor in :func:`pixel_grid_tiled` order back in
+    row-major order."""
+    if tile <= 0 or width % tile or height % tile:
+        raise ValueError(f"untile: tile {tile} does not divide "
+                         f"{width}x{height}")
+    rest = a.shape[1:]
+    a = a.reshape(height // tile, width // tile, tile, tile, *rest)
+    return a.transpose(1, 2).reshape(height * width, *rest)

@@ -49,21 +49,34 @@ def pass_seed(seed: int, pass_index: int) -> int:
 
 
 def render_pass(scene: SceneArrays, camera, film: Film, jitter, uniforms,
-                closest_fn=closest_hit, trace_fn=None) -> Film:
+                closest_fn=closest_hit, trace_fn=None, tile: int = 0
+                ) -> Film:
     """One full-frame progressive pass: +1 sample for every pixel.
 
     ``jitter`` [H*W, 4] are the camera uniforms (:func:`.camera.camera_rays`)
     and ``uniforms`` [recursion + 1, 7, H*W] the path uniforms
-    (:func:`.integrator.preprocess_uniforms`), in row-major pixel order.
+    (:func:`.integrator.preprocess_uniforms`), one row per ray.
     The rays go through :func:`.integrator.trace` with ``closest_fn``,
     unless ``trace_fn(scene, ray_o, ray_d, uniforms) → (color, miss)``
     overrides the whole integrator call — how the megakernel
     (:func:`.fused.trace_fused`) plugs in.
+
+    ``tile``: trace the pixels in square-tile order
+    (:func:`.camera.pixel_grid_tiled`; ray ``i`` takes pixel ``i`` of that
+    order with row ``i`` of ``jitter`` and ``uniforms``) instead of
+    row-major, and untile colour and miss before the film adds them: only
+    which random numbers land on which pixel changes.  0: row-major.
     """
     h, w = film.shape
-    px, py = cam_mod.pixel_grid(w, h, device=jitter.device)
+    if tile:
+        px, py = cam_mod.pixel_grid_tiled(w, h, tile, device=jitter.device)
+    else:
+        px, py = cam_mod.pixel_grid(w, h, device=jitter.device)
     color, miss = trace_pixels(scene, camera, px, py, jitter, uniforms,
                                closest_fn, trace_fn)
+    if tile:
+        color = cam_mod.untile(color, w, h, tile)
+        miss = cam_mod.untile(miss, w, h, tile)
     return film.add_full_frame(color, miss)
 
 
@@ -123,10 +136,10 @@ def pick_route(arrays: SceneArrays, accelerator: str = "auto"):
 
 def render_passes(scene: SceneArrays, camera, film: Film, seed: int,
                   start: int, n: int = 1, closest_fn=closest_hit,
-                  trace_fn=None) -> Film:
+                  trace_fn=None, tile: int = 0) -> Film:
     """``n`` progressive passes, pass ``k`` (``start <= k < start + n``)
     drawing from a generator seeded with :func:`pass_seed` ``(seed, k)``
-    (:func:`pass_draws`); ``closest_fn`` and ``trace_fn`` as in
+    (:func:`pass_draws`); ``closest_fn``, ``trace_fn`` and ``tile`` as in
     :func:`render_pass`."""
     h, w = film.shape
     device = film.samples.device
@@ -135,7 +148,8 @@ def render_passes(scene: SceneArrays, camera, film: Film, seed: int,
                                       device)
         with torch.no_grad():
             film = render_pass(scene, camera, film, jitter, uniforms,
-                               closest_fn=closest_fn, trace_fn=trace_fn)
+                               closest_fn=closest_fn, trace_fn=trace_fn,
+                               tile=tile)
     return film
 
 

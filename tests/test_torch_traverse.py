@@ -121,12 +121,14 @@ TRI_TOL = (1e-6, 1e-6, 1e-5, 1e-5)
 SPHERE_TOL = (1e-4, 2e-3, 2e-3, 1e-2)
 
 
-def assert_select_matches(jsel, tsel, o, d, jskip, tol):
-    """``select(want_detail=True)`` of both packages on the same rays."""
+def assert_select_matches(jsel, tsel, o, d, jskip, tol, sort=False):
+    """``select(want_detail=True, sort=sort)`` of both packages on the same
+    rays."""
     want = jsel.select(jnp.asarray(o), jnp.asarray(d), jskip, EPS_B, EPS_P,
-                       interpret=True, want_detail=True)
+                       interpret=True, want_detail=True, sort=sort)
     skip = None if jskip is None else port_hit(jskip)
-    got = tsel.select(_t(o), _t(d), skip, EPS_B, EPS_P, want_detail=True)
+    got = tsel.select(_t(o), _t(d), skip, EPS_B, EPS_P, want_detail=True,
+                      sort=sort)
     hit = np.asarray(want[1])
     np.testing.assert_array_equal(got[1].numpy(), hit)
     np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
