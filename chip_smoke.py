@@ -51,6 +51,13 @@ bit-equal to the unsorted one.  A phase of its own runs the
 issue-rate probe (``tools/issue_probe.py``, the port of the TPU's VPU
 microbenchmark): every mix against its plain chains, then the operations
 per second the card sustains under ``-fmad=false``.
+The surface phase (:func:`surface_phase`) drives the rest of the public
+surface at full width: ``Film.add_scatter`` on a cornell pass in 32×32
+tile order (bit-equal to ``add_full_frame``) and on 4× repeated indices,
+``Film.merge`` against ``step(8)``, ``Renderer(dtype=torch.float64)``
+against the float32 one (rays classified, samepick 0), ``Renderer.profile``
+read back scope by scope on cornell and mesh-184k, and
+``trace_replay(record_fused=False)`` / ``(replay_kernel=False)``.
 The megakernel is held bit-equal to its plain version (colour, miss and
 all five tape planes, tape on and off).
 The last two lines of standard output are a JSON object describing the
@@ -2727,6 +2734,486 @@ def times_main(label, card):
     print(json.dumps(res))
 
 
+# --- the surface phase: add_scatter, merge, dtype=, profile, trace_replay ----
+
+SURF_SEED = 41
+SURF_TILE = 32            # tile order of the add_scatter pass
+SURF_REPEAT = 4           # samples a pixel in the repeated-index scatter
+SURF_REPEAT_PIXELS = 256 * 256
+SURF_F64_SIZE = 256
+SURF_F64_PASSES = 4
+SURF_PROFILE_PASSES = 4
+SURF_SCOPE_PAIRS = 10000  # record_function pairs timed with no profiler
+SCOPES = ("camera_rays", "trace_fused", "closest_hit", "film_accum")
+FILM_RTOL = 1e-6
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
+
+
+def tile_order(width, height, tile, dev):
+    """``(px, py)`` [H*W] in square-tile order with the edge tiles cut to
+    the image (``camera.pixel_grid_tiled``'s order where ``tile`` divides
+    the size; 700 is not a multiple of 32)."""
+    ys, xs = torch.meshgrid(torch.arange(height, device=dev),
+                            torch.arange(width, device=dev), indexing="ij")
+    tiles_x = -(-width // tile)
+    key = (((ys // tile) * tiles_x + xs // tile) * tile * tile
+           + (ys % tile) * tile + xs % tile)
+    order = torch.argsort(key.reshape(-1))
+    return xs.reshape(-1)[order], ys.reshape(-1)[order]
+
+
+def traced(r, k, want_tape=True):
+    """``(color, miss, tape)`` of pass ``k`` of Renderer ``r`` traced by
+    its own route, the body of ``render_pass`` with the tape on."""
+    from raytracercore_tpu_torch.render import camera as cam_mod
+    from raytracercore_tpu_torch.render.integrator import trace
+    from raytracercore_tpu_torch.render.renderer import pass_draws
+
+    h, w = r.film.shape
+    jitter, uniforms = pass_draws(r.seed, k, h * w,
+                                  r.arrays.recursion + 1, r.device, r.dtype)
+    px, py = cam_mod.pixel_grid(w, h, device=r.device)
+    o, d = cam_mod.camera_rays(r.camera, px, py, jitter)
+    o, d = o.contiguous(), d.contiguous()
+    with torch.no_grad():
+        if r.trace_fn is not None:
+            return r.trace_fn(r.arrays, o, d, uniforms, want_tape=want_tape)
+        return trace(r.arrays, o, d, None, closest_fn=r.closest_fn,
+                     uniforms=uniforms, want_tape=want_tape)
+
+
+def scope_split(path, n):
+    """Read a ``Renderer.profile`` Chrome trace of ``n`` passes back:
+    ``{scope: (host ms, device ms)}`` per pass, for each scope of
+    :data:`SCOPES` found and for ``"outside"`` (host time of the traced
+    span outside every scope, and the device time of kernels, copies and
+    fills launched outside every scope).  A kernel belongs to the scope
+    its launch (the runtime call with the same correlation id) lies in."""
+    import bisect
+
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X"]
+    scopes = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                    if e.get("cat") == "user_annotation"
+                    and e["name"] in SCOPES)
+    host = [e for e in events if e.get("cat") in
+            ("cpu_op", "user_annotation") + LAUNCH_CATS]
+    span = (max(e["ts"] + e["dur"] for e in host)
+            - min(e["ts"] for e in host))
+    out = {}
+    for t0, t1, name in scopes:
+        h, dv = out.get(name, (0.0, 0.0))
+        out[name] = (h + (t1 - t0), dv)
+    out["outside"] = (span - sum(t1 - t0 for t0, t1, _ in scopes), 0.0)
+    launch_at = {e["args"]["correlation"]: e["ts"] for e in events
+                 if e.get("cat") in LAUNCH_CATS
+                 and "correlation" in e.get("args", {})}
+    starts = [s[0] for s in scopes]
+    for e in events:
+        if e.get("cat") not in DEVICE_CATS:
+            continue
+        ts = launch_at.get(e.get("args", {}).get("correlation"))
+        name = "outside"
+        if ts is not None:
+            i = bisect.bisect_right(starts, ts) - 1
+            if i >= 0 and ts <= scopes[i][1]:
+                name = scopes[i][2]
+        h, dv = out.get(name, (0.0, 0.0))
+        out[name] = (h, dv + e["dur"])
+    return {k: (h / n / 1e3, dv / n / 1e3) for k, (h, dv) in out.items()}
+
+
+def scope_cost_us():
+    """Host µs of one enter/exit pair, with no profiler recording, of
+    ``torch.profiler.record_function`` and of the port's gated
+    ``integrator.phase`` (what a pass pays)."""
+    from raytracercore_tpu_torch.render.integrator import phase
+
+    check(not torch.autograd._profiler_enabled(), "no profiler recording")
+    res = []
+    for make in (torch.profiler.record_function, phase):
+        t0 = time.perf_counter()
+        for _ in range(SURF_SCOPE_PAIRS):
+            with make("camera_rays"):
+                pass
+        res.append((time.perf_counter() - t0) / SURF_SCOPE_PAIRS * 1e6)
+    return res
+
+
+def film_close(a, b, what, corrected=False):
+    """Counts exact, colour within ``FILM_RTOL``·(1 + |c|)."""
+    for k in ("samples", "misses"):
+        check(torch.equal(getattr(a, k), getattr(b, k)), f"{what}: {k} "
+              "exact")
+    ca = a.corrected_sum if corrected else a.color_sum
+    cb = b.corrected_sum if corrected else b.color_sum
+    err = float(((ca - cb).abs() / (1 + cb.abs())).max())
+    check(err <= FILM_RTOL, f"{what}: colour within {FILM_RTOL}·(1+|c|) "
+          f"({err:.3e})")
+    return err
+
+
+def surface_scatter_merge(card, dev, host):
+    """``Film.add_scatter`` on one cornell 700² rec10 pass in 32×32 tile
+    order, and ``Film.merge`` of passes 0-3 and 4-7 against ``step(8)``.
+    Returns the launches of the driven passes."""
+    from raytracercore_tpu_torch.render.film import Film
+    from raytracercore_tpu_torch.render.renderer import (Renderer,
+                                                         pass_draws,
+                                                         trace_pixels)
+
+    counts = {}
+    r = Renderer(host, device=dev, seed=SURF_SEED)
+    h, w = r.film.shape
+    r.step(1)  # a film that already holds a pass
+    px, py = tile_order(w, h, SURF_TILE, dev)
+    jitter, uniforms = pass_draws(r.seed, 1, h * w, r.arrays.recursion + 1,
+                                  dev)
+    zero_counts()
+    color, miss = trace_pixels(r.arrays, r.camera, px, py, jitter, uniforms,
+                               r.closest_fn, r.trace_fn)
+    pix = (py * w + px).contiguous()
+    scattered = r.film.add_scatter(pix, color, miss)
+    torch.cuda.synchronize()
+    add_counts(counts, read_counts())
+    row_c, row_m = torch.empty_like(color), torch.empty_like(miss)
+    row_c[pix], row_m[pix] = color, miss   # the samples in pixel order
+    framed = r.film.add_full_frame(row_c, row_m)
+    check(films_equal(scattered, framed), "add_scatter at the tiled pixel "
+          "indices bit-equal to add_full_frame in pixel order")
+    scatter_ms = cuda_ms(lambda: r.film.add_scatter(pix, color, miss), 20)
+    frame_ms = cuda_ms(lambda: r.film.add_full_frame(row_c, row_m), 20)
+
+    # SURF_REPEAT samples onto each of SURF_REPEAT_PIXELS pixels.
+    n = SURF_REPEAT * SURF_REPEAT_PIXELS
+    side = int(SURF_REPEAT_PIXELS ** 0.5)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SURF_SEED)
+    idx = (torch.arange(n, device=dev) % SURF_REPEAT_PIXELS)[
+        torch.randperm(n, generator=gen, device=dev)]
+    small = Film.create(side, side, device=dev)
+    rep = small.add_scatter(idx, color[:n], miss[:n])
+    hit = ~miss[:n]
+
+    def exact(src):
+        return torch.zeros((SURF_REPEAT_PIXELS,) + src.shape[1:],
+                           dtype=torch.float64, device=dev).index_add_(
+            0, idx, src.double())
+    for k, src in (("samples", hit), ("misses", miss[:n])):
+        check(torch.equal(getattr(rep, k).reshape(-1).double(), exact(src)),
+              f"repeated add_scatter: {k} exact")
+    want = exact(torch.where(hit[:, None], color[:n], 0.0))
+    got = rep.color_sum.reshape(-1, 3).double()
+    rep_err = float(((got - want).abs() / want.abs().clamp(min=1e-30))
+                    .max())
+    check(bool(((got - want).abs() <= FILM_RTOL * want.abs()).all()),
+          f"repeated add_scatter: colour within {FILM_RTOL} rel of the f64 "
+          f"index_add_ ({rep_err:.3e})")
+    print(f"[surface] add_scatter cornell {w}x{h} rec10, one pass in "
+          f"{SURF_TILE}x{SURF_TILE} tile order: bit-equal to add_full_frame "
+          f"in pixel order; {n} samples onto {SURF_REPEAT_PIXELS} pixels "
+          f"({SURF_REPEAT} each): counts exact, colour max rel err "
+          f"{rep_err:.3e} against the f64 index_add_; device ms "
+          f"add_scatter={scatter_ms:.4f} add_full_frame={frame_ms:.4f} "
+          f"(CUDA events, 20 calls) on {card}")
+
+    # merge: passes 0-3 and 4-7 against step(8).
+    errs = []
+    for compensated in (False, True):
+        def run(start, n_passes):
+            x = Renderer(host, device=dev, seed=SURF_SEED,
+                         compensated=compensated)
+            x.pass_index = start
+            zero_counts()
+            x.step(n_passes)
+            add_counts(counts, read_counts())
+            return x.film
+        merged = run(0, 4).merge(run(4, 4))
+        check((merged.color_c is not None) == compensated,
+              "merge keeps the compensation")
+        errs.append(film_close(merged, run(0, 8),
+                               f"merge (compensated={compensated})",
+                               corrected=compensated))
+    print(f"[surface] merge of passes 0-3 and 4-7 against step(8), cornell "
+          f"{w}x{h} rec10: counts exact, colour max err/(1+|c|) "
+          f"{errs[0]:.3e} plain, {errs[1]:.3e} compensated on {card}")
+    return counts
+
+
+def surface_float64(card, dev, host):
+    """``Renderer(dtype=torch.float64)`` against the f32 Renderer on cornell
+    256² rec10 (the megakernel on f32 copies) and mesh-722 256² rec10
+    (``trace`` in f64 with the select kernel on f32 copies): the rays
+    classified (samepick 0, close ≥ ``MIN_CLOSE_FRAC``), the f64 film,
+    ``step(2); step(2)`` bit-equal to ``step(4)``.  Returns the launches
+    of the f64 passes."""
+    import copy
+
+    from raytracercore_tpu_torch.render.fused import classify_mismatches
+    from raytracercore_tpu_torch.render.renderer import Renderer
+
+    counts = {}
+    small = copy.deepcopy(host)
+    small.width = small.height = SURF_F64_SIZE
+    mesh, mesh_cam = lit_mesh_scene(MESH_GRID, MESH_SUBDIV, SURF_F64_SIZE,
+                                    10, dev)
+    for label, make in (
+            ("cornell", lambda dt: Renderer(small, device=dev,
+                                            seed=SURF_SEED, dtype=dt)),
+            ("mesh-722", lambda dt: Renderer(mesh, device=dev,
+                                             seed=SURF_SEED,
+                                             cameras=[mesh_cam], dtype=dt))):
+        r32, r64 = make(torch.float32), make(torch.float64)
+        check(r64.route == r32.route, f"{label}: f64 takes the f32 route "
+              f"({r64.route} vs {r32.route})")
+        tally = {"flip": 0, "graze": 0, "samepick": 0}
+        close, n_rays, miss_eq = 0, 0, 0
+        for k in range(SURF_F64_PASSES):
+            ref, got = traced(r32, k), traced(r64, k)
+            check(got[0].dtype == torch.float64, f"{label}: f64 colour")
+            cls = classify_mismatches(ref, got, CLOSE_ATOL, CLOSE_RTOL)
+            for c in tally:
+                tally[c] += int(cls[c].sum())
+            close += int(cls["close"].sum())
+            miss_eq += int(cls["miss_eq"].sum())
+            n_rays += ref[0].shape[0]
+        zero_counts()
+        r64.step(2)
+        r64.step(2)
+        add_counts(counts, read_counts())
+        whole = make(torch.float64)
+        zero_counts()
+        whole.step(4)
+        add_counts(counts, read_counts())
+        check(r64.film.color_sum.dtype == torch.float64, f"{label}: f64 film")
+        check(films_equal(r64.film, whole.film), f"{label}: f64 step(2); "
+              "step(2) bit-equal to step(4)")
+        check(tally["samepick"] == 0, f"{label}: f64 vs f32 samepick 0")
+        check(close >= MIN_CLOSE_FRAC * n_rays, f"{label}: f64 vs f32 close "
+              f"{close / n_rays:.4f} >= {MIN_CLOSE_FRAC}")
+        print(f"[surface] Renderer(dtype=float64) {label} "
+              f"{SURF_F64_SIZE}x{SURF_F64_SIZE} rec10, route {r64.route}, "
+              f"{SURF_F64_PASSES} passes ({n_rays} rays) against float32: "
+              f"close={close / n_rays:.5f} miss_equal={miss_eq / n_rays:.5f} "
+              f"flip={tally['flip']} graze={tally['graze']} "
+              f"samepick={tally['samepick']}; film float64, step(2)+step(2) "
+              f"bit-equal to step(4) on {card}")
+    return counts
+
+
+def surface_profile(card, dev, host):
+    """``Renderer.profile`` on cornell 700² rec10 and mesh-184k 512² rec4:
+    the per-scope host and device ms a pass from the trace, the profiled
+    film against ``step(4)`` from the same start, and the host cost of the
+    scopes.  Returns the launches of the profiled passes."""
+    import tempfile
+
+    from raytracercore_tpu_torch.render.renderer import Renderer, pass_draws
+
+    counts = {}
+    pair_us, gated_us = scope_cost_us()
+    mesh, mesh_cam = lit_mesh_scene(*BVH_MESH, BVH_SIZE, BVH_REC, dev)
+    cases = (
+        ("cornell", lambda: Renderer(host, device=dev, seed=SURF_SEED)),
+        ("mesh-184k", lambda: Renderer(mesh, device=dev, seed=SURF_SEED,
+                                       cameras=[mesh_cam],
+                                       accelerator="auto")))
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, make in cases:
+            r = make()
+            label = (f"{name} {r.arrays.width}x{r.arrays.height} "
+                     f"rec{r.arrays.recursion}")
+            r.step(2)  # warm
+            pass_ms = []
+            for _ in range(8):
+                t0 = time.perf_counter()
+                r.step(1)
+                pass_ms.append((time.perf_counter() - t0) * 1e3)
+            h, w = r.film.shape
+            t0 = time.perf_counter()
+            for k in range(20):
+                pass_draws(r.seed, k, h * w, r.arrays.recursion + 1, dev)
+            torch.cuda.synchronize()
+            draws_ms = (time.perf_counter() - t0) / 20 * 1e3
+            film0, start = r.film, r.pass_index
+            zero_counts()
+            path = r.profile(tmp, SURF_PROFILE_PASSES)
+            add_counts(counts, read_counts())
+            profiled = r.film
+            r.film, r.pass_index = film0, start
+            r.step(SURF_PROFILE_PASSES)
+            check(films_equal(profiled, r.film), f"{label}: profiled film "
+                  f"bit-equal to step({SURF_PROFILE_PASSES})")
+            split = scope_split(path, SURF_PROFILE_PASSES)
+            want = {"camera_rays", "film_accum",
+                    "trace_fused" if r.route == "megakernel"
+                    else "closest_hit"}
+            check(want <= set(split), f"{label}: the trace holds the scopes "
+                  f"{sorted(want)} ({sorted(split)})")
+            median = float(np.median(pass_ms))
+            n_scopes = (3 if r.route == "megakernel"
+                        else 2 + r.arrays.recursion + 1)
+            print(f"[surface] profile {label} (route {r.route}), "
+                  f"{SURF_PROFILE_PASSES} passes under torch.profiler, "
+                  f"per pass host ms / device ms: "
+                  + "; ".join(f"{k} {hm:.4f} / {dm:.4f}"
+                              for k, (hm, dm) in split.items())
+                  + f"; unprofiled pass median ms={median:.3f} (8 passes, "
+                  f"host clock), pass_draws host ms={draws_ms:.4f}; film "
+                  f"bit-equal to step({SURF_PROFILE_PASSES}) on {card}")
+            print(f"[surface] scopes of a {label} pass: {n_scopes} a pass; "
+                  f"{SURF_SCOPE_PAIRS} record_function enter/exit pairs with "
+                  f"no profiler took {pair_us * SURF_SCOPE_PAIRS / 1e3:.3f} "
+                  f"ms, {pair_us:.3f} us a pair "
+                  f"= {100 * n_scopes * pair_us / (median * 1e3):.3f} % of "
+                  f"the pass if always entered; the gated phase() "
+                  f"{gated_us:.3f} us a pair = "
+                  f"{100 * n_scopes * gated_us / (median * 1e3):.4f} % on "
+                  f"{card}")
+            del r, film0, profiled
+            torch.cuda.empty_cache()
+    return counts
+
+
+def surface_replay(card, dev, host):
+    """``trace_replay``'s options on cornell 700² rec10: the ``trace``
+    recorder (``record_fused=False``) against ``trace`` with the select
+    kernel and against the plain replay's autograd on its own tape; the
+    megakernel recorder refused on mesh-722; the plain replay
+    (``replay_kernel=False``) against the kernels on the same tape.
+    Returns the launches of the driven ``trace_replay`` calls."""
+    import dataclasses
+
+    from raytracercore_tpu_torch.diff import (get_material_params,
+                                              with_material_params)
+    from raytracercore_tpu_torch.intersect.cuda_select import \
+        closest_hit_fused
+    from raytracercore_tpu_torch.render import camera as cam_mod
+    from raytracercore_tpu_torch.render.integrator import trace
+    from raytracercore_tpu_torch.render.renderer import Renderer
+    from raytracercore_tpu_torch.render.replay import (record_tape, replay,
+                                                       trace_replay)
+    from raytracercore_tpu_torch.render.uniforms_kernel import \
+        prepare_uniforms_kernel
+
+    counts = {}
+    r = Renderer(host, device=dev, seed=SURF_SEED)
+    scene = r.arrays
+    h, w = r.film.shape
+    px, py = cam_mod.pixel_grid(w, h, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SURF_SEED)
+    jitter = torch.rand((h * w, 4), generator=gen, device=dev)
+    o, d = cam_mod.camera_rays(r.camera, px, py, jitter)
+    o, d = o.contiguous(), d.contiguous()
+    seed = SURF_SEED + 1
+    u = prepare_uniforms_kernel(seed, h * w, scene.recursion + 1, dev)
+
+    def grads(fn, *args, **kw):
+        params = get_material_params(scene)
+        color, miss = fn(with_material_params(scene, params), *args, **kw)
+        loss = torch.mean(torch.where(miss[:, None], 0.0, color) ** 2)
+        loss.backward()
+        return color.detach(), miss, {k: p.grad for k, p in params.items()}
+
+    def grad_err(got, want, what):
+        worst = 0.0
+        for k in want:
+            err = float((got[k] - want[k]).abs().max())
+            scale = float(want[k].abs().max())
+            check(bool(torch.isfinite(got[k]).all()), f"{what}: {k} finite")
+            check(err <= GRAD_TOL * scale, f"{what}: {k} grad {err:.3e} > "
+                  f"{GRAD_TOL} * {scale:.3e}")
+            worst = max(worst, err / scale if scale else 0.0)
+        return worst
+
+    zero_counts()
+    c_u, m_u, g_u = grads(trace_replay, o, d, seed=seed, record_fused=False)
+    torch.cuda.synchronize()
+    add_counts(counts, read_counts())
+    with torch.no_grad():
+        c_t, m_t = trace(scene, o, d, None, closest_fn=closest_hit_fused,
+                         uniforms=u)
+    check(torch.equal(m_u, m_t), "record_fused=False: misses equal trace's")
+    c_err = float((c_u - c_t).abs().max())
+    check(bool(((c_u - c_t).abs() <= REPLAY_ATOL + REPLAY_RTOL * c_t.abs())
+               .all()), f"record_fused=False: colour within {REPLAY_ATOL} + "
+          f"{REPLAY_RTOL} rel of trace ({c_err:.3e})")
+    tape = record_tape(scene, o, d, u, closest_fn=closest_hit_fused)
+    _, _, g_plain = grads(replay, o, d, u, tape)
+    e_unfused = grad_err(g_u, g_plain, "record_fused=False vs the plain "
+                         "replay's autograd")
+
+    mesh = lit_mesh_scene(MESH_GRID, MESH_SUBDIV, 64, 10, dev)[0]
+    try:
+        trace_replay(mesh, o[:4096], d[:4096], seed=seed, record_fused=True)
+        raised = ""
+    except ValueError as err:
+        raised = str(err)
+    check("fits" in raised, "record_fused=True raises on mesh-722, naming "
+          "fits")
+
+    zero_counts()
+    c_k, m_k, g_k = grads(trace_replay, o, d, seed=seed)
+    torch.cuda.synchronize()
+    add_counts(counts, read_counts())
+    air = scene.air_refractive_index.detach().clone().requires_grad_(True)
+    amb = scene.ambient_rgb.detach().clone().requires_grad_(True)
+    params = get_material_params(scene)
+    s = dataclasses.replace(with_material_params(scene, params),
+                            air_refractive_index=air, ambient_rgb=amb)
+    zero_counts()
+    c_p, m_p = trace_replay(s, o, d, seed=seed, replay_kernel=False)
+    add_counts(counts, read_counts())
+    torch.mean(torch.where(m_p[:, None], 0.0, c_p) ** 2).backward()
+    g_p = {k: p.grad for k, p in params.items()}
+    check(torch.equal(m_p, m_k), "replay_kernel=False: misses equal")
+    e_plain = grad_err(g_p, g_k, "replay_kernel=False vs the kernels")
+    check(bool(torch.isfinite(air.grad).all() and torch.isfinite(amb.grad)
+               .all()), "replay_kernel=False: air IOR and ambient grads "
+          "finite")
+    print(f"[surface] trace_replay cornell {w}x{h} rec10: "
+          f"record_fused=False colour max abs err {c_err:.3e} vs trace + "
+          f"select kernel, misses equal, grads max err/max|g| "
+          f"{e_unfused:.3e} vs the plain replay's autograd on its tape; "
+          f"record_fused=True on mesh-722 raised ValueError; "
+          f"replay_kernel=False grads max err/max|g| {e_plain:.3e} vs the "
+          f"kernels on the same tape, air IOR grad "
+          f"{float(air.grad):.6e}, ambient grad "
+          f"{[round(float(x), 9) for x in amb.grad]} on {card}")
+    return counts
+
+
+def surface_phase(card, dev):
+    """The rest of the JAX package's public surface at full width:
+    ``Film.add_scatter`` and ``merge``, ``Renderer(dtype=float64)``,
+    ``Renderer.profile`` with the phase scopes, ``trace_replay``'s
+    ``record_fused=`` and ``replay_kernel=``.  Returns the main-path
+    launches of the phase, by kernel."""
+    from raytracercore_tpu_torch.scene import loader
+
+    t_phase = time.perf_counter()
+    host = loader.parse(cornell_scene())
+    counts, times = {}, {}
+    for name, part in (("scatter+merge", surface_scatter_merge),
+                       ("float64", surface_float64),
+                       ("profile", surface_profile),
+                       ("trace_replay", surface_replay)):
+        t0 = time.perf_counter()
+        add_counts(counts, part(card, dev, host))
+        times[name] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    print(f"[surface] phase s={time.perf_counter() - t_phase:.1f} ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in times.items())
+          + f"); launches {counts}")
+    for k in ("trace_fused", "prepare_uniforms_kernel", "replay_fwd",
+              "replay_bwd", "closest_hit_fused", "traverse"):
+        check(counts.get(k, 0) > 0, f"surface phase launched {k}")
+    return counts
+
+
 # --- the parallel and debug phase --------------------------------------------
 # Ranks share the one card: two processes over gloo (NCCL refuses two ranks
 # on one device), and the parent alone over NCCL at world size 1.  Their
@@ -3488,11 +3975,17 @@ def main():
     fwd_err = max(fwd_err, bvh_replay_errs[0])
     bwd_err = max(bwd_err, bvh_replay_errs[1])
 
-    # --- 8. the sharded paths and the debug views -------------------------
+    # --- 8. the rest of the surface: add_scatter, merge, dtype=, profile,
+    # trace_replay's options ------------------------------------------------
     torch.cuda.empty_cache()
-    par_counts = parallel_phase(card, dev)
+    surf_counts = surface_phase(card, dev)
 
-    # --- 9. result lines ---------------------------------------------------
+    # --- 9. the sharded paths and the debug views -------------------------
+    torch.cuda.empty_cache()
+    # The launches of the surface and parallel phases' paths.
+    phase_counts = add_counts(parallel_phase(card, dev), surf_counts)
+
+    # --- 10. result lines --------------------------------------------------
     # No single PyTorch call computes any of these functions (a whole path,
     # Philox channels, a path replay and its adjoint, a closest hit over
     # three primitive tables, a BVH walk, a Morton key, an issue-rate
@@ -3511,35 +4004,35 @@ def main():
     print(json.dumps({"kernels": [
         entry("trace_fused", "fused.cu", "render/fused.py:56",
               launches + train_launches["trace_fused"]
-              + par_counts["trace_fused"], max_err, kernel_ms,
+              + phase_counts["trace_fused"], max_err, kernel_ms,
               plain_ms, fused_bound),
         entry("prepare_uniforms_kernel", "uniforms.cu",
               "render/uniforms_kernel.py:64",
               train_launches["prepare_uniforms_kernel"]
               + mesh_train_counts["prepare_uniforms_kernel"]
               + bvh_train_counts["prepare_uniforms_kernel"]
-              + par_counts["prepare_uniforms_kernel"], uni_err,
+              + phase_counts["prepare_uniforms_kernel"], uni_err,
               uni_ms, uni_plain_ms, train_bounds["uniforms"]),
         entry("replay_fwd", "replay.cu", "render/replay_kernel.py:163",
               train_launches["replay_fwd"] + mesh_train_counts["replay_fwd"]
-              + bvh_train_counts["replay_fwd"] + par_counts["replay_fwd"],
+              + bvh_train_counts["replay_fwd"] + phase_counts["replay_fwd"],
               fwd_err,
               *stage["replay forward"], train_bounds["replay forward"]),
         entry("replay_bwd", "replay.cu", "render/replay_kernel.py:193",
               train_launches["replay_bwd"] + mesh_train_counts["replay_bwd"]
-              + bvh_train_counts["replay_bwd"] + par_counts["replay_bwd"],
+              + bvh_train_counts["replay_bwd"] + phase_counts["replay_bwd"],
               bwd_err,
               *stage["replay backward"], train_bounds["replay backward"]),
         entry("closest_hit_fused", "select.cu",
               "intersect/pallas_select.py:42",
               select_launches + mesh_train_counts["closest_hit_fused"]
-              + par_counts["closest_hit_fused"],
+              + phase_counts["closest_hit_fused"],
               max(select_err, select_stage["max_abs_err"]),
               select_stage["ms"], select_stage["plain_ms"],
               (select_stage["bound_ms"], select_stage["bound_by"])),
         entry("traverse", "traverse.cu", "bvh/pallas_traverse.py:292",
               bvh_launches["traverse"] + bvh_train_counts["traverse"]
-              + par_counts["traverse"],
+              + phase_counts["traverse"],
               max(traverse_err, traverse_stage["max_abs_err"]),
               traverse_stage["ms"], traverse_stage["plain_ms"],
               (traverse_stage["bound_ms"], traverse_stage["bound_by"])),
@@ -3547,7 +4040,7 @@ def main():
         # of a Pallas kernel.
         entry("sort_key", "traverse.cu", "bvh/pallas_traverse.py:951",
               bvh_launches["sort_key"] + bvh_train_counts["sort_key"]
-              + par_counts.get("sort_key", 0), key_stage["max_abs_err"],
+              + phase_counts.get("sort_key", 0), key_stage["max_abs_err"],
               key_stage["ms"], key_stage["plain_ms"], key_stage["bound"]),
         entry("issue_probe", "issue_probe.cu",
               "scripts/vpu_issue_bench.py:106",

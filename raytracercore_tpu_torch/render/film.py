@@ -74,6 +74,45 @@ class Film:
             color_c=cc,
         )
 
+    def add_scatter(self, pix_linear, color, miss):
+        """Accumulate samples at arbitrary pixel indices (tile/shard path):
+        sample ``i`` [R] lands on row-major pixel ``pix_linear[i]``.
+
+        Scattered adds can collide on repeated indices, so compensation is
+        not maintained here — the error term is carried unchanged.  On
+        CUDA tensors ``index_add_`` sums colliding float samples by
+        atomics, in no fixed order; with unique indices every pixel gets
+        one add and the film equals :meth:`add_full_frame` of the same
+        samples in pixel order.
+        """
+        h, w = self.shape
+        idx = pix_linear.reshape(-1).long()
+        hit = ~miss
+        contrib = torch.where(hit[:, None], color, torch.zeros_like(color))
+
+        def scatter(plane, src):
+            out = plane.reshape((h * w,) + plane.shape[2:]).clone()
+            return out.index_add_(0, idx, src.to(out.dtype)).reshape(
+                plane.shape)
+        return Film(color_sum=scatter(self.color_sum, contrib),
+                    samples=scatter(self.samples, hit),
+                    misses=scatter(self.misses, miss),
+                    color_c=self.color_c)
+
+    def merge(self, other: "Film") -> "Film":
+        """Combine two accumulators (cross-device reduction).  The
+        compensation terms add, a missing one counting as zeros; the
+        result has none only when neither film has one."""
+        cc = self.color_c
+        if cc is not None or other.color_c is not None:
+            z = torch.zeros_like(self.color_sum)
+            cc = ((self.color_c if self.color_c is not None else z)
+                  + (other.color_c if other.color_c is not None else z))
+        return Film(color_sum=self.color_sum + other.color_sum,
+                    samples=self.samples + other.samples,
+                    misses=self.misses + other.misses,
+                    color_c=cc)
+
     @property
     def corrected_sum(self):
         """color_sum with the compensation folded in."""

@@ -22,6 +22,8 @@ Both consume the preprocessed uniforms of
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -55,7 +57,15 @@ def pack_scene(scene: SceneArrays):
     scf = torch.cat([scene.air_refractive_index.reshape(1),
                      scene.ambient_rgb.reshape(3)]).to(torch.float32)
     return tuple(t.detach().contiguous() for t in (
-        *kb.pack_tables(scene), pack_materials(scene.materials), scf))
+        *_f32_tables(scene), pack_materials(scene.materials), scf))
+
+
+def _f32_tables(scene: SceneArrays):
+    """:func:`.kernel_body.pack_tables` with the float tables in f32 (the
+    kernels' precision, whatever the scene's dtype)."""
+    tf, ti, sf, si, pf, pi = kb.pack_tables(scene)
+    f32 = torch.float32
+    return tf.to(f32), ti, sf.to(f32), si, pf.to(f32), pi
 
 
 def with_material_rows(tables, materials):
@@ -79,12 +89,13 @@ def _lum(c):
 
 def trace_fused_reference(scene: SceneArrays, ray_o, ray_d, uniforms,
                           want_tape: bool = False):
-    """Plain torch version of the megakernel (any device).
+    """Plain torch version of the megakernel (any device), in f32 like
+    the kernel.
 
     Args:
       scene: frozen scene on the rays' device.
-      ray_o, ray_d: [R, 3] camera rays.
-      uniforms: [recursion + 1, 7, R] preprocessed uniforms.
+      ray_o, ray_d: [R, 3] f32 camera rays.
+      uniforms: [recursion + 1, 7, R] f32 preprocessed uniforms.
       want_tape: also return the :class:`.integrator.PathTape`.
 
     Returns: (color [R, 3], miss [R] bool[, PathTape]).
@@ -92,7 +103,7 @@ def trace_fused_reference(scene: SceneArrays, ray_o, ray_d, uniforms,
     R = ray_o.shape[0]
     n_bounces = scene.recursion + 1
     dev = ray_o.device
-    tf, ti, sf, si, pf, pi = kb.pack_tables(scene)
+    tf, ti, sf, si, pf, pi = _f32_tables(scene)
     mf = pack_materials(scene.materials)
     if mf.shape[0] == 0:  # no primitives: nothing is ever hit
         mf = torch.zeros((1, MAT_F), device=dev)
@@ -420,14 +431,28 @@ def trace_fused(scene: SceneArrays, ray_o, ray_d, uniforms,
 
     On CUDA tensors this launches the hand-written megakernel
     (``csrc/fused.cu``) and raises if it cannot; it never falls back.  On
-    CPU tensors it runs :func:`trace_fused_reference`.
+    CPU tensors it runs :func:`trace_fused_reference`.  Both compute in f32:
+    rays and uniforms of another float dtype (f64) go in as f32 copies,
+    and the colour and the tape normals come back in the rays' dtype.
     """
+    if ray_o.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"trace_fused: unsupported device {ray_o.device}")
+    dtype = ray_o.dtype
+    o, d, u = (t.to(torch.float32).contiguous()
+               for t in (ray_o, ray_d, uniforms))
     if ray_o.device.type == "cuda":
-        return _launch(scene, ray_o, ray_d, uniforms, want_tape)
-    if ray_o.device.type == "cpu":
-        return trace_fused_reference(scene, ray_o, ray_d, uniforms,
-                                     want_tape)
-    raise ValueError(f"trace_fused: unsupported device {ray_o.device}")
+        out = _launch(scene, o, d, u, want_tape)
+    else:
+        out = trace_fused_reference(scene, o, d, u, want_tape)
+    if dtype == torch.float32:
+        return out
+    color, miss = out[0].to(dtype), out[1]
+    if not want_tape:
+        return color, miss
+    tape = out[2]
+    return color, miss, dataclasses.replace(
+        tape, nx=tape.nx.to(dtype), ny=tape.ny.to(dtype),
+        nz=tape.nz.to(dtype))
 
 
 # Kernel launches made by trace_fused (reset it to 0 before a run to see

@@ -33,6 +33,7 @@ packing.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
@@ -88,6 +89,18 @@ class PathTape:
     FLAG_INSIDE = 1 << 4
     FLAG_FLIVE = 1 << 5
     CODE_MASK = 0xF
+
+
+def phase(name: str):
+    """The profiler scope of one phase of a pass (``camera_rays``,
+    ``trace_fused``, ``film_accum``; ``closest_hit`` on every bounce of
+    :func:`trace`), the JAX package's ``jax.named_scope`` names:
+    ``torch.profiler.record_function(name)`` while a profiler is
+    recording, else a context that does nothing.  An unprofiled scope
+    would cost host time on paths that the host already bounds."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return contextlib.nullcontext()
 
 
 def preprocess_uniforms(raw):
@@ -255,7 +268,8 @@ def trace(scene: SceneArrays, ray_o, ray_d, generator=None,
     if scene.debug_geom:
         # Flat geometry view (Raytracer.cs:93-98): first hit's
         # spec+diff+emission; primary misses stay misses.
-        hit = closest_fn(scene, ray_o, ray_d, None)
+        with phase("closest_hit"):
+            hit = closest_fn(scene, ray_o, ray_d, None)
         mat = _gather_material(scene.materials, hit.prim)
         color = mat["specular"] + mat["diffuse"] + mat["emission"]
         color = torch.where(hit.found[:, None], color, 0.0)
@@ -305,7 +319,8 @@ def trace(scene: SceneArrays, ray_o, ray_d, generator=None,
         # Periodic renormalization (Raytracer.cs:74-75), bounce 0 included.
         d = vm.normalize(state.ray_d) if i % 3 == 0 else state.ray_d
 
-        hit = closest_fn(scene, state.ray_o, d, state.prev)
+        with phase("closest_hit"):
+            hit = closest_fn(scene, state.ray_o, d, state.prev)
         active = state.alive
         found = hit.found
 

@@ -15,10 +15,16 @@ Randomness: pass ``k`` draws its camera jitter and its path uniforms from a
 gives the same film however it is chunked into ``step`` calls.  The
 numbers are the device generator's (Philox on CUDA, Mersenne Twister on
 the CPU), not the JAX package's threefry stream.
+
+Each pass runs its phases inside the JAX package's profiler scopes
+(``camera_rays``, ``trace_fused``, ``film_accum``; ``closest_hit`` on every
+bounce of ``trace``), entered while a profiler records
+(:func:`.integrator.phase`); :meth:`Renderer.profile` writes such a trace.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Callable, Optional
 
@@ -35,7 +41,7 @@ from ..scene.types import HostScene, SceneArrays, freeze_scene, init_camera
 from . import camera as cam_mod
 from . import fused
 from .film import Film
-from .integrator import prepare_uniforms, trace
+from .integrator import phase, preprocess_uniforms, trace
 
 
 def pass_seed(seed: int, pass_index: int) -> int:
@@ -74,10 +80,11 @@ def render_pass(scene: SceneArrays, camera, film: Film, jitter, uniforms,
         px, py = cam_mod.pixel_grid(w, h, device=jitter.device)
     color, miss = trace_pixels(scene, camera, px, py, jitter, uniforms,
                                closest_fn, trace_fn)
-    if tile:
-        color = cam_mod.untile(color, w, h, tile)
-        miss = cam_mod.untile(miss, w, h, tile)
-    return film.add_full_frame(color, miss)
+    with phase("film_accum"):
+        if tile:
+            color = cam_mod.untile(color, w, h, tile)
+            miss = cam_mod.untile(miss, w, h, tile)
+        return film.add_full_frame(color, miss)
 
 
 def trace_pixels(scene: SceneArrays, camera, px, py, jitter, uniforms,
@@ -86,10 +93,12 @@ def trace_pixels(scene: SceneArrays, camera, px, py, jitter, uniforms,
     pixels ``(px, py)`` [R]: camera rays from ``jitter`` [R, 4], then
     ``trace_fn`` or :func:`.integrator.trace` with ``closest_fn`` on
     ``uniforms`` [B, 7, R] (the body of :func:`render_pass`)."""
-    ray_o, ray_d = cam_mod.camera_rays(camera, px, py, jitter)
-    ray_o, ray_d = ray_o.contiguous(), ray_d.contiguous()
+    with phase("camera_rays"):
+        ray_o, ray_d = cam_mod.camera_rays(camera, px, py, jitter)
+        ray_o, ray_d = ray_o.contiguous(), ray_d.contiguous()
     if trace_fn is not None:
-        return trace_fn(scene, ray_o, ray_d, uniforms)
+        with phase("trace_fused"):
+            return trace_fn(scene, ray_o, ray_d, uniforms)
     # No early exit: at full-frame batches some ray nearly always survives
     # to the recursion cap, and the test costs a host read of the device
     # per bounce.
@@ -97,14 +106,19 @@ def trace_pixels(scene: SceneArrays, camera, px, py, jitter, uniforms,
                  uniforms=uniforms)
 
 
-def pass_draws(seed: int, k: int, n: int, bounces: int, device):
+def pass_draws(seed: int, k: int, n: int, bounces: int, device,
+               dtype=torch.float32):
     """The random numbers of pass ``k`` of a run seeded ``seed`` over ``n``
-    pixels: ``(jitter [n, 4], uniforms [bounces, 7, n])``, drawn from a
-    generator on ``device`` seeded with :func:`pass_seed` ``(seed, k)``."""
+    pixels: ``(jitter [n, 4], uniforms [bounces, 7, n])`` in ``dtype``,
+    drawn from a generator on ``device`` seeded with :func:`pass_seed`
+    ``(seed, k)``.  The generator always draws f32 uniforms
+    (:func:`.integrator.prepare_uniforms`' stream), so every ``dtype`` sees
+    the same numbers; the uniform channels are computed in ``dtype``."""
     gen = torch.Generator(device=device)
     gen.manual_seed(pass_seed(seed, k))
     jitter = torch.rand((n, 4), generator=gen, device=device)
-    return jitter, prepare_uniforms(gen, n, bounces, device)
+    raw = torch.rand((bounces, 5, n), generator=gen, device=device)
+    return jitter.to(dtype), preprocess_uniforms(raw.to(dtype))
 
 
 def pick_route(arrays: SceneArrays, accelerator: str = "auto"):
@@ -145,7 +159,7 @@ def render_passes(scene: SceneArrays, camera, film: Film, seed: int,
     device = film.samples.device
     for k in range(start, start + n):
         jitter, uniforms = pass_draws(seed, k, h * w, scene.recursion + 1,
-                                      device)
+                                      device, film.color_sum.dtype)
         with torch.no_grad():
             film = render_pass(scene, camera, film, jitter, uniforms,
                                closest_fn=closest_fn, trace_fn=trace_fn,
@@ -164,13 +178,21 @@ class Renderer:
     def __init__(self, scene: HostScene | SceneArrays, device="cuda",
                  seed: int = 0, camera_index: int = 0,
                  compensated: bool = False, accelerator: str = "auto",
-                 closest_fn=None, cameras=None):
+                 closest_fn=None, cameras=None, dtype=torch.float32):
         """``scene``: a loaded :class:`HostScene`, or frozen
-        :class:`SceneArrays` (as :mod:`..scene.meshgen` makes them) together
-        with their host ``cameras``.  ``device``: where the scene, film and
-        kernels live ("cuda" runs the kernels; "cpu" their plain versions).
-        ``compensated``: Neumaier-compensated film accumulation for runs of
-        thousands of samples per pixel.
+        :class:`SceneArrays` (as :mod:`..scene.meshgen` makes them, cast to
+        ``dtype``) together with their host ``cameras``.  ``device``: where
+        the scene, film and kernels live ("cuda" runs the kernels; "cpu"
+        their plain versions).  ``compensated``: Neumaier-compensated film
+        accumulation for runs of thousands of samples per pixel.
+
+        ``dtype`` (f32 or f64): the scene tables, camera, random numbers,
+        the shading outside the kernels and the film.  The kernels compute
+        in f32 on f32 copies, so on the card an f64 renderer takes the
+        route an f32 one takes.  On the CPU an f64 dense-tier scene is
+        traced by ``trace`` with the f64
+        :func:`..intersect.dispatch.closest_hit` (the JAX ``Renderer`` off
+        its accelerator), not by the f32 plain versions of the kernels.
 
         ``accelerator``: "brute" (dense scan), "bvh", or "auto", the
         route :func:`pick_route` picks: the BVH route builds the triangle
@@ -184,17 +206,22 @@ class Renderer:
         ``closest_fn`` overrides the pick and runs through ``trace``."""
         if accelerator not in ("auto", "brute", "bvh"):
             raise ValueError(f"Renderer: unknown accelerator {accelerator!r}")
+        if dtype not in (torch.float32, torch.float64):
+            raise ValueError(f"Renderer: dtype {dtype} is not float32 or "
+                             "float64")
         self.device = resolve_device(device, "Renderer")
         self.seed = seed
+        self.dtype = dtype
         self.compensated = compensated
         if isinstance(scene, SceneArrays):
             if not cameras:
                 raise ValueError("Renderer: frozen SceneArrays come with "
                                  "their cameras=[HostCamera, ...]")
-            self.arrays = scene.to(self.device)
+            self.arrays = scene.to(self.device, dtype)
             self.cameras = list(cameras)
         else:
-            self.arrays = freeze_scene(scene, device=self.device)
+            self.arrays = freeze_scene(scene, device=self.device,
+                                       dtype=dtype)
             self.cameras = scene.cameras
         self.camera_index = camera_index
         if closest_fn is not None:
@@ -202,6 +229,9 @@ class Renderer:
         else:
             self.closest_fn, self.trace_fn, self.bvh = pick_route(
                 self.arrays, accelerator)
+            if (dtype == torch.float64 and self.device.type == "cpu"
+                    and self.bvh is None):
+                self.closest_fn, self.trace_fn = closest_hit, None
         self.reset()
 
     @property
@@ -218,12 +248,13 @@ class Renderer:
     def _init_camera(self):
         s = self.arrays
         return init_camera(self.cameras[self.camera_index], s.width,
-                           s.height, device=self.device)
+                           s.height, device=self.device, dtype=self.dtype)
 
     def reset(self) -> None:
         s = self.arrays
         self.camera = self._init_camera()
         self.film = Film.create(s.height, s.width, device=self.device,
+                                dtype=self.dtype,
                                 compensated=self.compensated)
         self.pass_index = 0
         self._elapsed = 0.0
@@ -279,12 +310,32 @@ class Renderer:
             "progress": spp / (spp + 1000.0),
         }
 
+    def profile(self, logdir: str, n: int = 4) -> str:
+        """Run ``n`` passes (``step(n)``: the film and ``pass_index``
+        advance as they would without the profiler) under
+        ``torch.profiler``, with the card's kernels on a CUDA device, and
+        write the Chrome trace into ``logdir``; returns its path.  The
+        phases appear as the scopes ``camera_rays``, ``trace_fused`` or
+        ``closest_hit`` (one a bounce), and ``film_accum``."""
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        with profile(activities=activities) as prof:
+            self.step(n)
+        os.makedirs(logdir, exist_ok=True)
+        path = os.path.join(
+            logdir, f"render_passes_{self.pass_index - n}-"
+            f"{self.pass_index - 1}_{os.getpid()}.trace.json")
+        prof.export_chrome_trace(path)
+        return path
+
     def image(self, exposure: float = 1.0) -> np.ndarray:
         """Tonemapped uint8 RGBA frame [H, W, 4] (GetBitmap,
         FullRaytracer.cs:179-205)."""
         s = self.arrays
-        return self.film.to_uint8(s.background_rgb.float(),
-                                  s.background_alpha.float(),
+        return self.film.to_uint8(s.background_rgb, s.background_alpha,
                                   exposure).cpu().numpy()
 
     # -- checkpoint / resume ----------------------------------------------
@@ -308,7 +359,7 @@ class Renderer:
         self.camera = self._init_camera()
 
         def t(a):
-            return torch.tensor(a, dtype=torch.float32, device=self.device)
+            return torch.tensor(a, dtype=self.dtype, device=self.device)
         cc = t(arrays["color_c"]) if "color_c" in arrays else None
         self.film = Film(color_sum=t(arrays["color_sum"]),
                          samples=t(arrays["samples"]),

@@ -92,7 +92,9 @@ def _default_record_fn(scene: SceneArrays, closest_fn):
 
 def trace_replay(scene: SceneArrays, ray_o, ray_d, seed: int | None = None,
                  uniforms=None, record_as_primal: bool = True,
-                 closest_fn=closest_hit, grad_group=None):
+                 closest_fn=closest_hit, grad_group=None,
+                 record_fused: bool | None = None,
+                 replay_kernel: bool | None = None):
     """The train path's trace: ``(color [R, 3], miss [R] bool)``,
     differentiable in ``scene.materials`` — the estimator of
     :func:`.integrator.trace` with a selection-free backward.
@@ -100,21 +102,32 @@ def trace_replay(scene: SceneArrays, ray_o, ray_d, seed: int | None = None,
     Uniforms come from :func:`.uniforms_kernel.prepare_uniforms_kernel`
     keyed by ``seed``, unless ``uniforms`` [B, 7, R] is given.
 
-    The recorder: with the default ``closest_fn``, scenes the megakernel
-    takes (:func:`.fused.fits`) are recorded by it; all others by
-    :func:`record_tape` with :func:`_default_record_fn`'s closest hit, and
-    then values and gradients equal ``trace``'s for the same uniforms.
-    ``debug geom`` scenes have no bounce loop to replay and return
-    ``trace``.  With the default ``closest_fn`` a scene above
-    ``config.SELECT_MAX_PRIMS`` table rows raises ``NotImplementedError``:
-    give it the BVH tier's closest hit
+    The recorder (``record_fused``): None picks the megakernel
+    (:func:`record_tape_fused`) for f32 rays when ``closest_fn`` is the
+    default and the scene :func:`.fused.fits`, else :func:`record_tape`
+    with :func:`_default_record_fn`'s closest hit (the select kernel on
+    the card, ``closest_fn`` off it); then values and gradients equal
+    ``trace``'s for the same uniforms.  False always takes
+    :func:`record_tape`, even on a scene the megakernel takes.  True
+    always takes the megakernel, and raises ``ValueError`` on a scene it
+    does not fit or on rays that are not f32 (it samples paths in f32,
+    which would not be an f64 estimator).  ``debug geom`` scenes have no
+    bounce loop to replay and return ``trace``.  With the default
+    ``closest_fn`` a scene above ``config.SELECT_MAX_PRIMS`` table rows
+    raises ``NotImplementedError``: give it the BVH tier's closest hit
     (:func:`..intersect.dispatch.make_bvh_closest_fn`), which then records
     the tape.
 
-    The replay: :func:`.replay_kernel.replay_fused`, whose kernels keep a
-    material table of up to ``MAX_KERNEL_MATS`` rows in shared memory and
-    read a larger one (a mesh has one material row per triangle) from
-    device memory.
+    The replay (``replay_kernel``): None takes the kernels for f32 rays —
+    :func:`.replay_kernel.replay_fused`, whose kernels keep a material
+    table of up to ``MAX_KERNEL_MATS`` rows in shared memory and read a
+    larger one (a mesh has one material row per triangle) from device
+    memory; they give no gradient to the rays, air IOR or ambient.  For
+    other rays None takes the plain :func:`replay` on CPU tensors and
+    raises ``ValueError`` on CUDA tensors, where no plain version runs
+    unless asked for.  False takes the plain differentiable :func:`replay`
+    on any device: its gradients also reach air IOR and ambient.  True
+    takes the kernels, on f32 copies of other rays.
 
     ``record_as_primal`` picks the route of the forward value on the
     megakernel-recorder route.  True (the default, and the only route of
@@ -137,23 +150,39 @@ def trace_replay(scene: SceneArrays, ray_o, ray_d, seed: int | None = None,
             f"trace_replay on a scene of {rows} table rows: the dense tier "
             f"takes up to SELECT_MAX_PRIMS ({SELECT_MAX_PRIMS}) rows; give "
             "closest_fn=make_bvh_closest_fn(build_bvh(scene), scene)")
+    f32 = ray_o.dtype == torch.float32
+    if record_fused is None:
+        record_fused = f32 and closest_fn is closest_hit and fused.fits(scene)
+    elif record_fused and not (f32 and fused.fits(scene)):
+        raise ValueError(
+            "trace_replay(record_fused=True) needs float32 rays and a scene "
+            f"that fused.fits (at most {fused.MAX_PRIMS} table rows, no "
+            f"debug geom); got {ray_o.dtype} rays on a scene of {rows} rows")
     if scene.debug_geom:
         return trace(scene, ray_o, ray_d, None, closest_fn=closest_fn)
-    R = ray_o.shape[0]
+    if replay_kernel is None:
+        if not f32 and ray_o.device.type == "cuda":
+            raise ValueError(
+                f"trace_replay: the replay kernels compute in float32, and "
+                f"{ray_o.dtype} rays on a CUDA device take the plain replay "
+                "only when asked: pass replay_kernel=False (or True for "
+                "the kernels on float32 copies)")
+        replay_kernel = f32
     if uniforms is None:
         if seed is None:
             raise ValueError("trace_replay: give a seed or the uniforms")
-        uniforms = prepare_uniforms_kernel(seed, R, scene.recursion + 1,
-                                           ray_o.device)
+        uniforms = prepare_uniforms_kernel(seed, ray_o.shape[0],
+                                           scene.recursion + 1, ray_o.device)
     primal = None
-    if closest_fn is closest_hit and fused.fits(scene):
+    if record_fused:
         color_r, miss_r, tape = _record_fused(scene, ray_o, ray_d, uniforms)
         if record_as_primal:
             primal = (color_r, miss_r)
     else:
         tape = record_tape(scene, ray_o, ray_d, uniforms,
                            closest_fn=_default_record_fn(scene, closest_fn))
-    if grad_group is not None and ray_o.device.type == "cpu":
+    if not replay_kernel or (grad_group is not None
+                             and ray_o.device.type == "cpu"):
         return replay(scene, ray_o, ray_d, uniforms, tape,
                       grad_group=grad_group)
     return replay_fused(scene, ray_o, ray_d, uniforms, tape, primal=primal,

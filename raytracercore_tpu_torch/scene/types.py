@@ -202,14 +202,17 @@ class HostScene:
 # ---------------------------------------------------------------------------
 
 class _Tensors:
-    """Mixin: ``.to(device)`` moves every tensor field (recursively)."""
+    """Mixin: ``.to(device[, dtype])`` moves every tensor field
+    (recursively), and casts the floating-point ones to ``dtype``."""
 
-    def to(self, device):
+    def to(self, device, dtype=None):
         moved = {}
         for f in dataclasses.fields(self):
             v = getattr(self, f.name)
-            if isinstance(v, (torch.Tensor, _Tensors)):
-                v = v.to(device)
+            if isinstance(v, _Tensors):
+                v = v.to(device, dtype)
+            elif isinstance(v, torch.Tensor):
+                v = v.to(device, dtype if v.is_floating_point() else None)
             moved[f.name] = v
         return dataclasses.replace(self, **moved)
 
