@@ -265,8 +265,9 @@ OPS_TRI, OPS_SPH, OPS_PLN, OPS_HIT = 52, 63, 13, 40
 OPS_SHADE = 150           # one bounce of shading (fused.cu, replay.cu fwd)
 OPS_SHADE_BWD = 600       # its hand-written adjoint (replay.cu backward)
 OPS_UNIFORMS = 245        # per path and bounce: 5 Philox draws + 7 channels
-# csrc/traverse.cu: a node visit is the slab test (6 subtractions, 6
-# products, 12 min/max, 3 comparisons); a leaf record up to its first exit
+# csrc/traverse.cu: a box test is the slab test (6 subtractions, 6
+# products, 12 min/max, 3 comparisons), W of them a wide fetch; a leaf
+# record up to its first exit
 # is the triangle's Moller-Trumbore without the coplanar test, the sphere's
 # discriminant on the normalized direction, or the ellipsoid's object-space
 # ray and discriminant.
@@ -1542,10 +1543,31 @@ def in_sphere_bvh_metric(scene, want, d):
         on_plain, want.t * torch.linalg.vector_norm(d, dim=1), want.t))
 
 
+def traverse_flat(out):
+    """A ``TraverseOut`` as :func:`select_flat` gives ``select``'s result."""
+    f = out.flags
+    return {"row": torch.clamp(out.row, min=0), "any": out.row >= 0,
+            "t": out.t, "prim": out.prim, "pos": out.position,
+            "nrm": out.normal, "inside": (f & 1) != 0,
+            "inside_geo": (f & 2) != 0, "smooth": (f & 4) != 0, "u": out.u,
+            "v": out.v, "stats": out.stats}
+
+
+def differing_fields(got, want, fields):
+    return {f: int((got[f] != want[f]).sum()) for f in fields
+            if not torch.equal(got[f], want[f])}
+
+
 def traverse_case(label, bvh, o, d, skip):
-    """The traversal kernel against its plain version on one query through
-    ``bvh.select``: all 12 outputs and both counters bit for bit.  Returns
-    (max abs error of the floats where a hit was found, the counters)."""
+    """The traversal kernel on one query through ``bvh.select``, unsorted
+    and sorted, against its plain version (the wide walk,
+    ``select(reference=True)``): all 12 outputs and both counters bit for
+    bit; and against the binary skip-link walk ``traverse_reference`` on
+    ``bvh.nodes``: the 12 outputs and the records tested bit for bit (its
+    first counter counts binary nodes visited, the kernel's the root test
+    and the wide nodes fetched).  Returns (max abs error of the floats
+    where a hit was found, the kernel's counters, the binary walk's)."""
+    from raytracercore_tpu_torch.bvh import cuda_traverse as ct
     from raytracercore_tpu_torch.core import vecmath as vm
 
     eps = (vm.near_enough(torch.float32), vm.POSITION_EPS_F32)
@@ -1555,11 +1577,17 @@ def traverse_case(label, bvh, o, d, skip):
                                  want_stats=True, reference=True))
     srt = select_flat(bvh.select(o, d, skip, *eps, want_detail=True,
                                  want_stats=True, sort=True))
+    binary = traverse_flat(ct.traverse_reference(
+        bvh.nodes, bvh.leaves, bvh.leaf_kind, o.float().contiguous(),
+        d.float().contiguous(), bvh._skip(skip), *eps, want_stats=True))
     torch.cuda.synchronize()
-    differing = {f: int((got[f] != ref[f]).sum()) for f in ref
-                 if not torch.equal(got[f], ref[f])}
-    sort_differing = {f: int((srt[f] != got[f]).sum()) for f in got
-                      if not torch.equal(srt[f], got[f])}
+    differing = differing_fields(got, ref, ref)
+    sort_differing = differing_fields(srt, got, got)
+    outputs = [f for f in got if f != "stats"]
+    bin_differing = differing_fields(got, binary, outputs)
+    bin_differing.update(differing_fields(
+        {"records tested": got["stats"][:, 1]},
+        {"records tested": binary["stats"][:, 1]}, ["records tested"]))
     hit = ref["any"]
     max_err = 0.0
     for f in ("t", "pos", "nrm", "u", "v"):
@@ -1568,20 +1596,27 @@ def traverse_case(label, bvh, o, d, skip):
         if bool(hit.any()):
             max_err = max(max_err, float(
                 (got[f][hit] - ref[f][hit]).abs().max()))
-    visited, tested = (got["stats"].float().mean(0).tolist()
+    fetched, tested = (got["stats"].float().mean(0).tolist()
                        if o.shape[0] else (0.0, 0.0))
+    visited = (float(binary["stats"][:, 0].float().mean())
+               if o.shape[0] else 0.0)
     print(f"[traverse] {label} {bvh.leaf_kind} leaves ({bvh.n_nodes} "
-          f"nodes, leaf size {bvh.K}): R={o.shape[0]} "
-          f"found={float(hit.float().mean()):.4f} nodes visited per "
-          f"ray={visited:.2f} records tested per ray={tested:.2f} "
-          f"kernel==plain on all 12 outputs and both counters="
-          f"{not differing} {differing or ''} sorted kernel==unsorted="
-          f"{not sort_differing} {sort_differing or ''}")
+          f"nodes, {bvh.wide.table.shape[0]} {bvh.wide.width}-wide, stack "
+          f"depth {bvh.wide.depth}, leaf size {bvh.K}): R={o.shape[0]} "
+          f"found={float(hit.float().mean()):.4f} wide fetches per ray="
+          f"{fetched:.2f} (binary nodes visited {visited:.2f}) records "
+          f"tested per ray={tested:.2f} kernel==wide plain on all 12 "
+          f"outputs and both counters={not differing} {differing or ''} "
+          f"kernel==binary plain on the 12 outputs and records tested="
+          f"{not bin_differing} {bin_differing or ''} sorted kernel=="
+          f"unsorted={not sort_differing} {sort_differing or ''}")
     check(not differing, f"{label} {bvh.leaf_kind}: traversal kernel "
           f"bit-equal to its plain version ({differing})")
+    check(not bin_differing, f"{label} {bvh.leaf_kind}: traversal kernel "
+          f"bit-equal to the binary walk ({bin_differing})")
     check(not sort_differing, f"{label} {bvh.leaf_kind}: the sorted "
           f"traversal bit-equal to the unsorted one ({sort_differing})")
-    return max_err, got["stats"]
+    return max_err, got["stats"], binary["stats"]
 
 
 def key_case(label, bvh, o, d):
@@ -1649,9 +1684,9 @@ def compare_traverse(label, scene, closest, queries, bounces=(0, 1, 2, 3),
     for b, skip in cases:
         o, d, _ = queries[b]
         for bvh in closest.bvhs:
-            err, _ = traverse_case(
+            err = traverse_case(
                 f"{label} bounce {b} skip={skip is not None}", bvh, o, d,
-                skip)
+                skip)[0]
             max_err = max(max_err, err)
         if b in oracle_bounces:
             gen = torch.Generator(device=o.device)
@@ -1668,8 +1703,8 @@ def compare_traverse(label, scene, closest, queries, bounces=(0, 1, 2, 3),
     b = min(1, len(queries) - 1)
     for name, query in lane_variants(queries[b], 61 + b):
         for bvh in closest.bvhs:
-            err, stats = traverse_case(f"{label} bounce {b} {name}", bvh,
-                                       *query)
+            err, stats, _ = traverse_case(f"{label} bounce {b} {name}",
+                                          bvh, *query)
             max_err = max(max_err, err)
             dead = parked(query[0])
             if bool(dead.any()):
@@ -1699,20 +1734,15 @@ def traverse_times(label, bvh, queries, card):
     from raytracercore_tpu_torch.core import vecmath as vm
 
     eps = (vm.near_enough(torch.float32), vm.POSITION_EPS_F32)
+    wides = wide_variants(bvh)
     rows = []
     for b, query in enumerate(queries):
         o, d, skip = query
 
         def call(sort=False, query=query):
             return bvh.select(*query, *eps, want_detail=True, sort=sort)
-        want = select_flat(bvh.select(*query, *eps, want_detail=True,
-                                      want_stats=True))
-        got = select_flat(bvh.select(*query, *eps, want_detail=True,
-                                     want_stats=True, sort=True))
-        differing = {f: int((got[f] != want[f]).sum()) for f in want
-                     if not torch.equal(got[f], want[f])}
-        check(not differing, f"{label} bounce {b}: the sorted traversal "
-              f"bit-equal to the unsorted one ({differing})")
+        _, stats, bin_stats = traverse_case(f"{label} bounce {b}", bvh,
+                                            *query)
         key = ct.sort_key(o, d, bvh.root_min, bvh.root_max)
         order = bvh.ray_order(o, d)
         sk = bvh._skip(skip)
@@ -1723,7 +1753,7 @@ def traverse_times(label, bvh, queries, card):
                                               bvh.root_max), 20, calls=20)
         sort_ms = graph_ms(lambda: torch.sort(key, stable=True), 20)
         walk_ms = graph_ms(lambda: ct.traverse(
-            bvh.nodes, bvh.leaves, bvh.leaf_kind, o, d, sk, *eps,
+            bvh.wide, bvh.leaves, bvh.leaf_kind, o, d, sk, *eps,
             order=order), 20)
         # Two orders that tell the sort's parts apart: the rays copied into
         # key order beforehand (the walk without scattered reads and
@@ -1731,20 +1761,24 @@ def traverse_times(label, bvh, queries, card):
         # (the compaction without the spatial sort).
         go, gd, gsk = take_rays(query, order)
         gathered_ms = graph_ms(lambda: ct.traverse(
-            bvh.nodes, bvh.leaves, bvh.leaf_kind, go, gd, bvh._skip(gsk),
+            bvh.wide, bvh.leaves, bvh.leaf_kind, go, gd, bvh._skip(gsk),
             *eps), 20)
         del go, gd, gsk
         last = torch.sort(parked(o).to(torch.int32), stable=True).indices
         parked_last_ms = graph_ms(lambda: ct.traverse(
-            bvh.nodes, bvh.leaves, bvh.leaf_kind, o, d, sk, *eps,
+            bvh.wide, bvh.leaves, bvh.leaf_kind, o, d, sk, *eps,
             order=last), 20)
         parts = kernel_us(call, 5, TRAVERSE_KERNELS)
         sorted_parts = kernel_us(lambda: call(True), 5, TRAVERSE_KERNELS + 1)
-        stats = want["stats"]
         bnd = traverse_bound(bvh, stats, query)
+        reached = reached_bound(bvh.wide.width * 32, stats, query,
+                                bvh.leaf_kind)
+        reached_bin = reached_bound(32, bin_stats, query, bvh.leaf_kind)
+        variants = traverse_variants(bvh, query, eps, wides, bin_stats)
         R = o.shape[0]
         n_alive = max(float((~parked(o)).sum()), 1.0)
         visited, tested = stats.float().mean(0).tolist()
+        bin_visited = float(bin_stats[:, 0].float().mean())
         eff = warp_efficiency(stats[:, 0])
         eff_sorted = warp_efficiency(stats[:, 0], order)
         eff_last = warp_efficiency(stats[:, 0], last)
@@ -1756,7 +1790,9 @@ def traverse_times(label, bvh, queries, card):
                      "key_ms": key_ms, "sort_ms": sort_ms,
                      "walk_ms": walk_ms, "gathered_ms": gathered_ms,
                      "parked_last_ms": parked_last_ms, "bound": bnd,
-                     "stats": stats, "eff": eff, "eff_sorted": eff_sorted})
+                     "reached": reached, "reached_binary": reached_bin,
+                     "stats": stats, "eff": eff, "eff_sorted": eff_sorted,
+                     "variants": variants})
         print(f"[time] traversal {label} bounce {b}: wrapper ms={ms:.4f} "
               f"device ms (CUDA graph) unsorted={fmt_ms(dev_ms)} sorted="
               f"{fmt_ms(sorted_ms)} (key {fmt_ms(key_ms)}, sort "
@@ -1764,19 +1800,40 @@ def traverse_times(label, bvh, queries, card):
               f"walk on rays copied into key order {fmt_ms(gathered_ms)}, "
               f"walk with the parked lanes last {fmt_ms(parked_last_ms)}, "
               f"warp efficiency {eff_last:.4f}) "
-              f"bound ms={bnd[0]:.4f} (by {bnd[1]}) lanes not parked="
-              f"{n_alive / R:.4f} nodes visited per ray={visited:.2f} "
-              f"records tested per ray={tested:.2f} warp efficiency "
+              f"bound ms={bnd[0]:.4f} (by {bnd[1]}) reached-bytes bound ms "
+              f"wide={reached:.4f} binary walk={reached_bin:.4f} lanes not "
+              f"parked={n_alive / R:.4f} {bvh.wide.width}-wide fetches per "
+              f"ray={visited:.2f} box tests per ray="
+              f"{visited * bvh.wide.width:.2f} (binary nodes visited per "
+              f"ray={bin_visited:.2f}) records tested per ray={tested:.2f} "
+              f"warp efficiency "
               f"unsorted={eff:.4f} sorted={eff_sorted:.4f} warps all parked "
               f"unsorted={dead_w[0]} sorted={dead_ws[0]} of "
               f"{-(-R // WARP)} (most nodes a lane of them visited: "
               f"{dead_ws[1]}) sorted==unsorted on all 12 outputs and both "
-              f"counters=True on {card}")
+              f"counters=True; stack {bvh.wide.depth} entries deep of "
+              f"{ct.WIDE_STACK} on {card}")
+        print(f"[variants] traversal {label} bounce {b}: " + "; ".join(
+            f"{k} ms={fmt_ms(v['ms'])} ("
+            f"{' / '.join(fmt_ms(t) for t in v['times'])}) fetches per ray="
+            f"{v['fetched']:.2f} "
+            f"reached-bytes bound ms={v['reached']:.4f}"
+            for k, v in variants.items()) + f" on {card}")
         print(f"[time] traversal {label} bounce {b} kernels, us per call "
               f"(profiler): unsorted {parts_text(parts) or 'not measured'}; "
               f"sorted {parts_text(sorted_parts) or 'not measured'}")
-    print(f"[time] traversal {label} kernel: "
-          + occupancy_text("traverse_kernel", TRAVERSE_THREADS))
+    print(f"[time] traversal {label} kernel ({bvh.wide.width}-wide): "
+          + occupancy_text(tuple(f"traverse_kernelILi{k}ELi"
+                                 f"{bvh.wide.width}E" for k in range(3)),
+                           TRAVERSE_THREADS))
+    for k in rows[0]["variants"]:
+        prefix = ("traverse_binary_kernel" if k == "binary" else tuple(
+            f"traverse_kernelILi{j}ELi{k[4:]}E" for j in range(3)))
+        print(f"[variants] traversal {label} {k} per pass: device ms sum="
+              f"{fmt_ms(sum_or_none(r['variants'][k]['ms'] for r in rows))} "
+              f"reached-bytes bound ms sum="
+              f"{sum(r['variants'][k]['reached'] for r in rows):.4f}; "
+              + occupancy_text(prefix, TRAVERSE_THREADS) + f" on {card}")
 
     def total(k):
         return sum_or_none(r[k] for r in rows)
@@ -1788,7 +1845,9 @@ def traverse_times(label, bvh, queries, card):
           f"{fmt_ms(total('walk_ms'))}; on rays copied into key order "
           f"{fmt_ms(total('gathered_ms'))}, parked lanes last "
           f"{fmt_ms(total('parked_last_ms'))}) bound ms sum="
-          f"{sum(r['bound'][0] for r in rows):.4f} on {card}")
+          f"{sum(r['bound'][0] for r in rows):.4f} reached-bytes bound ms "
+          f"sum wide={sum(r['reached'] for r in rows):.4f} binary walk="
+          f"{sum(r['reached_binary'] for r in rows):.4f} on {card}")
     return rows
 
 
@@ -1806,18 +1865,131 @@ def bvh_closest(scene):
     return closest, time.perf_counter() - t0
 
 
-def traverse_bound(bvh, stats, query, n_out_planes=12):
-    """The least time the card could take for one traversal: the node
-    visits and leaf records that these rays' walks counted, and every input
-    (nodes, leaf records, rays, skip record) and output plane once."""
+def ray_io_bytes(query, n_out_planes=12):
+    """Bytes of a traversal's rays, skip record and output planes, each
+    once."""
     o, d, skip = query
-    visited, tested = (int(x) for x in stats.sum(0))
-    n_bytes = nbytes(bvh.nodes, bvh.leaves, o, d) + o.shape[0] * (
-        4 * n_out_planes)
+    n_bytes = nbytes(o, d) + o.shape[0] * 4 * n_out_planes
     if skip is not None:
         n_bytes += nbytes(skip.prim, skip.position, skip.normal, skip.inside)
-    return bound(visited * OPS_NODE + tested * OPS_LEAF[bvh.leaf_kind],
-                 n_bytes)
+    return n_bytes
+
+
+def traverse_bound(bvh, stats, query):
+    """The least time the card could take for one traversal: the slab
+    tests (W a wide fetch) and leaf records that these rays' walks counted,
+    and every input (wide nodes, leaf records, rays, skip record) and
+    output plane once."""
+    fetched, tested = (int(x) for x in stats.sum(0))
+    return bound(fetched * bvh.wide.width * OPS_NODE
+                 + tested * OPS_LEAF[bvh.leaf_kind],
+                 nbytes(bvh.wide.table, bvh.leaves) + ray_io_bytes(query))
+
+
+def reached_bound(node_bytes, stats, query, leaf_kind):
+    """ms to move the bytes a walk reaches at the card's memory rate: its
+    counters' node fetches of ``node_bytes`` each and records tested of
+    the leaf kind's record, and the rays' I/O (:func:`ray_io_bytes`)."""
+    from raytracercore_tpu_torch.bvh import cuda_traverse as ct
+
+    fetched, tested = (int(x) for x in stats.sum(0))
+    n_bytes = (fetched * node_bytes + tested * 4 * ct.LEAF_KINDS[leaf_kind][1]
+               + ray_io_bytes(query))
+    return n_bytes / PEAK_BYTES * 1e3
+
+
+def wide_variants(bvh):
+    """The widths of the kernel beside the tree's own, packed from its
+    binary nodes: ``{"wide8": WideNodes, ...}``."""
+    from raytracercore_tpu_torch.bvh import cuda_traverse as ct
+    from raytracercore_tpu_torch.bvh.builder import BVHArrays
+
+    n = bvh.nodes.cpu()
+    tree = BVHArrays(bmin=n[:, 0:3], bmax=n[:, 3:6],
+                     skip=n[:, 6].to(torch.int32),
+                     leaf_slot=n[:, 7].to(torch.int32),
+                     leaf_prims=torch.zeros((1, bvh.K), dtype=torch.int32))
+    out = {}
+    for w in ct.KERNEL_WIDTHS:
+        if w != bvh.wide.width:
+            table, depth = ct.pack_wide_nodes(tree, w)
+            out[f"wide{w}"] = ct.WideNodes(
+                torch.tensor(table, device=bvh.nodes.device), depth)
+    return out
+
+
+def traverse_binary(bvh, o, d, skip, eps, want_stats=False):
+    """The parent tree's binary skip-link kernel (``rtc_traverse_binary``)
+    on one query: a ``TraverseOut``."""
+    from raytracercore_tpu_torch import kernels
+    from raytracercore_tpu_torch.bvh import cuda_traverse as ct
+
+    kind, F = ct.LEAF_KINDS[bvh.leaf_kind]
+    R = o.shape[0]
+    f32, i32, dev = torch.float32, torch.int32, o.device
+
+    def empty(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=dev)
+    out = ct.TraverseOut(
+        row=empty((R,), i32), t=empty((R,), f32), prim=empty((R,), i32),
+        position=empty((R, 3), f32), normal=empty((R, 3), f32),
+        flags=empty((R,), i32), u=empty((R,), f32), v=empty((R,), f32),
+        stats=empty((R, 2), i32) if want_stats else None)
+    sk = ([None] * 4 if skip is None else
+          [t.data_ptr() for t in (skip.prim, skip.position, skip.normal,
+                                  skip.inside)])
+    err = kernels.load().rtc_traverse_binary(
+        bvh.nodes.data_ptr(), bvh.leaves.data_ptr(), o.data_ptr(),
+        d.data_ptr(), *sk, None,
+        *(None if t is None else t.data_ptr() for t in out),
+        R, bvh.nodes.shape[0], bvh.K, kind, eps[0], eps[1] * eps[1],
+        torch.cuda.current_stream(dev).cuda_stream)
+    check(err == 0, f"binary traversal kernel launched (CUDA error {err})")
+    return out
+
+
+def traverse_variants(bvh, query, eps, wides, bin_stats):
+    """The parent's binary kernel and the other widths on one query, each
+    held bit-equal to the tree's own kernel (the 12 outputs, the records
+    tested; the binary kernel's visits to the binary plain walk's) and
+    timed by CUDA-graph replay: ``{name: {"ms", "fetched",
+    "reached"}}``."""
+    from raytracercore_tpu_torch.bvh import cuda_traverse as ct
+
+    o, d, skip = query
+    sk = bvh._skip(skip)
+    want = ct.traverse(bvh.wide, bvh.leaves, bvh.leaf_kind, o, d, sk, *eps,
+                       want_stats=True)
+    runs = {"binary": lambda s=False: traverse_binary(bvh, o, d, sk, eps, s)}
+    for name, wide in [(f"wide{bvh.wide.width}", bvh.wide),
+                       *wides.items()]:
+        runs[name] = (lambda s=False, wide=wide: ct.traverse(
+            wide, bvh.leaves, bvh.leaf_kind, o, d, sk, *eps, want_stats=s))
+    out = {}
+    for name, run in runs.items():
+        got = run(True)
+        torch.cuda.synchronize()
+        for f in ct.TraverseOut._fields[:-1]:
+            check(torch.equal(getattr(got, f), getattr(want, f)),
+                  f"{name} traversal kernel: {f} equal to the "
+                  f"{bvh.wide.width}-wide kernel's")
+        check(torch.equal(got.stats[:, 1], want.stats[:, 1]),
+              f"{name} traversal kernel: records tested equal")
+        if name == "binary":
+            check(torch.equal(got.stats[:, 0], bin_stats[:, 0]),
+                  "binary traversal kernel: visits equal to the binary "
+                  "plain walk's")
+        node_bytes = 32 if name == "binary" else 32 * int(name[4:])
+        out[name] = {"fetched": float(got.stats[:, 0].float().mean()),
+                     "reached": reached_bound(node_bytes, got.stats, query,
+                                              bvh.leaf_kind), "times": []}
+    # In turns, there and back: a, b, c, c, b, a.
+    for name in [*runs, *reversed(runs)]:
+        out[name]["times"].append(graph_ms(runs[name], 20))
+    for v in out.values():
+        v["ms"] = (None if None in v["times"]
+                   else sum(v["times"]) / len(v["times"]))
+    return out
 
 
 def bvh_compare_scenes(card, dev):
@@ -2167,7 +2339,7 @@ def bvh_render_path(card, dev):
         print(f"[time] traversal kernel mesh-184k 512x512 leaf size {leaf} "
               f"({other.n_nodes} nodes, build+pack s={leaf_s:.3f}): device "
               f"ms per bounce " + " ".join(f"{x:.3f}" for x in ms)
-              + f" sum={sum(ms):.3f} bounce 0 nodes visited per ray="
+              + f" sum={sum(ms):.3f} bounce 0 wide fetches per ray="
               f"{visited:.2f} records tested per ray={tested:.2f} rows equal "
               f"to leaf size {bvh.K}'s on >= {same:.6f} of the rays on {card}")
         check(same >= 0.999, f"leaf size {leaf}: same winners but for ties")

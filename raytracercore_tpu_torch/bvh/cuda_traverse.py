@@ -3,32 +3,40 @@
 
 One launch answers one bounce's closest-hit query of every ray against one
 skip-link BVH (:mod:`.builder`) whose leaves hold triangles, untransformed
-spheres or transformed spheres (ellipsoids).  Each ray walks the preorder
-node list through its skip links; a leaf's records are tested one after
-another and a candidate is committed only if it is strictly closer
-(``t <``), so leaves count in preorder and the earliest-preorder winner
-wins a tie.  The kernel commits the winner's whole detail (prim, position,
-flat normal, inside flags, u/v), so the dispatch layer gathers nothing from
-the primitive tables.
+spheres or transformed spheres (ellipsoids).  The kernel walks the binary
+preorder tree collapsed into 4-wide nodes (:func:`pack_wide_nodes`): one
+fetch, four slab tests, the passing children on a per-ray stack in binary
+preorder.  A leaf's records are tested one after another and a candidate
+is committed only if it is strictly closer (``t <``), so leaves count in
+preorder and the earliest-preorder winner wins a tie.  The wide walk tests
+the same leaves in the same order as the binary skip-link walk, so its
+outputs and records tested are that walk's, bit for bit (the proof is in
+``csrc/traverse.cu``'s header).  The kernel commits the winner's whole
+detail (prim, position, flat normal, inside flags, u/v), so the dispatch
+layer gathers nothing from the primitive tables.
 
-* :func:`pack_nodes`, :func:`pack_leaf_tris`, :func:`pack_leaf_spheres`,
-  :func:`pack_leaf_ellipsoids` — the arrays the kernel reads (the JAX
-  package's record layouts, without its lane padding and its bf16 node
-  words);
+* :func:`pack_nodes`, :func:`pack_wide_nodes`, :func:`pack_leaf_tris`,
+  :func:`pack_leaf_spheres`, :func:`pack_leaf_ellipsoids` — the arrays the
+  kernel and the binary walk read (the JAX package's record layouts,
+  without its lane padding and its bf16 node words);
 * :func:`traverse` — the wrapper: on CUDA tensors it launches
   ``csrc/traverse.cu`` (counted in ``traverse.launches``) or raises, on CPU
   tensors it runs the plain version;
-* :func:`traverse_reference` — the plain version: a lockstep torch walk
-  over the packed arrays with the kernel's leaf tests in the kernel's
-  operation order, all 12 outputs and the optional counters;
+* :func:`traverse_wide_reference` — the plain version: the kernel's wide
+  walk as a lockstep torch walk with per-ray stacks, the kernel's leaf
+  tests in the kernel's operation order, all 12 outputs and the optional
+  counters;
+* :func:`traverse_reference` — the binary skip-link walk in torch, the
+  counterpart of the JAX walk: the oracle of the 12 outputs and the
+  records tested;
 * :func:`sort_key`, :func:`sort_key_reference` — the ray-coherence key of
   the JAX package's ``PallasBVH._sort_key`` (direction octant, then the
   Morton code of the origin in the root box): the key kernel of
   ``csrc/traverse.cu`` (counted in ``sort_key.launches``) and its plain
   version;
 * :class:`CudaBVH`, :class:`CudaSphereBVH`, :class:`CudaEllipsoidBVH` — the
-  packed tree of one table with the ``select`` entry that
-  ``dispatch.make_bvh_closest_fn`` calls.
+  packed tree of one table (binary nodes, wide nodes, leaves) with the
+  ``select`` entry that ``dispatch.make_bvh_closest_fn`` calls.
 
 Ray coherence (``select(sort=True)``, the JAX package's ``sort=``): the
 rays are ordered by their key (``torch.sort``, stable) and the traversal
@@ -75,6 +83,10 @@ FLAG_INSIDE, FLAG_INSIDE_GEO, FLAG_SMOOTH = 1, 2, 4
 # sign.
 SORT_MORTON_BITS = 8
 SORT_DIR_BITS = 0
+# The wide tree the kernel walks (pack_wide_nodes): children a node, and
+# the entries of the kernel's stack (csrc/traverse.cu WIDE_STACK).
+WIDE_WIDTH = 4
+WIDE_STACK = 64
 
 
 def _np(t):
@@ -94,6 +106,111 @@ def pack_nodes(bvh: BVHArrays) -> np.ndarray:
     out[:, 6] = _np(bvh.skip).astype(np.float32)
     out[:, 7] = _np(bvh.leaf_slot).astype(np.float32)
     return out
+
+
+class WideNodes(NamedTuple):
+    """The wide tree that the kernel walks (:func:`pack_wide_nodes`)."""
+
+    table: torch.Tensor   # [M, 8 * W] f32, node 0 the root's box alone
+    depth: int            # the most stack entries a walk can need
+
+    @property
+    def width(self) -> int:
+        return self.table.shape[1] // 8
+
+    def to(self, device) -> "WideNodes":
+        return self._replace(table=self.table.to(device))
+
+
+def pack_wide_nodes(bvh: BVHArrays, width: int = WIDE_WIDTH):
+    """The binary preorder tree of ``bvh`` collapsed into ``width``-wide
+    nodes: ``(table [M, 8 * width] f32, depth)``.
+
+    A wide node starts from an inner node's two children (``p + 1`` and
+    ``skip[p + 1]``) and repeatedly replaces its inner child of largest
+    surface area (the earliest in preorder on a tie) by that child's two
+    children, until it has ``width`` children or none is inner; its
+    children stay in binary preorder.  Each child's box is its binary
+    node's f32 box, bit for bit.  Node ``i`` is the row ``table[i]`` read
+    as ``[8, width]``: rows 0-2 the children's box minima x, y, z, rows 3-5
+    their maxima, row 6 their references (an inner child's wide node ≥ 1,
+    a leaf ``-(slot + 1)``, 0 an empty slot), row 7 their binary preorder
+    indices (-1 empty); an empty slot's box is NaN, which fails any slab
+    test.  Node 0 holds the root alone, so that its box is tested first
+    and a ray that misses it ends after one fetch; the others follow in
+    breadth-first order, a node's inner children side by side.
+
+    ``depth`` is the most entries the kernel's stack can hold during a walk
+    (every child passing: at a node of n children, walking child i leaves
+    the n - 1 - i after it on the stack).  A tree that needs more than
+    ``WIDE_STACK`` raises ``ValueError``: the kernel's stack is fixed."""
+    if width < 2:
+        raise ValueError(f"pack_wide_nodes: width {width} < 2")
+    lo = _np(bvh.bmin).astype(np.float32)
+    hi = _np(bvh.bmax).astype(np.float32)
+    skip = _np(bvh.skip).astype(np.int64).tolist()
+    slot = _np(bvh.leaf_slot).astype(np.int64).tolist()
+    n = len(skip)
+    if n >= 1 << 24:
+        raise ValueError(f"pack_wide_nodes: {n} nodes do not fit f32 links")
+    ext = hi.astype(np.float64) - lo.astype(np.float64)
+    area = (ext[:, 0] * ext[:, 1] + ext[:, 1] * ext[:, 2]
+            + ext[:, 2] * ext[:, 0]).tolist()
+
+    def inner(p):
+        return slot[p] < 0 and p + 1 < skip[p]
+
+    def collapse(p):
+        kids = [p + 1, skip[p + 1]]
+        while len(kids) < width:
+            split = [c for c in kids if inner(c)]
+            if not split:
+                break
+            c = max(split, key=lambda c: (area[c], -c))
+            i = kids.index(c)
+            kids[i:i + 1] = [c + 1, skip[c + 1]]
+        return sorted(kids)
+
+    # Breadth first: children[i] are wide node i's binary children.
+    children = [[0] if slot[0] >= 0 or inner(0) else []]
+    refs = []
+    for kids in children:
+        row = []
+        for c in kids:
+            if slot[c] >= 0:
+                row.append(-(slot[c] + 1))
+            else:
+                row.append(len(children))
+                children.append(collapse(c))
+        refs.append(row)
+    M = len(children)
+    if M >= 1 << 24:
+        raise ValueError(f"pack_wide_nodes: {M} wide nodes do not fit f32 "
+                         "links")
+    binary = np.full((M, width), -1, np.int64)
+    ref = np.zeros((M, width), np.int64)
+    for i, (kids, row) in enumerate(zip(children, refs)):
+        binary[i, :len(kids)] = kids
+        ref[i, :len(row)] = row
+    used = binary >= 0
+    out = np.full((M, 8, width), np.nan, np.float32)
+    b = np.maximum(binary, 0)
+    for k in range(3):
+        out[:, k] = np.where(used, lo[b, k], np.nan)
+        out[:, 3 + k] = np.where(used, hi[b, k], np.nan)
+    out[:, 6] = ref.astype(np.float32)
+    out[:, 7] = binary.astype(np.float32)
+
+    need = [0] * M   # children are numbered after their parent
+    for i in range(M - 1, -1, -1):
+        row = refs[i]
+        need[i] = max((len(row) - 1 - j + (need[r] if r > 0 else 0)
+                       for j, r in enumerate(row)), default=0)
+    depth = need[0]
+    if depth > WIDE_STACK:
+        raise ValueError(f"pack_wide_nodes: a walk may need {depth} stack "
+                         f"entries, more than the kernel's {WIDE_STACK}")
+    return out.reshape(M, 8 * width), depth
 
 
 def _leaf_flags(leaf_prims, prim_id, mats):
@@ -407,77 +524,156 @@ def _spht_test(m, ray, sk, eps_behind, eps2):
 _LEAF_TESTS = {"tri": _tri_test, "sph": _sph_test, "spht": _spht_test}
 
 
+def _in_order(walk, order, ray_o, ray_d, skip):
+    """``walk(ray_o, ray_d, skip)`` with the rays taken in the order
+    ``order`` (int64 [R], a permutation) and every output put back at its
+    ray's index, as the kernel's thread ``t`` walks ray ``order[t]``."""
+    if skip is not None:
+        skip = dataclasses.replace(skip, **{
+            f.name: getattr(skip, f.name)[order]
+            for f in dataclasses.fields(skip)})
+    out = walk(ray_o[order], ray_d[order], skip)
+
+    def back(x):
+        if x is None:
+            return None
+        y = torch.empty_like(x)
+        y[order] = x
+        return y
+    return TraverseOut(*(back(x) for x in out))
+
+
+class _Walk:
+    """What the two plain walks share: the rays with their inverse
+    direction (and, for sphere leaves, the re-normalized direction), the
+    skip record's planes, the running winner with its detail and the
+    counters; :meth:`slab` and :meth:`leaves` are the kernel's box and leaf
+    tests."""
+
+    def __init__(self, leaves, leaf_kind, ray_o, ray_d, skip, eps_behind,
+                 eps_pos):
+        f32, i32 = torch.float32, torch.int32
+        _, self.F = LEAF_KINDS[leaf_kind]
+        self.leaf_test = _LEAF_TESTS[leaf_kind]
+        self.table = leaves
+        self.K = leaves.shape[1] // self.F
+        self.eps_behind, self.eps2 = eps_behind, eps_pos * eps_pos
+        device = ray_o.device
+        R = ray_o.shape[0]
+        o = ray_o.to(f32)
+        d = ray_d.to(f32)
+        ray = [o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2]]
+        self.inv = [torch.where(c != 0, 1.0 / torch.where(c == 0, 1.0, c),
+                                BIG_INV) for c in ray[3:6]]
+        if leaf_kind != "tri":
+            # Normalized direction for the sphere test: on tangent rays the
+            # discriminant's sign flips with sub-ulp |d| deviations.
+            dn_len = torch.sqrt(torch.clamp(
+                ray[3] * ray[3] + ray[4] * ray[4] + ray[5] * ray[5],
+                min=1e-30))
+            ray += [ray[3] / dn_len, ray[4] / dn_len, ray[5] / dn_len,
+                    dn_len]
+        self.ray = ray
+        self.sk = None
+        if skip is not None:
+            pos, nrm = skip.position.to(f32), skip.normal.to(f32)
+            px, py, pz = pos[:, 0], pos[:, 1], pos[:, 2]
+            self.sk = {"prim": skip.prim, "px": px, "py": py, "pz": pz,
+                       "leaving": (ray[3] * nrm[:, 0] + ray[4] * nrm[:, 1]
+                                   + ray[5] * nrm[:, 2]) > 0,
+                       "inside": skip.inside,
+                       "scale": 1.0 + px * px + py * py + pz * pz}
+        self.best_t = torch.full((R,), INF, dtype=f32, device=device)
+        self.best_row = torch.full((R,), -1, dtype=i32, device=device)
+        # prim, px, py, pz, nx, ny, nz, flags, u, v
+        self.detail = [torch.full((R,), -1, dtype=i32, device=device)] + [
+            torch.zeros((R,), dtype=(i32 if j == 7 else f32), device=device)
+            for j in range(1, 10)]
+        self.stats = torch.zeros((R, 2), dtype=i32, device=device)
+
+    def slab(self, at, lo, hi):
+        """The kernel's slab test of rays ``at`` against boxes ``lo``,
+        ``hi`` ([A, 3], or [A, 3, W] for W boxes a ray): ``(near,
+        passes)``."""
+        shape = (-1,) + (1,) * (lo.dim() - 2)
+        lo_hi = []
+        for k in range(3):
+            o, inv = self.ray[k][at].view(shape), self.inv[k][at].view(shape)
+            t0 = (lo[:, k] - o) * inv
+            t1 = (hi[:, k] - o) * inv
+            lo_hi.append((torch.minimum(t0, t1), torch.maximum(t0, t1)))
+        near = torch.maximum(torch.maximum(lo_hi[0][0], lo_hi[1][0]),
+                             lo_hi[2][0])
+        far = torch.minimum(torch.minimum(lo_hi[0][1], lo_hi[1][1]),
+                            lo_hi[2][1])
+        best = self.best_t[at].view(shape)
+        return near, ((near <= far) & (far >= -self.eps_behind)
+                      & (near <= best))
+
+    def leaves(self, sub, slot):
+        """Rays ``sub`` test the K records of their leaf ``slot`` one after
+        another, each candidate committed if strictly closer."""
+        recs = self.table[slot]
+        F = self.F
+        sub_ray = [c[sub] for c in self.ray]
+        sub_sk = (None if self.sk is None
+                  else {k: v[sub] for k, v in self.sk.items()})
+        b_t, b_row = self.best_t[sub], self.best_row[sub]
+        b_det = [c[sub] for c in self.detail]
+        tested = torch.zeros_like(b_row)
+        for k in range(self.K):
+            ok, tt, row, det = self.leaf_test(
+                lambda c, k=k: recs[:, k * F + c], sub_ray, sub_sk,
+                self.eps_behind, self.eps2)
+            tested += (row >= 0).to(torch.int32)
+            better = ok & (tt < b_t)
+            b_t = torch.where(better, tt, b_t)
+            b_row = torch.where(better, row, b_row)
+            b_det = [torch.where(better, new, old)
+                     for new, old in zip(det, b_det)]
+        self.best_t[sub], self.best_row[sub] = b_t, b_row
+        for c, new in zip(self.detail, b_det):
+            c[sub] = new
+        self.stats[sub, 1] += tested
+
+    def out(self, want_stats):
+        det = self.detail
+        return TraverseOut(
+            row=self.best_row, t=self.best_t, prim=det[0],
+            position=torch.stack(det[1:4], dim=1),
+            normal=torch.stack(det[4:7], dim=1), flags=det[7], u=det[8],
+            v=det[9], stats=self.stats if want_stats else None)
+
+
 @torch.no_grad()
 def traverse_reference(nodes, leaves, leaf_kind: str, ray_o, ray_d, skip,
                        eps_behind: float, eps_pos: float,
                        want_stats: bool = False, order=None) -> TraverseOut:
-    """Plain torch version of the traversal kernel (any device), f32.
+    """The binary skip-link walk over ``nodes`` ([N, 8], :func:`pack_nodes`)
+    in plain torch (any device), f32: the counterpart of the JAX walk, and
+    the oracle that the wide walk (the kernel and
+    :func:`traverse_wide_reference`) is held to on all 12 outputs and the
+    records tested.
 
-    ``nodes`` [N, 8] and ``leaves`` [L, K·F] are the packed arrays; ``skip``
-    is the previous hit (a ``HitRecord``) or None.  All rays advance one
-    node per iteration; the rays still walking are gathered each iteration,
-    the rays at a leaf test its K records one after another and commit with
-    a strict ``t <``.  Per ray this is the kernel's walk and the kernel's
-    arithmetic in the kernel's order, so the outputs are held bit-equal on
-    the card.
+    ``leaves`` [L, K·F] are the packed records; ``skip`` is the previous
+    hit (a ``HitRecord``) or None.  All rays advance one node per
+    iteration; the rays still walking are gathered each iteration, the
+    rays at a leaf test its K records one after another and commit with a
+    strict ``t <``.  The counters are the nodes visited and the records
+    tested.
 
-    ``order`` (int64 [R], a permutation, or None for the identity): as the
-    kernel's thread ``t`` walks ray ``order[t]``, the rays are walked in
-    that order and every output is put back at its ray's index."""
+    ``order`` (int64 [R], a permutation, or None for the identity): the
+    rays are walked in that order and every output is put back at its
+    ray's index."""
     if order is not None:
-        if skip is not None:
-            skip = dataclasses.replace(skip, **{
-                f.name: getattr(skip, f.name)[order]
-                for f in dataclasses.fields(skip)})
-        out = traverse_reference(nodes, leaves, leaf_kind, ray_o[order],
-                                 ray_d[order], skip, eps_behind, eps_pos,
-                                 want_stats)
-
-        def back(x):
-            if x is None:
-                return None
-            y = torch.empty_like(x)
-            y[order] = x
-            return y
-        return TraverseOut(*(back(x) for x in out))
-    f32, i32 = torch.float32, torch.int32
-    _, F = LEAF_KINDS[leaf_kind]
-    leaf_test = _LEAF_TESTS[leaf_kind]
-    device = ray_o.device
-    R = ray_o.shape[0]
+        return _in_order(
+            lambda o, d, sk: traverse_reference(
+                nodes, leaves, leaf_kind, o, d, sk, eps_behind, eps_pos,
+                want_stats), order, ray_o, ray_d, skip)
+    walk = _Walk(leaves, leaf_kind, ray_o, ray_d, skip, eps_behind, eps_pos)
     n_nodes = nodes.shape[0]
-    K = leaves.shape[1] // F
-    eps2 = eps_pos * eps_pos
-
-    o = ray_o.to(f32)
-    d = ray_d.to(f32)
-    ray = [o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2]]
-    inv = [torch.where(c != 0, 1.0 / torch.where(c == 0, 1.0, c), BIG_INV)
-           for c in ray[3:6]]
-    if leaf_kind != "tri":
-        # Normalized direction for the sphere test: on tangent rays the
-        # discriminant's sign flips with sub-ulp |d| deviations.
-        dn_len = torch.sqrt(torch.clamp(
-            ray[3] * ray[3] + ray[4] * ray[4] + ray[5] * ray[5], min=1e-30))
-        ray += [ray[3] / dn_len, ray[4] / dn_len, ray[5] / dn_len, dn_len]
-    sk = None
-    if skip is not None:
-        pos, nrm = skip.position.to(f32), skip.normal.to(f32)
-        px, py, pz = pos[:, 0], pos[:, 1], pos[:, 2]
-        sk = {"prim": skip.prim, "px": px, "py": py, "pz": pz,
-              "leaving": (ray[3] * nrm[:, 0] + ray[4] * nrm[:, 1]
-                          + ray[5] * nrm[:, 2]) > 0,
-              "inside": skip.inside,
-              "scale": 1.0 + px * px + py * py + pz * pz}
-
-    best_t = torch.full((R,), INF, dtype=f32, device=device)
-    best_row = torch.full((R,), -1, dtype=i32, device=device)
-    # prim, px, py, pz, nx, ny, nz, flags, u, v
-    detail = [torch.full((R,), -1, dtype=i32, device=device)] + [
-        torch.zeros((R,), dtype=(i32 if j == 7 else f32), device=device)
-        for j in range(1, 10)]
-    stats = torch.zeros((R, 2), dtype=i32, device=device)
-    ptr = torch.zeros((R,), dtype=torch.int64, device=device)
+    ptr = torch.zeros((ray_o.shape[0],), dtype=torch.int64,
+                      device=ray_o.device)
     skip_link = nodes[:, 6].to(torch.int64)
     leaf_slot = nodes[:, 7].to(torch.int64)
 
@@ -487,58 +683,104 @@ def traverse_reference(nodes, leaves, leaf_kind: str, ray_o, ray_d, skip,
             break
         p = ptr[at]
         box = nodes[p]
-        lo_hi = []
-        for k in range(3):
-            t0 = (box[:, k] - ray[k][at]) * inv[k][at]
-            t1 = (box[:, 3 + k] - ray[k][at]) * inv[k][at]
-            lo_hi.append((torch.minimum(t0, t1), torch.maximum(t0, t1)))
-        near = torch.maximum(torch.maximum(lo_hi[0][0], lo_hi[1][0]),
-                             lo_hi[2][0])
-        far = torch.minimum(torch.minimum(lo_hi[0][1], lo_hi[1][1]),
-                            lo_hi[2][1])
-        hit = (near <= far) & (far >= -eps_behind) & (near <= best_t[at])
+        _, hit = walk.slab(at, box[:, 0:3], box[:, 3:6])
         slot = leaf_slot[p]
         is_leaf = slot >= 0
-        stats[at, 0] += 1
+        walk.stats[at, 0] += 1
         ptr[at] = torch.where(hit & ~is_leaf, p + 1, skip_link[p])
-
         do_leaf = hit & is_leaf
-        if not bool(do_leaf.any()):
-            continue
-        sub = at[do_leaf]
-        recs = leaves[slot[do_leaf]]
-        sub_ray = [c[sub] for c in ray]
-        sub_sk = None if sk is None else {k: v[sub] for k, v in sk.items()}
-        b_t, b_row = best_t[sub], best_row[sub]
-        b_det = [c[sub] for c in detail]
-        tested = torch.zeros_like(b_row)
-        for k in range(K):
-            ok, tt, row, det = leaf_test(
-                lambda c, k=k: recs[:, k * F + c], sub_ray, sub_sk,
-                eps_behind, eps2)
-            tested += (row >= 0).to(i32)
-            better = ok & (tt < b_t)
-            b_t = torch.where(better, tt, b_t)
-            b_row = torch.where(better, row, b_row)
-            b_det = [torch.where(better, new, old)
-                     for new, old in zip(det, b_det)]
-        best_t[sub], best_row[sub] = b_t, b_row
-        for c, new in zip(detail, b_det):
-            c[sub] = new
-        stats[sub, 1] += tested
+        if bool(do_leaf.any()):
+            walk.leaves(at[do_leaf], slot[do_leaf])
+    return walk.out(want_stats)
 
-    return TraverseOut(
-        row=best_row, t=best_t, prim=detail[0],
-        position=torch.stack(detail[1:4], dim=1),
-        normal=torch.stack(detail[4:7], dim=1), flags=detail[7],
-        u=detail[8], v=detail[9], stats=stats if want_stats else None)
+
+@torch.no_grad()
+def traverse_wide_reference(wide: WideNodes, leaves, leaf_kind: str, ray_o,
+                            ray_d, skip, eps_behind: float, eps_pos: float,
+                            want_stats: bool = False,
+                            order=None) -> TraverseOut:
+    """The kernel's walk over the wide tree ``wide`` (:func:`pack_wide_nodes`)
+    in plain torch (any device), f32, in the kernel's arithmetic: all 12
+    outputs and both counters are held bit-equal to the kernel on the
+    card, and the 12 outputs and the records tested equal
+    :func:`traverse_reference`'s.
+
+    Every ray starts at node 0, which holds the root's box alone.  A ray at
+    an inner node counts a fetch and slab-tests the node's W children; the
+    passing children but the first (in binary preorder) go on its stack
+    with their ``near``, the last child first, and the first is walked
+    next.  A ray at a leaf tests the leaf's K records.  Then it pops
+    entries until one has ``near <= best t`` and walks it, or ends on an
+    empty stack.  The stacks are one ``[R, depth]`` tensor.  ``order``: as
+    :func:`traverse_reference`."""
+    if order is not None:
+        return _in_order(
+            lambda o, d, sk: traverse_wide_reference(
+                wide, leaves, leaf_kind, o, d, sk, eps_behind, eps_pos,
+                want_stats), order, ray_o, ray_d, skip)
+    walk = _Walk(leaves, leaf_kind, ray_o, ray_d, skip, eps_behind, eps_pos)
+    device = ray_o.device
+    R = ray_o.shape[0]
+    W = wide.width
+    node = wide.table.view(-1, 8, W)
+    kids = node[:, 6].to(torch.int64)
+    pop = torch.iinfo(torch.int64).min   # `cur` of a ray that pops next
+    depth = max(wide.depth, 1)
+    stack_ref = torch.zeros((R, depth), dtype=torch.int64, device=device)
+    stack_near = torch.zeros((R, depth), dtype=torch.float32, device=device)
+    sp = torch.zeros((R,), dtype=torch.int64, device=device)
+    cur = torch.zeros((R,), dtype=torch.int64, device=device)
+    live = torch.ones((R,), dtype=torch.bool, device=device)
+
+    while True:
+        at = torch.nonzero(live)[:, 0]
+        if at.numel() == 0:
+            break
+        c = cur[at]
+        inner = c >= 0
+        ia, n = at[inner], c[inner]
+        if ia.numel():
+            walk.stats[ia, 0] += 1
+            box = node[n]                                  # [A, 8, W]
+            ref = kids[n]                                  # [A, W]
+            near, hit = walk.slab(ia, box[:, 0:3], box[:, 3:6])
+            hit = hit & (ref != 0)
+            first = torch.argmax(hit.to(torch.int32), dim=1)
+            for k in reversed(range(1, W)):
+                m = hit[:, k] & (first < k)
+                rows = ia[m]
+                top = sp[rows]
+                stack_ref[rows, top] = ref[m, k]
+                stack_near[rows, top] = near[m, k]
+                sp[rows] = top + 1
+            nxt = ref.gather(1, first[:, None])[:, 0]
+            cur[ia] = torch.where(hit.any(1), nxt, pop)
+        la = at[~inner]
+        if la.numel():
+            walk.leaves(la, -c[~inner] - 1)
+            cur[la] = pop
+        pending = at[cur[at] == pop]
+        while pending.numel():
+            has = sp[pending] > 0
+            live[pending[~has]] = False
+            pending = pending[has]
+            sp[pending] -= 1
+            top = sp[pending]
+            ok = stack_near[pending, top] <= walk.best_t[pending]
+            cur[pending[ok]] = stack_ref[pending[ok], top[ok]]
+            pending = pending[~ok]
+    return walk.out(want_stats)
 
 
 # ---------------------------------------------------------------------------
 # The kernel
 # ---------------------------------------------------------------------------
 
-def _launch(nodes, leaves, leaf_kind, ray_o, ray_d, skip, eps_behind,
+# The widths the kernel is built for.
+KERNEL_WIDTHS = (4, 8)
+
+
+def _launch(wide, leaves, leaf_kind, ray_o, ray_d, skip, eps_behind,
             eps_pos, want_stats, order=None) -> TraverseOut:
     from .. import kernels
 
@@ -546,7 +788,13 @@ def _launch(nodes, leaves, leaf_kind, ray_o, ray_d, skip, eps_behind,
     dev = ray_o.device
     R = ray_o.shape[0]
     f32, i32 = torch.float32, torch.int32
-    _check("nodes", nodes, (nodes.shape[0], 8), f32, dev)
+    if wide.width not in KERNEL_WIDTHS or wide.table.shape[1] != 8 * wide.width:
+        raise ValueError(f"wide: {wide.table.shape[1]} floats a node, the "
+                         f"kernel takes 8 x {KERNEL_WIDTHS}")
+    _check("wide", wide.table, tuple(wide.table.shape), f32, dev)
+    if not 0 <= wide.depth <= WIDE_STACK:
+        raise ValueError(f"wide: a walk may need {wide.depth} stack "
+                         f"entries, the kernel has {WIDE_STACK}")
     if leaves.shape[1] % F:
         raise ValueError(f"leaves: {leaves.shape[1]} floats a row is not a "
                          f"multiple of the record's {F}")
@@ -573,36 +821,38 @@ def _launch(nodes, leaves, leaf_kind, ray_o, ray_d, skip, eps_behind,
         flags=empty((R,), i32), u=empty((R,), f32), v=empty((R,), f32),
         stats=empty((R, 2), i32) if want_stats else None)
     err = kernels.load().rtc_traverse(
-        nodes.data_ptr(), leaves.data_ptr(), ray_o.data_ptr(),
+        wide.table.data_ptr(), leaves.data_ptr(), ray_o.data_ptr(),
         ray_d.data_ptr(), *skip_ptrs,
         None if order is None else order.data_ptr(),
         *(None if t is None else t.data_ptr() for t in out),
-        R, nodes.shape[0], leaves.shape[1] // F, kind, eps_behind,
-        eps_pos * eps_pos, torch.cuda.current_stream(dev).cuda_stream)
+        R, wide.table.shape[0], wide.width, wide.depth,
+        leaves.shape[1] // F, kind, eps_behind, eps_pos * eps_pos,
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"traversal kernel launch failed: CUDA error {err}")
     traverse.launches += 1
     return out
 
 
-def traverse(nodes, leaves, leaf_kind: str, ray_o, ray_d, skip,
+def traverse(wide: WideNodes, leaves, leaf_kind: str, ray_o, ray_d, skip,
              eps_behind: float, eps_pos: float, want_stats: bool = False,
              order=None) -> TraverseOut:
-    """Closest hit of every ray in one packed BVH.  On CUDA tensors this
-    launches ``csrc/traverse.cu`` (counted in ``traverse.launches``) or
-    raises; on CPU tensors it runs :func:`traverse_reference`.  Rays and
-    the skip record are f32 and contiguous; ``order`` (int64 [R] or None)
-    is the order in which the rays are walked (:meth:`CudaBVH.ray_order`),
-    which changes no output."""
+    """Closest hit of every ray in one packed BVH, walked through its wide
+    tree ``wide``.  On CUDA tensors this launches ``csrc/traverse.cu``
+    (counted in ``traverse.launches``) or raises; on CPU tensors it runs
+    :func:`traverse_wide_reference`.  Rays and the skip record are f32 and
+    contiguous; ``order`` (int64 [R] or None) is the order in which the
+    rays are walked (:meth:`CudaBVH.ray_order`), which changes no
+    output."""
     if leaf_kind not in LEAF_KINDS:
         raise ValueError(f"traverse: unknown leaf kind {leaf_kind!r}")
     if ray_o.device.type == "cuda":
-        return _launch(nodes, leaves, leaf_kind, ray_o, ray_d, skip,
+        return _launch(wide, leaves, leaf_kind, ray_o, ray_d, skip,
                        eps_behind, eps_pos, want_stats, order)
     if ray_o.device.type == "cpu":
-        return traverse_reference(nodes, leaves, leaf_kind, ray_o, ray_d,
-                                  skip, eps_behind, eps_pos, want_stats,
-                                  order)
+        return traverse_wide_reference(wide, leaves, leaf_kind, ray_o,
+                                       ray_d, skip, eps_behind, eps_pos,
+                                       want_stats, order)
     raise ValueError(f"traverse: unsupported device {ray_o.device}")
 
 
@@ -700,7 +950,11 @@ class CudaBVH:
 
     def _init_common(self, bvh, leaves, prim_id, n_prims, device):
         self.device = torch.device(device)
+        # The binary nodes (the oracle's, traverse_reference) and the wide
+        # tree the kernel walks.
         self.nodes = torch.tensor(pack_nodes(bvh), device=self.device)
+        table, depth = pack_wide_nodes(bvh)
+        self.wide = WideNodes(torch.tensor(table, device=self.device), depth)
         self.leaves = torch.tensor(leaves, device=self.device)
         self.n_nodes = int(bvh.n_nodes)
         self.K = int(bvh.leaf_prims.shape[1])
@@ -743,21 +997,23 @@ class CudaBVH:
         [R, 3] (FLAT normal for triangles), ``inside`` / ``inside_geo`` /
         ``smooth`` (bool) and ``u`` / ``v`` — so the dispatch layer builds
         the HitRecord with no [R]-row gathers from the primitive tables.
-        ``want_stats=True`` appends the ``[R, 2]`` int32 counters (nodes
-        visited, records tested).  ``sort=True`` walks the rays in the
+        ``want_stats=True`` appends the ``[R, 2]`` int32 counters (the
+        root test and wide nodes fetched, records tested).  ``sort=True``
+        walks the rays in the
         order of :meth:`ray_order` (on CUDA tensors the key kernel, then the
         traversal kernel reading that order); every output, counters
         included, is the same as with ``sort=False`` and in the caller's
-        ray order.  ``reference=True`` runs the plain versions on whatever
-        device the rays are on (the comparison's side of
-        ``chip_smoke.py``); otherwise CUDA tensors launch the kernels (or
-        raise) and CPU tensors run the plain versions."""
+        ray order.  ``reference=True`` runs the plain versions (the wide
+        walk :func:`traverse_wide_reference`) on whatever device the rays
+        are on (the comparison's side of ``chip_smoke.py``); otherwise CUDA
+        tensors launch the kernels (or raise) and CPU tensors run the plain
+        versions."""
         f32 = torch.float32
         o = ray_o.detach().to(f32).contiguous()
         d = ray_d.detach().to(f32).contiguous()
         order = self.ray_order(o, d, reference) if sort else None
-        out = (traverse_reference if reference else traverse)(
-            self.nodes, self.leaves, self.leaf_kind, o, d, self._skip(skip),
+        out = (traverse_wide_reference if reference else traverse)(
+            self.wide, self.leaves, self.leaf_kind, o, d, self._skip(skip),
             float(eps_behind), float(eps_pos), want_stats, order)
         res = (torch.clamp(out.row, min=0), out.row >= 0, out.t)
         if want_detail:

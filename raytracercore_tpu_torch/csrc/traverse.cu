@@ -1,27 +1,48 @@
-// BVH traversal kernel: one thread walks one ray through a skip-link BVH
-// and commits the closest surviving hit of its leaves; and the key kernel
-// that orders the rays for it.
+// BVH traversal kernel: one thread walks one ray through a wide BVH (W
+// children a node, collapsed from the binary skip-link tree) and commits
+// the closest surviving hit of its leaves; and the key kernel that orders
+// the rays for it.
 //
 // Replaces the TPU kernel raytracercore_tpu/bvh/pallas_traverse.py:
 // _traverse_kernel (with tri_test, sph_test, spht_test and flush; launched
 // by _traverse_call through pl.pallas_call; public PallasBVH.select,
 // PallasSphereBVH, PallasEllipsoidBVH).  Its plain version is
-// traverse_reference in raytracercore_tpu_torch/bvh/cuda_traverse.py; the
-// Python wrapper traverse there launches this kernel.  The key kernel is
+// traverse_wide_reference in raytracercore_tpu_torch/bvh/cuda_traverse.py;
+// the Python wrapper traverse there launches this kernel.  The key kernel is
 // the counterpart of the XLA operations of PallasBVH._sort_key (no Pallas
 // kernel); its plain version is sort_key_reference, its wrapper sort_key.
 //
 // What it computes: for every ray the winning row of the leaves' table and
 // its t, plus the winner's detail (prim, position, flat normal, inside
 // flags, u/v), committed in the kernel so that no caller gathers rows from
-// the primitive tables.  The nodes are stored in preorder as [N,8] floats
-// (bmin, bmax, skip link, leaf slot).  A ray visits node p: when the slab
-// test fails (near <= far && far >= -eps_behind && near <= best t) it goes
-// to skip[p]; when it enters an inner node it goes to p + 1; when it
-// enters a leaf it tests the leaf's K records one after another and then
-// goes to skip[p].  A candidate is committed only if it is strictly closer
-// (t <), so leaves count in preorder and the earliest-preorder winner wins
-// a tie.
+// the primitive tables.  The tree (pack_wide_nodes) is the binary preorder
+// tree collapsed top down: a wide node takes an inner node's two children
+// and splits its inner child of largest surface area until it has W
+// children, which stay in binary preorder, each with its binary node's f32
+// box bit for bit.  A node is 2W float4: the children's six box planes as
+// structure of arrays, their references (inner node >= 1, leaf
+// -(slot + 1), empty 0) and their binary indices (not read).  Node 0 holds
+// the root's box alone, so a ray first tests the root, and a parked ray
+// (origin far outside, as the integrator parks finished paths) ends after
+// that one fetch.  At a node the ray slab-tests the W children (near <= far
+// && far >= -eps_behind && near <= best t, the binary kernel's arithmetic),
+// walks the first passing child next and pushes the others with their near
+// on a stack, the last first; at a leaf it tests the leaf's K records one
+// after another; then it pops until an entry's near is still <= best t.
+// A candidate is committed only if it is strictly closer (t <), so the
+// earliest-preorder winner wins a tie.
+//
+// Why it is bit-equal to the binary skip-link walk (traverse_reference):
+// every box holds its subtree's boxes exactly (the builders take min/max,
+// and f32 keeps them), and the rounded slab test is monotone under
+// containment, so a collapsed ancestor passes wherever a descendant does,
+// and a descendant's near is at least its ancestors'.  The one test that
+// depends on time, near <= best t, is repeated with the child's own near
+// when it is popped, at the point of the leaf sequence where the binary walk
+// visits it; best t only falls.  So by induction over the leaves the wide
+// walk tests the same leaves in the same order with the same best t: the
+// 12 outputs and the records tested are the binary walk's.  The first
+// counter is the root test plus the wide nodes fetched.
 //
 // The three leaf tests:
 //   * triangles (16 floats a record): Moller-Trumbore with the mirror rule,
@@ -43,28 +64,28 @@
 // else in this package.  A zero direction component gets the finite inverse
 // 3.4e38, so no 0 * inf arises in the slab test.
 //
-// What bounds it on Hopper: the walk is a chain of dependent loads (a node
-// is 32 bytes, a triangle record 64), each followed by ~25 (node) or ~50
-// (triangle) fp32 operations, and neighbouring threads diverge after the
-// first bounce.  By its own counts (some 40 nodes and 6 records a ray on a
-// 184k-triangle mesh) the operations are few, and reading every array once
-// sets the bound; what a thread really waits for is the latency of the
-// dependent loads, and a warp for its longest lane.  What the design does
-// about it: nodes are read as two float4 and
-// records as float4 through the read-only path (__ldg), so the upper levels
-// of the tree stay in L1/L2; the ray, the skip record and the running best
-// live in registers; nothing is staged in shared memory, so occupancy is
-// set by registers alone and many warps hide each other's loads; a parked
-// ray (origin far outside, as the integrator parks finished paths) fails
-// the root's slab test and ends after one node.  -fmad=false halves what
-// the card's fp32 rate could give, but the operations are not what bounds
-// the walk.  Schedules that settle the parked rays in a list kernel first,
-// persistent warps that take new rays as theirs finish (one lane or a
-// whole batch at a time) and postponed leaves all measured slower on the
-// card than this one-ray-per-thread walk, and were not kept (PERF.md).
-// The TPU kernel's 8-chain block beam, pending-leaf flush, two-node
-// speculation, DMA path, bf16 node words and lane padding answer the TPU's
-// lack of a per-lane gather and are not carried over.
+// What bounds it on Hopper: the walk is a chain of dependent loads, each
+// followed by the work it decides.  By the binary walk's counts (some 40
+// 32-byte nodes and 6 64-byte records a ray on a 184k-triangle mesh) the
+// operations and the bytes are few against the card's rates; what a thread
+// waits for is the latency of each load that names the next, and a warp
+// for its longest lane.  What the design does about it: one 128-byte fetch
+// (one line, read as float4 through the read-only path, __ldg) gives W = 4
+// independent slab tests in registers, where the binary walk spent two or
+// more dependent loads on the same boxes, so the chain is some 3x shorter
+// for 4x the box tests (cheap fp32); the stack (WIDE_STACK int2 entries,
+// reference and near) lives in local memory, so occupancy is set by
+// registers alone and many warps hide each other's loads; the ray, the skip
+// record and the running best stay in registers; the leaf tests are the
+// binary kernel's.  -fmad=false halves what the card's fp32 rate could
+// give, but the operations are not what bounds the walk.  Schedules that
+// settle the parked rays in a list kernel first, persistent warps that
+// take new rays as theirs finish and postponed leaves measured slower than
+// one ray a thread (PERF.md), as did 8-wide nodes; front-to-back child
+// order would settle ties in another order and is not bit-equal.  The TPU
+// kernel's 8-chain block beam, pending-leaf flush, two-node speculation,
+// DMA path, bf16 node words and lane padding answer the TPU's lack of a
+// per-lane gather and are not carried over.
 //
 // Ray coherence (the JAX package's sort=): a warp runs as long as its
 // longest lane, so which rays share a warp matters after the first bounce,
@@ -95,8 +116,14 @@ constexpr float BIG_INV = 3.4e38f;  // inverse of a zero direction component
 constexpr int KIND_TRI = 0, KIND_SPH = 1, KIND_SPHT = 2;
 constexpr int FLAG_IN = 1, FLAG_IN_GEO = 2, FLAG_SMOOTH = 4;
 
+// Entries of a thread's stack; pack_wide_nodes refuses a tree that could
+// need more (cuda_traverse.WIDE_STACK).
+constexpr int WIDE_STACK = 64;
+
 struct TraverseParams {
-  const float4* nodes;             // [N,2] bmin.xyz bmax.x | bmax.yz skip slot
+  const float4* nodes;             // wide: [M, 2W] (pack_wide_nodes);
+                                   // binary: [N,2] bmin.xyz bmax.x |
+                                   // bmax.yz skip slot
   const float4* leaves;            // [L, K*F/4]
   const float* ray_o;              // [R,3]
   const float* ray_d;              // [R,3]
@@ -340,9 +367,202 @@ __device__ __forceinline__ void spht_record(const float4* rec, const Ray& ray,
   }
 }
 
-template <int KIND, bool STATS>
+// The ray of thread `lane`, its inverse direction and its skip record.
+struct RaySetup {
+  Ray ray;
+  float ix, iy, iz;
+  Skip k;
+};
+
+template <int KIND>
+__device__ __forceinline__ RaySetup setup_ray(const TraverseParams& p,
+                                              int r) {
+  RaySetup s;
+  Ray& ray = s.ray;
+  ray.o = {p.ray_o[3 * r], p.ray_o[3 * r + 1], p.ray_o[3 * r + 2]};
+  ray.d = {p.ray_d[3 * r], p.ray_d[3 * r + 1], p.ray_d[3 * r + 2]};
+  const V3 d = ray.d;
+  ray.n = d;
+  ray.dn_len = 1.f;
+  if (KIND != KIND_TRI) {
+    // The dense path re-normalizes (Ray.Transform, Ray.cs:43-50), and on
+    // tangent rays the discriminant's sign flips with sub-ulp |d|
+    // deviations.
+    ray.dn_len = sqrtf(fmaxf(d.x * d.x + d.y * d.y + d.z * d.z, 1e-30f));
+    ray.n = {d.x / ray.dn_len, d.y / ray.dn_len, d.z / ray.dn_len};
+  }
+  s.ix = d.x != 0.f ? 1.f / d.x : BIG_INV;
+  s.iy = d.y != 0.f ? 1.f / d.y : BIG_INV;
+  s.iz = d.z != 0.f ? 1.f / d.z : BIG_INV;
+
+  // Previous hit (skip record); none when the caller gave no record.
+  int pv_prim = -1;
+  V3 pv_pos = {0.f, 0.f, 0.f};
+  V3 pv_nrm = {0.f, 0.f, 1.f};
+  bool pv_in = false;
+  if (p.sk_prim != nullptr) {
+    pv_prim = p.sk_prim[r];
+    pv_pos = {p.sk_pos[3 * r], p.sk_pos[3 * r + 1], p.sk_pos[3 * r + 2]};
+    pv_nrm = {p.sk_nrm[3 * r], p.sk_nrm[3 * r + 1], p.sk_nrm[3 * r + 2]};
+    pv_in = p.sk_inside[r] != 0;
+  }
+  s.k = make_skip(pv_prim, pv_pos, pv_nrm, pv_in, d);
+  return s;
+}
+
+__device__ __forceinline__ void init_winner(Winner& best) {
+  best.t = INFINITY;
+  best.row = -1;
+  best.prim = -1;
+  best.flags = 0;
+  best.pos = {0.f, 0.f, 0.f};
+  best.nrm = {0.f, 0.f, 0.f};
+  best.u = 0.f;
+  best.v = 0.f;
+}
+
+template <bool STATS>
+__device__ __forceinline__ void store_winner(const TraverseParams& p, int r,
+                                             const Winner& best, int fetched,
+                                             int tested) {
+  p.row[r] = best.row;
+  p.t[r] = best.t;
+  p.prim[r] = best.prim;
+  p.pos[3 * r] = best.pos.x;
+  p.pos[3 * r + 1] = best.pos.y;
+  p.pos[3 * r + 2] = best.pos.z;
+  p.nrm[3 * r] = best.nrm.x;
+  p.nrm[3 * r + 1] = best.nrm.y;
+  p.nrm[3 * r + 2] = best.nrm.z;
+  p.flags[r] = best.flags;
+  p.u[r] = best.u;
+  p.v[r] = best.v;
+  if (STATS) {
+    p.stats[2 * r] = fetched;
+    p.stats[2 * r + 1] = tested;
+  }
+}
+
+// The K records of leaf `slot`, one after another.
+template <int KIND>
+__device__ __forceinline__ void test_leaf(const TraverseParams& p, int slot,
+                                          const RaySetup& s, Winner& best,
+                                          int& tested) {
+  constexpr int REC4 = KIND == KIND_TRI ? 4 : (KIND == KIND_SPH ? 2 : 8);
+  const float4* rec = p.leaves + (size_t)slot * p.K * REC4;
+  for (int q = 0; q < p.K; ++q, rec += REC4) {
+    if (KIND == KIND_TRI)
+      tri_record(rec, s.ray, p.eps_behind, s.k, p.eps2, best, tested);
+    else if (KIND == KIND_SPH)
+      sph_record(rec, s.ray, s.k, p.eps2, best, tested);
+    else
+      spht_record(rec, s.ray, s.k, p.eps2, best, tested);
+  }
+}
+
+// The wide walk: node `ref` is 2W float4 = the W children's six box planes
+// as structure of arrays (minx[W] miny[W] minz[W] maxx[W] maxy[W] maxz[W]),
+// their references (inner wide node >= 1, leaf -(slot + 1), empty 0) and
+// their binary preorder indices (not read).  One fetch, W independent slab
+// tests; the passing children but the first go on the stack with their
+// near, the last first, and the first is walked next without a second
+// test (best.t has not moved since).  A popped entry is walked only if its
+// near is still <= best.t.
+template <int KIND, int W, bool STATS>
 __global__ void __launch_bounds__(TRAVERSE_BLOCK)
     traverse_kernel(TraverseParams p) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= p.R) return;
+  const int r = p.order != nullptr ? (int)__ldg(p.order + lane) : lane;
+  const RaySetup s = setup_ray<KIND>(p, r);
+  const V3 o = s.ray.o;
+  Winner best;
+  init_winner(best);
+
+  int2 stack[WIDE_STACK];  // (reference, near bits)
+  int sp = 0;
+  int fetched = 0, tested = 0;
+  int ref = 0;  // node 0: the root's box alone
+  for (;;) {
+    if (ref >= 0) {
+      const float4* nd = p.nodes + (size_t)ref * (2 * W);
+      ++fetched;
+      float pl[6 * W];
+#pragma unroll
+      for (int q = 0; q < 6 * W / 4; ++q) {
+        const float4 x = __ldg(nd + q);
+        pl[4 * q] = x.x;
+        pl[4 * q + 1] = x.y;
+        pl[4 * q + 2] = x.z;
+        pl[4 * q + 3] = x.w;
+      }
+      int kid[W];
+#pragma unroll
+      for (int q = 0; q < W / 4; ++q) {
+        const float4 x = __ldg(nd + 6 * W / 4 + q);
+        kid[4 * q] = (int)x.x;
+        kid[4 * q + 1] = (int)x.y;
+        kid[4 * q + 2] = (int)x.z;
+        kid[4 * q + 3] = (int)x.w;
+      }
+      int next = 0;
+      float next_near = 0.f;
+      bool have = false;
+#pragma unroll
+      for (int c = W - 1; c >= 0; --c) {
+        const float tx0 = (pl[c] - o.x) * s.ix;
+        const float tx1 = (pl[3 * W + c] - o.x) * s.ix;
+        const float ty0 = (pl[W + c] - o.y) * s.iy;
+        const float ty1 = (pl[4 * W + c] - o.y) * s.iy;
+        const float tz0 = (pl[2 * W + c] - o.z) * s.iz;
+        const float tz1 = (pl[5 * W + c] - o.z) * s.iz;
+        const float near_t =
+            fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)), fminf(tz0, tz1));
+        const float far_t =
+            fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)), fmaxf(tz0, tz1));
+        const bool hit = kid[c] != 0 && near_t <= far_t &&
+                         far_t >= -p.eps_behind && near_t <= best.t;
+        if (hit) {
+          if (have) stack[sp++] = make_int2(next, __float_as_int(next_near));
+          next = kid[c];
+          next_near = near_t;
+          have = true;
+        }
+      }
+      if (have) {
+        ref = next;
+        continue;
+      }
+    } else {
+      test_leaf<KIND>(p, -ref - 1, s, best, tested);
+    }
+    bool found = false;
+    while (sp > 0) {
+      const int2 e = stack[--sp];
+      if (__int_as_float(e.y) <= best.t) {
+        ref = e.x;
+        found = true;
+        break;
+      }
+    }
+    if (!found) break;
+  }
+  store_winner<STATS>(p, r, best, fetched, tested);
+}
+
+template <int KIND, int W>
+int launch_traverse(const TraverseParams& p, cudaStream_t stream) {
+  dim3 grid((p.R + TRAVERSE_BLOCK - 1) / TRAVERSE_BLOCK);
+  if (p.stats != nullptr)
+    traverse_kernel<KIND, W, true><<<grid, TRAVERSE_BLOCK, 0, stream>>>(p);
+  else
+    traverse_kernel<KIND, W, false><<<grid, TRAVERSE_BLOCK, 0, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int KIND, bool STATS>
+__global__ void __launch_bounds__(TRAVERSE_BLOCK)
+    traverse_binary_kernel(TraverseParams p) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= p.R) return;
   const int r = p.order != nullptr ? (int)__ldg(p.order + lane) : lane;
@@ -440,12 +660,12 @@ __global__ void __launch_bounds__(TRAVERSE_BLOCK)
 }
 
 template <int KIND>
-int launch_traverse(const TraverseParams& p, cudaStream_t stream) {
+int launch_traverse_binary(const TraverseParams& p, cudaStream_t stream) {
   dim3 grid((p.R + TRAVERSE_BLOCK - 1) / TRAVERSE_BLOCK);
   if (p.stats != nullptr)
-    traverse_kernel<KIND, true><<<grid, TRAVERSE_BLOCK, 0, stream>>>(p);
+    traverse_binary_kernel<KIND, true><<<grid, TRAVERSE_BLOCK, 0, stream>>>(p);
   else
-    traverse_kernel<KIND, false><<<grid, TRAVERSE_BLOCK, 0, stream>>>(p);
+    traverse_binary_kernel<KIND, false><<<grid, TRAVERSE_BLOCK, 0, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -509,11 +729,51 @@ extern "C" int rtc_sort_key(const float* ray_o, const float* ray_d,
 
 // C entry point, loaded with ctypes.  Launches on `stream` and returns the
 // cudaGetLastError() after the launch (0 = launched), or
-// cudaErrorInvalidValue for a leaf kind or sizes the kernel does not take.
+// cudaErrorInvalidValue for a leaf kind, width or sizes the kernel does not
+// take.  `wide`: [n_wide, 8 * width] floats (pack_wide_nodes); `depth`: the
+// most stack entries a walk of that tree can need; `kind`: 0 triangles (16
+// floats a record), 1 untransformed spheres (8), 2 transformed spheres
+// (32); `stats` null: no counters; `order` null: thread t walks ray t.
+extern "C" int rtc_traverse(
+    const float* wide, const float* leaves, const float* ray_o,
+    const float* ray_d, const int* sk_prim, const float* sk_pos,
+    const float* sk_nrm, const unsigned char* sk_inside,
+    const long long* order, int* row, float* t,
+    int* prim, float* pos, float* nrm, int* flags, float* u, float* v,
+    int* stats, int R, int n_wide, int width, int depth, int K, int kind,
+    float eps_behind, float eps2, void* stream) {
+  if (R <= 0) return 0;
+  if (n_wide <= 0 || K <= 0 || depth < 0 || depth > rtc::WIDE_STACK)
+    return (int)cudaErrorInvalidValue;
+  rtc::TraverseParams p{reinterpret_cast<const float4*>(wide),
+                        reinterpret_cast<const float4*>(leaves),
+                        ray_o, ray_d, sk_prim, sk_pos, sk_nrm, sk_inside,
+                        order, row, t, prim, pos, nrm, flags, u, v, stats,
+                        R, n_wide, K, eps_behind, eps2};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define RTC_TRAVERSE_WIDTH(W)                                  \
+  switch (kind) {                                              \
+    case rtc::KIND_TRI:                                        \
+      return rtc::launch_traverse<rtc::KIND_TRI, W>(p, s);     \
+    case rtc::KIND_SPH:                                        \
+      return rtc::launch_traverse<rtc::KIND_SPH, W>(p, s);     \
+    case rtc::KIND_SPHT:                                       \
+      return rtc::launch_traverse<rtc::KIND_SPHT, W>(p, s);    \
+    default:                                                   \
+      return (int)cudaErrorInvalidValue;                       \
+  }
+  if (width == 4) RTC_TRAVERSE_WIDTH(4)
+  if (width == 8) RTC_TRAVERSE_WIDTH(8)
+#undef RTC_TRAVERSE_WIDTH
+  return (int)cudaErrorInvalidValue;
+}
+
+// The binary skip-link walk of the parent tree, kept to be timed beside the
+// wide walk on the same queries.
 // `kind`: 0 triangles (16 floats a record), 1 untransformed spheres (8),
 // 2 transformed spheres (32); `stats` null: no counters; `order` null:
 // thread t walks ray t.
-extern "C" int rtc_traverse(
+extern "C" int rtc_traverse_binary(
     const float* nodes, const float* leaves, const float* ray_o,
     const float* ray_d, const int* sk_prim, const float* sk_pos,
     const float* sk_nrm, const unsigned char* sk_inside,
@@ -531,11 +791,11 @@ extern "C" int rtc_traverse(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (kind) {
     case rtc::KIND_TRI:
-      return rtc::launch_traverse<rtc::KIND_TRI>(p, s);
+      return rtc::launch_traverse_binary<rtc::KIND_TRI>(p, s);
     case rtc::KIND_SPH:
-      return rtc::launch_traverse<rtc::KIND_SPH>(p, s);
+      return rtc::launch_traverse_binary<rtc::KIND_SPH>(p, s);
     case rtc::KIND_SPHT:
-      return rtc::launch_traverse<rtc::KIND_SPHT>(p, s);
+      return rtc::launch_traverse_binary<rtc::KIND_SPHT>(p, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -75,9 +75,15 @@ SIGNATURES = {
         + [_F, _F]                     # eps_behind, eps_pos²
         + [_P]),                       # stream
     "rtc_traverse": (
-        [_P] * 18                      # nodes, leaves, 2 rays, 4 skip (null:
-                                       # none), order (null: identity),
-                                       # 8 outputs, stats (null: none)
+        [_P] * 18                      # wide nodes, leaves, 2 rays, 4 skip
+                                       # (null: none), order (null:
+                                       # identity), 8 outputs, stats (null:
+                                       # none)
+        + [_I] * 6                     # R n_wide width depth K leaf kind
+        + [_F, _F]                     # eps_behind, eps_pos²
+        + [_P]),                       # stream
+    "rtc_traverse_binary": (
+        [_P] * 18                      # binary nodes, as rtc_traverse
         + [_I] * 4                     # R n_nodes K leaf kind
         + [_F, _F]                     # eps_behind, eps_pos²
         + [_P]),                       # stream

@@ -179,7 +179,7 @@ def test_traverse_in_order_writes_at_each_rays_index():
     tsel, queries = _bounce_query("tri")
     o, d, skip = queries[1]
     o, d = _t(o), _t(d)
-    args = (tsel.nodes, tsel.leaves, "tri", o, d, skip, EPS_B, EPS_P, True)
+    args = (tsel.wide, tsel.leaves, "tri", o, d, skip, EPS_B, EPS_P, True)
     want = ct.traverse(*args)
     gen = torch.Generator().manual_seed(5)
     for order in (torch.arange(len(o) - 1, -1, -1),
@@ -211,7 +211,7 @@ def test_sort_wrappers_reject_bad_inputs():
                  (o, d, lo[:2], hi), (o, d, lo, hi.double())):
         with pytest.raises(ValueError):
             ct._launch_key(*args)
-    good = [tsel.nodes, tsel.leaves, "tri", o, d, None, EPS_B, EPS_P, False]
+    good = [tsel.wide, tsel.leaves, "tri", o, d, None, EPS_B, EPS_P, False]
     for order in (torch.arange(len(o), dtype=torch.int32),
                   torch.arange(len(o) - 1)):
         with pytest.raises(ValueError):
@@ -395,7 +395,7 @@ def on_device(sel, device):
     """A copy of a packed BVH with its tensors on ``device``."""
     out = copy.copy(sel)
     for k, v in vars(sel).items():
-        if isinstance(v, torch.Tensor):
+        if isinstance(v, (torch.Tensor, ct.WideNodes)):
             setattr(out, k, v.to(device))
     out.device = torch.device(device)
     return out

@@ -265,12 +265,12 @@ def test_traverse_kernel_on_lane_variants_on_card(cuda_device, kind):  # noqa: F
         _, _, _, sel, o, d = tri_case()
     else:
         _, _, _, sel, o, d = field_case(kind == "spht")
-    nodes, leaves = sel.nodes.to(cuda_device), sel.leaves.to(cuda_device)
+    wide, leaves = sel.wide.to(cuda_device), sel.leaves.to(cuda_device)
     o, d = _t(o).to(cuda_device), _t(d).to(cuda_device)
     for qo, qd in _variants(o, d, 79):
-        ref = ct.traverse_reference(nodes, leaves, kind, qo, qd, None, EPS_B,
-                                    EPS_P, want_stats=True)
-        got = ct._launch(nodes, leaves, kind, qo, qd, None, EPS_B, EPS_P,
+        ref = ct.traverse_wide_reference(wide, leaves, kind, qo, qd, None,
+                                         EPS_B, EPS_P, want_stats=True)
+        got = ct._launch(wide, leaves, kind, qo, qd, None, EPS_B, EPS_P,
                          True)
         torch.cuda.synchronize()
         for f in ref._fields:
@@ -282,14 +282,14 @@ def test_wrappers_do_not_synchronise_on_card(cuda_device):  # noqa: F811
     scene = _scene("cornell").to(cuda_device)
     o, d = (_t(x).to(cuda_device) for x in rays_for("cornell", 999, 80))
     _, _, _, sel, to, td = tri_case()
-    nodes, leaves = sel.nodes.to(cuda_device), sel.leaves.to(cuda_device)
+    wide, leaves = sel.wide.to(cuda_device), sel.leaves.to(cuda_device)
     to, td = _t(to).to(cuda_device), _t(td).to(cuda_device)
     cs.closest_hit_fused(scene, o, d, None)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         cs.closest_hit_fused(scene, o, d, None)
-        ct.traverse(nodes, leaves, "tri", to, td, None, EPS_B, EPS_P)
+        ct.traverse(wide, leaves, "tri", to, td, None, EPS_B, EPS_P)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()

@@ -235,7 +235,7 @@ def test_traverse_reference_matches_pallas_sphere_leaves(ellipsoid):
 def test_traverse_outputs_counters_and_parked_rays():
     _, ta, _, tsel, o, d = tri_case()
     R = o.shape[0]
-    out = ct.traverse(tsel.nodes, tsel.leaves, "tri", _t(o), _t(d), None,
+    out = ct.traverse(tsel.wide, tsel.leaves, "tri", _t(o), _t(d), None,
                       EPS_B, EPS_P, want_stats=True)
     assert isinstance(out, ct.TraverseOut)
     for name, shape, dtype in (
@@ -258,13 +258,21 @@ def test_traverse_outputs_counters_and_parked_rays():
     on_ray = _t(o)[~miss] + _t(d)[~miss] * out.t[~miss][:, None]
     np.testing.assert_allclose(out.position[~miss].numpy(), on_ray.numpy(),
                                atol=1e-4)
-    # Counters: every ray visits the root; a ray that hit tested a record;
-    # no ray tests more records than there are triangles.
+    # Counters: every ray tests the root (one fetch, wide node 0) and
+    # fetches at most every wide node; a ray that hit tested a record; no
+    # ray tests more records than there are triangles, and each tests the
+    # records the binary walk tests, in fewer fetches than its visits.
     visited, tested = out.stats[:, 0], out.stats[:, 1]
-    assert int(visited.min()) >= 1 and int(visited.max()) <= tsel.n_nodes
+    assert int(visited.min()) >= 1
+    assert int(visited.max()) <= tsel.wide.table.shape[0]
     assert bool((tested[~miss] >= 1).all())
     assert int(tested.max()) <= int((ta.triangles.prim_id >= 0).sum())
-    assert ct.traverse(tsel.nodes, tsel.leaves, "tri", _t(o), _t(d), None,
+    binary = ct.traverse_reference(tsel.nodes, tsel.leaves, "tri", _t(o),
+                                   _t(d), None, EPS_B, EPS_P, want_stats=True)
+    assert torch.equal(tested, binary.stats[:, 1])
+    walked = binary.stats[:, 0] > 1
+    assert bool((visited[walked] < binary.stats[walked, 0]).all())
+    assert ct.traverse(tsel.wide, tsel.leaves, "tri", _t(o), _t(d), None,
                        EPS_B, EPS_P).stats is None
     assert len(tsel.select(_t(o), _t(d), None, EPS_B, EPS_P,
                            want_stats=True)) == 4
@@ -274,7 +282,7 @@ def test_traverse_outputs_counters_and_parked_rays():
     parked_o = torch.full((8, 3), 4e8)
     parked_d = torch.zeros((8, 3))
     parked_d[:, 0] = 1.0
-    parked = ct.traverse(tsel.nodes, tsel.leaves, "tri", parked_o, parked_d,
+    parked = ct.traverse(tsel.wide, tsel.leaves, "tri", parked_o, parked_d,
                          None, EPS_B, EPS_P, want_stats=True)
     assert bool((parked.row == -1).all())
     assert parked.stats.tolist() == [[1, 0]] * 8
@@ -317,26 +325,27 @@ def test_traverse_wrapper_rejects_bad_inputs():
     exercised here on CPU tensors."""
     _, _, _, tsel, o, d = tri_case()
     o, d = _t(o), _t(d)
-    good = (tsel.nodes, tsel.leaves, "tri", o, d, None, EPS_B, EPS_P, False)
+    good = (tsel.wide, tsel.leaves, "tri", o, d, None, EPS_B, EPS_P, False)
     skip = tdispatch.HitRecord(
         prim=torch.zeros(len(o), dtype=torch.int32), t=torch.zeros(len(o)),
         position=torch.zeros_like(o), normal=torch.zeros_like(o),
         inside=torch.zeros(len(o), dtype=torch.bool))
 
     def bad(**kw):
-        names = ("nodes", "leaves", "leaf_kind", "ray_o", "ray_d", "skip")
+        names = ("wide", "leaves", "leaf_kind", "ray_o", "ray_d", "skip")
         args = [kw.get(n, g) for n, g in zip(names, good)] + list(good[6:])
         with pytest.raises(ValueError):
             ct._launch(*args)
     bad(ray_o=o.double())
     bad(ray_d=d[:-1])
     bad(ray_o=o.t().contiguous().t())
-    bad(nodes=tsel.nodes[:, :7])
+    bad(wide=tsel.wide._replace(table=tsel.wide.table[:, :28]))
+    bad(wide=tsel.wide._replace(depth=ct.WIDE_STACK + 1))
     bad(leaves=tsel.leaves[:, :-1])
     bad(skip=dataclasses.replace(skip, prim=skip.prim.long()))
     bad(skip=dataclasses.replace(skip, normal=skip.normal[:-1]))
     with pytest.raises(ValueError, match="leaf kind"):
-        ct.traverse(tsel.nodes, tsel.leaves, "box", o, d, None, EPS_B, EPS_P)
+        ct.traverse(tsel.wide, tsel.leaves, "box", o, d, None, EPS_B, EPS_P)
     with pytest.raises(ValueError, match="nodes"):
         ct.pack_nodes(dataclasses.replace(
             build_bvh(tmeshgen.make_mesh_scene(grid=1, subdiv=0,
@@ -625,8 +634,8 @@ def test_traverse_kernel_matches_reference_on_card(cuda_device, kind):  # noqa: 
         _, ta, _, tsel, o, d = field_case(kind == "spht")
         scene = ta.to(cuda_device)
         sel = tsel
-        sel.nodes, sel.leaves = (x.to(cuda_device) for x in (sel.nodes,
-                                                             sel.leaves))
+        sel.wide, sel.leaves = (x.to(cuda_device) for x in (sel.wide,
+                                                            sel.leaves))
     o, d = _t(o).to(cuda_device), _t(d).to(cuda_device)
     hit = tdispatch.closest_hit(scene, o, d, None)
     found = (hit.prim >= 0)[:, None]
@@ -635,11 +644,11 @@ def test_traverse_kernel_matches_reference_on_card(cuda_device, kind):  # noqa: 
     d2 = torch.where(found, d - 2.0 * dn * hit.normal, d).contiguous()
     for rays, skip in (((o, d), None), ((o2, d2), hit)):
         before = ct.traverse.launches
-        args = (sel.nodes, sel.leaves, kind, *rays, sel._skip(skip), EPS_B,
+        args = (sel.wide, sel.leaves, kind, *rays, sel._skip(skip), EPS_B,
                 EPS_P, True)
         got = ct.traverse(*args)
         assert ct.traverse.launches == before + 1
-        want = ct.traverse_reference(*args)
+        want = ct.traverse_wide_reference(*args)
         torch.cuda.synchronize()
         for name, g, w in zip(ct.TraverseOut._fields, got, want):
             assert torch.equal(g, w), name
