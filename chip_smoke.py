@@ -1824,16 +1824,20 @@ def traverse_times(label, bvh, queries, card):
               f"sorted {parts_text(sorted_parts) or 'not measured'}")
     print(f"[time] traversal {label} kernel ({bvh.wide.width}-wide): "
           + occupancy_text(tuple(f"traverse_kernelILi{k}ELi"
-                                 f"{bvh.wide.width}E" for k in range(3)),
+                                 f"{bvh.wide.width}ELb{st}ELi0E"
+                                 for k in range(3) for st in (0, 1)),
                            TRAVERSE_THREADS))
     for k in rows[0]["variants"]:
+        top = 256 if k.endswith("top") else 0
         prefix = ("traverse_binary_kernel" if k == "binary" else tuple(
-            f"traverse_kernelILi{j}ELi{k[4:]}E" for j in range(3)))
+            f"traverse_kernelILi{j}ELi{k[4:5]}ELb{st}ELi{top}E"
+            for j in range(3) for st in (0, 1)))
         print(f"[variants] traversal {label} {k} per pass: device ms sum="
               f"{fmt_ms(sum_or_none(r['variants'][k]['ms'] for r in rows))} "
               f"reached-bytes bound ms sum="
               f"{sum(r['variants'][k]['reached'] for r in rows):.4f}; "
-              + occupancy_text(prefix, TRAVERSE_THREADS) + f" on {card}")
+              + occupancy_text(prefix, TRAVERSE_THREADS, 128 * top)
+              + f" on {card}")
 
     def total(k):
         return sum_or_none(r[k] for r in rows)
@@ -1965,6 +1969,9 @@ def traverse_variants(bvh, query, eps, wides, bin_stats):
                        *wides.items()]:
         runs[name] = (lambda s=False, wide=wide: ct.traverse(
             wide, bvh.leaves, bvh.leaf_kind, o, d, sk, *eps, want_stats=s))
+    # The top 256 wide nodes staged in shared memory per block.
+    runs["wide4top"] = lambda s=False: ct._launch(
+        bvh.wide, bvh.leaves, bvh.leaf_kind, o, d, sk, *eps, s, top=256)
     out = {}
     for name, run in runs.items():
         got = run(True)
@@ -1979,7 +1986,7 @@ def traverse_variants(bvh, query, eps, wides, bin_stats):
             check(torch.equal(got.stats[:, 0], bin_stats[:, 0]),
                   "binary traversal kernel: visits equal to the binary "
                   "plain walk's")
-        node_bytes = 32 if name == "binary" else 32 * int(name[4:])
+        node_bytes = 32 if name == "binary" else 32 * int(name[4:5])
         out[name] = {"fetched": float(got.stats[:, 0].float().mean()),
                      "reached": reached_bound(node_bytes, got.stats, query,
                                               bvh.leaf_kind), "times": []}

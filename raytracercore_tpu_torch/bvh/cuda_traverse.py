@@ -781,7 +781,7 @@ KERNEL_WIDTHS = (4, 8)
 
 
 def _launch(wide, leaves, leaf_kind, ray_o, ray_d, skip, eps_behind,
-            eps_pos, want_stats, order=None) -> TraverseOut:
+            eps_pos, want_stats, order=None, top=0) -> TraverseOut:
     from .. import kernels
 
     kind, F = LEAF_KINDS[leaf_kind]
@@ -825,7 +825,7 @@ def _launch(wide, leaves, leaf_kind, ray_o, ray_d, skip, eps_behind,
         ray_d.data_ptr(), *skip_ptrs,
         None if order is None else order.data_ptr(),
         *(None if t is None else t.data_ptr() for t in out),
-        R, wide.table.shape[0], wide.width, wide.depth,
+        R, wide.table.shape[0], wide.width, wide.depth, top,
         leaves.shape[1] // F, kind, eps_behind, eps_pos * eps_pos,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:

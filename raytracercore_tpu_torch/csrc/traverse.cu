@@ -468,9 +468,23 @@ __device__ __forceinline__ void test_leaf(const TraverseParams& p, int slot,
 // near, the last first, and the first is walked next without a second
 // test (best.t has not moved since).  A popped entry is walked only if its
 // near is still <= best.t.
-template <int KIND, int W, bool STATS>
+// The top nodes a block may stage in shared memory (TOP > 0), swizzled so
+// that lanes at different nodes read different banks: float4 q of node n
+// sits at n * 2W + (q ^ (n & (2W - 1))).
+constexpr int WIDE_TOP = 256;
+
+template <int KIND, int W, bool STATS, int TOP>
 __global__ void __launch_bounds__(TRAVERSE_BLOCK)
     traverse_kernel(TraverseParams p) {
+  extern __shared__ float4 top_nodes[];
+  const int n_top = TOP > 0 ? min(TOP, p.n_nodes) : 0;
+  if (TOP > 0) {
+    for (int i = threadIdx.x; i < n_top * 2 * W; i += blockDim.x) {
+      const int n = i / (2 * W), q = i % (2 * W);
+      top_nodes[n * 2 * W + (q ^ (n & (2 * W - 1)))] = __ldg(p.nodes + i);
+    }
+    __syncthreads();
+  }
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= p.R) return;
   const int r = p.order != nullptr ? (int)__ldg(p.order + lane) : lane;
@@ -486,20 +500,25 @@ __global__ void __launch_bounds__(TRAVERSE_BLOCK)
   for (;;) {
     if (ref >= 0) {
       const float4* nd = p.nodes + (size_t)ref * (2 * W);
+      const bool staged = TOP > 0 && ref < n_top;
       ++fetched;
+      float4 row[7 * W / 4];
+#pragma unroll
+      for (int q = 0; q < 7 * W / 4; ++q)
+        row[q] = staged ? top_nodes[ref * 2 * W + (q ^ (ref & (2 * W - 1)))]
+                        : __ldg(nd + q);
       float pl[6 * W];
 #pragma unroll
       for (int q = 0; q < 6 * W / 4; ++q) {
-        const float4 x = __ldg(nd + q);
-        pl[4 * q] = x.x;
-        pl[4 * q + 1] = x.y;
-        pl[4 * q + 2] = x.z;
-        pl[4 * q + 3] = x.w;
+        pl[4 * q] = row[q].x;
+        pl[4 * q + 1] = row[q].y;
+        pl[4 * q + 2] = row[q].z;
+        pl[4 * q + 3] = row[q].w;
       }
       int kid[W];
 #pragma unroll
       for (int q = 0; q < W / 4; ++q) {
-        const float4 x = __ldg(nd + 6 * W / 4 + q);
+        const float4 x = row[6 * W / 4 + q];
         kid[4 * q] = (int)x.x;
         kid[4 * q + 1] = (int)x.y;
         kid[4 * q + 2] = (int)x.z;
@@ -550,13 +569,17 @@ __global__ void __launch_bounds__(TRAVERSE_BLOCK)
   store_winner<STATS>(p, r, best, fetched, tested);
 }
 
-template <int KIND, int W>
+template <int KIND, int W, int TOP>
 int launch_traverse(const TraverseParams& p, cudaStream_t stream) {
   dim3 grid((p.R + TRAVERSE_BLOCK - 1) / TRAVERSE_BLOCK);
+  const size_t smem =
+      TOP > 0 ? (size_t)min(TOP, p.n_nodes) * 2 * W * sizeof(float4) : 0;
   if (p.stats != nullptr)
-    traverse_kernel<KIND, W, true><<<grid, TRAVERSE_BLOCK, 0, stream>>>(p);
+    traverse_kernel<KIND, W, true, TOP>
+        <<<grid, TRAVERSE_BLOCK, smem, stream>>>(p);
   else
-    traverse_kernel<KIND, W, false><<<grid, TRAVERSE_BLOCK, 0, stream>>>(p);
+    traverse_kernel<KIND, W, false, TOP>
+        <<<grid, TRAVERSE_BLOCK, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -740,8 +763,8 @@ extern "C" int rtc_traverse(
     const float* sk_nrm, const unsigned char* sk_inside,
     const long long* order, int* row, float* t,
     int* prim, float* pos, float* nrm, int* flags, float* u, float* v,
-    int* stats, int R, int n_wide, int width, int depth, int K, int kind,
-    float eps_behind, float eps2, void* stream) {
+    int* stats, int R, int n_wide, int width, int depth, int top, int K,
+    int kind, float eps_behind, float eps2, void* stream) {
   if (R <= 0) return 0;
   if (n_wide <= 0 || K <= 0 || depth < 0 || depth > rtc::WIDE_STACK)
     return (int)cudaErrorInvalidValue;
@@ -751,19 +774,20 @@ extern "C" int rtc_traverse(
                         order, row, t, prim, pos, nrm, flags, u, v, stats,
                         R, n_wide, K, eps_behind, eps2};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define RTC_TRAVERSE_WIDTH(W)                                  \
-  switch (kind) {                                              \
-    case rtc::KIND_TRI:                                        \
-      return rtc::launch_traverse<rtc::KIND_TRI, W>(p, s);     \
-    case rtc::KIND_SPH:                                        \
-      return rtc::launch_traverse<rtc::KIND_SPH, W>(p, s);     \
-    case rtc::KIND_SPHT:                                       \
-      return rtc::launch_traverse<rtc::KIND_SPHT, W>(p, s);    \
-    default:                                                   \
-      return (int)cudaErrorInvalidValue;                       \
+#define RTC_TRAVERSE_WIDTH(W, TOP)                                 \
+  switch (kind) {                                                  \
+    case rtc::KIND_TRI:                                            \
+      return rtc::launch_traverse<rtc::KIND_TRI, W, TOP>(p, s);    \
+    case rtc::KIND_SPH:                                            \
+      return rtc::launch_traverse<rtc::KIND_SPH, W, TOP>(p, s);    \
+    case rtc::KIND_SPHT:                                           \
+      return rtc::launch_traverse<rtc::KIND_SPHT, W, TOP>(p, s);   \
+    default:                                                       \
+      return (int)cudaErrorInvalidValue;                           \
   }
-  if (width == 4) RTC_TRAVERSE_WIDTH(4)
-  if (width == 8) RTC_TRAVERSE_WIDTH(8)
+  if (width == 4 && top == 0) RTC_TRAVERSE_WIDTH(4, 0)
+  if (width == 4 && top == rtc::WIDE_TOP) RTC_TRAVERSE_WIDTH(4, rtc::WIDE_TOP)
+  if (width == 8 && top == 0) RTC_TRAVERSE_WIDTH(8, 0)
 #undef RTC_TRAVERSE_WIDTH
   return (int)cudaErrorInvalidValue;
 }

@@ -79,7 +79,7 @@ SIGNATURES = {
                                        # (null: none), order (null:
                                        # identity), 8 outputs, stats (null:
                                        # none)
-        + [_I] * 6                     # R n_wide width depth K leaf kind
+        + [_I] * 7                     # R n_wide width depth top K kind
         + [_F, _F]                     # eps_behind, eps_pos²
         + [_P]),                       # stream
     "rtc_traverse_binary": (
