@@ -1734,7 +1734,6 @@ def traverse_times(label, bvh, queries, card):
     from raytracercore_tpu_torch.core import vecmath as vm
 
     eps = (vm.near_enough(torch.float32), vm.POSITION_EPS_F32)
-    wides = wide_variants(bvh)
     rows = []
     for b, query in enumerate(queries):
         o, d, skip = query
@@ -1774,7 +1773,6 @@ def traverse_times(label, bvh, queries, card):
         reached = reached_bound(bvh.wide.width * 32, stats, query,
                                 bvh.leaf_kind)
         reached_bin = reached_bound(32, bin_stats, query, bvh.leaf_kind)
-        variants = traverse_variants(bvh, query, eps, wides, bin_stats)
         R = o.shape[0]
         n_alive = max(float((~parked(o)).sum()), 1.0)
         visited, tested = stats.float().mean(0).tolist()
@@ -1791,8 +1789,7 @@ def traverse_times(label, bvh, queries, card):
                      "walk_ms": walk_ms, "gathered_ms": gathered_ms,
                      "parked_last_ms": parked_last_ms, "bound": bnd,
                      "reached": reached, "reached_binary": reached_bin,
-                     "stats": stats, "eff": eff, "eff_sorted": eff_sorted,
-                     "variants": variants})
+                     "stats": stats, "eff": eff, "eff_sorted": eff_sorted})
         print(f"[time] traversal {label} bounce {b}: wrapper ms={ms:.4f} "
               f"device ms (CUDA graph) unsorted={fmt_ms(dev_ms)} sorted="
               f"{fmt_ms(sorted_ms)} (key {fmt_ms(key_ms)}, sort "
@@ -1813,31 +1810,11 @@ def traverse_times(label, bvh, queries, card):
               f"{dead_ws[1]}) sorted==unsorted on all 12 outputs and both "
               f"counters=True; stack {bvh.wide.depth} entries deep of "
               f"{ct.WIDE_STACK} on {card}")
-        print(f"[variants] traversal {label} bounce {b}: " + "; ".join(
-            f"{k} ms={fmt_ms(v['ms'])} ("
-            f"{' / '.join(fmt_ms(t) for t in v['times'])}) fetches per ray="
-            f"{v['fetched']:.2f} "
-            f"reached-bytes bound ms={v['reached']:.4f}"
-            for k, v in variants.items()) + f" on {card}")
         print(f"[time] traversal {label} bounce {b} kernels, us per call "
               f"(profiler): unsorted {parts_text(parts) or 'not measured'}; "
               f"sorted {parts_text(sorted_parts) or 'not measured'}")
     print(f"[time] traversal {label} kernel ({bvh.wide.width}-wide): "
-          + occupancy_text(tuple(f"traverse_kernelILi{k}ELi"
-                                 f"{bvh.wide.width}ELb{st}ELi0E"
-                                 for k in range(3) for st in (0, 1)),
-                           TRAVERSE_THREADS))
-    for k in rows[0]["variants"]:
-        top = 256 if k.endswith("top") else 0
-        prefix = ("traverse_binary_kernel" if k == "binary" else tuple(
-            f"traverse_kernelILi{j}ELi{k[4:5]}ELb{st}ELi{top}E"
-            for j in range(3) for st in (0, 1)))
-        print(f"[variants] traversal {label} {k} per pass: device ms sum="
-              f"{fmt_ms(sum_or_none(r['variants'][k]['ms'] for r in rows))} "
-              f"reached-bytes bound ms sum="
-              f"{sum(r['variants'][k]['reached'] for r in rows):.4f}; "
-              + occupancy_text(prefix, TRAVERSE_THREADS, 128 * top)
-              + f" on {card}")
+          + occupancy_text("traverse_kernel", TRAVERSE_THREADS))
 
     def total(k):
         return sum_or_none(r[k] for r in rows)
@@ -1900,103 +1877,6 @@ def reached_bound(node_bytes, stats, query, leaf_kind):
     n_bytes = (fetched * node_bytes + tested * 4 * ct.LEAF_KINDS[leaf_kind][1]
                + ray_io_bytes(query))
     return n_bytes / PEAK_BYTES * 1e3
-
-
-def wide_variants(bvh):
-    """The widths of the kernel beside the tree's own, packed from its
-    binary nodes: ``{"wide8": WideNodes, ...}``."""
-    from raytracercore_tpu_torch.bvh import cuda_traverse as ct
-    from raytracercore_tpu_torch.bvh.builder import BVHArrays
-
-    n = bvh.nodes.cpu()
-    tree = BVHArrays(bmin=n[:, 0:3], bmax=n[:, 3:6],
-                     skip=n[:, 6].to(torch.int32),
-                     leaf_slot=n[:, 7].to(torch.int32),
-                     leaf_prims=torch.zeros((1, bvh.K), dtype=torch.int32))
-    out = {}
-    for w in ct.KERNEL_WIDTHS:
-        if w != bvh.wide.width:
-            table, depth = ct.pack_wide_nodes(tree, w)
-            out[f"wide{w}"] = ct.WideNodes(
-                torch.tensor(table, device=bvh.nodes.device), depth)
-    return out
-
-
-def traverse_binary(bvh, o, d, skip, eps, want_stats=False):
-    """The parent tree's binary skip-link kernel (``rtc_traverse_binary``)
-    on one query: a ``TraverseOut``."""
-    from raytracercore_tpu_torch import kernels
-    from raytracercore_tpu_torch.bvh import cuda_traverse as ct
-
-    kind, F = ct.LEAF_KINDS[bvh.leaf_kind]
-    R = o.shape[0]
-    f32, i32, dev = torch.float32, torch.int32, o.device
-
-    def empty(shape, dtype):
-        return torch.empty(shape, dtype=dtype, device=dev)
-    out = ct.TraverseOut(
-        row=empty((R,), i32), t=empty((R,), f32), prim=empty((R,), i32),
-        position=empty((R, 3), f32), normal=empty((R, 3), f32),
-        flags=empty((R,), i32), u=empty((R,), f32), v=empty((R,), f32),
-        stats=empty((R, 2), i32) if want_stats else None)
-    sk = ([None] * 4 if skip is None else
-          [t.data_ptr() for t in (skip.prim, skip.position, skip.normal,
-                                  skip.inside)])
-    err = kernels.load().rtc_traverse_binary(
-        bvh.nodes.data_ptr(), bvh.leaves.data_ptr(), o.data_ptr(),
-        d.data_ptr(), *sk, None,
-        *(None if t is None else t.data_ptr() for t in out),
-        R, bvh.nodes.shape[0], bvh.K, kind, eps[0], eps[1] * eps[1],
-        torch.cuda.current_stream(dev).cuda_stream)
-    check(err == 0, f"binary traversal kernel launched (CUDA error {err})")
-    return out
-
-
-def traverse_variants(bvh, query, eps, wides, bin_stats):
-    """The parent's binary kernel and the other widths on one query, each
-    held bit-equal to the tree's own kernel (the 12 outputs, the records
-    tested; the binary kernel's visits to the binary plain walk's) and
-    timed by CUDA-graph replay: ``{name: {"ms", "fetched",
-    "reached"}}``."""
-    from raytracercore_tpu_torch.bvh import cuda_traverse as ct
-
-    o, d, skip = query
-    sk = bvh._skip(skip)
-    want = ct.traverse(bvh.wide, bvh.leaves, bvh.leaf_kind, o, d, sk, *eps,
-                       want_stats=True)
-    runs = {"binary": lambda s=False: traverse_binary(bvh, o, d, sk, eps, s)}
-    for name, wide in [(f"wide{bvh.wide.width}", bvh.wide),
-                       *wides.items()]:
-        runs[name] = (lambda s=False, wide=wide: ct.traverse(
-            wide, bvh.leaves, bvh.leaf_kind, o, d, sk, *eps, want_stats=s))
-    # The top 256 wide nodes staged in shared memory per block.
-    runs["wide4top"] = lambda s=False: ct._launch(
-        bvh.wide, bvh.leaves, bvh.leaf_kind, o, d, sk, *eps, s, top=256)
-    out = {}
-    for name, run in runs.items():
-        got = run(True)
-        torch.cuda.synchronize()
-        for f in ct.TraverseOut._fields[:-1]:
-            check(torch.equal(getattr(got, f), getattr(want, f)),
-                  f"{name} traversal kernel: {f} equal to the "
-                  f"{bvh.wide.width}-wide kernel's")
-        check(torch.equal(got.stats[:, 1], want.stats[:, 1]),
-              f"{name} traversal kernel: records tested equal")
-        if name == "binary":
-            check(torch.equal(got.stats[:, 0], bin_stats[:, 0]),
-                  "binary traversal kernel: visits equal to the binary "
-                  "plain walk's")
-        node_bytes = 32 if name == "binary" else 32 * int(name[4:5])
-        out[name] = {"fetched": float(got.stats[:, 0].float().mean()),
-                     "reached": reached_bound(node_bytes, got.stats, query,
-                                              bvh.leaf_kind), "times": []}
-    # In turns, there and back: a, b, c, c, b, a.
-    for name in [*runs, *reversed(runs)]:
-        out[name]["times"].append(graph_ms(runs[name], 20))
-    for v in out.values():
-        v["ms"] = (None if None in v["times"]
-                   else sum(v["times"]) / len(v["times"]))
-    return out
 
 
 def bvh_compare_scenes(card, dev):

@@ -776,22 +776,16 @@ def traverse_wide_reference(wide: WideNodes, leaves, leaf_kind: str, ray_o,
 # The kernel
 # ---------------------------------------------------------------------------
 
-# The widths the kernel is built for.
-KERNEL_WIDTHS = (4, 8)
-
-
 def _launch(wide, leaves, leaf_kind, ray_o, ray_d, skip, eps_behind,
-            eps_pos, want_stats, order=None, top=0) -> TraverseOut:
+            eps_pos, want_stats, order=None) -> TraverseOut:
     from .. import kernels
 
     kind, F = LEAF_KINDS[leaf_kind]
     dev = ray_o.device
     R = ray_o.shape[0]
     f32, i32 = torch.float32, torch.int32
-    if wide.width not in KERNEL_WIDTHS or wide.table.shape[1] != 8 * wide.width:
-        raise ValueError(f"wide: {wide.table.shape[1]} floats a node, the "
-                         f"kernel takes 8 x {KERNEL_WIDTHS}")
-    _check("wide", wide.table, tuple(wide.table.shape), f32, dev)
+    _check("wide", wide.table, (wide.table.shape[0], 8 * WIDE_WIDTH), f32,
+           dev)
     if not 0 <= wide.depth <= WIDE_STACK:
         raise ValueError(f"wide: a walk may need {wide.depth} stack "
                          f"entries, the kernel has {WIDE_STACK}")
@@ -825,8 +819,8 @@ def _launch(wide, leaves, leaf_kind, ray_o, ray_d, skip, eps_behind,
         ray_d.data_ptr(), *skip_ptrs,
         None if order is None else order.data_ptr(),
         *(None if t is None else t.data_ptr() for t in out),
-        R, wide.table.shape[0], wide.width, wide.depth, top,
-        leaves.shape[1] // F, kind, eps_behind, eps_pos * eps_pos,
+        R, wide.table.shape[0], wide.depth, leaves.shape[1] // F, kind,
+        eps_behind, eps_pos * eps_pos,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"traversal kernel launch failed: CUDA error {err}")

@@ -78,11 +78,15 @@
 // registers alone and many warps hide each other's loads; the ray, the skip
 // record and the running best stay in registers; the leaf tests are the
 // binary kernel's.  -fmad=false halves what the card's fp32 rate could
-// give, but the operations are not what bounds the walk.  Schedules that
-// settle the parked rays in a list kernel first, persistent warps that
-// take new rays as theirs finish and postponed leaves measured slower than
-// one ray a thread (PERF.md), as did 8-wide nodes; front-to-back child
-// order would settle ties in another order and is not bit-equal.  The TPU
+// give, but the operations are not what bounds the walk.  Measured
+// (PERF.md): 4x fewer dependent fetches than the binary walk's visits made
+// the walk only 6-8 % faster, since both read the same bytes in about as
+// many 16-byte loads a lane; 8-wide nodes (fewer fetches, more registers)
+// and the top 256 nodes staged in shared memory per block (a 32 KB copy a
+// block) were slower, as were the schedules of earlier trees (a list kernel
+// for the parked rays, persistent warps that refill, postponed leaves).
+// Front-to-back child order would settle ties in another order and is not
+// bit-equal.  The TPU
 // kernel's 8-chain block beam, pending-leaf flush, two-node speculation,
 // DMA path, bf16 node words and lane padding answer the TPU's lack of a
 // per-lane gather and are not carried over.
@@ -116,14 +120,14 @@ constexpr float BIG_INV = 3.4e38f;  // inverse of a zero direction component
 constexpr int KIND_TRI = 0, KIND_SPH = 1, KIND_SPHT = 2;
 constexpr int FLAG_IN = 1, FLAG_IN_GEO = 2, FLAG_SMOOTH = 4;
 
-// Entries of a thread's stack; pack_wide_nodes refuses a tree that could
-// need more (cuda_traverse.WIDE_STACK).
+// Children a wide node, and entries of a thread's stack; pack_wide_nodes
+// refuses a tree that could need more (cuda_traverse.WIDE_WIDTH,
+// WIDE_STACK).
+constexpr int WIDE_WIDTH = 4;
 constexpr int WIDE_STACK = 64;
 
 struct TraverseParams {
-  const float4* nodes;             // wide: [M, 2W] (pack_wide_nodes);
-                                   // binary: [N,2] bmin.xyz bmax.x |
-                                   // bmax.yz skip slot
+  const float4* nodes;             // [M, 2W] wide nodes (pack_wide_nodes)
   const float4* leaves;            // [L, K*F/4]
   const float* ray_o;              // [R,3]
   const float* ray_d;              // [R,3]
@@ -468,23 +472,10 @@ __device__ __forceinline__ void test_leaf(const TraverseParams& p, int slot,
 // near, the last first, and the first is walked next without a second
 // test (best.t has not moved since).  A popped entry is walked only if its
 // near is still <= best.t.
-// The top nodes a block may stage in shared memory (TOP > 0), swizzled so
-// that lanes at different nodes read different banks: float4 q of node n
-// sits at n * 2W + (q ^ (n & (2W - 1))).
-constexpr int WIDE_TOP = 256;
-
-template <int KIND, int W, bool STATS, int TOP>
+template <int KIND, bool STATS>
 __global__ void __launch_bounds__(TRAVERSE_BLOCK)
     traverse_kernel(TraverseParams p) {
-  extern __shared__ float4 top_nodes[];
-  const int n_top = TOP > 0 ? min(TOP, p.n_nodes) : 0;
-  if (TOP > 0) {
-    for (int i = threadIdx.x; i < n_top * 2 * W; i += blockDim.x) {
-      const int n = i / (2 * W), q = i % (2 * W);
-      top_nodes[n * 2 * W + (q ^ (n & (2 * W - 1)))] = __ldg(p.nodes + i);
-    }
-    __syncthreads();
-  }
+  constexpr int W = WIDE_WIDTH;
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= p.R) return;
   const int r = p.order != nullptr ? (int)__ldg(p.order + lane) : lane;
@@ -500,25 +491,20 @@ __global__ void __launch_bounds__(TRAVERSE_BLOCK)
   for (;;) {
     if (ref >= 0) {
       const float4* nd = p.nodes + (size_t)ref * (2 * W);
-      const bool staged = TOP > 0 && ref < n_top;
       ++fetched;
-      float4 row[7 * W / 4];
-#pragma unroll
-      for (int q = 0; q < 7 * W / 4; ++q)
-        row[q] = staged ? top_nodes[ref * 2 * W + (q ^ (ref & (2 * W - 1)))]
-                        : __ldg(nd + q);
       float pl[6 * W];
 #pragma unroll
       for (int q = 0; q < 6 * W / 4; ++q) {
-        pl[4 * q] = row[q].x;
-        pl[4 * q + 1] = row[q].y;
-        pl[4 * q + 2] = row[q].z;
-        pl[4 * q + 3] = row[q].w;
+        const float4 x = __ldg(nd + q);
+        pl[4 * q] = x.x;
+        pl[4 * q + 1] = x.y;
+        pl[4 * q + 2] = x.z;
+        pl[4 * q + 3] = x.w;
       }
       int kid[W];
 #pragma unroll
       for (int q = 0; q < W / 4; ++q) {
-        const float4 x = row[6 * W / 4 + q];
+        const float4 x = __ldg(nd + 6 * W / 4 + q);
         kid[4 * q] = (int)x.x;
         kid[4 * q + 1] = (int)x.y;
         kid[4 * q + 2] = (int)x.z;
@@ -569,126 +555,13 @@ __global__ void __launch_bounds__(TRAVERSE_BLOCK)
   store_winner<STATS>(p, r, best, fetched, tested);
 }
 
-template <int KIND, int W, int TOP>
+template <int KIND>
 int launch_traverse(const TraverseParams& p, cudaStream_t stream) {
   dim3 grid((p.R + TRAVERSE_BLOCK - 1) / TRAVERSE_BLOCK);
-  const size_t smem =
-      TOP > 0 ? (size_t)min(TOP, p.n_nodes) * 2 * W * sizeof(float4) : 0;
   if (p.stats != nullptr)
-    traverse_kernel<KIND, W, true, TOP>
-        <<<grid, TRAVERSE_BLOCK, smem, stream>>>(p);
+    traverse_kernel<KIND, true><<<grid, TRAVERSE_BLOCK, 0, stream>>>(p);
   else
-    traverse_kernel<KIND, W, false, TOP>
-        <<<grid, TRAVERSE_BLOCK, smem, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int KIND, bool STATS>
-__global__ void __launch_bounds__(TRAVERSE_BLOCK)
-    traverse_binary_kernel(TraverseParams p) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= p.R) return;
-  const int r = p.order != nullptr ? (int)__ldg(p.order + lane) : lane;
-  constexpr int REC4 = KIND == KIND_TRI ? 4 : (KIND == KIND_SPH ? 2 : 8);
-
-  Ray ray;
-  ray.o = {p.ray_o[3 * r], p.ray_o[3 * r + 1], p.ray_o[3 * r + 2]};
-  ray.d = {p.ray_d[3 * r], p.ray_d[3 * r + 1], p.ray_d[3 * r + 2]};
-  const V3 o = ray.o, d = ray.d;
-  ray.n = d;
-  ray.dn_len = 1.f;
-  if (KIND != KIND_TRI) {
-    // The dense path re-normalizes (Ray.Transform, Ray.cs:43-50), and on
-    // tangent rays the discriminant's sign flips with sub-ulp |d|
-    // deviations.
-    ray.dn_len = sqrtf(fmaxf(d.x * d.x + d.y * d.y + d.z * d.z, 1e-30f));
-    ray.n = {d.x / ray.dn_len, d.y / ray.dn_len, d.z / ray.dn_len};
-  }
-  const float ix = d.x != 0.f ? 1.f / d.x : BIG_INV;
-  const float iy = d.y != 0.f ? 1.f / d.y : BIG_INV;
-  const float iz = d.z != 0.f ? 1.f / d.z : BIG_INV;
-
-  // Previous hit (skip record); none when the caller gave no record.
-  int pv_prim = -1;
-  V3 pv_pos = {0.f, 0.f, 0.f};
-  V3 pv_nrm = {0.f, 0.f, 1.f};
-  bool pv_in = false;
-  if (p.sk_prim != nullptr) {
-    pv_prim = p.sk_prim[r];
-    pv_pos = {p.sk_pos[3 * r], p.sk_pos[3 * r + 1], p.sk_pos[3 * r + 2]};
-    pv_nrm = {p.sk_nrm[3 * r], p.sk_nrm[3 * r + 1], p.sk_nrm[3 * r + 2]};
-    pv_in = p.sk_inside[r] != 0;
-  }
-  const Skip k = make_skip(pv_prim, pv_pos, pv_nrm, pv_in, d);
-
-  Winner best;
-  best.t = INFINITY;
-  best.row = -1;
-  best.prim = -1;
-  best.flags = 0;
-  best.pos = {0.f, 0.f, 0.f};
-  best.nrm = {0.f, 0.f, 0.f};
-  best.u = 0.f;
-  best.v = 0.f;
-
-  int visited = 0, tested = 0;
-  int node = 0;
-  while (node < p.n_nodes) {
-    const float4 a = __ldg(p.nodes + 2 * node);
-    const float4 b = __ldg(p.nodes + 2 * node + 1);
-    ++visited;
-    const float tx0 = (a.x - o.x) * ix, tx1 = (a.w - o.x) * ix;
-    const float ty0 = (a.y - o.y) * iy, ty1 = (b.x - o.y) * iy;
-    const float tz0 = (a.z - o.z) * iz, tz1 = (b.y - o.z) * iz;
-    const float near_t =
-        fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)), fminf(tz0, tz1));
-    const float far_t =
-        fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)), fmaxf(tz0, tz1));
-    const bool hit =
-        near_t <= far_t && far_t >= -p.eps_behind && near_t <= best.t;
-    const int slot = (int)b.w;
-    if (hit && slot < 0) {
-      node = node + 1;
-      continue;
-    }
-    node = (int)b.z;
-    if (!hit) continue;
-    const float4* rec = p.leaves + (size_t)slot * p.K * REC4;
-    for (int q = 0; q < p.K; ++q, rec += REC4) {
-      if (KIND == KIND_TRI)
-        tri_record(rec, ray, p.eps_behind, k, p.eps2, best, tested);
-      else if (KIND == KIND_SPH)
-        sph_record(rec, ray, k, p.eps2, best, tested);
-      else
-        spht_record(rec, ray, k, p.eps2, best, tested);
-    }
-  }
-
-  p.row[r] = best.row;
-  p.t[r] = best.t;
-  p.prim[r] = best.prim;
-  p.pos[3 * r] = best.pos.x;
-  p.pos[3 * r + 1] = best.pos.y;
-  p.pos[3 * r + 2] = best.pos.z;
-  p.nrm[3 * r] = best.nrm.x;
-  p.nrm[3 * r + 1] = best.nrm.y;
-  p.nrm[3 * r + 2] = best.nrm.z;
-  p.flags[r] = best.flags;
-  p.u[r] = best.u;
-  p.v[r] = best.v;
-  if (STATS) {
-    p.stats[2 * r] = visited;
-    p.stats[2 * r + 1] = tested;
-  }
-}
-
-template <int KIND>
-int launch_traverse_binary(const TraverseParams& p, cudaStream_t stream) {
-  dim3 grid((p.R + TRAVERSE_BLOCK - 1) / TRAVERSE_BLOCK);
-  if (p.stats != nullptr)
-    traverse_binary_kernel<KIND, true><<<grid, TRAVERSE_BLOCK, 0, stream>>>(p);
-  else
-    traverse_binary_kernel<KIND, false><<<grid, TRAVERSE_BLOCK, 0, stream>>>(p);
+    traverse_kernel<KIND, false><<<grid, TRAVERSE_BLOCK, 0, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -752,8 +625,8 @@ extern "C" int rtc_sort_key(const float* ray_o, const float* ray_d,
 
 // C entry point, loaded with ctypes.  Launches on `stream` and returns the
 // cudaGetLastError() after the launch (0 = launched), or
-// cudaErrorInvalidValue for a leaf kind, width or sizes the kernel does not
-// take.  `wide`: [n_wide, 8 * width] floats (pack_wide_nodes); `depth`: the
+// cudaErrorInvalidValue for a leaf kind or sizes the kernel does not take.
+// `wide`: [n_wide, 8 * WIDE_WIDTH] floats (pack_wide_nodes); `depth`: the
 // most stack entries a walk of that tree can need; `kind`: 0 triangles (16
 // floats a record), 1 untransformed spheres (8), 2 transformed spheres
 // (32); `stats` null: no counters; `order` null: thread t walks ray t.
@@ -763,8 +636,8 @@ extern "C" int rtc_traverse(
     const float* sk_nrm, const unsigned char* sk_inside,
     const long long* order, int* row, float* t,
     int* prim, float* pos, float* nrm, int* flags, float* u, float* v,
-    int* stats, int R, int n_wide, int width, int depth, int top, int K,
-    int kind, float eps_behind, float eps2, void* stream) {
+    int* stats, int R, int n_wide, int depth, int K, int kind,
+    float eps_behind, float eps2, void* stream) {
   if (R <= 0) return 0;
   if (n_wide <= 0 || K <= 0 || depth < 0 || depth > rtc::WIDE_STACK)
     return (int)cudaErrorInvalidValue;
@@ -774,52 +647,13 @@ extern "C" int rtc_traverse(
                         order, row, t, prim, pos, nrm, flags, u, v, stats,
                         R, n_wide, K, eps_behind, eps2};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define RTC_TRAVERSE_WIDTH(W, TOP)                                 \
-  switch (kind) {                                                  \
-    case rtc::KIND_TRI:                                            \
-      return rtc::launch_traverse<rtc::KIND_TRI, W, TOP>(p, s);    \
-    case rtc::KIND_SPH:                                            \
-      return rtc::launch_traverse<rtc::KIND_SPH, W, TOP>(p, s);    \
-    case rtc::KIND_SPHT:                                           \
-      return rtc::launch_traverse<rtc::KIND_SPHT, W, TOP>(p, s);   \
-    default:                                                       \
-      return (int)cudaErrorInvalidValue;                           \
-  }
-  if (width == 4 && top == 0) RTC_TRAVERSE_WIDTH(4, 0)
-  if (width == 4 && top == rtc::WIDE_TOP) RTC_TRAVERSE_WIDTH(4, rtc::WIDE_TOP)
-  if (width == 8 && top == 0) RTC_TRAVERSE_WIDTH(8, 0)
-#undef RTC_TRAVERSE_WIDTH
-  return (int)cudaErrorInvalidValue;
-}
-
-// The binary skip-link walk of the parent tree, kept to be timed beside the
-// wide walk on the same queries.
-// `kind`: 0 triangles (16 floats a record), 1 untransformed spheres (8),
-// 2 transformed spheres (32); `stats` null: no counters; `order` null:
-// thread t walks ray t.
-extern "C" int rtc_traverse_binary(
-    const float* nodes, const float* leaves, const float* ray_o,
-    const float* ray_d, const int* sk_prim, const float* sk_pos,
-    const float* sk_nrm, const unsigned char* sk_inside,
-    const long long* order, int* row, float* t,
-    int* prim, float* pos, float* nrm, int* flags, float* u, float* v,
-    int* stats, int R, int n_nodes, int K, int kind, float eps_behind,
-    float eps2, void* stream) {
-  if (R <= 0) return 0;
-  if (n_nodes <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
-  rtc::TraverseParams p{reinterpret_cast<const float4*>(nodes),
-                        reinterpret_cast<const float4*>(leaves),
-                        ray_o, ray_d, sk_prim, sk_pos, sk_nrm, sk_inside,
-                        order, row, t, prim, pos, nrm, flags, u, v, stats,
-                        R, n_nodes, K, eps_behind, eps2};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (kind) {
     case rtc::KIND_TRI:
-      return rtc::launch_traverse_binary<rtc::KIND_TRI>(p, s);
+      return rtc::launch_traverse<rtc::KIND_TRI>(p, s);
     case rtc::KIND_SPH:
-      return rtc::launch_traverse_binary<rtc::KIND_SPH>(p, s);
+      return rtc::launch_traverse<rtc::KIND_SPH>(p, s);
     case rtc::KIND_SPHT:
-      return rtc::launch_traverse_binary<rtc::KIND_SPHT>(p, s);
+      return rtc::launch_traverse<rtc::KIND_SPHT>(p, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

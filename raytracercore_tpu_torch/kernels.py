@@ -79,12 +79,7 @@ SIGNATURES = {
                                        # (null: none), order (null:
                                        # identity), 8 outputs, stats (null:
                                        # none)
-        + [_I] * 7                     # R n_wide width depth top K kind
-        + [_F, _F]                     # eps_behind, eps_pos²
-        + [_P]),                       # stream
-    "rtc_traverse_binary": (
-        [_P] * 18                      # binary nodes, as rtc_traverse
-        + [_I] * 4                     # R n_nodes K leaf kind
+        + [_I] * 5                     # R n_wide depth K leaf kind
         + [_F, _F]                     # eps_behind, eps_pos²
         + [_P]),                       # stream
     "rtc_sort_key": (
