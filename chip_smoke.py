@@ -44,7 +44,10 @@ and a ragged ray count, and one call of each runs under
 ``torch.cuda.set_sync_debug_mode("error")``.  The BVH tier's ray
 coherence: the key kernel bit-equal to its plain version, the sorted
 traversal bit-equal to the unsorted one (all 12 outputs and both
-counters) on three leaf kinds, mesh-184k and mesh-1M, each bounce of
+counters) on three leaf kinds, mesh-184k and mesh-1M, where the kernel
+(a walk of 4-wide nodes) is also held bit-equal to its plain version and
+to the binary skip-link walk (the 12 outputs, the records tested), each
+bounce of
 both scenes timed sorted and unsorted with its parts and the warp
 efficiency of both launch orders, and one mesh-46k train step sorted
 bit-equal to the unsorted one.  A phase of its own runs the

@@ -145,7 +145,7 @@ struct TraverseParams {
   float* u;                        // [R]
   float* v;                        // [R]
   int* stats;                      // [R,2] or null
-  int R, n_nodes, K;
+  int R, K;
   float eps_behind, eps2;
 };
 
@@ -371,99 +371,6 @@ __device__ __forceinline__ void spht_record(const float4* rec, const Ray& ray,
   }
 }
 
-// The ray of thread `lane`, its inverse direction and its skip record.
-struct RaySetup {
-  Ray ray;
-  float ix, iy, iz;
-  Skip k;
-};
-
-template <int KIND>
-__device__ __forceinline__ RaySetup setup_ray(const TraverseParams& p,
-                                              int r) {
-  RaySetup s;
-  Ray& ray = s.ray;
-  ray.o = {p.ray_o[3 * r], p.ray_o[3 * r + 1], p.ray_o[3 * r + 2]};
-  ray.d = {p.ray_d[3 * r], p.ray_d[3 * r + 1], p.ray_d[3 * r + 2]};
-  const V3 d = ray.d;
-  ray.n = d;
-  ray.dn_len = 1.f;
-  if (KIND != KIND_TRI) {
-    // The dense path re-normalizes (Ray.Transform, Ray.cs:43-50), and on
-    // tangent rays the discriminant's sign flips with sub-ulp |d|
-    // deviations.
-    ray.dn_len = sqrtf(fmaxf(d.x * d.x + d.y * d.y + d.z * d.z, 1e-30f));
-    ray.n = {d.x / ray.dn_len, d.y / ray.dn_len, d.z / ray.dn_len};
-  }
-  s.ix = d.x != 0.f ? 1.f / d.x : BIG_INV;
-  s.iy = d.y != 0.f ? 1.f / d.y : BIG_INV;
-  s.iz = d.z != 0.f ? 1.f / d.z : BIG_INV;
-
-  // Previous hit (skip record); none when the caller gave no record.
-  int pv_prim = -1;
-  V3 pv_pos = {0.f, 0.f, 0.f};
-  V3 pv_nrm = {0.f, 0.f, 1.f};
-  bool pv_in = false;
-  if (p.sk_prim != nullptr) {
-    pv_prim = p.sk_prim[r];
-    pv_pos = {p.sk_pos[3 * r], p.sk_pos[3 * r + 1], p.sk_pos[3 * r + 2]};
-    pv_nrm = {p.sk_nrm[3 * r], p.sk_nrm[3 * r + 1], p.sk_nrm[3 * r + 2]};
-    pv_in = p.sk_inside[r] != 0;
-  }
-  s.k = make_skip(pv_prim, pv_pos, pv_nrm, pv_in, d);
-  return s;
-}
-
-__device__ __forceinline__ void init_winner(Winner& best) {
-  best.t = INFINITY;
-  best.row = -1;
-  best.prim = -1;
-  best.flags = 0;
-  best.pos = {0.f, 0.f, 0.f};
-  best.nrm = {0.f, 0.f, 0.f};
-  best.u = 0.f;
-  best.v = 0.f;
-}
-
-template <bool STATS>
-__device__ __forceinline__ void store_winner(const TraverseParams& p, int r,
-                                             const Winner& best, int fetched,
-                                             int tested) {
-  p.row[r] = best.row;
-  p.t[r] = best.t;
-  p.prim[r] = best.prim;
-  p.pos[3 * r] = best.pos.x;
-  p.pos[3 * r + 1] = best.pos.y;
-  p.pos[3 * r + 2] = best.pos.z;
-  p.nrm[3 * r] = best.nrm.x;
-  p.nrm[3 * r + 1] = best.nrm.y;
-  p.nrm[3 * r + 2] = best.nrm.z;
-  p.flags[r] = best.flags;
-  p.u[r] = best.u;
-  p.v[r] = best.v;
-  if (STATS) {
-    p.stats[2 * r] = fetched;
-    p.stats[2 * r + 1] = tested;
-  }
-}
-
-// The K records of leaf `slot`, one after another.
-template <int KIND>
-__device__ __forceinline__ void test_leaf(const TraverseParams& p, int slot,
-                                          const RaySetup& s, Winner& best,
-                                          int& tested) {
-  constexpr int REC4 = KIND == KIND_TRI ? 4 : (KIND == KIND_SPH ? 2 : 8);
-  const float4* rec = p.leaves + (size_t)slot * p.K * REC4;
-  for (int q = 0; q < p.K; ++q, rec += REC4) {
-    if (KIND == KIND_TRI)
-      tri_record(rec, s.ray, p.eps_behind, s.k, p.eps2, best, tested);
-    else if (KIND == KIND_SPH)
-      sph_record(rec, s.ray, s.k, p.eps2, best, tested);
-    else
-      spht_record(rec, s.ray, s.k, p.eps2, best, tested);
-  }
-}
-
 // The wide walk: node `ref` is 2W float4 = the W children's six box planes
 // as structure of arrays (minx[W] miny[W] minz[W] maxx[W] maxy[W] maxz[W]),
 // their references (inner wide node >= 1, leaf -(slot + 1), empty 0) and
@@ -479,10 +386,47 @@ __global__ void __launch_bounds__(TRAVERSE_BLOCK)
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= p.R) return;
   const int r = p.order != nullptr ? (int)__ldg(p.order + lane) : lane;
-  const RaySetup s = setup_ray<KIND>(p, r);
-  const V3 o = s.ray.o;
+  constexpr int REC4 = KIND == KIND_TRI ? 4 : (KIND == KIND_SPH ? 2 : 8);
+
+  Ray ray;
+  ray.o = {p.ray_o[3 * r], p.ray_o[3 * r + 1], p.ray_o[3 * r + 2]};
+  ray.d = {p.ray_d[3 * r], p.ray_d[3 * r + 1], p.ray_d[3 * r + 2]};
+  const V3 o = ray.o, d = ray.d;
+  ray.n = d;
+  ray.dn_len = 1.f;
+  if (KIND != KIND_TRI) {
+    // The dense path re-normalizes (Ray.Transform, Ray.cs:43-50), and on
+    // tangent rays the discriminant's sign flips with sub-ulp |d|
+    // deviations.
+    ray.dn_len = sqrtf(fmaxf(d.x * d.x + d.y * d.y + d.z * d.z, 1e-30f));
+    ray.n = {d.x / ray.dn_len, d.y / ray.dn_len, d.z / ray.dn_len};
+  }
+  const float ix = d.x != 0.f ? 1.f / d.x : BIG_INV;
+  const float iy = d.y != 0.f ? 1.f / d.y : BIG_INV;
+  const float iz = d.z != 0.f ? 1.f / d.z : BIG_INV;
+
+  // Previous hit (skip record); none when the caller gave no record.
+  int pv_prim = -1;
+  V3 pv_pos = {0.f, 0.f, 0.f};
+  V3 pv_nrm = {0.f, 0.f, 1.f};
+  bool pv_in = false;
+  if (p.sk_prim != nullptr) {
+    pv_prim = p.sk_prim[r];
+    pv_pos = {p.sk_pos[3 * r], p.sk_pos[3 * r + 1], p.sk_pos[3 * r + 2]};
+    pv_nrm = {p.sk_nrm[3 * r], p.sk_nrm[3 * r + 1], p.sk_nrm[3 * r + 2]};
+    pv_in = p.sk_inside[r] != 0;
+  }
+  const Skip k = make_skip(pv_prim, pv_pos, pv_nrm, pv_in, d);
+
   Winner best;
-  init_winner(best);
+  best.t = INFINITY;
+  best.row = -1;
+  best.prim = -1;
+  best.flags = 0;
+  best.pos = {0.f, 0.f, 0.f};
+  best.nrm = {0.f, 0.f, 0.f};
+  best.u = 0.f;
+  best.v = 0.f;
 
   int2 stack[WIDE_STACK];  // (reference, near bits)
   int sp = 0;
@@ -515,12 +459,12 @@ __global__ void __launch_bounds__(TRAVERSE_BLOCK)
       bool have = false;
 #pragma unroll
       for (int c = W - 1; c >= 0; --c) {
-        const float tx0 = (pl[c] - o.x) * s.ix;
-        const float tx1 = (pl[3 * W + c] - o.x) * s.ix;
-        const float ty0 = (pl[W + c] - o.y) * s.iy;
-        const float ty1 = (pl[4 * W + c] - o.y) * s.iy;
-        const float tz0 = (pl[2 * W + c] - o.z) * s.iz;
-        const float tz1 = (pl[5 * W + c] - o.z) * s.iz;
+        const float tx0 = (pl[c] - o.x) * ix;
+        const float tx1 = (pl[3 * W + c] - o.x) * ix;
+        const float ty0 = (pl[W + c] - o.y) * iy;
+        const float ty1 = (pl[4 * W + c] - o.y) * iy;
+        const float tz0 = (pl[2 * W + c] - o.z) * iz;
+        const float tz1 = (pl[5 * W + c] - o.z) * iz;
         const float near_t =
             fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)), fminf(tz0, tz1));
         const float far_t =
@@ -539,7 +483,15 @@ __global__ void __launch_bounds__(TRAVERSE_BLOCK)
         continue;
       }
     } else {
-      test_leaf<KIND>(p, -ref - 1, s, best, tested);
+      const float4* rec = p.leaves + (size_t)(-ref - 1) * p.K * REC4;
+      for (int q = 0; q < p.K; ++q, rec += REC4) {
+        if (KIND == KIND_TRI)
+          tri_record(rec, ray, p.eps_behind, k, p.eps2, best, tested);
+        else if (KIND == KIND_SPH)
+          sph_record(rec, ray, k, p.eps2, best, tested);
+        else
+          spht_record(rec, ray, k, p.eps2, best, tested);
+      }
     }
     bool found = false;
     while (sp > 0) {
@@ -552,7 +504,22 @@ __global__ void __launch_bounds__(TRAVERSE_BLOCK)
     }
     if (!found) break;
   }
-  store_winner<STATS>(p, r, best, fetched, tested);
+  p.row[r] = best.row;
+  p.t[r] = best.t;
+  p.prim[r] = best.prim;
+  p.pos[3 * r] = best.pos.x;
+  p.pos[3 * r + 1] = best.pos.y;
+  p.pos[3 * r + 2] = best.pos.z;
+  p.nrm[3 * r] = best.nrm.x;
+  p.nrm[3 * r + 1] = best.nrm.y;
+  p.nrm[3 * r + 2] = best.nrm.z;
+  p.flags[r] = best.flags;
+  p.u[r] = best.u;
+  p.v[r] = best.v;
+  if (STATS) {
+    p.stats[2 * r] = fetched;
+    p.stats[2 * r + 1] = tested;
+  }
 }
 
 template <int KIND>
@@ -645,7 +612,7 @@ extern "C" int rtc_traverse(
                         reinterpret_cast<const float4*>(leaves),
                         ray_o, ray_d, sk_prim, sk_pos, sk_nrm, sk_inside,
                         order, row, t, prim, pos, nrm, flags, u, v, stats,
-                        R, n_wide, K, eps_behind, eps2};
+                        R, K, eps_behind, eps2};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (kind) {
     case rtc::KIND_TRI:
