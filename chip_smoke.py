@@ -252,6 +252,7 @@ KEY_MAX = (1 << 27) - 1
 # build, from its log (main fills it), and the threads per block of their
 # launches (csrc/*.cu), for their occupancy.
 BUILD_REGS = {}
+STACK_DEPTHS = []   # every wide tree's stack depth (record_stack_depths)
 FUSED_THREADS = TRAVERSE_THREADS = 128
 UNIFORMS_THREADS = SELECT_THREADS = LIST_THREADS = 256
 # Peak rates of one H100 SXM (NVIDIA's data sheet): fp32 outside the tensor
@@ -1604,7 +1605,7 @@ def traverse_case(label, bvh, o, d, skip):
     visited = (float(binary["stats"][:, 0].float().mean())
                if o.shape[0] else 0.0)
     print(f"[traverse] {label} {bvh.leaf_kind} leaves ({bvh.n_nodes} "
-          f"nodes, {bvh.wide.table.shape[0]} {bvh.wide.width}-wide, stack "
+          f"nodes, {bvh.wide.table.shape[0]} {ct.WIDE_WIDTH}-wide, stack "
           f"depth {bvh.wide.depth}, leaf size {bvh.K}): R={o.shape[0]} "
           f"found={float(hit.float().mean()):.4f} wide fetches per ray="
           f"{fetched:.2f} (binary nodes visited {visited:.2f}) records "
@@ -1773,7 +1774,7 @@ def traverse_times(label, bvh, queries, card):
         parts = kernel_us(call, 5, TRAVERSE_KERNELS)
         sorted_parts = kernel_us(lambda: call(True), 5, TRAVERSE_KERNELS + 1)
         bnd = traverse_bound(bvh, stats, query)
-        reached = reached_bound(bvh.wide.width * 32, stats, query,
+        reached = reached_bound(ct.WIDE_WIDTH * 32, stats, query,
                                 bvh.leaf_kind)
         reached_bin = reached_bound(32, bin_stats, query, bvh.leaf_kind)
         R = o.shape[0]
@@ -1802,9 +1803,9 @@ def traverse_times(label, bvh, queries, card):
               f"warp efficiency {eff_last:.4f}) "
               f"bound ms={bnd[0]:.4f} (by {bnd[1]}) reached-bytes bound ms "
               f"wide={reached:.4f} binary walk={reached_bin:.4f} lanes not "
-              f"parked={n_alive / R:.4f} {bvh.wide.width}-wide fetches per "
+              f"parked={n_alive / R:.4f} {ct.WIDE_WIDTH}-wide fetches per "
               f"ray={visited:.2f} box tests per ray="
-              f"{visited * bvh.wide.width:.2f} (binary nodes visited per "
+              f"{visited * ct.WIDE_WIDTH:.2f} (binary nodes visited per "
               f"ray={bin_visited:.2f}) records tested per ray={tested:.2f} "
               f"warp efficiency "
               f"unsorted={eff:.4f} sorted={eff_sorted:.4f} warps all parked "
@@ -1816,7 +1817,7 @@ def traverse_times(label, bvh, queries, card):
         print(f"[time] traversal {label} bounce {b} kernels, us per call "
               f"(profiler): unsorted {parts_text(parts) or 'not measured'}; "
               f"sorted {parts_text(sorted_parts) or 'not measured'}")
-    print(f"[time] traversal {label} kernel ({bvh.wide.width}-wide): "
+    print(f"[time] traversal {label} kernel ({ct.WIDE_WIDTH}-wide): "
           + occupancy_text("traverse_kernel", TRAVERSE_THREADS))
 
     def total(k):
@@ -1833,6 +1834,32 @@ def traverse_times(label, bvh, queries, card):
           f"sum wide={sum(r['reached'] for r in rows):.4f} binary walk="
           f"{sum(r['reached_binary'] for r in rows):.4f} on {card}")
     return rows
+
+
+def record_stack_depths():
+    """Print, and hold under the kernel's ``WIDE_STACK``, the stack depth
+    of every wide tree the run packs (``CudaBVH`` calls the module's
+    ``pack_wide_nodes``), with its packing time on the host clock: no
+    builder bounds the depth, so the run shows the headroom of every tree
+    it builds (:data:`STACK_DEPTHS`)."""
+    from raytracercore_tpu_torch.bvh import cuda_traverse as ct
+
+    packer = ct.pack_wide_nodes
+
+    def recording_packer(bvh, device="cpu"):
+        t0 = time.perf_counter()
+        wide = packer(bvh, device)
+        pack_s = time.perf_counter() - t0
+        STACK_DEPTHS.append(wide.depth)
+        print(f"[bvh] packed {bvh.n_nodes} binary nodes into "
+              f"{wide.table.shape[0]} {ct.WIDE_WIDTH}-wide nodes in "
+              f"{pack_s:.4f} s: stack depth {wide.depth} of "
+              f"{ct.WIDE_STACK}")
+        check(wide.depth <= ct.WIDE_STACK, f"a tree of {bvh.n_nodes} nodes "
+              f"needs {wide.depth} stack entries, the kernel has "
+              f"{ct.WIDE_STACK}")
+        return wide
+    ct.pack_wide_nodes = recording_packer
 
 
 def bvh_closest(scene):
@@ -1864,8 +1891,10 @@ def traverse_bound(bvh, stats, query):
     tests (W a wide fetch) and leaf records that these rays' walks counted,
     and every input (wide nodes, leaf records, rays, skip record) and
     output plane once."""
+    from raytracercore_tpu_torch.bvh import cuda_traverse as ct
+
     fetched, tested = (int(x) for x in stats.sum(0))
-    return bound(fetched * bvh.wide.width * OPS_NODE
+    return bound(fetched * ct.WIDE_WIDTH * OPS_NODE
                  + tested * OPS_LEAF[bvh.leaf_kind],
                  nbytes(bvh.wide.table, bvh.leaves) + ray_io_bytes(query))
 
@@ -2795,6 +2824,77 @@ def times_main(label, card):
     replay_times(res, "mesh-46k", r.arrays, d, u, tape)
     print(json.dumps(res))
 
+
+
+def bvh_times_main(label, card):
+    """``--bvh-times``: the BVH tier's set-up and walk on mesh-184k 512x512
+    rec4 and mesh-1M 1024x1024 rec4, through the entry points every tree
+    of the port has (``build_bvh``, ``CudaBVH``, ``CudaBVH.select``), for a
+    comparison of trees in one call: the native build and the packing
+    (``CudaBVH``: binary nodes, leaf records and, where the tree has them,
+    wide nodes, uploaded) each timed twice on the host clock after a
+    warm-up, then the walk of every bounce by CUDA-graph replay, with a
+    checksum of its rows and t that must agree from tree to tree.  Prints
+    one JSON line."""
+    import raytracercore_tpu_torch as pkg
+    from raytracercore_tpu_torch import kernels
+    from raytracercore_tpu_torch.bvh.builder import build_bvh
+    from raytracercore_tpu_torch.bvh.cuda_traverse import CudaBVH
+    from raytracercore_tpu_torch.core import vecmath as vm
+    from raytracercore_tpu_torch.intersect.dispatch import \
+        make_bvh_closest_fn
+
+    dev = torch.device("cuda", 0)
+    info = kernels.build()
+    kernels.load()
+    regs = ptxas_registers(info["log"])
+    res = {"label": label, "package": str(Path(pkg.__file__).parent),
+           "card": card, "build_s": info["seconds"],
+           "traverse": {k: v for k, v in regs.items()
+                        if "traverse_kernel" in k}}
+    print(f"[bvh-times] {label}: {res['package']} on {card}", flush=True)
+    eps = (vm.near_enough(torch.float32), vm.POSITION_EPS_F32)
+    small, _ = lit_mesh_scene(1, 1, 64, BVH_REC, dev)
+    CudaBVH(build_bvh(small, backend="native"), small.triangles,
+            small.materials, small.n_prims)   # the native builder's warm-up
+    for name, mesh, size in (("mesh-184k", BVH_MESH, BVH_SIZE),
+                             ("mesh-1M", BVH_BIG_MESH, BVH_BIG_SIZE)):
+        scene, cam = lit_mesh_scene(*mesh, size, BVH_REC, dev)
+        build_s, pack_s = [], []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            bvh = build_bvh(scene, backend="native")
+            t1 = time.perf_counter()
+            sel = CudaBVH(bvh, scene.triangles, scene.materials,
+                          scene.n_prims)
+            torch.cuda.synchronize()
+            build_s.append(t1 - t0)
+            pack_s.append(time.perf_counter() - t1)
+        rays = camera_rays_and_uniforms(scene, cam, size, 11, dev)
+        queries = closest_hit_queries(
+            scene, *rays, closest_fn=make_bvh_closest_fn(
+                bvh, scene, traversal="kernel"))
+        del rays
+        ms, check_sum = [], []
+        for query in queries:
+            def call(query=query):
+                return sel.select(*query, *eps, want_detail=True)
+            row, _, t = call()[:3]
+            check_sum.append([int(row.long().sum()),
+                              float(t[torch.isfinite(t)].double().sum())])
+            ms.append(graph_ms(call, 20))
+        check(None not in ms, f"{label} {name}: device time measured")
+        depth = sel.wide.depth if hasattr(sel, "wide") else None
+        res[name] = {"nodes": int(bvh.n_nodes), "build_s": build_s,
+                     "pack_s": pack_s, "ms": ms, "pass_ms": sum(ms),
+                     "stack_depth": depth, "check_sum": check_sum}
+        print(f"[bvh-times] {label} {name} {size}x{size}: {bvh.n_nodes} "
+              f"nodes, build s {build_s}, pack s {pack_s}, stack depth "
+              f"{depth}, device ms per bounce (CUDA graph) {ms} sum "
+              f"{sum(ms):.4f} on {card}", flush=True)
+        del queries, sel, bvh, scene
+        torch.cuda.empty_cache()
+    print(json.dumps(res))
 
 # --- the surface phase: add_scatter, merge, dtype=, profile, trace_replay ----
 
@@ -3813,26 +3913,32 @@ def main():
                     help="only time the megakernel, the replay forward "
                     "and backward and the select kernel (times_main), for a "
                     "parent-vs-change comparison in one call")
+    ap.add_argument("--bvh-times", action="store_true",
+                    help="only time the BVH tier's build, packing and "
+                    "walk on mesh-184k and mesh-1M (bvh_times_main), for a "
+                    "parent-vs-change comparison in one call")
     ap.add_argument("--root", default=None,
-                    help="with --times: the checkout whose "
+                    help="with --times or --bvh-times: the checkout whose "
                     "raytracercore_tpu_torch is built and timed (default: "
                     "the one this file lies in)")
     ap.add_argument("--label", default="tree",
-                    help="with --times: the name of the tree in the output")
+                    help="with --times or --bvh-times: the name of the tree "
+                    "in the output")
     args = ap.parse_args()
-    if args.root and not args.times:
-        ap.error("--root goes with --times")
+    if args.root and not (args.times or args.bvh_times):
+        ap.error("--root goes with --times or --bvh-times")
 
     # --- 1. device ---------------------------------------------------------
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device "
                          "(torch.cuda.is_available() is False)")
-    if args.times:
+    if args.times or args.bvh_times:
         if args.root:
             sys.path.insert(0, str(Path(args.root).resolve()))
         card = card_line()
         print(card)
-        return times_main(args.label, card)
+        return (times_main if args.times else bvh_times_main)(args.label,
+                                                              card)
     # The port's own modules; in a directory without the repository this
     # import fails and the run ends here.
     from raytracercore_tpu_torch import kernels
@@ -3857,6 +3963,7 @@ def main():
     BUILD_REGS.update(ptxas_registers(info["log"]))
     print(f"[build] {len(BUILD_REGS)} kernels in the build log; registers "
           f"and occupancy stand beside each kernel's time")
+    record_stack_depths()
 
     # --- 3. kernel vs plain on the card -----------------------------------
     max_err = 0.0
@@ -4048,6 +4155,12 @@ def main():
     phase_counts = add_counts(parallel_phase(card, dev), surf_counts)
 
     # --- 10. result lines --------------------------------------------------
+    from raytracercore_tpu_torch.bvh import cuda_traverse as ct
+
+    check(len(STACK_DEPTHS) > 0, "the run packed wide trees")
+    print(f"[bvh] {len(STACK_DEPTHS)} wide trees packed, stack depth "
+          f"{min(STACK_DEPTHS)}-{max(STACK_DEPTHS)} of "
+          f"{ct.WIDE_STACK}")
     # No single PyTorch call computes any of these functions (a whole path,
     # Philox channels, a path replay and its adjoint, a closest hit over
     # three primitive tables, a BVH walk, a Morton key, an issue-rate

@@ -84,9 +84,10 @@ FLAG_INSIDE, FLAG_INSIDE_GEO, FLAG_SMOOTH = 1, 2, 4
 SORT_MORTON_BITS = 8
 SORT_DIR_BITS = 0
 # The wide tree the kernel walks (pack_wide_nodes): children a node, and
-# the entries of the kernel's stack (csrc/traverse.cu WIDE_STACK).
+# the entries of the kernel's stack (csrc/traverse.cu WIDE_WIDTH,
+# WIDE_STACK).
 WIDE_WIDTH = 4
-WIDE_STACK = 64
+WIDE_STACK = 256
 
 
 def _np(t):
@@ -109,108 +110,113 @@ def pack_nodes(bvh: BVHArrays) -> np.ndarray:
 
 
 class WideNodes(NamedTuple):
-    """The wide tree that the kernel walks (:func:`pack_wide_nodes`)."""
+    """The wide tree that the kernel walks, made by :func:`pack_wide_nodes`
+    and by nothing else: the kernel trusts ``depth`` to be the packer's."""
 
-    table: torch.Tensor   # [M, 8 * W] f32, node 0 the root's box alone
+    table: torch.Tensor   # [M, 8 * WIDE_WIDTH] f32, node 0 the root alone
     depth: int            # the most stack entries a walk can need
-
-    @property
-    def width(self) -> int:
-        return self.table.shape[1] // 8
 
     def to(self, device) -> "WideNodes":
         return self._replace(table=self.table.to(device))
 
 
-def pack_wide_nodes(bvh: BVHArrays, width: int = WIDE_WIDTH):
-    """The binary preorder tree of ``bvh`` collapsed into ``width``-wide
-    nodes: ``(table [M, 8 * width] f32, depth)``.
+def pack_wide_nodes(bvh: BVHArrays, device="cpu") -> WideNodes:
+    """The binary preorder tree of ``bvh`` collapsed into
+    ``WIDE_WIDTH``-wide nodes, the table on ``device``.
 
     A wide node starts from an inner node's two children (``p + 1`` and
     ``skip[p + 1]``) and repeatedly replaces its inner child of largest
     surface area (the earliest in preorder on a tie) by that child's two
-    children, until it has ``width`` children or none is inner; its
+    children, until it has ``WIDE_WIDTH`` children or none is inner; its
     children stay in binary preorder.  Each child's box is its binary
     node's f32 box, bit for bit.  Node ``i`` is the row ``table[i]`` read
-    as ``[8, width]``: rows 0-2 the children's box minima x, y, z, rows 3-5
-    their maxima, row 6 their references (an inner child's wide node ≥ 1,
-    a leaf ``-(slot + 1)``, 0 an empty slot), row 7 their binary preorder
-    indices (-1 empty); an empty slot's box is NaN, which fails any slab
-    test.  Node 0 holds the root alone, so that its box is tested first
-    and a ray that misses it ends after one fetch; the others follow in
-    breadth-first order, a node's inner children side by side.
+    as ``[8, WIDE_WIDTH]``: rows 0-2 the children's box minima x, y, z,
+    rows 3-5 their maxima, row 6 their references (an inner child's wide
+    node ≥ 1, a leaf ``-(slot + 1)``, 0 an empty slot), row 7 their binary
+    preorder indices (-1 empty); an empty slot's box is NaN, which fails
+    any slab test.  Node 0 holds the root alone, so that its box is tested
+    first and a ray that misses it ends after one fetch; the others follow
+    in breadth-first order, a node's inner children side by side.  The
+    collapse runs on a whole level of wide nodes at once.
 
     ``depth`` is the most entries the kernel's stack can hold during a walk
     (every child passing: at a node of n children, walking child i leaves
-    the n - 1 - i after it on the stack).  A tree that needs more than
-    ``WIDE_STACK`` raises ``ValueError``: the kernel's stack is fixed."""
-    if width < 2:
-        raise ValueError(f"pack_wide_nodes: width {width} < 2")
+    the n - 1 - i after it on the stack).  No builder bounds it: the
+    kernel's launch refuses a tree that needs more than ``WIDE_STACK``,
+    and the plain walk sizes its stacks to ``depth``."""
+    W = WIDE_WIDTH
     lo = _np(bvh.bmin).astype(np.float32)
     hi = _np(bvh.bmax).astype(np.float32)
-    skip = _np(bvh.skip).astype(np.int64).tolist()
-    slot = _np(bvh.leaf_slot).astype(np.int64).tolist()
+    skip = _np(bvh.skip).astype(np.int64)
+    slot = _np(bvh.leaf_slot).astype(np.int64)
     n = len(skip)
     if n >= 1 << 24:
         raise ValueError(f"pack_wide_nodes: {n} nodes do not fit f32 links")
     ext = hi.astype(np.float64) - lo.astype(np.float64)
     area = (ext[:, 0] * ext[:, 1] + ext[:, 1] * ext[:, 2]
-            + ext[:, 2] * ext[:, 0]).tolist()
+            + ext[:, 2] * ext[:, 0])
+    inner = (slot < 0) & (np.arange(n) + 1 < skip)
 
-    def inner(p):
-        return slot[p] < 0 and p + 1 < skip[p]
+    def collapse(c):
+        """[len(c), W]: the binary children of the wide nodes of inner
+        nodes ``c``, in preorder, -1 for an empty slot."""
+        kids = np.full((len(c), W), n, np.int64)   # n: empty, sorts last
+        kids[:, 0] = c + 1
+        kids[:, 1] = skip[c + 1]
+        count = np.full(len(c), 2)
+        for _ in range(W - 2):
+            split = (kids < n) & inner[np.minimum(kids, n - 1)]
+            a = np.where(split, area[np.minimum(kids, n - 1)], -np.inf)
+            top = split & (a == a.max(1, keepdims=True))
+            go = np.nonzero(split.any(1))[0]
+            j = np.argmin(np.where(top, kids, n), axis=1)[go]
+            c2 = kids[go, j]
+            kids[go, j] = c2 + 1
+            kids[go, count[go]] = skip[c2 + 1]
+            count[go] += 1
+        kids = np.sort(kids, axis=1)
+        return np.where(kids < n, kids, -1)
 
-    def collapse(p):
-        kids = [p + 1, skip[p + 1]]
-        while len(kids) < width:
-            split = [c for c in kids if inner(c)]
-            if not split:
-                break
-            c = max(split, key=lambda c: (area[c], -c))
-            i = kids.index(c)
-            kids[i:i + 1] = [c + 1, skip[c + 1]]
-        return sorted(kids)
-
-    # Breadth first: children[i] are wide node i's binary children.
-    children = [[0] if slot[0] >= 0 or inner(0) else []]
-    refs = []
-    for kids in children:
-        row = []
-        for c in kids:
-            if slot[c] >= 0:
-                row.append(-(slot[c] + 1))
-            else:
-                row.append(len(children))
-                children.append(collapse(c))
-        refs.append(row)
-    M = len(children)
+    # Breadth first, a level at a time: the inner children of one level's
+    # wide nodes, in row order, are the next level's wide nodes.
+    levels = [np.full((1, W), -1, np.int64)]
+    if n and (slot[0] >= 0 or inner[0]):
+        levels[0][0, 0] = 0
+    while True:
+        kids = levels[-1]
+        c = kids[kids >= 0]
+        c = c[inner[c]]
+        if not len(c):
+            break
+        levels.append(collapse(c))
+    binary = np.concatenate(levels)
+    M = len(binary)
     if M >= 1 << 24:
         raise ValueError(f"pack_wide_nodes: {M} wide nodes do not fit f32 "
                          "links")
-    binary = np.full((M, width), -1, np.int64)
-    ref = np.zeros((M, width), np.int64)
-    for i, (kids, row) in enumerate(zip(children, refs)):
-        binary[i, :len(kids)] = kids
-        ref[i, :len(row)] = row
     used = binary >= 0
-    out = np.full((M, 8, width), np.nan, np.float32)
     b = np.maximum(binary, 0)
+    is_inner = used & inner[b]
+    ref = np.zeros((M, W), np.int64)
+    ref[is_inner] = np.arange(1, M)
+    ref = np.where(used & ~is_inner, -(slot[b] + 1), ref)
+    out = np.full((M, 8, W), np.nan, np.float32)
     for k in range(3):
         out[:, k] = np.where(used, lo[b, k], np.nan)
         out[:, 3 + k] = np.where(used, hi[b, k], np.nan)
     out[:, 6] = ref.astype(np.float32)
     out[:, 7] = binary.astype(np.float32)
 
-    need = [0] * M   # children are numbered after their parent
-    for i in range(M - 1, -1, -1):
-        row = refs[i]
-        need[i] = max((len(row) - 1 - j + (need[r] if r > 0 else 0)
-                       for j, r in enumerate(row)), default=0)
-    depth = need[0]
-    if depth > WIDE_STACK:
-        raise ValueError(f"pack_wide_nodes: a walk may need {depth} stack "
-                         f"entries, more than the kernel's {WIDE_STACK}")
-    return out.reshape(M, 8 * width), depth
+    # The stack a walk needs, from the deepest level up.
+    need = np.zeros(M, np.int64)
+    after = used.sum(1, keepdims=True) - 1 - np.arange(W)
+    ends = np.cumsum([len(x) for x in levels])
+    for s0, s1 in zip(ends[-2::-1].tolist() + [0], ends[::-1].tolist()):
+        below = np.where(is_inner[s0:s1], need[np.maximum(ref[s0:s1], 0)],
+                         0)
+        need[s0:s1] = np.where(used[s0:s1], after[s0:s1] + below, 0).max(1)
+    return WideNodes(torch.tensor(out.reshape(M, 8 * W), device=device),
+                     int(need[0]))
 
 
 def _leaf_flags(leaf_prims, prim_id, mats):
@@ -721,7 +727,7 @@ def traverse_wide_reference(wide: WideNodes, leaves, leaf_kind: str, ray_o,
     walk = _Walk(leaves, leaf_kind, ray_o, ray_d, skip, eps_behind, eps_pos)
     device = ray_o.device
     R = ray_o.shape[0]
-    W = wide.width
+    W = WIDE_WIDTH
     node = wide.table.view(-1, 8, W)
     kids = node[:, 6].to(torch.int64)
     pop = torch.iinfo(torch.int64).min   # `cur` of a ray that pops next
@@ -947,8 +953,7 @@ class CudaBVH:
         # The binary nodes (the oracle's, traverse_reference) and the wide
         # tree the kernel walks.
         self.nodes = torch.tensor(pack_nodes(bvh), device=self.device)
-        table, depth = pack_wide_nodes(bvh)
-        self.wide = WideNodes(torch.tensor(table, device=self.device), depth)
+        self.wide = pack_wide_nodes(bvh, self.device)
         self.leaves = torch.tensor(leaves, device=self.device)
         self.n_nodes = int(bvh.n_nodes)
         self.K = int(bvh.leaf_prims.shape[1])

@@ -120,11 +120,13 @@ constexpr float BIG_INV = 3.4e38f;  // inverse of a zero direction component
 constexpr int KIND_TRI = 0, KIND_SPH = 1, KIND_SPHT = 2;
 constexpr int FLAG_IN = 1, FLAG_IN_GEO = 2, FLAG_SMOOTH = 4;
 
-// Children a wide node, and entries of a thread's stack; pack_wide_nodes
-// refuses a tree that could need more (cuda_traverse.WIDE_WIDTH,
-// WIDE_STACK).
+// Children a wide node, and entries of a thread's stack
+// (cuda_traverse.WIDE_WIDTH, WIDE_STACK).  pack_wide_nodes gives the most
+// entries a walk of its tree can need, and rtc_traverse (as the Python
+// wrapper before it) refuses a tree that needs more: no builder bounds the
+// depth.  The stack is local memory, so its size sets no occupancy.
 constexpr int WIDE_WIDTH = 4;
-constexpr int WIDE_STACK = 64;
+constexpr int WIDE_STACK = 256;
 
 struct TraverseParams {
   const float4* nodes;             // [M, 2W] wide nodes (pack_wide_nodes)

@@ -11,17 +11,19 @@ with the child's own ``near`` when it is popped: so the wide walk tests
 the same leaves in the same order as the binary walk, and its 12 outputs
 and the records-tested counter are bit-equal to the binary walk's.  What
 is held here, on small trees (a random triangle soup, a grid whose
-triangles lie on the boxes' faces, the sphere and ellipsoid fields of
-``test_torch_traverse.field_case``, leaf sizes 2 and 4):
+triangles lie on the boxes' faces, a skewed soup whose tree is deep, the
+sphere and ellipsoid fields of ``test_torch_traverse.field_case``, leaf
+sizes 1, 2 and 4):
 
 * the packer's invariants: each box bit-equal to its binary node's,
   children in preorder, every leaf reachable exactly once, a parent's box
-  holding its children's, and a tree deeper than the kernel's stack
-  refused;
+  holding its children's, the level-wise collapse equal to the rule
+  stated node by node, and a tree deeper than the kernel's stack walked on
+  the CPU and refused at the kernel's launch;
 * ``traverse_wide_reference`` against ``traverse_reference``: all 12
   outputs and the records tested bit-equal, with and without a bounce's
   skip record, with parked rays, zero direction components, a ragged R and
-  a given ``order``, at widths 4 and 8;
+  a given ``order``;
 * ``CudaBVH.select`` on the CPU (the wide walk) against the JAX
   ``PallasBVH.select(interpret=True)`` at leaf size 2, with the tolerances
   of ``test_torch_traverse.py``;
@@ -89,12 +91,27 @@ def grid_scene(n=8):
     return _scene(lines)
 
 
+def skewed_scene(n=48):
+    """Triangles at geometrically growing distances along x, each as large
+    as its distance: the binned SAH splits one or two off at a time, so the
+    tree is some n / 2 levels deep and its walks need deep stacks."""
+    lines = []
+    for i in range(n):
+        x, s = 1.25 ** i, 0.5 * 1.25 ** i
+        lines += [f"vertex {x:.6f} 0 0", f"vertex {x:.6f} {s:.6f} 0",
+                  f"vertex {x:.6f} 0 {s:.6f}",
+                  f"tri {3 * i} {3 * i + 1} {3 * i + 2}"]
+    return _scene(lines)
+
+
 def case(name, leaf_size):
     """``(CudaBVH of the tree, the BVHArrays it was packed from)``."""
     if name == "soup":
         scene = soup_scene()
     elif name == "grid":
         scene = grid_scene()
+    elif name == "skewed":
+        scene = skewed_scene()
     else:
         ja, ta, _, _, _, _ = field_case(name == "spht")
         sph = ja.spheres
@@ -119,19 +136,19 @@ def case(name, leaf_size):
             bvh)
 
 
-CASES = [("soup", 2), ("soup", 4), ("grid", 2), ("grid", 4), ("sph", 4),
-         ("spht", 2)]
+CASES = [("soup", 2), ("soup", 4), ("grid", 2), ("grid", 4), ("skewed", 1),
+         ("skewed", 2), ("sph", 4), ("spht", 2)]
 
 
 # ---------------------------------------------------------------------------
 # the packer
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("width", [4, 8])
 @pytest.mark.parametrize("name,leaf_size", CASES)
-def test_pack_wide_nodes_invariants(name, leaf_size, width):
+def test_pack_wide_nodes_invariants(name, leaf_size):
     _, bvh = case(name, leaf_size)
-    table, depth = ct.pack_wide_nodes(bvh, width)
+    wide = ct.pack_wide_nodes(bvh)
+    table, depth, width = wide.table.numpy(), wide.depth, ct.WIDE_WIDTH
     M = table.shape[0]
     assert table.shape == (M, 8 * width) and table.dtype == np.float32
     node = table.reshape(M, 8, width)
@@ -175,19 +192,81 @@ def test_pack_wide_nodes_invariants(name, leaf_size, width):
     assert 0 <= depth <= ct.WIDE_STACK
 
 
+def collapse_by_rule(bvh):
+    """The wide tree stated node by node: breadth first from the root, each
+    wide node's children collapsed one split at a time (the inner child of
+    largest area, the earliest in preorder on a tie), then sorted; the
+    stack need bottom up.  ``(binary [M, W], refs [M, W], depth)``."""
+    W = ct.WIDE_WIDTH
+    lo, hi = bvh.bmin.numpy(), bvh.bmax.numpy()
+    skip, slot = bvh.skip.tolist(), bvh.leaf_slot.tolist()
+    ext = hi.astype(np.float64) - lo.astype(np.float64)
+    area = (ext[:, 0] * ext[:, 1] + ext[:, 1] * ext[:, 2]
+            + ext[:, 2] * ext[:, 0]).tolist()
+
+    def inner(p):
+        return slot[p] < 0 and p + 1 < skip[p]
+
+    def collapse(p):
+        kids = [p + 1, skip[p + 1]]
+        while len(kids) < W:
+            split = [c for c in kids if inner(c)]
+            if not split:
+                break
+            c = max(split, key=lambda c: (area[c], -c))
+            i = kids.index(c)
+            kids[i:i + 1] = [c + 1, skip[c + 1]]
+        return sorted(kids)
+
+    children = [[0] if slot[0] >= 0 or inner(0) else []]
+    refs = []
+    for kids in children:
+        row = []
+        for c in kids:
+            if slot[c] >= 0:
+                row.append(-(slot[c] + 1))
+            else:
+                row.append(len(children))
+                children.append(collapse(c))
+        refs.append(row)
+    need = [0] * len(children)
+    for i in reversed(range(len(children))):
+        row = refs[i]
+        need[i] = max((len(row) - 1 - j + (need[r] if r > 0 else 0)
+                       for j, r in enumerate(row)), default=0)
+
+    def pad(rows, fill):
+        return np.array([r + [fill] * (W - len(r)) for r in rows])
+    return pad(children, -1), pad(refs, 0), need[0]
+
+
+@pytest.mark.parametrize("name,leaf_size", CASES + [("chain-20", 0),
+                                                    ("chain-300", 0)])
+def test_pack_wide_nodes_follows_the_rule(name, leaf_size):
+    """The packer collapses a whole level at a time; its tree and stack
+    need are those of the rule stated node by node."""
+    bvh = (chain_bvh(int(name[6:])) if name.startswith("chain")
+           else case(name, leaf_size)[1])
+    wide = ct.pack_wide_nodes(bvh)
+    node = wide.table.numpy().reshape(-1, 8, ct.WIDE_WIDTH)
+    binary, refs, depth = collapse_by_rule(bvh)
+    assert np.array_equal(node[:, 7].astype(np.int64), binary)
+    assert np.array_equal(node[:, 6].astype(np.int64), refs)
+    assert wide.depth == depth
+
+
 def test_pack_wide_nodes_on_one_leaf_and_an_empty_tree():
     one = build_bvh(_scene(["vertex 0 0 0", "vertex 1 0 0", "vertex 0 1 0",
                             "tri 0 1 2"]), backend="numpy")
-    table, depth = ct.pack_wide_nodes(one)
-    assert table.shape == (1, 32) and depth == 0
-    assert table.reshape(8, 4)[6].tolist() == [-1, 0, 0, 0]
+    wide = ct.pack_wide_nodes(one)
+    assert wide.table.shape == (1, 32) and wide.depth == 0
+    assert wide.table.view(8, 4)[6].tolist() == [-1, 0, 0, 0]
     empty = build_bvh(_scene([]), backend="numpy")
-    table, depth = ct.pack_wide_nodes(empty)
-    assert table.shape == (1, 32) and depth == 0
-    assert not table.reshape(8, 4)[6].any()
+    wide = ct.pack_wide_nodes(empty)
+    assert wide.table.shape == (1, 32) and wide.depth == 0
+    assert not wide.table.view(8, 4)[6].any()
     o = torch.zeros((3, 3))
     d = torch.tensor([[0.0, 0.0, 1.0]] * 3)
-    wide = ct.WideNodes(torch.tensor(table), depth)
     leaves = torch.zeros((1, 2 * ct.TRI_F))
     out = ct.traverse_wide_reference(wide, leaves, "tri", o, d, None, EPS_B,
                                      EPS_P, want_stats=True)
@@ -221,15 +300,30 @@ def chain_bvh(n_leaves):
 
 
 def test_pack_wide_nodes_refuses_a_tree_deeper_than_the_stack():
-    table, depth = ct.pack_wide_nodes(chain_bvh(20))
-    assert depth == 19
-    assert sorted(-table.reshape(-1, 8, 4)[:, 6][
-        table.reshape(-1, 8, 4)[:, 6] < 0] - 1) == list(range(20))
+    """The packer reports the stack a walk needs; the kernel's launch
+    refuses a tree that needs more than ``WIDE_STACK`` (the check runs
+    before anything reaches the card, so it is exercised here on CPU
+    tensors), while the plain walk on the CPU takes it."""
+    refs = ct.pack_wide_nodes(chain_bvh(20)).table.view(-1, 8, 4)[:, 6]
+    assert ct.pack_wide_nodes(chain_bvh(20)).depth == 19
+    assert sorted((-refs[refs < 0] - 1).tolist()) == list(range(20))
+    soup = soup_scene(4)
+    deep = chain_bvh(ct.WIDE_STACK + 2)
+    sel = ct.CudaBVH(deep, soup.triangles, soup.materials, soup.n_prims)
+    assert sel.wide.depth == ct.WIDE_STACK + 1
+    rng = np.random.default_rng(4)
+    o = _t(rng.uniform(-1.0, 2.0, (16, 3)))
+    d = _t(rng.normal(size=(16, 3)))
+    d = (d / d.norm(dim=1, keepdim=True)).contiguous()
+    args = (sel.leaves, "tri", o, d, None, EPS_B, EPS_P, True)
+    got = ct.traverse(sel.wide, *args)
+    want = ct.traverse_reference(sel.nodes, *args)
+    for name in ct.TraverseOut._fields[:-1]:
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    assert torch.equal(got.stats[:, 1], want.stats[:, 1])
+    assert int(got.stats[:, 1].max()) > 0
     with pytest.raises(ValueError, match="stack"):
-        ct.pack_wide_nodes(chain_bvh(ct.WIDE_STACK + 2))
-    with pytest.raises(ValueError, match="stack"):
-        ct.CudaBVH(chain_bvh(ct.WIDE_STACK + 2), soup_scene(4).triangles,
-                   soup_scene(4).materials, 4)
+        ct._launch(sel.wide, *args)
 
 
 # ---------------------------------------------------------------------------
@@ -288,13 +382,11 @@ def assert_walks_equal(sel, wide, o, d, skip, order=None):
     return want
 
 
-@pytest.mark.parametrize("width", [4, 8])
 @pytest.mark.parametrize("name,leaf_size", CASES)
-def test_wide_walk_equals_binary_walk(name, leaf_size, width):
-    sel, bvh = case(name, leaf_size)
-    wide = ct.WideNodes(*(torch.tensor(x) if isinstance(x, np.ndarray)
-                          else x for x in ct.pack_wide_nodes(bvh, width)))
-    o, d = random_rays(sel, 640, 11 + width)
+def test_wide_walk_equals_binary_walk(name, leaf_size):
+    sel, _ = case(name, leaf_size)
+    wide = sel.wide
+    o, d = random_rays(sel, 640, 15)
     first = assert_walks_equal(sel, wide, o, d, None)
     assert bool((first.row >= 0).any()) and bool((first.row < 0).any())
     # A bounce with its skip record; some lanes parked.
@@ -405,3 +497,19 @@ def test_wide_kernel_matches_wide_plain_on_card(cuda_device, name,  # noqa: F811
         for f in ct.TraverseOut._fields[:-1]:
             assert torch.equal(getattr(got, f), getattr(binary, f)), f
         assert torch.equal(got.stats[:, 1], binary.stats[:, 1])
+
+
+@pytest.mark.cuda
+def test_wide_kernel_refuses_a_deep_tree_on_card(cuda_device):  # noqa: F811
+    """On CUDA tensors a tree that needs more stack than the kernel has
+    raises; nothing gives way to the plain walk or the binary kernel."""
+    soup = soup_scene(4)
+    sel = ct.CudaBVH(chain_bvh(ct.WIDE_STACK + 2), soup.triangles,
+                     soup.materials, soup.n_prims)
+    o = torch.zeros((8, 3), device=cuda_device)
+    d = torch.tensor([[0.0, 0.0, 1.0]] * 8, device=cuda_device)
+    before = ct.traverse.launches
+    with pytest.raises(ValueError, match="stack"):
+        ct.traverse(sel.wide.to(cuda_device), sel.leaves.to(cuda_device),
+                    "tri", o, d, None, EPS_B, EPS_P)
+    assert ct.traverse.launches == before
