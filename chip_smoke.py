@@ -63,6 +63,23 @@ read back scope by scope on cornell and mesh-184k, and
 ``trace_replay(record_fused=False)`` / ``(replay_kernel=False)``.
 The megakernel is held bit-equal to its plain version (colour, miss and
 all five tape planes, tape on and off).
+The graph phase (:func:`graph_phase`) holds the graphed main path — each
+pass and single-device step captured once as a CUDA graph and replayed,
+the package's default on the card — against the eager one on every
+route: cornell, mesh-722 and mesh-184k passes (films bit-equal, also
+after ``next_camera``, ``load_checkpoint``, ``reset`` and for the
+module-level ``render_passes``), one mesh-1M pass (in
+:func:`bvh_big_pass`), and cornell, mesh-722, mesh-46k and a small
+``use_replay=False`` train step (losses bit-equal, gradients within
+1e-5·max|g|, params equal to Adam on the graph's gradient); one graphed
+call of each runs without a host sync, and the kernels a replay runs are
+read from the graph itself.  Times, busy shares, capture ms, graph pools
+and kernel nodes are printed, never gated.  Main path 1 runs the default
+(graphed) ``Renderer``; the other phases build theirs with
+``graphs=False``: they hold kernels and paths, not the graphs.
+Every phase runs inside :func:`phase`, which prints its seconds; a failed
+gate or an exception prints ``chip_smoke: FAILED in phase <name>: ...``
+as the last line of standard output and exits 1.
 The last two lines of standard output are a JSON object describing the
 kernels and a JSON object ``{"ok": true, "device": ...}``.  Any failed
 check exits non-zero before those lines.  Without a CUDA device it exits
@@ -82,10 +99,15 @@ and the rate achieved over them); it prints one JSON line.
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import json
+import re
 import subprocess
 import sys
+import tempfile
 import time
+import traceback
 from pathlib import Path
 
 import numpy as np
@@ -288,9 +310,44 @@ OPS_KEY = 30
 PROBE_CHECK_ITERS, PROBE_ITERS, PROBE_RTOL = 4, 2048, 1e-6
 
 
+# The phase main() is in, named on the line a failure prints, and the
+# seconds each finished phase took.
+PHASE = ["start"]
+PHASE_SECONDS = {}
+T0 = [time.perf_counter()]
+
+
+def fail(what):
+    """Print ``chip_smoke: FAILED in phase <phase>: <what>`` as the last
+    line of standard output and exit non-zero."""
+    msg = (f"chip_smoke: FAILED in phase {PHASE[0]}: "
+           + " | ".join(str(what).splitlines()))
+    sys.stderr.flush()
+    print(msg, flush=True)
+    raise SystemExit(1)
+
+
 def check(cond, what):
+    """A gate: ``what`` names the route and the compared numbers."""
     if not cond:
-        raise SystemExit(f"chip_smoke: FAILED: {what}")
+        fail(what)
+
+
+@contextlib.contextmanager
+def phase(name):
+    """A top-level phase: its gates and any exception it raises fail the
+    run naming it; its seconds are printed and kept."""
+    PHASE[0] = name
+    t0 = time.perf_counter()
+    try:
+        yield
+    except SystemExit:
+        raise
+    except BaseException as exc:
+        traceback.print_exc()
+        fail(f"{type(exc).__name__}: {exc}")
+    PHASE_SECONDS[name] = time.perf_counter() - t0
+    print(f"[phase] {name} s={PHASE_SECONDS[name]:.1f}", flush=True)
 
 
 def card_line() -> str:
@@ -1223,8 +1280,10 @@ def train_steps(tag, label, r, step_closest_fn, eval_closest_fn, counters,
     with torch.no_grad():
         params["diffuse"][~emissive] *= 0.5
     adam = torch.optim.Adam(params.values(), lr=TRAIN_LR)
-    step = (make_train_step(None, adam) if step_closest_fn is None
-            else make_train_step(None, adam, closest_fn=step_closest_fn))
+    step = (make_train_step(None, adam, graphs=False)
+            if step_closest_fn is None
+            else make_train_step(None, adam, closest_fn=step_closest_fn,
+                                 graphs=False))
 
     # The step losses are one-sample renders under a new seed each, and
     # the bright light quad's edge pixels dominate their noise; whether the
@@ -1372,7 +1431,7 @@ def mesh_train_path(card, dev, r):
 
     # --- full AD through trace against the replay, 128x128 on mesh-82 ------
     small, small_cam = lit_mesh_scene(1, 1, 128, 4, dev)
-    rs = Renderer(small, device="cuda", cameras=[small_cam])
+    rs = Renderer(small, device="cuda", cameras=[small_cam], graphs=False)
     check(rs.route == "trace", "mesh-82 takes the per-bounce route")
     u = uk.prepare_uniforms_kernel(5, 128 * 128, small.recursion + 1, dev)
     tgt = torch.full((128, 128, 3), 0.05, device=dev)
@@ -1380,7 +1439,7 @@ def mesh_train_path(card, dev, r):
     for use_replay in (True, False):
         p = get_material_params(rs.arrays)
         step = make_train_step(None, torch.optim.SGD(p.values(), lr=0.0),
-                               use_replay=use_replay)
+                               use_replay=use_replay, graphs=False)
         loss_of[use_replay] = float(step(p, rs.arrays, rs.camera, tgt, 3,
                                          uniforms=u))
         grads[use_replay] = {k: v.grad.clone() for k, v in p.items()}
@@ -1415,7 +1474,8 @@ def mesh_path(card, dev):
     from raytracercore_tpu_torch.render.renderer import Renderer
 
     scene, host_cam = lit_mesh_scene(MESH_GRID, MESH_SUBDIV, 700, 10, dev)
-    r = Renderer(scene, device="cuda", seed=0, cameras=[host_cam])
+    r = Renderer(scene, device="cuda", seed=0, cameras=[host_cam],
+                 graphs=False)
     scene = r.arrays
     n_rows = n_table_rows(scene)
     check(scene.triangles.v0.shape[0] == 722 and scene.recursion == 10
@@ -2018,7 +2078,7 @@ def bvh_render_forms(card, dev, r, film):
     r2 = Renderer(scene, device="cuda", seed=0, cameras=r.cameras,
                   closest_fn=make_bvh_closest_fn(r.bvh, scene,
                                                  traversal="kernel",
-                                                 sort=other))
+                                                 sort=other), graphs=False)
     ms2 = timed(lambda: r2.step(1), r2.reset)
     got = (ct.traverse.launches, ct.sort_key.launches)
     launches["traverse"] += got[0]
@@ -2044,7 +2104,7 @@ def bvh_render_forms(card, dev, r, film):
     def step3():
         box["film"] = render_passes(scene, r.camera, box["film"], 0,
                                     box["k"], 1, closest_fn=tiled,
-                                    tile=BVH_TILE)
+                                    tile=BVH_TILE, graphs=False)
         box["k"] += 1
     reset()
     ms3 = timed(step3, reset)
@@ -2072,7 +2132,7 @@ def bvh_render_forms(card, dev, r, film):
                         closest_fn=tiled, tile=BVH_TILE)
         b = render_pass(scene, r.camera, blank, j2, u2, closest_fn=tiled)
         c = render_passes(scene, r.camera, blank, 0, 0, 1, closest_fn=tiled,
-                          tile=BVH_TILE)
+                          tile=BVH_TILE, graphs=False)
     same = films_equal(a, b) and films_equal(a, c)
     print(f"[coherence] mesh-184k 512x512 rec4 tile={BVH_TILE} + sort, "
           f"{BVH_PASSES} passes: ms/pass min/p25/median/p75/max="
@@ -2103,7 +2163,7 @@ def bvh_render_path(card, dev):
     gen_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     r = Renderer(scene, device="cuda", seed=0, cameras=[host_cam],
-                 accelerator="auto")
+                 accelerator="auto", graphs=False)
     build_s = time.perf_counter() - t0
     scene = r.arrays
     n_tris = int((scene.triangles.prim_id >= 0).sum())
@@ -2290,7 +2350,8 @@ def bvh_big_pass(card, dev):
                                      dev)
     gen_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    r = Renderer(scene, device="cuda", seed=0, cameras=[host_cam])
+    r = Renderer(scene, device="cuda", seed=0, cameras=[host_cam],
+                 graphs=False)
     build_s = time.perf_counter() - t0
     n_tris = int((r.arrays.triangles.prim_id >= 0).sum())
     check(n_tris == 1003522 and r.route == "bvh",
@@ -2312,6 +2373,8 @@ def bvh_big_pass(card, dev):
           and float(film.samples.sum() + film.misses.sum())
           == 2 * BVH_BIG_SIZE ** 2, "mesh-1M film finite, one sample per "
           "pixel per pass")
+    graphed = graph_big_pass(card, r)
+    add_counts(launches, {k: graphed[k] for k in launches})
     bvh = r.closest_fn.bvhs[0]
     R = BVH_BIG_SIZE ** 2
     print(f"[bvh] mesh-1M ({n_tris} triangles, {bvh.n_nodes} nodes, leaf "
@@ -2328,6 +2391,43 @@ def bvh_big_pass(card, dev):
     queries = closest_hit_queries(r.arrays, *rays, closest_fn=r.closest_fn)
     del rays
     return launches, traverse_times("mesh-1M 1024x1024", bvh, queries, card)
+
+
+def graph_big_pass(card, r):
+    """The graphed mesh-1M pass: the module-level ``render_passes`` on the
+    eager renderer ``r``'s scene, route and camera after its first two
+    passes (0 and 1), captured and replayed over the same passes.  Gates:
+    the film bit-equal to ``r``'s, the kernels a replay runs.  Times one
+    more graphed pass beside the eager one.  Returns the launches of the
+    graphed calls."""
+    from raytracercore_tpu_torch.render.film import Film
+    from raytracercore_tpu_torch.render.renderer import (PASS_GRAPHS,
+                                                         render_passes)
+
+    before = read_counts()
+    h, w = r.film.shape
+    kw = {"closest_fn": r.closest_fn, "trace_fn": r.trace_fn}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = render_passes(r.arrays, r.camera, Film.create(h, w, device=r.device),
+                        r.seed, 0, 2, **kw)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    check(films_equal(got, r.film), "mesh-1M 1024x1024: graphed film of "
+          "passes 0-1 bit-equal to the eager Renderer's")
+    pg = next(iter(PASS_GRAPHS.entries.values()))
+    with tempfile.TemporaryDirectory() as tmp:
+        kern = graph_kernels("mesh-1M pass", pg.captured, bvh_kernels(r), tmp)
+    ms_g, ms_e = interleaved((
+        lambda: render_passes(r.arrays, r.camera, got, r.seed, 2, 1, **kw),
+        lambda: render_passes(r.arrays, r.camera, got, r.seed, 2, 1,
+                              graphs=False, **kw)), 1)
+    PASS_GRAPHS.clear()
+    print(f"[graph] mesh-1M 1024x1024 rec4 pass: graphed film of 2 passes "
+          f"bit-equal to the eager passes; first call ms={first_ms:.1f} "
+          f"(warm-up, capture, 2 replays); {kern}; pass 2 ms graphed="
+          f"{ms_g[0]:.3f} eager={ms_e[0]:.3f} on {card}")
+    return {k: v - before[k] for k, v in read_counts().items()}
 
 
 def coherence_verdict(card, scenes):
@@ -2371,7 +2471,8 @@ def bvh_train_path(card, dev):
 
     scene, host_cam = lit_mesh_scene(*BVH_TRAIN_MESH, BVH_SIZE, BVH_REC, dev)
     t0 = time.perf_counter()
-    r = Renderer(scene, device="cuda", seed=0, cameras=[host_cam])
+    r = Renderer(scene, device="cuda", seed=0, cameras=[host_cam],
+                 graphs=False)
     build_s = time.perf_counter() - t0
     n_tris = int((r.arrays.triangles.prim_id >= 0).sum())
     n_mats = r.arrays.materials.emission.shape[0]
@@ -2453,7 +2554,7 @@ def train_path(card, dev):
                 "prepare_uniforms_kernel": uk.prepare_uniforms_kernel,
                 "replay_fwd": rk.replay_fwd, "replay_bwd": rk.replay_bwd}
     host = loader.parse(cornell_scene())
-    r = Renderer(host, device=dev, seed=TRAIN_SEED)
+    r = Renderer(host, device=dev, seed=TRAIN_SEED, graphs=False)
     r.step(TARGET_SPP)
     film = r.film
     target = film.color_sum / (film.samples + film.misses)[..., None]
@@ -2481,7 +2582,8 @@ def train_path(card, dev):
 
     launches = dict.fromkeys(counters, 0)
     step_ms = {}
-    routes = (("record-as-primal", lambda opt: make_train_step(None, opt)),
+    routes = (("record-as-primal",
+               lambda opt: make_train_step(None, opt, graphs=False)),
               ("replay-forward",
                lambda opt: train_step_on(replay_forward_trace, opt)))
     for route, make_step in routes:
@@ -2535,7 +2637,7 @@ def train_path(card, dev):
 
     params = start_params()
     adam = torch.optim.Adam(params.values(), lr=TRAIN_LR)
-    step = make_train_step(None, adam)
+    step = make_train_step(None, adam, graphs=False)
     plain_step = train_step_on(plain_trace, adam)
     step_seed = pass_seed(TRAIN_SEED, 99)
     ray_o, ray_d, path_seed = step_rays(camera, h, w, step_seed)
@@ -3027,7 +3129,7 @@ def surface_scatter_merge(card, dev, host):
                                                          trace_pixels)
 
     counts = {}
-    r = Renderer(host, device=dev, seed=SURF_SEED)
+    r = Renderer(host, device=dev, seed=SURF_SEED, graphs=False)
     h, w = r.film.shape
     r.step(1)  # a film that already holds a pass
     px, py = tile_order(w, h, SURF_TILE, dev)
@@ -3086,7 +3188,7 @@ def surface_scatter_merge(card, dev, host):
     for compensated in (False, True):
         def run(start, n_passes):
             x = Renderer(host, device=dev, seed=SURF_SEED,
-                         compensated=compensated)
+                         compensated=compensated, graphs=False)
             x.pass_index = start
             zero_counts()
             x.step(n_passes)
@@ -3123,10 +3225,12 @@ def surface_float64(card, dev, host):
                                     10, dev)
     for label, make in (
             ("cornell", lambda dt: Renderer(small, device=dev,
-                                            seed=SURF_SEED, dtype=dt)),
+                                            seed=SURF_SEED, dtype=dt,
+                                            graphs=False)),
             ("mesh-722", lambda dt: Renderer(mesh, device=dev,
                                              seed=SURF_SEED,
-                                             cameras=[mesh_cam], dtype=dt))):
+                                             cameras=[mesh_cam], dtype=dt,
+                                             graphs=False))):
         r32, r64 = make(torch.float32), make(torch.float64)
         check(r64.route == r32.route, f"{label}: f64 takes the f32 route "
               f"({r64.route} vs {r32.route})")
@@ -3178,10 +3282,11 @@ def surface_profile(card, dev, host):
     pair_us, gated_us = scope_cost_us()
     mesh, mesh_cam = lit_mesh_scene(*BVH_MESH, BVH_SIZE, BVH_REC, dev)
     cases = (
-        ("cornell", lambda: Renderer(host, device=dev, seed=SURF_SEED)),
+        ("cornell", lambda: Renderer(host, device=dev, seed=SURF_SEED,
+                                     graphs=False)),
         ("mesh-184k", lambda: Renderer(mesh, device=dev, seed=SURF_SEED,
                                        cameras=[mesh_cam],
-                                       accelerator="auto")))
+                                       accelerator="auto", graphs=False)))
     with tempfile.TemporaryDirectory() as tmp:
         for name, make in cases:
             r = make()
@@ -3261,7 +3366,7 @@ def surface_replay(card, dev, host):
         prepare_uniforms_kernel
 
     counts = {}
-    r = Renderer(host, device=dev, seed=SURF_SEED)
+    r = Renderer(host, device=dev, seed=SURF_SEED, graphs=False)
     scene = r.arrays
     h, w = r.film.shape
     px, py = cam_mod.pixel_grid(w, h, device=dev)
@@ -3438,7 +3543,7 @@ def one_step(mesh, scene, camera, seed, dev, closest_fn=None, adam=False,
            else torch.optim.SGD(params.values(), lr=TRAIN_LR))
     kw = {} if closest_fn is None else {"closest_fn": closest_fn}
     step = (make_overlapped_train_step(mesh, opt) if overlapped
-            else make_train_step(mesh, opt, **kw))
+            else make_train_step(mesh, opt, graphs=False, **kw))
     target = torch.full((scene.height, scene.width, 3), 0.2, device=dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3532,7 +3637,7 @@ def nccl_world_one(card, dev, tmp):
         want = render_passes(arrays, camera,
                              Film.create(size, size, device=dev), PAR_SEED, 0,
                              1, closest_fn=closest_hit_fused,
-                             trace_fn=fused.trace_fused)
+                             trace_fn=fused.trace_fused, graphs=False)
         same = {k: torch.equal(getattr(film, k), getattr(want, k))
                 for k in ("color_sum", "samples", "misses")}
         ref = one_step(None, arrays, camera, PAR_SEED, dev, adam=True)
@@ -3661,7 +3766,7 @@ def rank0_checks(rays, cornell, cam, whole, mesh722, cam722, film722, steps,
     want = render_passes(cornell, cam, Film.create(size, size, device=dev),
                          PAR_SEED, 0, PAR_PASSES,
                          closest_fn=closest_hit_fused,
-                         trace_fn=fused.trace_fused)
+                         trace_fn=fused.trace_fused, graphs=False)
     same = {k: np.array_equal(getattr(whole, k),
                               getattr(want, k).cpu().numpy())
             for k in ("color_sum", "samples", "misses")}
@@ -3692,7 +3797,8 @@ def rank0_checks(rays, cornell, cam, whole, mesh722, cam722, film722, steps,
 
     want722 = render_passes(mesh722, cam722,
                             Film.create(size, size, device=dev), PAR_SEED,
-                            0, 1, closest_fn=closest_hit_fused)
+                            0, 1, closest_fn=closest_hit_fused,
+                            graphs=False)
     err = float(np.abs(film722.color_sum
                        - want722.color_sum.cpu().numpy()).max())
     miss_eq = np.array_equal(film722.misses, want722.misses.cpu().numpy())
@@ -3904,6 +4010,344 @@ def debug_views(card, dev):
     return counts
 
 
+# --- the graph phase: passes and steps captured as CUDA graphs -------------
+
+GRAPH_SEED = 57
+GRAPH_PASSES = 16         # passes timed each way, eager and graphed in turn
+GRAPH_STEPS = 5           # steps compared, each from one saved state
+GRAPH_TIMED_STEPS = 6     # steps timed each way, in turn
+GRAPH_BUSY = 3            # calls under the profiler for a busy share
+GRAPH_ISSUE = 8           # replays whose host issue time is taken
+GRAPH_TARGET = 0.2        # the steps' target colour (gradients need none)
+# The kernel nodes of a captured graph that each wrapper's launch becomes,
+# by a pattern of the kernel's (mangled) name: the select wrapper's list
+# and finish kernels are not counted, as its count does not count them.
+NODE_NAMES = {
+    "trace_fused": r"(?<![A-Za-z_])trace_fused_kernel",
+    "prepare_uniforms_kernel": r"(?<![A-Za-z_])uniforms_kernel",
+    "replay_fwd": r"(?<![A-Za-z_])replay_fwd_kernel",
+    "replay_bwd": r"(?<![A-Za-z_])replay_bwd(_regen)?_kernel",
+    "closest_hit_fused": r"(?<![A-Za-z_])select_kernel",
+    "traverse": r"(?<![A-Za-z_])traverse_kernel",
+    "sort_key": r"(?<![A-Za-z_])sort_key_kernel",
+}
+
+
+def graph_kernels(label, captured, want, tmp):
+    """Gate: the kernels one replay of ``captured`` runs — the graph's
+    kernel nodes (its DOT dump) and the launches recorded while it was
+    captured — are ``want`` ``{wrapper: n}``, the route's.  Returns the
+    text printed beside the route (kernel nodes in all, ours per
+    replay)."""
+    nodes = captured.kernel_nodes(str(Path(tmp) / "graph.dot"))
+    ours = {name: sum(n for k, n in nodes.items() if re.search(pat, k))
+            for name, pat in NODE_NAMES.items()}
+    ours = {k: v for k, v in ours.items() if v}
+    tally = {w.__name__: n for w, n in captured.launches.items()}
+    check(ours == want and tally == want,
+          f"{label}: kernels a replay runs: the graph's kernel nodes {ours}, "
+          f"the launches recorded at the capture {tally}, the route's "
+          f"{want}")
+    return (f"{sum(nodes.values())} kernel nodes a replay, ours {ours}; "
+            f"capture ms={captured.capture_ms:.1f} graph pool MB="
+            f"{captured.pool_bytes / 2 ** 20:.1f}")
+
+
+def interleaved(fns, n):
+    """``n`` turns of each ``fns[k]()`` in turn, each timed on the host
+    clock to a synchronize: a list of ms lists."""
+    out = [[] for _ in fns]
+    for _ in range(n):
+        for ms, fn in zip(out, fns):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def issue_ms(captured):
+    """Host ms to issue one replay (``GRAPH_ISSUE`` replays, each waited
+    for before the next): the quartiles."""
+    ms = []
+    for _ in range(GRAPH_ISSUE):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        captured.replay()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    return quartiles(ms)
+
+
+def graph_pass_route(card, label, make, want, tmp, states=False):
+    """One route's pass: a graphed ``Renderer`` (``make(None)``, the
+    default) against an eager one (``make(False)``) on the same seed.
+    Gates: the films of the first pass and of ``GRAPH_PASSES`` more,
+    timed in turn, bit-equal; one graphed ``step(1)`` without a host
+    sync; the kernels a replay runs (:func:`graph_kernels`).  With
+    ``states``: the films again after ``next_camera``,
+    ``load_checkpoint`` and ``reset``, and the module-level
+    ``render_passes`` graphed against eager.  Prints the quartiles, the
+    busy shares, capture ms, pool MB, kernel nodes and the host ms to
+    issue a replay."""
+    from raytracercore_tpu_torch.render.film import Film
+    from raytracercore_tpu_torch.render.renderer import (PASS_GRAPHS,
+                                                         render_passes)
+
+    t_route = time.perf_counter()
+    g, e = make(None), make(False)
+    want = want(g)
+    check(g.graphs and not e.graphs and g.route == e.route,
+          f"{label}: graphs on by default on the card, off when asked "
+          f"(graphed {g.graphs}, eager {e.graphs}; routes {g.route} / "
+          f"{e.route})")
+    t0 = time.perf_counter()
+    g.step(1)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    e.step(1)
+    pg = next(iter(g.pass_graphs.entries.values()))
+    kern = graph_kernels(f"{label} pass", pg.captured, want, tmp)
+    ms_e, ms_g = interleaved((lambda: e.step(1), lambda: g.step(1)),
+                             GRAPH_PASSES)
+
+    def same(what):
+        diff = [f for f in ("color_sum", "samples", "misses")
+                if not torch.equal(getattr(g.film, f), getattr(e.film, f))]
+        check(not diff and g.pass_index == e.pass_index,
+              f"{label}: graphed film bit-equal to the eager film {what} "
+              f"(differing planes {diff}; pass {g.pass_index} / "
+              f"{e.pass_index})")
+    same(f"after {1 + GRAPH_PASSES} passes")
+    check_no_sync(f"{label} graphed pass", lambda: g.step(1))
+    e.step(1)
+    same("after the pass under the sync check")
+    notes = []
+    if states:
+        with tempfile.TemporaryDirectory() as ckpt_dir:
+            ckpt = str(Path(ckpt_dir) / "state.npz")
+            e.save_checkpoint(ckpt)
+            for r in (g, e):
+                r.step(2)
+            for what, act in (
+                    ("next_camera", lambda r: r.next_camera()),
+                    ("load_checkpoint", lambda r: r.load_checkpoint(ckpt)),
+                    ("reset", lambda r: r.reset())):
+                for r in (g, e):
+                    act(r)
+                    r.step(2)
+                same(f"after {what} and 2 passes")
+                notes.append(what)
+        size = g.film.shape
+        kw = {"closest_fn": g.closest_fn, "trace_fn": g.trace_fn}
+        for start in (0, 3):
+            want_f = render_passes(g.arrays, g.camera, Film.create(
+                *size, device=g.device), GRAPH_SEED, start, 2, graphs=False,
+                **kw)
+            got_f = render_passes(g.arrays, g.camera, Film.create(
+                *size, device=g.device), GRAPH_SEED, start, 2, **kw)
+            check(films_equal(got_f, want_f), f"{label}: module-level "
+                  f"render_passes graphed bit-equal to eager, passes "
+                  f"{start}-{start + 1}")
+        check(PASS_GRAPHS.captures >= 1 and len(PASS_GRAPHS.entries) == 1,
+              f"{label}: render_passes captured once and replayed "
+              f"({PASS_GRAPHS.captures} captures)")
+        PASS_GRAPHS.clear()
+        notes.append("render_passes")
+    busy_e, _ = device_busy(lambda i: e.step(1), GRAPH_BUSY)
+    busy_g, top_g = device_busy(lambda i: g.step(1), GRAPH_BUSY)
+    issue = issue_ms(pg.captured)
+    print(f"[graph] {label} pass (route {g.route}): films bit-equal to the "
+          f"eager passes"
+          + (f", again after {', '.join(notes)}" if notes else "")
+          + f"; first call ms={first_ms:.1f} (warm-up, capture, replay); "
+          f"{kern}; {GRAPH_PASSES} passes each in turn, ms min/p25/median/"
+          f"p75/max eager={quartiles(ms_e)} graphed={quartiles(ms_g)}; "
+          f"device busy eager {busy_e:.1f} % graphed {busy_g:.1f} %; host "
+          f"ms to issue a replay min/p25/median/p75/max={issue}; route s="
+          f"{time.perf_counter() - t_route:.1f} on {card}")
+    print(f"[graph] {label} graphed passes, device us per pass: {top_g}")
+
+
+def graph_step_route(card, label, scene, camera, closest_fn, want, tmp,
+                     use_replay=True, timed=True):
+    """One route's train step: ``make_train_step(None, Adam)`` graphed (the
+    default) against the eager step (``graphs=False``), on the scene's own
+    materials against a flat target.  Gates, for ``GRAPH_STEPS`` steps
+    each from one saved state (params and Adam state): losses bit-equal,
+    gradients within ``GRAD_TOL``·max|g|, and the params after the graphed
+    step bit-equal to a fresh Adam from that state on the graph's
+    gradient; one graphed step without a host sync; the kernels a replay
+    runs.  Prints capture ms, pool MB and kernel nodes, and with ``timed``
+    the quartiles of steps timed in turn and the busy shares."""
+    from raytracercore_tpu_torch.diff import get_material_params
+    from raytracercore_tpu_torch.parallel import make_train_step
+    from raytracercore_tpu_torch.render.renderer import pass_seed
+
+    t_route = time.perf_counter()
+    target = torch.full((scene.height, scene.width, 3), GRAPH_TARGET,
+                        device=scene.materials.diffuse.device)
+    pe, pg = get_material_params(scene), get_material_params(scene)
+    oe = torch.optim.Adam(pe.values(), lr=TRAIN_LR)
+    og = torch.optim.Adam(pg.values(), lr=TRAIN_LR)
+    kw = {"use_replay": use_replay}
+    if closest_fn is not None:
+        kw["closest_fn"] = closest_fn
+    se = make_train_step(None, oe, graphs=False, **kw)
+    sg = make_train_step(None, og, **kw)
+
+    def restore(params, opt, saved_p, saved_o):
+        with torch.no_grad():
+            for k, v in saved_p.items():
+                params[k].copy_(v)
+        opt.load_state_dict(copy.deepcopy(saved_o))
+
+    saved = ({k: v.detach().clone() for k, v in pe.items()},
+             copy.deepcopy(oe.state_dict()))
+    t0 = time.perf_counter()
+    sg(pg, scene, camera, target, pass_seed(GRAPH_SEED, 99))
+    first_ms = (time.perf_counter() - t0) * 1e3
+    restore(pg, og, *saved)
+    entry = next(iter(sg.graphs.entries.values()))
+    kern = graph_kernels(f"{label} train step", entry.captured, want, tmp)
+    losses, worst_g, params_equal = [], 0.0, True
+    for i in range(GRAPH_STEPS):
+        seed = pass_seed(GRAPH_SEED, i)
+        saved = ({k: v.detach().clone() for k, v in pe.items()},
+                 copy.deepcopy(oe.state_dict()))
+        le = se(pe, scene, camera, target, seed)
+        ge = {k: v.grad.clone() for k, v in pe.items()}
+        restore(pg, og, *saved)
+        lg = sg(pg, scene, camera, target, seed)
+        gg = {k: v.grad.clone() for k, v in pg.items()}
+        check(torch.equal(lg, le), f"{label} step {i}: graphed loss "
+              f"{float(lg):.9f} bit-equal to the eager {float(le):.9f}")
+        scale = max(float(v.abs().max()) for v in ge.values())
+        err = max(float((gg[k] - ge[k]).abs().max()) for k in ge)
+        check(scale > 0 and err <= GRAD_TOL * scale,
+              f"{label} step {i}: gradients within {GRAD_TOL}·max|g| of the "
+              f"eager step's (max err {err:.3e}, max|g| {scale:.3e})")
+        worst_g = max(worst_g, err / scale)
+        ref = {k: v.clone().requires_grad_(True) for k, v in saved[0].items()}
+        oref = torch.optim.Adam(ref.values(), lr=TRAIN_LR)
+        oref.load_state_dict(copy.deepcopy(saved[1]))
+        for k, v in ref.items():
+            v.grad = gg[k].clone()
+        oref.step()
+        differ = [k for k in ref if not torch.equal(ref[k], pg[k])]
+        check(not differ, f"{label} step {i}: params after the graphed step "
+              f"bit-equal to Adam on the graph's gradient (differing "
+              f"{differ})")
+        losses.append(float(lg))
+    check_no_sync(f"{label} graphed train step",
+                  lambda: sg(pg, scene, camera, target, 7))
+    times = ""
+    if timed:
+        k = iter(range(10 ** 6))
+        ms_e, ms_g = interleaved(
+            (lambda: se(pe, scene, camera, target, next(k)),
+             lambda: sg(pg, scene, camera, target, next(k))),
+            GRAPH_TIMED_STEPS)
+        busy_e, _ = device_busy(lambda i: se(pe, scene, camera, target, i),
+                                GRAPH_BUSY)
+        busy_g, top_g = device_busy(
+            lambda i: sg(pg, scene, camera, target, i), GRAPH_BUSY)
+        times = (f"; {GRAPH_TIMED_STEPS} steps each in turn, ms min/p25/"
+                 f"median/p75/max eager={quartiles(ms_e)} graphed="
+                 f"{quartiles(ms_g)}; device busy eager {busy_e:.1f} % "
+                 f"graphed {busy_g:.1f} %")
+    print(f"[graph] {label} train step (use_replay={use_replay}): "
+          f"{GRAPH_STEPS} Adam steps lr="
+          f"{TRAIN_LR}, each from one saved state: losses bit-equal ("
+          + " ".join(f"{x:.8f}" for x in losses)
+          + f"), worst gradient diff / max|g| {worst_g:.3e}, params "
+          f"bit-equal to Adam on the graph's gradient; first call ms="
+          f"{first_ms:.1f} (warm-up, capture, replay); {kern}{times}; "
+          f"route s={time.perf_counter() - t_route:.1f} on {card}")
+    if timed:
+        print(f"[graph] {label} graphed train steps, device us per step: "
+              f"{top_g}")
+
+
+def bvh_kernels(r):
+    """The kernels one pass of a BVH-route renderer ``r`` launches: the
+    traversal once per BVH and bounce (the key kernel before it where it
+    sorts), the select kernel once a bounce for a dense tail."""
+    n = r.arrays.recursion + 1
+    want = {"traverse": len(r.closest_fn.bvhs) * n}
+    if r.closest_fn.sort:
+        want["sort_key"] = want["traverse"]
+    if r.closest_fn.tail is not None:
+        want["closest_hit_fused"] = n
+    return want
+
+
+def graph_phase(card, dev):
+    """The graphed forms of the main path, at full width on every route:
+    cornell 700² rec10 (the megakernel), mesh-722 700² rec10 (``trace`` +
+    select), mesh-184k 512² rec4 (the BVH) passes; train steps on cornell,
+    mesh-722 and mesh-46k 512² rec4.  (The graphed mesh-1M pass is in
+    :func:`bvh_big_pass`.)  Returns the launches of the phase."""
+    from raytracercore_tpu_torch.render.renderer import Renderer
+    from raytracercore_tpu_torch.scene import loader
+
+    zero_counts()
+    host = loader.parse(cornell_scene())
+    mesh, mesh_cam = lit_mesh_scene(MESH_GRID, MESH_SUBDIV, 700, 10, dev)
+    big, big_cam = lit_mesh_scene(*BVH_MESH, BVH_SIZE, BVH_REC, dev)
+    bounces = host.recursion + 1
+    with tempfile.TemporaryDirectory() as tmp:
+        graph_pass_route(
+            card, "cornell 700x700 rec10",
+            lambda gr: Renderer(host, device=dev, seed=GRAPH_SEED,
+                                graphs=gr),
+            lambda r: {"trace_fused": 1}, tmp, states=True)
+        graph_pass_route(
+            card, "mesh-722 700x700 rec10",
+            lambda gr: Renderer(mesh, device=dev, seed=GRAPH_SEED,
+                                cameras=[mesh_cam], graphs=gr),
+            lambda r: {"closest_hit_fused": bounces}, tmp)
+        torch.cuda.empty_cache()
+        graph_pass_route(
+            card, "mesh-184k 512x512 rec4",
+            lambda gr: Renderer(big, device=dev, seed=GRAPH_SEED,
+                                cameras=[big_cam], graphs=gr),
+            bvh_kernels, tmp)
+        torch.cuda.empty_cache()
+        rc = Renderer(host, device=dev, graphs=False)
+        graph_step_route(card, "cornell 700x700 rec10", rc.arrays,
+                         rc.camera, None, {"trace_fused": 1,
+                                           "prepare_uniforms_kernel": 1,
+                                           "replay_bwd": 1}, tmp)
+        rm = Renderer(mesh, device=dev, cameras=[mesh_cam], graphs=False)
+        graph_step_route(card, "mesh-722 700x700 rec10", rm.arrays,
+                         rm.camera, None,
+                         {"prepare_uniforms_kernel": 1, "replay_fwd": 1,
+                          "replay_bwd": 1, "closest_hit_fused": bounces},
+                         tmp)
+        # The autograd oracle's step (use_replay=False: the backward of
+        # the whole bounce loop) on a small mesh.
+        small, small_cam = lit_mesh_scene(1, 1, 128, 4, dev)
+        rs = Renderer(small, device=dev, cameras=[small_cam], graphs=False)
+        graph_step_route(card, "mesh-82 128x128 rec4", rs.arrays, rs.camera,
+                         None, {"prepare_uniforms_kernel": 1,
+                                "closest_hit_fused": small.recursion + 1},
+                         tmp, use_replay=False, timed=False)
+        del rc, rm, rs
+        torch.cuda.empty_cache()
+        scene46, cam46 = lit_mesh_scene(*BVH_TRAIN_MESH, BVH_SIZE, BVH_REC,
+                                        dev)
+        r46 = Renderer(scene46, device=dev, cameras=[cam46], graphs=False)
+        want = {"prepare_uniforms_kernel": 1, "replay_fwd": 1,
+                "replay_bwd": 1, **bvh_kernels(r46)}
+        graph_step_route(card, "mesh-46k 512x512 rec4", r46.arrays,
+                         r46.camera, r46.closest_fn, want, tmp)
+    counts = read_counts()
+    print(f"[graph] launches of the graph phase (eager and graphed, replays "
+          f"counted kernel by kernel) {counts}")
+    return counts
+
+
 def main():
     import argparse
 
@@ -3939,222 +4383,250 @@ def main():
         print(card)
         return (times_main if args.times else bvh_times_main)(args.label,
                                                               card)
-    # The port's own modules; in a directory without the repository this
-    # import fails and the run ends here.
-    from raytracercore_tpu_torch import kernels
-    from raytracercore_tpu_torch.render import fused
-    from raytracercore_tpu_torch.render.renderer import Renderer, render_pass
-    from raytracercore_tpu_torch.scene import loader
+    with phase("import"):
+        # The port's own modules; in a directory without the repository this
+        # import fails and the run ends here.
+        from raytracercore_tpu_torch import kernels
+        from raytracercore_tpu_torch.render import fused
+        from raytracercore_tpu_torch.render.renderer import (Renderer,
+                                                             render_pass)
+        from raytracercore_tpu_torch.scene import loader
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda", 0)
-    card = card_line()
-    print(card)
-    print(f"[device] {torch.cuda.get_device_name(0)} count="
-          f"{torch.cuda.device_count()} torch={torch.__version__} "
-          f"cuda={torch.version.cuda} python={sys.version.split()[0]}")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dev = torch.device("cuda", 0)
+        card = card_line()
+        print(card)
+        print(f"[device] {torch.cuda.get_device_name(0)} count="
+              f"{torch.cuda.device_count()} torch={torch.__version__} "
+              f"cuda={torch.version.cuda} python={sys.version.split()[0]}")
 
     # --- 2. build ----------------------------------------------------------
-    info = kernels.build()
-    kernels.load()
-    print(f"[build] {info['path']} built={info['built']} "
-          f"seconds={info['seconds']:.1f}")
-    BUILD_REGS.update(ptxas_registers(info["log"]))
-    print(f"[build] {len(BUILD_REGS)} kernels in the build log; registers "
-          f"and occupancy stand beside each kernel's time")
-    record_stack_depths()
+    with phase("build"):
+        info = kernels.build()
+        kernels.load()
+        print(f"[build] {info['path']} built={info['built']} "
+              f"seconds={info['seconds']:.1f}")
+        BUILD_REGS.update(ptxas_registers(info["log"]))
+        print(f"[build] {len(BUILD_REGS)} kernels in the build log; registers "
+              f"and occupancy stand beside each kernel's time")
+        record_stack_depths()
 
     # --- 3. kernel vs plain on the card -----------------------------------
-    max_err = 0.0
-    fwd_err = bwd_err = 0.0
-    for name, text in (("test_fused", FUSED_TEST_SCENE),
-                       ("smooth+ambient_miss", SMOOTH_SCENE),
-                       ("cornell", cornell_scene()), ("rough", ROUGH_SCENE)):
-        for rec in (4, 10):
-            inputs = rays_and_uniforms(text, COMPARE_SIZE, rec, 1000 + rec,
-                                       dev)
-            label = f"{name} {COMPARE_SIZE}x{COMPARE_SIZE} rec{rec}"
-            if name != "rough":
-                max_err = max(max_err, compare(label, *inputs))
-            errs = compare_replay(label, *inputs)
-            fwd_err, bwd_err = max(fwd_err, errs[0]), max(bwd_err, errs[1])
-    inputs = rays_and_uniforms(cornell_scene(), 700, 10, 17, dev)
-    errs = compare_replay("cornell 700x700 rec10", *inputs)
-    fwd_err, bwd_err = max(fwd_err, errs[0]), max(bwd_err, errs[1])
-    del inputs
-    uni_err, uni_ms, uni_plain_ms = compare_uniforms(dev, 700 * 700, 11)
-    print(f"[time] prepare_uniforms_kernel [11,7,490000]: kernel device ms "
-          f"(CUDA graph)={fmt_ms(uni_ms)} plain ms={uni_plain_ms:.3f} on "
-          f"{card}; "
-          + occupancy_text("uniforms_kernel", UNIFORMS_THREADS))
-    probe = probe_phase(card, dev)
+    with phase("kernels vs plain"):
+        max_err = 0.0
+        fwd_err = bwd_err = 0.0
+        for name, text in (("test_fused", FUSED_TEST_SCENE),
+                           ("smooth+ambient_miss", SMOOTH_SCENE),
+                           ("cornell", cornell_scene()), ("rough", ROUGH_SCENE)):
+            for rec in (4, 10):
+                inputs = rays_and_uniforms(text, COMPARE_SIZE, rec, 1000 + rec,
+                                           dev)
+                label = f"{name} {COMPARE_SIZE}x{COMPARE_SIZE} rec{rec}"
+                if name != "rough":
+                    max_err = max(max_err, compare(label, *inputs))
+                errs = compare_replay(label, *inputs)
+                fwd_err, bwd_err = max(fwd_err, errs[0]), max(bwd_err, errs[1])
+        inputs = rays_and_uniforms(cornell_scene(), 700, 10, 17, dev)
+        errs = compare_replay("cornell 700x700 rec10", *inputs)
+        fwd_err, bwd_err = max(fwd_err, errs[0]), max(bwd_err, errs[1])
+        del inputs
+        uni_err, uni_ms, uni_plain_ms = compare_uniforms(dev, 700 * 700, 11)
+        print(f"[time] prepare_uniforms_kernel [11,7,490000]: kernel device ms "
+              f"(CUDA graph)={fmt_ms(uni_ms)} plain ms={uni_plain_ms:.3f} on "
+              f"{card}; "
+              + occupancy_text("uniforms_kernel", UNIFORMS_THREADS))
+        probe = probe_phase(card, dev)
 
-    # The select kernel on five scenes at 256x256 (all three tables, an
-    # ellipsoid and a two-sided plane; triangles only, with smooth normals;
-    # transformed and plain spheres) and one sphere scene at 700x700; the
-    # mesh scene at 700x700 is compared beside main path 3.
-    from raytracercore_tpu_torch.scene import meshgen
-    from raytracercore_tpu_torch.scene.types import freeze_scene
+        # The select kernel on five scenes at 256x256 (all three tables, an
+        # ellipsoid and a two-sided plane; triangles only, with smooth normals;
+        # transformed and plain spheres) and one sphere scene at 700x700; the
+        # mesh scene at 700x700 is compared beside main path 3.
+        from raytracercore_tpu_torch.scene import meshgen
+        from raytracercore_tpu_torch.scene.types import freeze_scene
 
-    cornell = loader.parse(cornell_scene())
-    select_scenes = [
-        ("cornell", freeze_scene(cornell, device=dev), cornell.cameras[0],
-         COMPARE_SIZE),
-        ("mesh-82", *meshgen.make_mesh_scene(
-            grid=1, subdiv=1, recursion=4, device=dev)[:2], COMPARE_SIZE),
-        ("mesh-722", *meshgen.make_mesh_scene(
-            grid=MESH_GRID, subdiv=MESH_SUBDIV, recursion=4, device=dev)[:2],
-         COMPARE_SIZE),
-        ("ellipsoids-12", *meshgen.make_sphere_field_scene(
-            grid=12, ellipsoid=True, device=dev), COMPARE_SIZE),
-        ("spheres-16", *meshgen.make_sphere_field_scene(
-            grid=16, device=dev), COMPARE_SIZE),
-        ("spheres-16", *meshgen.make_sphere_field_scene(
-            grid=16, recursion=10, device=dev), 700),
-    ]
-    select_err = 0.0
-    for name, scene, host_cam, size in select_scenes:
-        rays = camera_rays_and_uniforms(scene, host_cam, size, 31, dev)
-        queries = closest_hit_queries(scene, *rays)
-        select_err = max(select_err, compare_select(
-            f"{name} {size}x{size}", scene, queries))
-    del select_scenes, queries, rays
-    compare_routes(card, dev)
+        cornell = loader.parse(cornell_scene())
+        select_scenes = [
+            ("cornell", freeze_scene(cornell, device=dev), cornell.cameras[0],
+             COMPARE_SIZE),
+            ("mesh-82", *meshgen.make_mesh_scene(
+                grid=1, subdiv=1, recursion=4, device=dev)[:2], COMPARE_SIZE),
+            ("mesh-722", *meshgen.make_mesh_scene(
+                grid=MESH_GRID, subdiv=MESH_SUBDIV, recursion=4, device=dev)[:2],
+             COMPARE_SIZE),
+            ("ellipsoids-12", *meshgen.make_sphere_field_scene(
+                grid=12, ellipsoid=True, device=dev), COMPARE_SIZE),
+            ("spheres-16", *meshgen.make_sphere_field_scene(
+                grid=16, device=dev), COMPARE_SIZE),
+            ("spheres-16", *meshgen.make_sphere_field_scene(
+                grid=16, recursion=10, device=dev), 700),
+        ]
+        select_err = 0.0
+        for name, scene, host_cam, size in select_scenes:
+            rays = camera_rays_and_uniforms(scene, host_cam, size, 31, dev)
+            queries = closest_hit_queries(scene, *rays)
+            select_err = max(select_err, compare_select(
+                f"{name} {size}x{size}", scene, queries))
+        del select_scenes, queries, rays
+        compare_routes(card, dev)
 
     # --- 4. main path 1: Renderer at 700x700, recursion 10 ----------------
-    host = loader.parse(cornell_scene())
-    check((host.width, host.height, host.recursion) == (700, 700, 10),
-          "main-path scene is 700x700 rec10")
-    r = Renderer(host, device="cuda", seed=0)
-    t0 = time.perf_counter()
-    r.step(WARM_PASSES)
-    warm_s = time.perf_counter() - t0
-    r.reset()
-    fused.trace_fused.launches = 0
-    pass_s = []
-    for _ in range(MAIN_PASSES):
+    with phase("main path 1 (cornell Renderer)"):
+        host = loader.parse(cornell_scene())
+        check((host.width, host.height, host.recursion) == (700, 700, 10),
+              "main-path scene is 700x700 rec10")
+        r = Renderer(host, device="cuda", seed=0)
         t0 = time.perf_counter()
-        r.step(1)
-        pass_s.append(time.perf_counter() - t0)
-    launches = fused.trace_fused.launches
-    st = r.status()
-    print(f"[main] launches of trace_fused during {MAIN_PASSES} passes: "
-          f"{launches}")
-    check(launches == MAIN_PASSES,
-          f"main path launched the megakernel once per pass "
-          f"({launches} != {MAIN_PASSES})")
-    film = r.film
-    check(all(bool(torch.isfinite(t).all()) for t in
-              (film.color_sum, film.samples, film.misses)),
-          "film is finite")
-    check(float(film.samples.sum() + film.misses.sum())
-          == MAIN_PASSES * 700 * 700, "one sample per pixel per pass")
-    img = r.image()
-    check(img.shape == (700, 700, 4) and img.dtype == np.uint8,
-          "image is 700x700 RGBA uint8")
-    check(int(img[..., :3].max()) > 50, "image is lit (max > 50)")
-    q = np.percentile(np.asarray(pass_s) * 1e3, [0, 25, 50, 75, 100])
-    print(f"[main] cornell 700x700 rec10, {MAIN_PASSES} passes: "
-          f"samples/px/sec={st['samples_per_px_per_sec']:.4f} "
-          f"paths/sec={st['paths_per_sec']:.4e} "
-          f"ms/pass min/p25/median/p75/max="
-          f"{'/'.join(f'{x:.3f}' for x in q)} "
-          f"warm-up s={warm_s:.3f} ({WARM_PASSES} passes) "
-          f"image max={int(img[..., :3].max())} "
-          f"mean={float(img[..., :3].mean()):.3f} on {card}")
-    print("[main] ms of each pass: "
-          + " ".join(f"{x * 1e3:.3f}" for x in pass_s))
-    busy, top = device_busy(lambda i: r.step(1), 4)
-    print(f"[profile] 4 render passes: device busy {busy:.1f} % of the span "
-          f"on {card}")
-    print(f"[profile] top kernels, device us per pass: {top}")
+        r.step(WARM_PASSES)
+        warm_s = time.perf_counter() - t0
+        r.reset()
+        fused.trace_fused.launches = 0
+        pass_s = []
+        for _ in range(MAIN_PASSES):
+            t0 = time.perf_counter()
+            r.step(1)
+            pass_s.append(time.perf_counter() - t0)
+        launches = fused.trace_fused.launches
+        st = r.status()
+        print(f"[main] launches of trace_fused during {MAIN_PASSES} passes: "
+              f"{launches}")
+        check(launches == MAIN_PASSES,
+              f"main path launched the megakernel once per pass "
+              f"({launches} != {MAIN_PASSES})")
+        film = r.film
+        check(all(bool(torch.isfinite(t).all()) for t in
+                  (film.color_sum, film.samples, film.misses)),
+              "film is finite")
+        check(float(film.samples.sum() + film.misses.sum())
+              == MAIN_PASSES * 700 * 700, "one sample per pixel per pass")
+        img = r.image()
+        check(img.shape == (700, 700, 4) and img.dtype == np.uint8,
+              "image is 700x700 RGBA uint8")
+        check(int(img[..., :3].max()) > 50, "image is lit (max > 50)")
+        q = np.percentile(np.asarray(pass_s) * 1e3, [0, 25, 50, 75, 100])
+        print(f"[main] cornell 700x700 rec10, {MAIN_PASSES} passes "
+              f"(graphed={r.graphs}): "
+              f"samples/px/sec={st['samples_per_px_per_sec']:.4f} "
+              f"paths/sec={st['paths_per_sec']:.4e} "
+              f"ms/pass min/p25/median/p75/max="
+              f"{'/'.join(f'{x:.3f}' for x in q)} "
+              f"warm-up s={warm_s:.3f} ({WARM_PASSES} passes) "
+              f"image max={int(img[..., :3].max())} "
+              f"mean={float(img[..., :3].mean()):.3f} on {card}")
+        print("[main] ms of each pass: "
+              + " ".join(f"{x * 1e3:.3f}" for x in pass_s))
+        busy, top = device_busy(lambda i: r.step(1), 4)
+        print(f"[profile] 4 render passes: device busy {busy:.1f} % of the span "
+              f"on {card}")
+        print(f"[profile] top kernels, device us per pass: {top}")
 
-    # Kernel and plain version at the main path's shapes: same rays and
-    # uniforms, compared, then timed with CUDA events.
-    arrays, ray_o, ray_d, uniforms = rays_and_uniforms(
-        cornell_scene(), 700, 10, 7, dev)
-    max_err = max(max_err, compare("cornell 700x700 rec10", arrays, ray_o,
-                                   ray_d, uniforms))
-    kernel_ms = graph_ms(
-        lambda: fused.trace_fused(arrays, ray_o, ray_d, uniforms), 20)
-    plain_ms = cuda_ms(
-        lambda: fused.trace_fused_reference(arrays, ray_o, ray_d, uniforms),
-        2)
-    kernel_ms2 = graph_ms(
-        lambda: fused.trace_fused(arrays, ray_o, ray_d, uniforms), 20)
-    kernel_tape_ms = graph_ms(lambda: fused.trace_fused(
-        arrays, ray_o, ray_d, uniforms, want_tape=True), 20)
-    _, _, tape = fused.trace_fused(arrays, ray_o, ray_d, uniforms,
-                                   want_tape=True)
-    reached = int(((tape.flags & 0xF) != 0).sum())  # bounces the paths reach
-    fused_bound = bound(
-        reached * (row_ops(arrays, coplanar=False) + OPS_SHADE),
-        nbytes(ray_o, ray_d, uniforms, *arrays.fused_tables)
-        + ray_o.shape[0] * 16)
-    del tape
-    print(f"[time] trace_fused cornell 700x700 rec10: kernel device ms "
-          f"(CUDA graph)={fmt_ms(kernel_ms)} (again {fmt_ms(kernel_ms2)}; "
-          f"with the tape {fmt_ms(kernel_tape_ms)}) plain ms={plain_ms:.3f} "
-          f"bound ms={fused_bound[0]:.4f} (by {fused_bound[1]}, "
-          f"{reached / ray_o.shape[0]:.4f} bounces per path) on {card}")
-    print(f"[time] trace_fused kernel: " + occupancy_text(
-        "trace_fused_kernel", FUSED_THREADS,
-        nbytes(*arrays.fused_tables)))
+        # Kernel and plain version at the main path's shapes: same rays and
+        # uniforms, compared, then timed with CUDA events.
+        arrays, ray_o, ray_d, uniforms = rays_and_uniforms(
+            cornell_scene(), 700, 10, 7, dev)
+        max_err = max(max_err, compare("cornell 700x700 rec10", arrays, ray_o,
+                                       ray_d, uniforms))
+        kernel_ms = graph_ms(
+            lambda: fused.trace_fused(arrays, ray_o, ray_d, uniforms), 20)
+        plain_ms = cuda_ms(
+            lambda: fused.trace_fused_reference(arrays, ray_o, ray_d, uniforms),
+            2)
+        kernel_ms2 = graph_ms(
+            lambda: fused.trace_fused(arrays, ray_o, ray_d, uniforms), 20)
+        kernel_tape_ms = graph_ms(lambda: fused.trace_fused(
+            arrays, ray_o, ray_d, uniforms, want_tape=True), 20)
+        _, _, tape = fused.trace_fused(arrays, ray_o, ray_d, uniforms,
+                                       want_tape=True)
+        reached = int(((tape.flags & 0xF) != 0).sum())  # bounces the paths reach
+        fused_bound = bound(
+            reached * (row_ops(arrays, coplanar=False) + OPS_SHADE),
+            nbytes(ray_o, ray_d, uniforms, *arrays.fused_tables)
+            + ray_o.shape[0] * 16)
+        del tape
+        print(f"[time] trace_fused cornell 700x700 rec10: kernel device ms "
+              f"(CUDA graph)={fmt_ms(kernel_ms)} (again {fmt_ms(kernel_ms2)}; "
+              f"with the tape {fmt_ms(kernel_tape_ms)}) plain ms={plain_ms:.3f} "
+              f"bound ms={fused_bound[0]:.4f} (by {fused_bound[1]}, "
+              f"{reached / ray_o.shape[0]:.4f} bounces per path) on {card}")
+        print(f"[time] trace_fused kernel: " + occupancy_text(
+            "trace_fused_kernel", FUSED_THREADS,
+            nbytes(*arrays.fused_tables)))
 
-    # The whole pass with the plain version, for the end-to-end comparison.
-    jitter = torch.rand((700 * 700, 4), device=dev)
-    film0 = r.film
+        # The whole pass with the plain version, for the end-to-end comparison.
+        jitter = torch.rand((700 * 700, 4), device=dev)
+        film0 = r.film
 
-    def plain_pass():
-        render_pass(arrays, r.camera, film0, jitter, uniforms,
-                    trace_fn=fused.trace_fused_reference)
-    plain_pass_ms = cuda_ms(plain_pass, 2)
-    print(f"[time] whole pass with the plain version: ms/pass="
-          f"{plain_pass_ms:.3f} samples/px/sec={1e3 / plain_pass_ms:.4f} "
-          f"on {card}")
+        def plain_pass():
+            render_pass(arrays, r.camera, film0, jitter, uniforms,
+                        trace_fn=fused.trace_fused_reference)
+        plain_pass_ms = cuda_ms(plain_pass, 2)
+        print(f"[time] whole pass with the plain version: ms/pass="
+              f"{plain_pass_ms:.3f} samples/px/sec={1e3 / plain_pass_ms:.4f} "
+              f"on {card}")
 
     # --- 5. main path 2: the train step at 700x700, recursion 10 ----------
-    train_launches, stage, train_bounds = train_path(card, dev)
+    with phase("main path 2 (cornell train step)"):
+        train_launches, stage, train_bounds = train_path(card, dev)
 
     # --- 6. main path 3: the mesh scene above the megakernel's cap ---------
-    del arrays, ray_o, ray_d, uniforms, jitter, film0
-    select_launches, (mesh_train_counts, mesh_replay_errs), select_stage = \
-        mesh_path(card, dev)
-    fwd_err = max(fwd_err, mesh_replay_errs[0])
-    bwd_err = max(bwd_err, mesh_replay_errs[1])
+    with phase("main path 3 (mesh-722)"):
+        del arrays, ray_o, ray_d, uniforms, jitter, film0
+        select_launches, (mesh_train_counts, mesh_replay_errs), select_stage = \
+            mesh_path(card, dev)
+        fwd_err = max(fwd_err, mesh_replay_errs[0])
+        bwd_err = max(bwd_err, mesh_replay_errs[1])
 
     # --- 7. the BVH tier: kernel vs plain, main paths 4 and 5 --------------
     # Renderer builds its tree with backend "auto", which would hand a
     # failed native build to the numpy builder with a warning: here that
     # fails the run (the comparisons ask for "native" by name).
-    import warnings
-    warnings.filterwarnings("error", message="native BVH builder")
-    traverse_err = bvh_compare_scenes(card, dev)
-    bvh_launches, traverse_stage, key_stage, rows_184k = bvh_render_path(
-        card, dev)
-    torch.cuda.empty_cache()
-    big_launches, rows_1m = bvh_big_pass(card, dev)
-    add_counts(bvh_launches, big_launches)
-    coherence_verdict(card, {"mesh-184k 512x512": rows_184k,
-                             "mesh-1M 1024x1024": rows_1m})
-    del rows_184k, rows_1m
-    torch.cuda.empty_cache()
-    bvh_train_counts, bvh_replay_errs, _ = bvh_train_path(card, dev)
-    fwd_err = max(fwd_err, bvh_replay_errs[0])
-    bwd_err = max(bwd_err, bvh_replay_errs[1])
+    with phase("BVH tier (mesh-184k, mesh-1M, mesh-46k)"):
+        import warnings
+        warnings.filterwarnings("error", message="native BVH builder")
+        parts = [time.perf_counter()]
+        traverse_err = bvh_compare_scenes(card, dev)
+        parts.append(time.perf_counter())
+        bvh_launches, traverse_stage, key_stage, rows_184k = bvh_render_path(
+            card, dev)
+        parts.append(time.perf_counter())
+        torch.cuda.empty_cache()
+        big_launches, rows_1m = bvh_big_pass(card, dev)
+        add_counts(bvh_launches, big_launches)
+        coherence_verdict(card, {"mesh-184k 512x512": rows_184k,
+                                 "mesh-1M 1024x1024": rows_1m})
+        del rows_184k, rows_1m
+        parts.append(time.perf_counter())
+        torch.cuda.empty_cache()
+        bvh_train_counts, bvh_replay_errs, _ = bvh_train_path(card, dev)
+        fwd_err = max(fwd_err, bvh_replay_errs[0])
+        bwd_err = max(bwd_err, bvh_replay_errs[1])
+        parts.append(time.perf_counter())
+        print("[phase] BVH tier parts s: " + ", ".join(
+            f"{name} {b - a:.1f}" for name, a, b in zip(
+                ("kernel vs plain and oracle", "mesh-184k passes and sweep",
+                 "mesh-1M", "mesh-46k train"), parts, parts[1:])))
 
-    # --- 8. the rest of the surface: add_scatter, merge, dtype=, profile,
+    # --- 8. the graphed forms: each pass and step captured as a CUDA graph
+    # and replayed, against the eager forms, on every route -----------------
+    with phase("graphs"):
+        torch.cuda.empty_cache()
+        graph_counts = graph_phase(card, dev)
+
+    # --- 9. the rest of the surface: add_scatter, merge, dtype=, profile,
     # trace_replay's options ------------------------------------------------
-    torch.cuda.empty_cache()
-    surf_counts = surface_phase(card, dev)
+    with phase("surface"):
+        torch.cuda.empty_cache()
+        surf_counts = surface_phase(card, dev)
 
-    # --- 9. the sharded paths and the debug views -------------------------
-    torch.cuda.empty_cache()
-    # The launches of the surface and parallel phases' paths.
-    phase_counts = add_counts(parallel_phase(card, dev), surf_counts)
+    # --- 10. the sharded paths and the debug views ------------------------
+    with phase("parallel and debug views"):
+        torch.cuda.empty_cache()
+        # The launches of the graph, surface and parallel phases' paths.
+        phase_counts = add_counts(add_counts(parallel_phase(card, dev),
+                                             surf_counts), graph_counts)
 
-    # --- 10. result lines --------------------------------------------------
+    # --- 11. result lines -------------------------------------------------
+    PHASE[0] = "result lines"
     from raytracercore_tpu_torch.bvh import cuda_traverse as ct
 
     check(len(STACK_DEPTHS) > 0, "the run packed wide trees")
@@ -4175,6 +4647,9 @@ def main():
                 "plain_ms": p_ms, "bound_ms": bound_ms[0],
                 "bound_by": bound_ms[1], "library_ms": None}
 
+    print("[phase] seconds: " + ", ".join(
+        f"{name} {sec:.1f}" for name, sec in PHASE_SECONDS.items())
+        + f"; total {time.perf_counter() - T0[0]:.1f}")
     print(card)
     print(json.dumps({"kernels": [
         entry("trace_fused", "fused.cu", "render/fused.py:56",

@@ -830,7 +830,7 @@ def _launch(wide, leaves, leaf_kind, ray_o, ray_d, skip, eps_behind,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"traversal kernel launch failed: CUDA error {err}")
-    traverse.launches += 1
+    kernels.count_launch(traverse)
     return out
 
 
@@ -916,7 +916,7 @@ def _launch_key(ray_o, ray_d, root_min, root_max):
         SORT_DIR_BITS, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"sort key kernel launch failed: CUDA error {err}")
-    sort_key.launches += 1
+    kernels.count_launch(sort_key)
     return key
 
 

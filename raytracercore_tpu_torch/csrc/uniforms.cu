@@ -7,7 +7,9 @@
 // written out below and again in the plain torch version
 // (render/uniforms_kernel.py: prepare_uniforms_reference), so kernel and
 // plain version draw the same bits:
-//   key = the 64-bit seed as (lo, hi); counter (r, b, 0, 0) gives u0..u3,
+//   key = the 64-bit seed as (lo, hi), read from two words of device memory
+//   (so that one captured CUDA graph serves every seed: the caller fills
+//   the words before each replay); counter (r, b, 0, 0) gives u0..u3,
 //   counter (r, b, 1, 0) word 0 gives u4; a word w becomes (w >> 8) * 2^-24.
 // Then the channel transforms of preprocess_uniforms: ln(clip(u0)),
 // cos/sin(2 pi u1), u2, 2 acos(u3) / pi, cos/sin(2 pi u4).
@@ -55,9 +57,10 @@ __device__ __forceinline__ float to_unit(uint32_t w) {
 }
 
 __global__ void __launch_bounds__(UNIFORMS_BLOCK)
-    uniforms_kernel(float* out, int n, int bounces, uint32_t k0, uint32_t k1) {
+    uniforms_kernel(float* out, int n, int bounces, const uint32_t* key) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (long long)n * bounces) return;
+  const uint32_t k0 = __ldg(key), k1 = __ldg(key + 1);
   const uint32_t r = (uint32_t)(idx % n);
   const uint32_t b = (uint32_t)(idx / n);
   uint4 w = philox4x32_10(make_uint4(r, b, 0u, 0u), k0, k1);
@@ -78,16 +81,17 @@ __global__ void __launch_bounds__(UNIFORMS_BLOCK)
 
 }  // namespace rtc
 
-// C entry point, loaded with ctypes.  Launches on `stream` and returns the
-// cudaGetLastError() after the launch (0 = launched).
-extern "C" int rtc_uniforms(float* out, int n, int bounces, uint32_t k0,
-                            uint32_t k1, void* stream) {
+// C entry point, loaded with ctypes.  `key` points at the Philox key's two
+// 32-bit words (lo, hi) in device memory.  Launches on `stream` and returns
+// the cudaGetLastError() after the launch (0 = launched).
+extern "C" int rtc_uniforms(float* out, int n, int bounces,
+                            const uint32_t* key, void* stream) {
   long long total = (long long)n * bounces;
   if (total <= 0) return 0;
   dim3 grid((unsigned)((total + rtc::UNIFORMS_BLOCK - 1) /
                        rtc::UNIFORMS_BLOCK));
   rtc::uniforms_kernel<<<grid, rtc::UNIFORMS_BLOCK, 0,
                          static_cast<cudaStream_t>(stream)>>>(out, n, bounces,
-                                                              k0, k1);
+                                                              key);
   return static_cast<int>(cudaGetLastError());
 }

@@ -261,7 +261,7 @@ def _launch(scene: SceneArrays, ray_o, ray_d, skip, eps_behind,
         eps_behind, eps_pos * eps_pos, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"select kernel launch failed: CUDA error {err}")
-    closest_hit_fused.launches += 1
+    kernels.count_launch(closest_hit_fused)
     return out
 
 

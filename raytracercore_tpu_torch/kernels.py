@@ -33,7 +33,6 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_U = ctypes.c_uint32
 
 # C signatures of the library's entry points.
 SIGNATURES = {
@@ -46,7 +45,7 @@ SIGNATURES = {
         + [_P]),                       # stream
     "rtc_uniforms": (
         [_P, _I, _I]                   # out, n, bounces
-        + [_U, _U]                     # Philox key (lo, hi)
+        + [_P]                         # Philox key: 2 words (lo, hi)
         + [_P]),                       # stream
     "rtc_replay_fwd": (
         [_P] * 11                      # 9 inputs, color, miss
@@ -89,6 +88,23 @@ SIGNATURES = {
 }
 
 _loaded: dict = {}
+
+# While ``core.graphs.capture`` records a CUDA graph: ``{wrapper: launches}``
+# of the kernels the graph will run at each replay.
+_capture_tally: list = [None]
+
+
+def count_launch(wrapper) -> None:
+    """Count one launch of ``wrapper``'s kernel in ``wrapper.launches``.
+    A launch recorded into a CUDA graph that :func:`.core.graphs.capture`
+    is capturing runs nothing yet: it goes to the graph's tally instead,
+    and the graph adds it to ``wrapper.launches`` at every replay, so the
+    counts are launches that ran."""
+    tally = _capture_tally[0]
+    if tally is None:
+        wrapper.launches += 1
+    else:
+        tally[wrapper] = tally.get(wrapper, 0) + 1
 
 
 def check_tensor(name, t, shape, dtype, device):

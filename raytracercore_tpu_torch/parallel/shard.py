@@ -10,7 +10,10 @@ row.  On the ``prims`` axis each rank intersects its slice of the
 triangle table and the ranks agree on the closest hit at every bounce.
 A train step takes its rows of rays, target and uniforms; the loss and the
 material gradient are summed over ``rays`` with ``torch.distributed``
-collectives.  ``mesh=None`` is the single-device step.
+collectives.  ``mesh=None`` is the single-device step; on a CUDA device
+it is captured once as a CUDA graph and replayed (:class:`StepGraph`, the
+counterpart of the JAX package's ``jax.jit`` step and ``lax.scan`` loop).
+Sharded steps and passes stay eager.
 
 The JAX step is stateless (params and optimizer state in, new ones out);
 here ``params`` is the dict of leaf tensors the caller's ``torch.optim``
@@ -25,15 +28,19 @@ from typing import Callable
 import torch
 import torch.distributed as dist
 
+from ..core import graphs as graphs_mod
 from ..diff.params import MATERIAL_FIELDS, with_material_params
 from ..intersect.cuda_select import closest_hit_fused
 from ..intersect.dispatch import HitRecord, closest_hit
 from ..render import camera as cam_mod
 from ..render.film import Film
 from ..render.integrator import trace
-from ..render.renderer import pass_draws, pass_seed, pick_route, trace_pixels
+from ..render.renderer import (_clone_camera, _use_graphs, camera_tensors,
+                               pass_draws, pass_seed, pick_route,
+                               trace_pixels)
 from ..render.replay import trace_replay
-from ..render.uniforms_kernel import prepare_uniforms_kernel
+from ..render.uniforms_kernel import (fill_seed_key, prepare_uniforms_keyed,
+                                      prepare_uniforms_kernel, seed_key)
 from ..scene.types import SceneArrays, Triangles
 from .mesh import Mesh, block, ray_slice
 
@@ -222,15 +229,24 @@ def step_rays(camera, h: int, w: int, seed: int, jitter=None):
     [h·w, 4] is drawn from the step's camera seed unless it is given (the
     JAX step splits its key in two the same way)."""
     cam_seed, path_seed = pass_seed(seed, 0), pass_seed(seed, 1)
-    device = camera.position.device
     if jitter is None:
-        gen = torch.Generator(device=device)
+        gen = torch.Generator(device=camera.position.device)
         gen.manual_seed(cam_seed)
-        jitter = torch.rand((h * w, 4), generator=gen, device=device,
-                            dtype=camera.position.dtype)
-    px, py = cam_mod.pixel_grid(w, h, device=device)
+        jitter = step_jitter(gen, camera, h * w)
+    ray_o, ray_d = _rays(camera, h, w, jitter)
+    return ray_o, ray_d, path_seed
+
+
+def step_jitter(gen: torch.Generator, camera, n: int):
+    """The camera jitter [n, 4] of a step, drawn from ``gen``."""
+    return torch.rand((n, 4), generator=gen, device=camera.position.device,
+                      dtype=camera.position.dtype)
+
+
+def _rays(camera, h, w, jitter):
+    px, py = cam_mod.pixel_grid(w, h, device=camera.position.device)
     ray_o, ray_d = cam_mod.camera_rays(camera, px, py, jitter)
-    return ray_o.contiguous(), ray_d.contiguous(), path_seed
+    return ray_o.contiguous(), ray_d.contiguous()
 
 
 def image_loss(color, miss, target, n=None):
@@ -270,9 +286,121 @@ def _sum_grads(mesh: Mesh, params: dict) -> None:
         p.grad = part.view_as(p)
 
 
+def step_backward(params: dict, scene, camera, target, jitter, key,
+                  uniforms=None, optimizer=None, closest_fn=closest_hit,
+                  use_replay: bool = True):
+    """The forward and backward of one single-device train step on given
+    draws: the body a :class:`StepGraph` captures (and the eager step's,
+    with ``optimizer.step()`` after it).
+
+    Camera rays from ``jitter`` [H·W, 4]; path uniforms ``uniforms`` [B,
+    7, H·W], or from the uniforms kernel keyed by the ``[2]`` int32 tensor
+    ``key`` (:func:`..render.uniforms_kernel.seed_key`); then
+    :func:`..render.replay.trace_replay` (or ``trace`` with
+    ``use_replay=False``), the L2 loss against ``target`` [H, W, 3],
+    ``optimizer.zero_grad(set_to_none=True)`` (without an optimizer: every
+    param's ``.grad`` set to None) and ``backward()``.  Returns the
+    detached loss; the gradients are in the params' ``.grad``."""
+    h, w = target.shape[:2]
+    ray_o, ray_d = _rays(camera, h, w, jitter)
+    s = with_material_params(scene, params)
+    if use_replay:
+        color, miss = trace_replay(s, ray_o, ray_d, seed=key,
+                                   uniforms=uniforms, closest_fn=closest_fn)
+    else:
+        if uniforms is None:
+            uniforms = prepare_uniforms_keyed(key, h * w,
+                                              scene.recursion + 1)
+        color, miss = trace(s, ray_o, ray_d, None, closest_fn=closest_fn,
+                            uniforms=uniforms)
+    loss = image_loss(color, miss, target, h * w * 3)
+    if optimizer is not None:
+        optimizer.zero_grad(set_to_none=True)
+    else:
+        for p in params.values():
+            p.grad = None
+    loss.backward()
+    return loss.detach()
+
+
+class StepGraph:
+    """One single-device train step's forward and backward, captured once
+    as a CUDA graph (:func:`..core.graphs.capture`) and replayed, with
+    ``optimizer.step()`` after each replay, outside the graph (so any
+    ``torch.optim`` optimizer works).
+
+    Static buffers: the camera, the target, the jitter and uniforms when
+    the caller gives them, and the uniforms kernel's key
+    (:func:`..render.uniforms_kernel.fill_seed_key`, filled before each
+    replay); a drawn jitter comes from :attr:`generator`, registered with
+    the graph and seeded before each replay.  The graph reads the params
+    and the scene in place.  Its gradients live in the graph's pool: after
+    every replay each param's ``.grad`` is pointed at them again, so a
+    ``zero_grad(set_to_none=True)`` between steps cannot detach them."""
+
+    def __init__(self, params: dict, scene, camera, target, optimizer,
+                 closest_fn, use_replay, jitter=None, uniforms=None):
+        device = target.device
+        h, w = target.shape[:2]
+        self.params = params
+        self.optimizer = optimizer
+        self.generator = torch.Generator(device=device)
+        self.path_key = seed_key(0, device)
+        self.camera = _clone_camera(camera)
+        cam = camera_tensors(self.camera)
+        statics = [t.clone() for t in (target, jitter, uniforms)
+                   if t is not None]
+        self.drawn_jitter = jitter is None
+        self.given_uniforms = uniforms is not None
+
+        def body(*tensors):  # the camera's, target[, jitter][, uniforms]
+            tgt, *rest = tensors[len(cam):]
+            jit = (step_jitter(self.generator, self.camera, h * w)
+                   if self.drawn_jitter else rest.pop(0))
+            uni = rest.pop(0) if self.given_uniforms else None
+            return step_backward(params, scene, self.camera, tgt, jit,
+                                 self.path_key, uni, optimizer, closest_fn,
+                                 use_replay)
+
+        self.captured = graphs_mod.capture(
+            body, cam + tuple(statics),
+            label=f"train step {h}x{w} rec{scene.recursion}",
+            generators=(self.generator,))
+        self.grads = [p.grad for p in params.values()]
+
+    @staticmethod
+    def key_of(params, scene, camera, target, closest_fn, use_replay,
+               jitter=None, uniforms=None):
+        """What a step's graph is specialized on: the scene, the params,
+        the route (``closest_fn``, ``use_replay``: with the scene they
+        pick the recorder), the shapes and dtypes of the target and the
+        given draws, the camera's mode and the device."""
+        return (id(scene), tuple((k, id(p)) for k, p in params.items()),
+                closest_fn, use_replay, tuple(target.shape), target.dtype,
+                None if jitter is None else tuple(jitter.shape),
+                None if uniforms is None else tuple(uniforms.shape),
+                camera.mode, target.device)
+
+    def run(self, camera, target, seed: int, jitter=None, uniforms=None):
+        """One step seeded ``seed`` (the eager step's draws): feed, replay,
+        ``optimizer.step()``; returns the loss (a new tensor).  No host
+        synchronisation."""
+        self.captured.feed(*camera_tensors(camera), *(
+            t for t in (target, jitter, uniforms) if t is not None))
+        if self.drawn_jitter:
+            self.generator.manual_seed(pass_seed(seed, 0))
+        if not self.given_uniforms:
+            fill_seed_key(self.path_key, pass_seed(seed, 1))
+        self.captured.replay()
+        for p, g in zip(self.params.values(), self.grads):
+            p.grad = g
+        self.optimizer.step()
+        return self.captured.outputs.clone()
+
+
 def make_train_step(mesh: Mesh | None, optimizer: torch.optim.Optimizer,
-                    closest_fn=closest_hit, use_replay: bool = True
-                    ) -> Callable:
+                    closest_fn=closest_hit, use_replay: bool = True,
+                    graphs: bool | None = None) -> Callable:
     """A material-optimization step: render → L2 image loss → gradients →
     ``optimizer.step()``.
 
@@ -293,16 +421,47 @@ def make_train_step(mesh: Mesh | None, optimizer: torch.optim.Optimizer,
     replay is tested against).  ``closest_fn`` is the closest-hit query of
     either route.
 
+    ``graphs`` (one device only): None captures the step's forward and
+    backward once as a CUDA graph and replays it (:class:`StepGraph`;
+    ``optimizer.step()`` runs after the replay) when the target is on a
+    CUDA device, and runs the eager step on the CPU; False always runs the
+    eager step; True on the CPU, or with a mesh, raises ``ValueError``.
+    The step keeps a graph for each of the last two scenes, params,
+    routes and shapes (``step.graphs``).  Losses are bit-equal between
+    the forms; gradients agree to the replay backward's atomic sum order.
+
     Returns ``step(params, scene, camera, target, seed, jitter=None,
     uniforms=None) → loss`` (a detached scalar tensor, the whole image's
     loss before the update).  ``target`` is the whole linear ``[H, W, 3]``
     image; ``seed`` keys the step's camera jitter and path uniforms, unless
     ``jitter`` [H·W, 4] and ``uniforms`` [B, 7, H·W] are given.
     """
+    if mesh is not None and graphs:
+        raise ValueError("make_train_step: a sharded step stays eager "
+                         "(graphs=True needs mesh=None)")
+    cache = graphs_mod.GraphCache(size=2)
 
     def step(params: dict, scene, camera, target, seed: int,
              jitter=None, uniforms=None):
         h, w = target.shape[:2]
+        if mesh is None and _use_graphs(graphs, target.device,
+                                        "make_train_step"):
+            key = StepGraph.key_of(params, scene, camera, target, closest_fn,
+                                   use_replay, jitter, uniforms)
+            sg = cache.get(key, lambda: StepGraph(
+                params, scene, camera, target, optimizer, closest_fn,
+                use_replay, jitter, uniforms))
+            return sg.run(camera, target, seed, jitter, uniforms)
+        if mesh is None:
+            if jitter is None:
+                gen = torch.Generator(device=camera.position.device)
+                gen.manual_seed(pass_seed(seed, 0))
+                jitter = step_jitter(gen, camera, h * w)
+            key = seed_key(pass_seed(seed, 1), target.device)
+            loss = step_backward(params, scene, camera, target, jitter, key,
+                                 uniforms, optimizer, closest_fn, use_replay)
+            optimizer.step()
+            return loss
         ray_o, ray_d, uniforms, tgt, path_seed = _rank_inputs(
             mesh, scene, camera, target, seed, jitter, uniforms)
         s = with_material_params(scene, params)
@@ -311,21 +470,18 @@ def make_train_step(mesh: Mesh | None, optimizer: torch.optim.Optimizer,
                                        uniforms=uniforms,
                                        closest_fn=closest_fn)
         else:
-            if uniforms is None:
-                uniforms = prepare_uniforms_kernel(
-                    path_seed, h * w, scene.recursion + 1, ray_o.device)
             color, miss = trace(s, ray_o, ray_d, None, closest_fn=closest_fn,
                                 uniforms=uniforms)
         loss = image_loss(color, miss, tgt, h * w * 3)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
         loss = loss.detach()
-        if mesh is not None:
-            dist.all_reduce(loss, group=mesh.rays_group)
-            _sum_grads(mesh, params)
+        dist.all_reduce(loss, group=mesh.rays_group)
+        _sum_grads(mesh, params)
         optimizer.step()
         return loss
 
+    step.graphs = cache
     return step
 
 
@@ -372,20 +528,24 @@ def make_overlapped_train_step(mesh: Mesh, optimizer: torch.optim.Optimizer
 
 def make_train_loop(mesh: Mesh | None, optimizer: torch.optim.Optimizer,
                     n_steps: int, closest_fn=closest_hit,
-                    use_replay: bool = True) -> Callable:
+                    use_replay: bool = True, graphs: bool | None = None
+                    ) -> Callable:
     """``n_steps`` optimization steps; step ``i`` is seeded
     ``pass_seed(seed, i)``, so the loop equals ``n_steps`` calls of
     :func:`make_train_step`'s step (the JAX loop folds the step index into
-    its key the same way).
+    its key the same way).  Graphed (``graphs`` as in
+    :func:`make_train_step`) it is ``n_steps`` replays of the step's
+    graph, the counterpart of the JAX loop's ``lax.scan``.
 
     Returns ``loop(params, scene, camera, target, seed) → losses
     [n_steps]``."""
     step = make_train_step(mesh, optimizer, closest_fn=closest_fn,
-                           use_replay=use_replay)
+                           use_replay=use_replay, graphs=graphs)
 
     def loop(params: dict, scene, camera, target, seed: int):
         return torch.stack([step(params, scene, camera, target,
                                  pass_seed(seed, i))
                             for i in range(n_steps)])
 
+    loop.graphs = step.graphs
     return loop

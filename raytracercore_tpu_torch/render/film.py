@@ -6,7 +6,9 @@ tensors on the render device (the reference's ``SampleSet[,]`` grid,
 Raytracing/SampleSet.cs).  ``compensated=True`` keeps a Neumaier
 compensation term beside ``color_sum``, for runs of thousands of samples per
 pixel where plain f32 sums lose low-order contributions.  Films are values:
-every update returns a new :class:`Film`.
+every update returns a new :class:`Film`, except :meth:`Film.add_full_frame_`,
+which accumulates into the film's own tensors (the form a captured CUDA
+graph ends in: its film lives at fixed addresses).
 """
 
 from __future__ import annotations
@@ -73,6 +75,29 @@ class Film:
             misses=self.misses + miss.to(self.misses.dtype),
             color_c=cc,
         )
+
+    def add_full_frame_(self, color, miss) -> "Film":
+        """:meth:`add_full_frame` written into this film's own tensors (the
+        same operations, so the sums are bit-equal); returns ``self``."""
+        h, w = self.shape
+        color = color.reshape(h, w, 3)
+        miss = miss.reshape(h, w)
+        hit = ~miss
+        contrib = torch.where(hit[..., None], color, torch.zeros_like(color))
+        if self.color_c is None:
+            self.color_sum.add_(contrib)
+        else:
+            cs, cc = _neumaier_add(self.color_sum, self.color_c, contrib)
+            self.color_sum.copy_(cs)
+            self.color_c.copy_(cc)
+        self.samples.add_(hit.to(self.samples.dtype))
+        self.misses.add_(miss.to(self.misses.dtype))
+        return self
+
+    def tensors(self) -> tuple:
+        """``(color_sum, samples, misses[, color_c])``."""
+        planes = (self.color_sum, self.samples, self.misses)
+        return planes if self.color_c is None else planes + (self.color_c,)
 
     def add_scatter(self, pix_linear, color, miss):
         """Accumulate samples at arbitrary pixel indices (tile/shard path):

@@ -418,7 +418,7 @@ def _launch(scene: SceneArrays, ray_o, ray_d, uniforms, want_tape):
     if err != 0:
         raise RuntimeError(f"trace_fused kernel launch failed: CUDA error "
                            f"{err}")
-    trace_fused.launches += 1
+    kernels.count_launch(trace_fused)
     if want_tape:
         return color, miss != 0, tape
     return color, miss != 0

@@ -39,6 +39,7 @@ import dataclasses
 import torch
 
 from ..config import PARKED_ORIGIN
+from ..core import graphs
 from ..core import vecmath as vm
 from ..core.color import luminance
 from ..intersect.dispatch import HitRecord, closest_hit
@@ -245,7 +246,9 @@ def trace(scene: SceneArrays, ray_o, ray_d, generator=None,
         GetDebugTrace path, Raytracer.cs:254-260) — same loop body, so the
         debug view can never drift from the render path.
       early_exit: stop the bounce loop once every ray has terminated
-        (one host read of a flag per bounce).  Forward only.
+        (one host read of a flag per bounce).  Forward only.  A CUDA graph
+        cannot capture the read: while one is captured this raises
+        ``ValueError``.
       uniforms: pre-generated ``[recursion + 1, 7, R]`` channels to use
         instead of drawing from ``generator`` (the replay path shares one
         uniform set between the recording and replay passes).
@@ -260,6 +263,10 @@ def trace(scene: SceneArrays, ray_o, ray_d, generator=None,
       ``record=True`` a :class:`BounceRecords` is appended, and with
       ``want_tape=True`` a :class:`PathTape` is appended (in that order).
     """
+    if early_exit and graphs.capturing(ray_o.device):
+        raise ValueError("trace(early_exit=True) reads the device from the "
+                         "host at every bounce, which a CUDA graph cannot "
+                         "capture: a graphed pass traces every bounce")
     R = ray_o.shape[0]
     dtype, device = ray_o.dtype, ray_o.device
     recursion = scene.recursion
@@ -302,7 +309,7 @@ def trace(scene: SceneArrays, ray_o, ray_d, generator=None,
     # everything.  (Filled on the device: no copy from host memory.)
     parked_o = torch.full((3,), PARKED_ORIGIN, dtype=dtype, device=device)
     parked_d = torch.zeros((3,), dtype=dtype, device=device)
-    parked_d[0] = 1.0
+    parked_d[0].fill_(1.0)  # a fill, not a copy (a graph captures it)
 
     state = PathState(
         ray_o=ray_o, ray_d=ray_d,

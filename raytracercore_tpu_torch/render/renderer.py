@@ -16,14 +16,24 @@ gives the same film however it is chunked into ``step`` calls.  The
 numbers are the device generator's (Philox on CUDA, Mersenne Twister on
 the CPU), not the JAX package's threefry stream.
 
-Each pass runs its phases inside the JAX package's profiler scopes
+On a CUDA device a pass is captured once as a CUDA graph and replayed
+(:class:`PassGraph`, the counterpart of the JAX package's ``jax.jit``
+pass): one generator per graph, registered with it and seeded with
+:func:`pass_seed` before each replay, draws the same numbers as the eager
+pass, and the graph accumulates into its own film in place
+(:meth:`.film.Film.add_full_frame_`), so a graphed film equals the eager
+one bit for bit.
+
+Each eager pass runs its phases inside the JAX package's profiler scopes
 (``camera_rays``, ``trace_fused``, ``film_accum``; ``closest_hit`` on every
 bounce of ``trace``), entered while a profiler records
 (:func:`.integrator.phase`); :meth:`Renderer.profile` writes such a trace.
+A replay runs no Python, so it enters no scope.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 from typing import Callable, Optional
@@ -33,11 +43,13 @@ import torch
 
 from ..config import BVH_AUTO_THRESHOLD, SELECT_MAX_PRIMS
 from ..bvh.builder import build_bvh
+from ..core import graphs as graphs_mod
 from ..core.device import resolve_device
 from ..intersect.cuda_select import closest_hit_fused
 from ..intersect.dispatch import (closest_hit, make_bvh_closest_fn,
                                   n_table_rows)
-from ..scene.types import HostScene, SceneArrays, freeze_scene, init_camera
+from ..scene.types import (CameraRT, HostScene, SceneArrays, freeze_scene,
+                           init_camera)
 from . import camera as cam_mod
 from . import fused
 from .film import Film
@@ -73,6 +85,22 @@ def render_pass(scene: SceneArrays, camera, film: Film, jitter, uniforms,
     row-major, and untile colour and miss before the film adds them: only
     which random numbers land on which pixel changes.  0: row-major.
     """
+    return _pass(scene, camera, film, jitter, uniforms, closest_fn, trace_fn,
+                 tile, Film.add_full_frame)
+
+
+def render_pass_(scene: SceneArrays, camera, film: Film, jitter, uniforms,
+                 closest_fn=closest_hit, trace_fn=None, tile: int = 0
+                 ) -> Film:
+    """:func:`render_pass` accumulating into ``film``'s own tensors
+    (:meth:`.film.Film.add_full_frame_`), bit-equal to it: the body a
+    :class:`PassGraph` captures.  Returns ``film``."""
+    return _pass(scene, camera, film, jitter, uniforms, closest_fn, trace_fn,
+                 tile, Film.add_full_frame_)
+
+
+def _pass(scene, camera, film, jitter, uniforms, closest_fn, trace_fn, tile,
+          accumulate):
     h, w = film.shape
     if tile:
         px, py = cam_mod.pixel_grid_tiled(w, h, tile, device=jitter.device)
@@ -84,7 +112,7 @@ def render_pass(scene: SceneArrays, camera, film: Film, jitter, uniforms,
         if tile:
             color = cam_mod.untile(color, w, h, tile)
             miss = cam_mod.untile(miss, w, h, tile)
-        return film.add_full_frame(color, miss)
+        return accumulate(film, color, miss)
 
 
 def trace_pixels(scene: SceneArrays, camera, px, py, jitter, uniforms,
@@ -111,13 +139,20 @@ def pass_draws(seed: int, k: int, n: int, bounces: int, device,
     """The random numbers of pass ``k`` of a run seeded ``seed`` over ``n``
     pixels: ``(jitter [n, 4], uniforms [bounces, 7, n])`` in ``dtype``,
     drawn from a generator on ``device`` seeded with :func:`pass_seed`
-    ``(seed, k)``.  The generator always draws f32 uniforms
-    (:func:`.integrator.prepare_uniforms`' stream), so every ``dtype`` sees
-    the same numbers; the uniform channels are computed in ``dtype``."""
+    ``(seed, k)`` (:func:`generator_draws`)."""
     gen = torch.Generator(device=device)
     gen.manual_seed(pass_seed(seed, k))
-    jitter = torch.rand((n, 4), generator=gen, device=device)
-    raw = torch.rand((bounces, 5, n), generator=gen, device=device)
+    return generator_draws(gen, n, bounces, dtype)
+
+
+def generator_draws(gen: torch.Generator, n: int, bounces: int,
+                    dtype=torch.float32):
+    """``(jitter [n, 4], uniforms [bounces, 7, n])`` in ``dtype``, drawn
+    from ``gen`` on its device.  The generator always draws f32 uniforms
+    (:func:`.integrator.prepare_uniforms`' stream), so every ``dtype`` sees
+    the same numbers; the uniform channels are computed in ``dtype``."""
+    jitter = torch.rand((n, 4), generator=gen, device=gen.device)
+    raw = torch.rand((bounces, 5, n), generator=gen, device=gen.device)
     return jitter.to(dtype), preprocess_uniforms(raw.to(dtype))
 
 
@@ -148,15 +183,116 @@ def pick_route(arrays: SceneArrays, accelerator: str = "auto"):
     return closest_hit_fused, trace_fn, None
 
 
+def camera_tensors(camera: CameraRT) -> tuple:
+    """The tensor fields of ``camera``, in field order."""
+    return tuple(getattr(camera, f.name) for f in dataclasses.fields(camera)
+                 if isinstance(getattr(camera, f.name), torch.Tensor))
+
+
+def _clone_camera(camera: CameraRT) -> CameraRT:
+    return dataclasses.replace(camera, **{
+        f.name: getattr(camera, f.name).clone()
+        for f in dataclasses.fields(camera)
+        if isinstance(getattr(camera, f.name), torch.Tensor)})
+
+
+def _clone_film(film: Film) -> Film:
+    return Film(*(t.clone() for t in film.tensors()))
+
+
+class PassGraph:
+    """One progressive pass of ``scene`` through ``closest_fn`` /
+    ``trace_fn`` (and ``tile``), captured once as a CUDA graph
+    (:func:`..core.graphs.capture`) and replayed: the counterpart of the
+    JAX package's ``jax.jit`` ``render_pass``.
+
+    The graph draws its jitter and uniforms from :attr:`generator`
+    (registered with it; :meth:`run` seeds it with :func:`pass_seed`
+    before each replay, so the draws are the eager pass's), reads the
+    static camera :attr:`camera` and accumulates into the static film
+    :attr:`film` in place (:func:`render_pass_`).  :meth:`run` copies the
+    caller's camera and film into those buffers first, unless they are
+    those buffers.  :attr:`key` is what the graph was captured for: a pass
+    whose key differs needs another graph."""
+
+    def __init__(self, scene: SceneArrays, camera: CameraRT, film: Film,
+                 closest_fn=closest_hit, trace_fn=None, tile: int = 0):
+        self.key = PassGraph.key_of(scene, camera, film, closest_fn,
+                                    trace_fn, tile)
+        self.scene = scene
+        device = film.samples.device
+        h, w = film.shape
+        n, bounces = h * w, scene.recursion + 1
+        dtype = film.color_sum.dtype
+        self.generator = torch.Generator(device=device)
+        self.camera = _clone_camera(camera)
+        self.film = _clone_film(film)
+
+        cam = camera_tensors(self.camera)
+
+        def body(*tensors):  # the camera's tensors, then the film's
+            jitter, uniforms = generator_draws(self.generator, n, bounces,
+                                               dtype)
+            with torch.no_grad():
+                render_pass_(scene, self.camera, Film(*tensors[len(cam):]),
+                             jitter, uniforms, closest_fn=closest_fn,
+                             trace_fn=trace_fn, tile=tile)
+
+        self.captured = graphs_mod.capture(
+            body, cam + self.film.tensors(),
+            warmup=cam + tuple(t.clone() for t in self.film.tensors()),
+            generators=(self.generator,),
+            label=f"render pass {h}x{w} rec{scene.recursion}")
+
+    @staticmethod
+    def key_of(scene, camera, film, closest_fn, trace_fn, tile):
+        """What a pass's graph is specialized on: the scene and route, the
+        film's shape, dtype and compensation, the camera's mode, the tile
+        and the device."""
+        return (id(scene), closest_fn, trace_fn, int(tile), film.shape,
+                film.color_sum.dtype, film.color_c is not None, camera.mode,
+                film.samples.device)
+
+    def run(self, camera: CameraRT, film: Film, seed: int, start: int,
+            n: int = 1) -> Film:
+        """Passes ``start`` … ``start + n - 1`` of a run seeded ``seed``,
+        accumulated into :attr:`film` (after ``camera`` and ``film`` are
+        copied into the graph's buffers); returns :attr:`film`.  No host
+        synchronisation."""
+        self.captured.feed(*camera_tensors(camera), *film.tensors())
+        for k in range(start, start + n):
+            self.generator.manual_seed(pass_seed(seed, k))
+            self.captured.replay()
+        return self.film
+
+
+# The graphs of the module-level render_passes on CUDA tensors.
+PASS_GRAPHS = graphs_mod.GraphCache(size=2)
+
+
 def render_passes(scene: SceneArrays, camera, film: Film, seed: int,
                   start: int, n: int = 1, closest_fn=closest_hit,
-                  trace_fn=None, tile: int = 0) -> Film:
+                  trace_fn=None, tile: int = 0, graphs: bool | None = None
+                  ) -> Film:
     """``n`` progressive passes, pass ``k`` (``start <= k < start + n``)
     drawing from a generator seeded with :func:`pass_seed` ``(seed, k)``
     (:func:`pass_draws`); ``closest_fn``, ``trace_fn`` and ``tile`` as in
-    :func:`render_pass`."""
-    h, w = film.shape
+    :func:`render_pass`.
+
+    ``graphs``: None replays a captured :class:`PassGraph` (kept in
+    :data:`PASS_GRAPHS`) for a film on a CUDA device and runs the eager
+    passes on the CPU; False always runs the eager passes; True on the CPU
+    raises ``ValueError``.  Either way the returned film is a new value,
+    bit-equal between the two forms."""
     device = film.samples.device
+    graphs = _use_graphs(graphs, device, "render_passes")
+    if graphs:
+        key = PassGraph.key_of(scene, camera, film, closest_fn, trace_fn,
+                               tile)
+        pg = PASS_GRAPHS.get(key, lambda: PassGraph(
+            scene, camera, film, closest_fn, trace_fn, tile))
+        return _clone_film(pg.run(camera, film, seed, start, n))
+    h, w = film.shape
     for k in range(start, start + n):
         jitter, uniforms = pass_draws(seed, k, h * w, scene.recursion + 1,
                                       device, film.color_sum.dtype)
@@ -165,6 +301,18 @@ def render_passes(scene: SceneArrays, camera, film: Film, seed: int,
                                closest_fn=closest_fn, trace_fn=trace_fn,
                                tile=tile)
     return film
+
+
+def _use_graphs(graphs, device, what: str) -> bool:
+    """``graphs`` resolved for ``device``: None means a CUDA device; True
+    off a CUDA device raises ``ValueError``."""
+    device = torch.device(device)
+    if graphs is None:
+        return device.type == "cuda"
+    if graphs and device.type != "cuda":
+        raise ValueError(f"{what}: graphs=True needs a CUDA device (CUDA "
+                         f"graphs), not {device}")
+    return bool(graphs)
 
 
 class Renderer:
@@ -178,7 +326,8 @@ class Renderer:
     def __init__(self, scene: HostScene | SceneArrays, device="cuda",
                  seed: int = 0, camera_index: int = 0,
                  compensated: bool = False, accelerator: str = "auto",
-                 closest_fn=None, cameras=None, dtype=torch.float32):
+                 closest_fn=None, cameras=None, dtype=torch.float32,
+                 graphs: bool | None = None):
         """``scene``: a loaded :class:`HostScene`, or frozen
         :class:`SceneArrays` (as :mod:`..scene.meshgen` makes them, cast to
         ``dtype``) together with their host ``cameras``.  ``device``: where
@@ -203,13 +352,28 @@ class Renderer:
         megakernel, the others (65 to ``SELECT_MAX_PRIMS`` rows, or ``debug
         geom``) ``trace`` with the select kernel's
         :func:`..intersect.cuda_select.closest_hit_fused`.  A given
-        ``closest_fn`` overrides the pick and runs through ``trace``."""
+        ``closest_fn`` overrides the pick and runs through ``trace``.
+
+        ``graphs``: None (the default) captures the pass once as a CUDA
+        graph and replays it (:class:`PassGraph`) on a CUDA device, and
+        runs the eager passes on the CPU; False always runs the eager
+        passes; True on the CPU raises ``ValueError``.  A graphed renderer
+        accumulates into the graph's film in place: ``self.film`` is that
+        film after a step (clone it to keep a copy), and a camera or film
+        put in its place (``reset``, ``next_camera``,
+        ``load_checkpoint``, assignment) is copied into the graph's
+        buffers at the next step; a change of camera mode or film
+        compensation captures the pass again.  Graphed and eager films
+        are bit-equal."""
         if accelerator not in ("auto", "brute", "bvh"):
             raise ValueError(f"Renderer: unknown accelerator {accelerator!r}")
         if dtype not in (torch.float32, torch.float64):
             raise ValueError(f"Renderer: dtype {dtype} is not float32 or "
                              "float64")
         self.device = resolve_device(device, "Renderer")
+        self.graphs = _use_graphs(graphs, self.device, "Renderer")
+        # The captured pass (one at a time): PassGraph, by PassGraph.key_of.
+        self.pass_graphs = graphs_mod.GraphCache(size=1)
         self.seed = seed
         self.dtype = dtype
         self.compensated = compensated
@@ -273,12 +437,27 @@ class Renderer:
 
     def step(self, n: int = 1) -> None:
         """Run n progressive passes (+n samples/pixel); returns once the
-        device has finished them."""
+        device has finished them.  Graphed: n replays of the captured
+        pass (captured at the first step, or when the key changed), then
+        one synchronize."""
+        self._advance(n, self.graphs)
+
+    def _advance(self, n: int, graphed: bool) -> None:
         t0 = time.perf_counter()
-        self.film = render_passes(self.arrays, self.camera, self.film,
-                                  self.seed, self.pass_index, n,
-                                  closest_fn=self.closest_fn,
-                                  trace_fn=self.trace_fn)
+        if graphed:
+            key = PassGraph.key_of(self.arrays, self.camera, self.film,
+                                   self.closest_fn, self.trace_fn, 0)
+            pg = self.pass_graphs.get(key, lambda: PassGraph(
+                self.arrays, self.camera, self.film, self.closest_fn,
+                self.trace_fn))
+            self.film = pg.run(self.camera, self.film, self.seed,
+                               self.pass_index, n)
+            self.camera = pg.camera
+        else:
+            self.film = render_passes(self.arrays, self.camera, self.film,
+                                      self.seed, self.pass_index, n,
+                                      closest_fn=self.closest_fn,
+                                      trace_fn=self.trace_fn, graphs=False)
         self.pass_index += n
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -311,19 +490,21 @@ class Renderer:
         }
 
     def profile(self, logdir: str, n: int = 4) -> str:
-        """Run ``n`` passes (``step(n)``: the film and ``pass_index``
-        advance as they would without the profiler) under
-        ``torch.profiler``, with the card's kernels on a CUDA device, and
-        write the Chrome trace into ``logdir``; returns its path.  The
-        phases appear as the scopes ``camera_rays``, ``trace_fused`` or
-        ``closest_hit`` (one a bounce), and ``film_accum``."""
+        """Run ``n`` passes (the film and ``pass_index`` advance as with
+        ``step(n)``) under ``torch.profiler``, with the card's kernels on a
+        CUDA device, and write the Chrome trace into ``logdir``; returns
+        its path.  The passes run the eager body, also on a graphed
+        renderer (a replay enters no scope; its film is the same bit for
+        bit), so the phases appear as the scopes ``camera_rays``,
+        ``trace_fused`` or ``closest_hit`` (one a bounce), and
+        ``film_accum``."""
         from torch.profiler import ProfilerActivity, profile
 
         activities = [ProfilerActivity.CPU]
         if self.device.type == "cuda":
             activities.append(ProfilerActivity.CUDA)
         with profile(activities=activities) as prof:
-            self.step(n)
+            self._advance(n, graphed=False)
         os.makedirs(logdir, exist_ok=True)
         path = os.path.join(
             logdir, f"render_passes_{self.pass_index - n}-"

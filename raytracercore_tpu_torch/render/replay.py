@@ -32,7 +32,7 @@ from .integrator import PathTape, trace
 from .replay_kernel import (AllReduceInBackward, GradBuckets,  # noqa: F401
                             material_table, replay_fused,
                             replay_fwd_reference)
-from .uniforms_kernel import prepare_uniforms_kernel
+from .uniforms_kernel import prepare_uniforms_keyed, prepare_uniforms_kernel
 
 
 def replay(scene: SceneArrays, ray_o, ray_d, uniforms, tape: PathTape,
@@ -90,7 +90,7 @@ def _default_record_fn(scene: SceneArrays, closest_fn):
     return closest_fn
 
 
-def trace_replay(scene: SceneArrays, ray_o, ray_d, seed: int | None = None,
+def trace_replay(scene: SceneArrays, ray_o, ray_d, seed=None,
                  uniforms=None, record_as_primal: bool = True,
                  closest_fn=closest_hit, grad_group=None,
                  record_fused: bool | None = None,
@@ -100,7 +100,11 @@ def trace_replay(scene: SceneArrays, ray_o, ray_d, seed: int | None = None,
     :func:`.integrator.trace` with a selection-free backward.
 
     Uniforms come from :func:`.uniforms_kernel.prepare_uniforms_kernel`
-    keyed by ``seed``, unless ``uniforms`` [B, 7, R] is given.
+    keyed by ``seed``, unless ``uniforms`` [B, 7, R] is given.  ``seed``
+    may also be the ``[2]`` int32 key tensor of
+    :func:`.uniforms_kernel.seed_key` on the rays' device
+    (:func:`.uniforms_kernel.prepare_uniforms_keyed`): the form a captured
+    train step takes, whose key is filled before each replay.
 
     The recorder (``record_fused``): None picks the megakernel
     (:func:`record_tape_fused`) for f32 rays when ``closest_fn`` is the
@@ -171,8 +175,12 @@ def trace_replay(scene: SceneArrays, ray_o, ray_d, seed: int | None = None,
     if uniforms is None:
         if seed is None:
             raise ValueError("trace_replay: give a seed or the uniforms")
-        uniforms = prepare_uniforms_kernel(seed, ray_o.shape[0],
-                                           scene.recursion + 1, ray_o.device)
+        if isinstance(seed, torch.Tensor):
+            uniforms = prepare_uniforms_keyed(seed, ray_o.shape[0],
+                                              scene.recursion + 1)
+        else:
+            uniforms = prepare_uniforms_kernel(
+                seed, ray_o.shape[0], scene.recursion + 1, ray_o.device)
     primal = None
     if record_fused:
         color_r, miss_r, tape = _record_fused(scene, ray_o, ray_d, uniforms)

@@ -599,7 +599,7 @@ def replay_fwd(ray_d, uniforms, tape: PathTape, matf, scf,
     if err != 0:
         raise RuntimeError(f"replay forward kernel launch failed: CUDA "
                            f"error {err}")
-    replay_fwd.launches += 1
+    kernels.count_launch(replay_fwd)
     return color, miss != 0
 
 
@@ -645,7 +645,7 @@ def replay_bwd(ray_d, uniforms, tape: PathTape, matf, scf,
     if err != 0:
         raise RuntimeError(f"replay backward kernel launch failed: CUDA "
                            f"error {err}")
-    replay_bwd.launches += 1
+    kernels.count_launch(replay_bwd)
     if global_table:
         return partial.to(torch.float32)
     return partial.sum(dim=0, dtype=torch.float64).to(torch.float32)

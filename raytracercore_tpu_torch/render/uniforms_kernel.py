@@ -47,7 +47,8 @@ def _mulhilo(a: int, b):
 
 def philox4x32(ctr, key):
     """Philox4x32-10 of counter words ``ctr`` (four int64 tensors of
-    32-bit values, broadcastable) under ``key = (k0, k1)`` (ints)."""
+    32-bit values, broadcastable) under ``key = (k0, k1)`` (ints, or
+    int64 tensors of 32-bit values)."""
     c0, c1, c2, c3 = ctr
     k0, k1 = key
     for rnd in range(PHILOX_ROUNDS):
@@ -66,11 +67,39 @@ def split_seed(seed: int):
     return seed & MASK32, seed >> 32
 
 
-def prepare_uniforms_reference(seed: int, n: int, bounces: int,
-                               device="cpu"):
-    """Plain torch version of the kernel: ``[bounces, 7, n]`` f32."""
+def seed_key(seed: int, device="cpu"):
+    """``[2]`` int32: the Philox key of ``seed`` (:func:`split_seed`'s two
+    words, as bits), the tensor the kernel reads its key from."""
+    return fill_seed_key(torch.empty((2,), dtype=torch.int32,
+                                     device=device), seed)
+
+
+def fill_seed_key(key, seed: int):
+    """Write the key of ``seed`` into the ``[2]`` int32 tensor ``key`` in
+    place, with one fill on its device and no copy from host memory (so
+    that a captured CUDA graph reads the new key at its next replay);
+    returns ``key``.  The words are the bits of the seed's 64 unsigned
+    bits, low word first, so a seed at or above 2^63 keys the stream
+    :func:`split_seed` gives it."""
+    seed = int(seed) & ((1 << 64) - 1)
+    key.view(torch.int64).fill_(seed - (1 << 64) if seed >> 63 else seed)
+    return key
+
+
+def _key_words(key):
+    """The two key words of a :func:`seed_key` tensor as int64 tensors
+    holding 32-bit unsigned values (no read to the host)."""
+    words = key.to(torch.int64) & MASK32
+    return words[0], words[1]
+
+
+def prepare_uniforms_reference(seed, n: int, bounces: int, device="cpu"):
+    """Plain torch version of the kernel: ``[bounces, 7, n]`` f32, keyed by
+    ``seed``: an int, or the key tensor the kernel reads
+    (:func:`seed_key`, on ``device``)."""
     device = torch.device(device)
-    key = split_seed(seed)
+    key = (_key_words(seed) if isinstance(seed, torch.Tensor)
+           else split_seed(seed))
     r = torch.arange(n, dtype=torch.int64, device=device)[None, :]
     b = torch.arange(bounces, dtype=torch.int64, device=device)[:, None]
     r, b = torch.broadcast_tensors(r, b)
@@ -82,12 +111,41 @@ def prepare_uniforms_reference(seed: int, n: int, bounces: int,
     return preprocess_uniforms(raw)
 
 
+def prepare_uniforms_keyed(key, n: int, bounces: int):
+    """``[bounces, 7, n]`` f32 uniforms keyed by the ``[2]`` int32 tensor
+    ``key`` (:func:`seed_key`), on its device: the form a captured train
+    step runs, whose key is filled before each replay.
+
+    On a CUDA device this launches ``csrc/uniforms.cu``, which reads the
+    two words from device memory (counted in
+    ``prepare_uniforms_kernel.launches``), raising if it cannot; on the
+    CPU it runs :func:`prepare_uniforms_reference` on the same tensor."""
+    device = key.device
+    if device.type == "cpu":
+        return prepare_uniforms_reference(key, n, bounces, device)
+    if device.type != "cuda":
+        raise ValueError(f"prepare_uniforms_keyed: unsupported device "
+                         f"{device}")
+    from .. import kernels
+
+    kernels.check_tensor("key", key, (2,), torch.int32, device)
+    out = torch.empty((bounces, 7, n), dtype=torch.float32, device=device)
+    err = kernels.load().rtc_uniforms(
+        out.data_ptr(), n, bounces, key.data_ptr(),
+        torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"uniforms kernel launch failed: CUDA error {err}")
+    kernels.count_launch(prepare_uniforms_kernel)
+    return out
+
+
 def prepare_uniforms_kernel(seed: int, n: int, bounces: int, device):
     """``[bounces, 7, n]`` f32 uniforms of the train path for ``seed``.
 
-    On a CUDA device this launches ``csrc/uniforms.cu`` (and counts the
-    launch in ``prepare_uniforms_kernel.launches``), raising if it cannot;
-    on the CPU it runs :func:`prepare_uniforms_reference`.
+    On a CUDA device this fills a key tensor (:func:`seed_key`) and
+    launches ``csrc/uniforms.cu`` on it (:func:`prepare_uniforms_keyed`;
+    counted in ``prepare_uniforms_kernel.launches``), raising if it
+    cannot; on the CPU it runs :func:`prepare_uniforms_reference`.
     """
     device = torch.device(device)
     if device.type == "cpu":
@@ -95,18 +153,8 @@ def prepare_uniforms_kernel(seed: int, n: int, bounces: int, device):
     if device.type != "cuda":
         raise ValueError(f"prepare_uniforms_kernel: unsupported device "
                          f"{device}")
-    from .. import kernels
-
-    out = torch.empty((bounces, 7, n), dtype=torch.float32, device=device)
-    k0, k1 = split_seed(seed)
-    err = kernels.load().rtc_uniforms(
-        out.data_ptr(), n, bounces, k0, k1,
-        torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"uniforms kernel launch failed: CUDA error {err}")
-    prepare_uniforms_kernel.launches += 1
-    return out
+    return prepare_uniforms_keyed(seed_key(seed, device), n, bounces)
 
 
-# Kernel launches made by prepare_uniforms_kernel.
+# Kernel launches made by prepare_uniforms_kernel and prepare_uniforms_keyed.
 prepare_uniforms_kernel.launches = 0

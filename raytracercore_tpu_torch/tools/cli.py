@@ -84,6 +84,7 @@ def cmd_bench(args):
         "size": [scene.width, scene.height],
         "device": device,
         "route": r.route,
+        "graphed": r.graphs,
     }))
 
 

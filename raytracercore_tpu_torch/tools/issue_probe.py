@@ -119,7 +119,7 @@ def issue_probe(abc, mix: str, iters: int):
     if err != 0:
         raise RuntimeError(f"issue probe kernel launch failed: CUDA error "
                            f"{err}")
-    issue_probe.launches += 1
+    kernels.count_launch(issue_probe)
     return out
 
 
