@@ -287,7 +287,7 @@ def _sum_grads(mesh: Mesh, params: dict) -> None:
 
 
 def step_backward(params: dict, scene, camera, target, jitter, key,
-                  uniforms=None, optimizer=None, closest_fn=closest_hit,
+                  uniforms, optimizer, closest_fn=closest_hit,
                   use_replay: bool = True):
     """The forward and backward of one single-device train step on given
     draws: the body a :class:`StepGraph` captures (and the eager step's,
@@ -298,9 +298,9 @@ def step_backward(params: dict, scene, camera, target, jitter, key,
     ``key`` (:func:`..render.uniforms_kernel.seed_key`); then
     :func:`..render.replay.trace_replay` (or ``trace`` with
     ``use_replay=False``), the L2 loss against ``target`` [H, W, 3],
-    ``optimizer.zero_grad(set_to_none=True)`` (without an optimizer: every
-    param's ``.grad`` set to None) and ``backward()``.  Returns the
-    detached loss; the gradients are in the params' ``.grad``."""
+    ``optimizer.zero_grad(set_to_none=True)`` and ``backward()``.
+    Returns the detached loss; the gradients are in the params'
+    ``.grad``."""
     h, w = target.shape[:2]
     ray_o, ray_d = _rays(camera, h, w, jitter)
     s = with_material_params(scene, params)
@@ -314,11 +314,7 @@ def step_backward(params: dict, scene, camera, target, jitter, key,
         color, miss = trace(s, ray_o, ray_d, None, closest_fn=closest_fn,
                             uniforms=uniforms)
     loss = image_loss(color, miss, target, h * w * 3)
-    if optimizer is not None:
-        optimizer.zero_grad(set_to_none=True)
-    else:
-        for p in params.values():
-            p.grad = None
+    optimizer.zero_grad(set_to_none=True)
     loss.backward()
     return loss.detach()
 

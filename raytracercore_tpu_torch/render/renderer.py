@@ -219,7 +219,7 @@ class PassGraph:
                  closest_fn=closest_hit, trace_fn=None, tile: int = 0):
         self.key = PassGraph.key_of(scene, camera, film, closest_fn,
                                     trace_fn, tile)
-        self.scene = scene
+        self.scene = scene  # held, so that the id in the key stays its own
         device = film.samples.device
         h, w = film.shape
         n, bounces = h * w, scene.recursion + 1

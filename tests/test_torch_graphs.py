@@ -197,7 +197,7 @@ def test_step_body_equals_train_step(use_replay):
         uk.fill_seed_key(key, pass_seed(seed, 1))
         jitter = shard.step_jitter(gen, tc, h * w)
         got = shard.step_backward(body_p, ta, tc, static_target, jitter, key,
-                                  optimizer=adam, use_replay=use_replay)
+                                  None, adam, use_replay=use_replay)
         adam.step()
         assert torch.equal(got, want)
         for f in MATERIAL_FIELDS:
@@ -221,7 +221,7 @@ def test_step_body_matches_jax():
         {k: np.asarray(v) for k, v in params.items()}, device="cpu")
     sgd = torch.optim.SGD(tparams.values(), lr=1e-2)
     loss = shard.step_backward(tparams, ta, tc, target, _t(jitter),
-                               uk.seed_key(0), _t(uniforms), optimizer=sgd)
+                               uk.seed_key(0), _t(uniforms), sgd)
     sgd.step()
     assert float(loss) == pytest.approx(float(want_loss), rel=1e-5)
     for k in MATERIAL_FIELDS:
