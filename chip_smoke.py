@@ -8,8 +8,9 @@ Run from the repository root on a machine with one NVIDIA GPU::
 It builds the port's CUDA kernels from ``raytracercore_tpu_torch/csrc``,
 holds each kernel against its plain PyTorch version on the card (the
 megakernel, the train path's uniforms kernel, the replay forward and
-backward kernels, the per-bounce select kernel, the BVH traversal kernel),
-and drives the main paths, the first three at 700×700, recursion 10:
+backward kernels, the per-bounce select kernel, the BVH traversal kernel,
+the per-bounce shading kernel of ``trace``), and drives the main paths,
+the first three at 700×700, recursion 10:
 
 1. the progressive forward render of a Cornell-class scene (``Renderer`` →
    camera rays → uniforms → the whole-path megakernel → film → image);
@@ -17,8 +18,9 @@ and drives the main paths, the first three at 700×700, recursion 10:
    → replay backward kernel → L2 loss → ``torch.optim.Adam``);
 3. the forward render of a 722-triangle mesh scene, above the megakernel's
    cap (``Renderer`` → the integrator's bounce loop, one launch of the
-   select kernel per bounce), and that scene's train step (uniforms kernel
-   → the bounce loop as recorder → replay forward and backward kernels);
+   select kernel and one of the shading kernel per bounce), and that
+   scene's train step (uniforms kernel → the bounce loop as recorder →
+   replay forward and backward kernels);
 4. the forward render of a 184,322-triangle mesh scene at 512×512,
    recursion 4, above the dense tier (``Renderer`` → the native BVH
    builder → the bounce loop, one launch of the traversal kernel per
@@ -32,11 +34,13 @@ and drives the main paths, the first three at 700×700, recursion 10:
    → replay forward and backward kernels reading the 46,082-row material
    table from device memory);
 
-and prints what it measured: every kernel's registers, spills and
-occupancy beside its time (from the build's ``-Xptxas -v`` log, at the
-block size and shared memory of its launch); the megakernel, the uniforms
-kernel and the replay kernels by CUDA-graph replay; for the two closest-hit kernels every
-bounce's launch beside its own bound, each kernel the wrapper launches
+(every bounce loop on the card shades through the shading kernel, one
+launch a bounce) and prints what it measured: every kernel's registers,
+spills and occupancy beside its time (from the build's ``-Xptxas -v``
+log, at the block size and shared memory of its launch); the
+megakernel, the uniforms kernel and the replay kernels by CUDA-graph
+replay; for the two closest-hit kernels every bounce's launch beside
+its own bound, each kernel the wrapper launches
 (the select kernel's list, main and finish kernels) by the profiler, and
 the per-pass sums; both kernels are also held against their
 plain versions with parked lanes mixed in, all lanes parked, none parked
@@ -62,7 +66,11 @@ against the float32 one (rays classified, samepick 0), ``Renderer.profile``
 read back scope by scope on cornell and mesh-184k, and
 ``trace_replay(record_fused=False)`` / ``(replay_kernel=False)``.
 The megakernel is held bit-equal to its plain version (colour, miss and
-all five tape planes, tape on and off).
+all five tape planes, tape on and off).  The shading kernel
+(:func:`shade_stage`) is held bit-equal to ``shade_bounce_reference`` on
+every bounce of mesh-722 and mesh-184k, in float32 and float64, tape and
+records off and on, and on the lane variants; every bounce is timed
+beside its bound.
 The graph phase (:func:`graph_phase`) holds the graphed main path — each
 pass and single-device step captured once as a CUDA graph and replayed,
 the package's default on the card — against the eager one on every
@@ -71,7 +79,10 @@ after ``next_camera``, ``load_checkpoint``, ``reset`` and for the
 module-level ``render_passes``), one mesh-1M pass (in
 :func:`bvh_big_pass`), and cornell, mesh-722, mesh-46k and a small
 ``use_replay=False`` train step (losses bit-equal, gradients within
-1e-5·max|g|, params equal to Adam on the graph's gradient); one graphed
+1e-5·max|g|, params equal to Adam on the graph's gradient); the bounce
+loop's passes and steps also against the same runs with the plain bounce
+body (``shade_fn=shade_bounce_reference``: films and losses bit-equal,
+gradients within 1e-5·max|g|); one graphed
 call of each runs without a host sync, and the kernels a replay runs are
 read from the graph itself.  Times, busy shares, capture ms, graph pools
 and kernel nodes are printed, never gated.  Main path 1 runs the default
@@ -1417,6 +1428,7 @@ def mesh_train_path(card, dev, r):
     from raytracercore_tpu_torch.intersect import cuda_select as cs
     from raytracercore_tpu_torch.parallel import make_train_step
     from raytracercore_tpu_torch.render import replay_kernel as rk
+    from raytracercore_tpu_torch.render import shade_kernel as sk
     from raytracercore_tpu_torch.render import uniforms_kernel as uk
     from raytracercore_tpu_torch.render.renderer import Renderer
 
@@ -1426,6 +1438,7 @@ def mesh_train_path(card, dev, r):
     counts = train_steps(
         "mesh-train", "mesh-722 700x700 rec10", r, None, cs.closest_hit_fused,
         {"closest_hit_fused": (cs.closest_hit_fused, n_bounces),
+         "shade_bounce": (sk.shade_bounce, n_bounces),
          "prepare_uniforms_kernel": (uk.prepare_uniforms_kernel, 1),
          "replay_fwd": (rk.replay_fwd, 1), "replay_bwd": (rk.replay_bwd, 1)},
         MESH_TARGET_SPP, card, dev)
@@ -1466,12 +1479,14 @@ def mesh_train_path(card, dev, r):
 
 def mesh_path(card, dev):
     """Main path 3: ``Renderer`` on the 722-triangle mesh scene at 700x700
-    rec10 (the bounce loop, one select-kernel launch per bounce), then the
-    scene's train step.  Returns (launches of the select kernel during the
-    timed passes, ({kernel name: launches} of the train steps, the replay
-    kernels' max abs errors there), the select kernel's stage numbers)."""
+    rec10 (the bounce loop, one launch of the select kernel and one of the
+    shading kernel per bounce), then the scene's train step.  Returns
+    ({kernel name: launches} of the timed passes, ({kernel name: launches}
+    of the train steps, the replay kernels' max abs errors there), the
+    select kernel's stage numbers, the shading kernel's)."""
     from raytracercore_tpu_torch.intersect import cuda_select as cs
     from raytracercore_tpu_torch.intersect.dispatch import n_table_rows
+    from raytracercore_tpu_torch.render import shade_kernel as sk
     from raytracercore_tpu_torch.render.renderer import Renderer
 
     scene, host_cam = lit_mesh_scene(MESH_GRID, MESH_SUBDIV, 700, 10, dev)
@@ -1488,20 +1503,22 @@ def mesh_path(card, dev):
     r.step(WARM_PASSES)
     warm_s = time.perf_counter() - t0
     r.reset()
-    cs.closest_hit_fused.launches = 0
+    cs.closest_hit_fused.launches = sk.shade_bounce.launches = 0
     pass_s = []
     for _ in range(MAIN_PASSES):
         t0 = time.perf_counter()
         r.step(1)
         pass_s.append(time.perf_counter() - t0)
-    launches = cs.closest_hit_fused.launches
+    launches = {"closest_hit_fused": cs.closest_hit_fused.launches,
+                "shade_bounce": sk.shade_bounce.launches}
     st = r.status()
-    print(f"[mesh] launches of the select kernel during {MAIN_PASSES} "
-          f"passes: {launches} ({n_bounces} bounces per pass, no "
-          f"whole-wavefront early exit)")
-    check(launches == MAIN_PASSES * n_bounces,
-          f"main path 3 launched the select kernel once per bounce "
-          f"({launches} != {MAIN_PASSES} * {n_bounces})")
+    print(f"[mesh] launches of the select and shading kernels during "
+          f"{MAIN_PASSES} passes: {launches} ({n_bounces} bounces per pass, "
+          f"no whole-wavefront early exit)")
+    want = MAIN_PASSES * n_bounces
+    check(launches == {"closest_hit_fused": want, "shade_bounce": want},
+          f"main path 3 launched the select and shading kernels once per "
+          f"bounce ({launches}, want {want} each)")
     film = r.film
     check(all(bool(torch.isfinite(t).all()) for t in
               (film.color_sum, film.samples, film.misses)),
@@ -1528,17 +1545,20 @@ def mesh_path(card, dev):
           f"span on {card}")
     print(f"[profile] top kernels, device us per pass: {top}")
 
-    stage = select_stage(card, dev, scene, host_cam)
-    return launches, mesh_train_path(card, dev, r), stage
+    stage, shade = select_stage(card, dev, scene, host_cam)
+    return launches, mesh_train_path(card, dev, r), stage, shade
 
 
 def select_stage(card, dev, scene, host_cam):
     """The select kernel at main path 3's shapes (mesh-722 700x700 rec10):
     its queries, compared, every bounce's launch timed beside its bound,
-    the plain version and the eager shading timed.  Returns the kernel's
-    stage numbers (bounce 0's time and bound)."""
+    the plain version and the shading (kernel and plain) timed; then the
+    shading kernel's stage (:func:`shade_stage`).  Returns the select
+    kernel's stage numbers (bounce 0's time and bound) and the shading
+    kernel's."""
     from raytracercore_tpu_torch.intersect import cuda_select as cs
-    from raytracercore_tpu_torch.render.integrator import trace
+    from raytracercore_tpu_torch.render.integrator import (
+        shade_bounce_reference, trace)
 
     n_bounces = scene.recursion + 1
     ray_o, ray_d, uniforms = camera_rays_and_uniforms(
@@ -1555,22 +1575,325 @@ def select_stage(card, dev, scene, host_cam):
     with torch.no_grad():
         hits = [cs.closest_hit_fused(scene, *q) for q in queries]
 
-    def shading_only():
+    def shading_only(shade_fn=None):
         it = iter(hits)
         with torch.no_grad():
             trace(scene, ray_o, ray_d, None,
-                  closest_fn=lambda *_: next(it), uniforms=uniforms)
+                  closest_fn=lambda *_: next(it), uniforms=uniforms,
+                  shade_fn=shade_fn)
     shade_ms = cuda_ms(shading_only, 5) / n_bounces
+    plain_shade_ms = cuda_ms(
+        lambda: shading_only(shade_bounce_reference), 5) / n_bounces
     print(f"[time] select kernel mesh-722 700x700: plain ms (one launch, "
-          f"bounce 1)={plain_ms:.3f} eager shading ms per bounce="
-          f"{shade_ms:.3f} on {card}")
+          f"bounce 1)={plain_ms:.3f}; the bounce loop fed its hits, ms per "
+          f"bounce (CUDA events, eager): shading kernel {shade_ms:.3f}, "
+          f"eager plain shading {plain_shade_ms:.3f} on {card}")
     print("[mesh] share of lanes not parked, per bounce: "
           + " ".join(f"{float((~parked(q[0])).float().mean()):.4f}"
                      for q in queries))
     del queries, hits
+    shade = shade_stage(card, "mesh-722 700x700", scene, shade_inputs(
+        scene, ray_o, ray_d, uniforms, cs.closest_hit_fused), 63)
     return {"ms": stage_ms(times[0]), "plain_ms": plain_ms,
             "bound_ms": times[0]["bound"][0],
-            "bound_by": times[0]["bound"][1], "max_abs_err": err}
+            "bound_by": times[0]["bound"][1], "max_abs_err": err}, shade
+
+
+# csrc/shade.cu: threads a block, and the floating-point operations of one
+# ray's bounce of shading (four luminances, two cone samples of ~45 each,
+# the Fresnel split ~30, the branch pick, the three directions and the
+# tint ~60).
+SHADE_THREADS = 256
+OPS_SHADE_BOUNCE = 250
+
+
+def shade_inputs(scene, ray_o, ray_d, uniforms, closest_fn):
+    """The shading kernel's inputs at every bounce of a no-grad ``trace``
+    of these rays through ``closest_fn``: ``[(hit, state, d, u_i, i)]``,
+    captured by a ``shade_fn`` that runs the plain body."""
+    from raytracercore_tpu_torch.render.integrator import (
+        shade_bounce_reference, trace)
+
+    seen = []
+
+    def spy(hit, state, d, u, matf, ambient, air, i, *rest):
+        seen.append((hit, state, d, u, i))
+        return shade_bounce_reference(hit, state, d, u, matf, ambient, air,
+                                      i, *rest)
+    with torch.no_grad():
+        trace(scene, ray_o, ray_d, None, closest_fn=closest_fn,
+              uniforms=uniforms, shade_fn=spy)
+    return seen
+
+
+def named_tensors(x, prefix=""):
+    """``[(name, tensor)]`` of a PathState / HitRecord / PathTape /
+    BounceRecords, nested fields by dotted name."""
+    import dataclasses
+
+    out = []
+    for f in dataclasses.fields(x):
+        v = getattr(x, f.name)
+        if dataclasses.is_dataclass(v):
+            out += named_tensors(v, f"{prefix}{f.name}.")
+        else:
+            out.append((prefix + f.name, v))
+    return out
+
+
+def bits_equal(a, b):
+    """Equal shape, dtype and bits (NaN payloads and signed zeros
+    included)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype.is_floating_point:
+        view = torch.int64 if a.element_size() == 8 else torch.int32
+        return torch.equal(a.contiguous().view(view),
+                           b.contiguous().view(view))
+    return torch.equal(a, b)
+
+
+def cast_bounce(bounce, dtype):
+    """A bounce's inputs with every float tensor cast to ``dtype``."""
+    import dataclasses
+
+    def cast(x):
+        if dataclasses.is_dataclass(x):
+            return type(x)(*(cast(getattr(x, f.name))
+                             for f in dataclasses.fields(x)))
+        return x.to(dtype) if x.is_floating_point() else x
+    hit, state, d, u, i = bounce
+    return cast(hit), cast(state), d.to(dtype), u.to(dtype).contiguous(), i
+
+
+def shade_args(scene, bounce, tape=False, records=False):
+    """The wrapper's arguments for one bounce, with fresh ``[B, R]`` tape
+    and ``[R, B]`` records where asked."""
+    from raytracercore_tpu_torch.render import integrator as integ
+
+    hit, state, d, u, i = bounce
+    dt, dev, R = d.dtype, d.device, d.shape[0]
+    B = scene.recursion + 1
+    matf = integ._material_matrix(scene.materials).to(dt)
+    return (hit, state, d, u, matf, scene.ambient_rgb.to(dt),
+            scene.air_refractive_index.to(dt), i, scene.recursion,
+            scene.ambient_is_miss,
+            integ.PathTape.create(R, B, dt, dev) if tape else None,
+            integ.BounceRecords.create(R, B, dt, dev) if records else None)
+
+
+def shade_case(label, scene, bounce):
+    """Gate: the shading kernel bit-equal to its plain version on one
+    bounce's inputs, tape and records off, then on: every output, every
+    lane.  Returns the number of outputs compared."""
+    from raytracercore_tpu_torch.render import shade_kernel as sk
+    from raytracercore_tpu_torch.render.integrator import \
+        shade_bounce_reference
+
+    n = 0
+    for extras in (False, True):
+        got, want = [], []
+        for fn, out in ((sk.shade_bounce, got),
+                        (shade_bounce_reference, want)):
+            args = shade_args(scene, bounce, extras, extras)
+            state = fn(*args)
+            out += named_tensors(state)
+            if extras:
+                out += named_tensors(args[10], "tape.")
+                out += named_tensors(args[11], "records.")
+        differ = [name for (name, a), (_, b) in zip(got, want)
+                  if not bits_equal(a, b)]
+        check(not differ, f"shade kernel {label} (tape and records "
+              f"{'on' if extras else 'off'}): outputs differing from the "
+              f"plain version {differ}")
+        n += len(got)
+    return n
+
+
+def shade_lane_variants(bounce, seed):
+    """A bounce's inputs made into the lane variants of
+    :func:`lane_variants`: lanes parked at random (the no-hit record, not
+    alive, the parked ray), every lane parked, only the lanes alive before
+    the bounce, and a ragged R: ``[(name, bounce)]``."""
+    import dataclasses
+
+    from raytracercore_tpu_torch.config import PARKED_ORIGIN
+    from raytracercore_tpu_torch.intersect.dispatch import HitRecord
+    from raytracercore_tpu_torch.render.integrator import PathState
+
+    hit, state, d, u, i = bounce
+    R, dev = d.shape[0], d.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    mix = torch.rand(R, generator=gen, device=dev) < 0.5
+    p_d = torch.zeros_like(d)
+    p_d[:, 0] = 1.0
+
+    def where(mask, a, b):
+        return torch.where(mask if a.dim() == 1 else mask[:, None], a, b)
+
+    def park(mask):
+        none = HitRecord.none(R, d.dtype, dev)
+        h = HitRecord(*(where(mask, getattr(none, f.name),
+                              getattr(hit, f.name))
+                        for f in dataclasses.fields(hit)))
+        s = dataclasses.replace(
+            state, alive=state.alive & ~mask,
+            ray_o=where(mask, torch.full_like(state.ray_o, PARKED_ORIGIN),
+                        state.ray_o))
+        return h, s, where(mask, p_d, d).contiguous(), u, i
+
+    def take(idx):
+        def rows(x):
+            return type(x)(*(getattr(x, f.name)[idx]
+                             for f in dataclasses.fields(x)))
+        s = PathState(*(getattr(state, f.name)[idx] for f in
+                        dataclasses.fields(state) if f.name != "prev"),
+                      prev=rows(state.prev))
+        return (rows(hit), s, d[idx].contiguous(),
+                u[:, idx].contiguous(), i)
+    live = torch.nonzero(state.alive)[:, 0]
+    n_rag = R - 37 if R > 64 else R - 1
+    return [("parked at random", park(mix)),
+            ("all parked", park(torch.ones_like(mix))),
+            (f"none parked (R={live.numel()})", take(live)),
+            (f"ragged R={n_rag}", take(torch.arange(n_rag, device=dev)))]
+
+
+def shade_bound(bounce, out, tape=False, records=False):
+    """The least time of one bounce's shading (:func:`bound`): the
+    floating-point operations of every lane, and the bytes this bounce's
+    function needs — every lane's hit record but its t, direction, tint,
+    alive, result, miss and 7 uniforms; the t of the lanes that go on and
+    the skip record of the others; the material table, ambient and air
+    once; every output once (the state and skip record, and the tape and
+    record rows where asked)."""
+    hit, state, d, u, _ = bounce
+    R, fb = d.shape[0], d.element_size()
+    n_on = int(out.alive.sum())
+    skip_row = 4 + 7 * fb + 1           # prim, t, position, normal, inside
+    n_bytes = (nbytes(hit.prim, hit.position, hit.normal, hit.inside, d,
+                      state.tint, state.alive, state.result, state.miss, u)
+               + n_on * fb + (R - n_on) * skip_row
+               + nbytes(*(t for _, t in named_tensors(out))))
+    if tape:
+        n_bytes += R * (8 + 3 * fb)
+    if records:
+        n_bytes += R * (8 + 9 * fb + 1)
+    return bound(R * OPS_SHADE_BOUNCE, n_bytes)
+
+
+def shade_stage(card, label, scene, bounces, seed):
+    """The shading kernel at a main path's shapes: every bounce of a trace
+    (``bounces``, :func:`shade_inputs`) held bit-equal to the plain
+    version in float32 and float64, tape and records off and on, and the
+    lane variants of bounce 1; then every bounce's launch timed by
+    CUDA-graph replay beside its bound, bounce 1 also with the tape, with
+    the records and in float64, and the plain version on bounce 1; one
+    call under the sync check.  Returns the stage numbers of bounce 1
+    (float32, tape and records off)."""
+    from raytracercore_tpu_torch.render import shade_kernel as sk
+    from raytracercore_tpu_torch.render.integrator import \
+        shade_bounce_reference
+
+    outputs = 0
+    for b, bounce in enumerate(bounces):
+        outputs += shade_case(f"{label} bounce {b}", scene, bounce)
+        outputs += shade_case(f"{label} bounce {b} float64", scene,
+                              cast_bounce(bounce, torch.float64))
+    for name, bounce in shade_lane_variants(bounces[1], seed):
+        outputs += shade_case(f"{label} bounce 1 {name}", scene, bounce)
+    print(f"[shade] {label}: the kernel bit-equal to shade_bounce_reference "
+          f"on {len(bounces)} bounces in float32 and float64, tape and "
+          f"records off and on, and the lane variants of bounce 1 "
+          f"({outputs} outputs compared, every lane) on {card}")
+    check_no_sync(f"shading kernel wrapper shade_bounce, {label} bounce 1",
+                  lambda: sk.shade_bounce(*shade_args(scene, bounces[1])))
+    rows = []
+    for b, bounce in enumerate(bounces):
+        args = shade_args(scene, bounce)
+        out = sk.shade_bounce(*args)
+        ms = graph_ms(lambda: sk.shade_bounce(*args), 20, calls=10)
+        bnd = shade_bound(bounce, out)
+        rows.append((ms, bnd))
+        print(f"[time] shade {label} bounce {b} (R={bounce[2].shape[0]}, "
+              f"{int(out.alive.sum())} go on): kernel device ms (CUDA "
+              f"graph)={fmt_ms(ms)} bound ms={bnd[0]:.4f} (by {bnd[1]}) "
+              f"on {card}")
+    one = bounces[1]
+    extra = {}
+    for what, bounce, tape, rec in (
+            ("tape", one, True, False), ("records", one, False, True),
+            ("float64", cast_bounce(one, torch.float64), False, False)):
+        args = shade_args(scene, bounce, tape, rec)
+        extra[what] = (graph_ms(lambda: sk.shade_bounce(*args), 20,
+                                calls=10),
+                       shade_bound(bounce, sk.shade_bounce(*args), tape,
+                                   rec))
+    args = shade_args(scene, one)
+    plain_ms = cuda_ms(lambda: shade_bounce_reference(*args), 3)
+    print(f"[time] shade {label} bounce 1: with the tape "
+          + ", ".join(f"{what} {fmt_ms(ms)} (bound {bnd[0]:.4f})"
+                      for what, (ms, bnd) in extra.items())
+          + f"; plain ms={plain_ms:.3f}; per pass ({len(rows)} launches) "
+          f"kernel ms sum={fmt_ms(sum_or_none(r[0] for r in rows))} bound "
+          f"ms sum={sum(r[1][0] for r in rows):.4f} on {card}; "
+          + occupancy_text("shade_bounce_kernel", SHADE_THREADS))
+    ms, bnd = rows[1]
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
+            "bound_by": bnd[1], "max_abs_err": 0.0}
+
+
+def plain_shading_trace_fn(closest_fn):
+    """``render_pass``'s ``trace_fn`` that runs ``trace`` through
+    ``closest_fn`` with the plain bounce body on the card
+    (``shade_fn=shade_bounce_reference``): the film the kernel's route is
+    held bit-equal to."""
+    from raytracercore_tpu_torch.render.integrator import (
+        shade_bounce_reference, trace)
+
+    def trace_fn(scene, ray_o, ray_d, uniforms):
+        return trace(scene, ray_o, ray_d, None, closest_fn=closest_fn,
+                     uniforms=uniforms, shade_fn=shade_bounce_reference)
+    return trace_fn
+
+
+def plain_shading_step_loss(params, scene, camera, target, seed,
+                            closest_fn):
+    """The loss and material gradients of one ``make_train_step`` step
+    seeded ``seed`` from ``params`` (copied), its recorder's bounce body
+    the plain version (``trace(want_tape=True,
+    shade_fn=shade_bounce_reference)``), the rest the step's own route:
+    the uniforms kernel, ``replay_fused``, the L2 loss.  Returns (loss,
+    {field: gradient})."""
+    from raytracercore_tpu_torch.diff import with_material_params
+    from raytracercore_tpu_torch.parallel.shard import image_loss, step_rays
+    from raytracercore_tpu_torch.render import replay
+    from raytracercore_tpu_torch.render.integrator import (
+        shade_bounce_reference, trace)
+    from raytracercore_tpu_torch.render.replay_kernel import replay_fused
+    from raytracercore_tpu_torch.render.uniforms_kernel import (
+        prepare_uniforms_keyed, seed_key)
+
+    from raytracercore_tpu_torch.intersect.dispatch import closest_hit
+
+    h, w = target.shape[:2]
+    closest_fn = closest_hit if closest_fn is None else closest_fn
+    p = {k: v.detach().clone().requires_grad_(True)
+         for k, v in params.items()}
+    s = with_material_params(scene, p)
+    ray_o, ray_d, path_seed = step_rays(camera, h, w, seed)
+    u = prepare_uniforms_keyed(seed_key(path_seed, ray_o.device), h * w,
+                               scene.recursion + 1)
+    with torch.no_grad():
+        tape = trace(s, ray_o, ray_d, None,
+                     closest_fn=replay._default_record_fn(s, closest_fn),
+                     uniforms=u, want_tape=True,
+                     shade_fn=shade_bounce_reference)[2]
+    color, miss = replay_fused(s, ray_o, ray_d, u, tape)
+    loss = image_loss(color, miss, target)
+    loss.backward()
+    return loss.detach(), {k: v.grad for k, v in p.items()}
 
 
 def take_rays(query, idx):
@@ -2156,7 +2479,9 @@ def bvh_render_path(card, dev):
     from raytracercore_tpu_torch.bvh.builder import build_bvh
     from raytracercore_tpu_torch.bvh.cuda_traverse import CudaBVH
     from raytracercore_tpu_torch.core import vecmath as vm
-    from raytracercore_tpu_torch.render.integrator import trace
+    from raytracercore_tpu_torch.render import shade_kernel as sk
+    from raytracercore_tpu_torch.render.integrator import (
+        shade_bounce_reference, trace)
     from raytracercore_tpu_torch.render.renderer import Renderer
 
     t0 = time.perf_counter()
@@ -2182,22 +2507,26 @@ def bvh_render_path(card, dev):
     warm_s = time.perf_counter() - t0
     r.reset()
     ct.traverse.launches = ct.sort_key.launches = 0
+    sk.shade_bounce.launches = 0
     pass_s = []
     for _ in range(BVH_PASSES):
         t0 = time.perf_counter()
         r.step(1)
         pass_s.append(time.perf_counter() - t0)
     launches = {"traverse": ct.traverse.launches,
-                "sort_key": ct.sort_key.launches}
+                "sort_key": ct.sort_key.launches,
+                "shade_bounce": sk.shade_bounce.launches}
     st = r.status()
     sort_on = r.closest_fn.sort
     print(f"[bvh] launches during {BVH_PASSES} passes: {launches} "
           f"({n_bounces} bounces per pass, one BVH; sort by the rule: "
           f"{sort_on}, {bvhs[0].n_nodes} nodes x {bvhs[0].K} records a leaf)")
     check(launches == {"traverse": BVH_PASSES * n_bounces,
-                       "sort_key": BVH_PASSES * n_bounces * sort_on},
-          f"main path 4 launched the traversal kernel once per bounce, the "
-          f"key kernel before it where the rule sorts ({launches})")
+                       "sort_key": BVH_PASSES * n_bounces * sort_on,
+                       "shade_bounce": BVH_PASSES * n_bounces},
+          f"main path 4 launched the traversal and shading kernels once per "
+          f"bounce, the key kernel before the walk where the rule sorts "
+          f"({launches})")
     film = r.film
     film_default = film   # Film.add_full_frame makes a new film
     check(all(bool(torch.isfinite(t).all()) for t in
@@ -2274,17 +2603,25 @@ def bvh_render_path(card, dev):
     with torch.no_grad():
         hits = [r.closest_fn(scene, *q) for q in queries]
 
-    def shading_only():
+    def shading_only(shade_fn=None):
         it = iter(hits)
         with torch.no_grad():
             trace(scene, rays[0], rays[1], None,
-                  closest_fn=lambda *_: next(it), uniforms=rays[2])
+                  closest_fn=lambda *_: next(it), uniforms=rays[2],
+                  shade_fn=shade_fn)
     shade_ms = cuda_ms(shading_only, 5) / n_bounces
+    plain_shade_ms = cuda_ms(
+        lambda: shading_only(shade_bounce_reference), 5) / n_bounces
     closest_ms = cuda_ms(lambda: r.closest_fn(scene, *queries[1]), 10)
     print(f"[time] traversal kernel mesh-184k 512x512: bounce 0 again ms="
           f"{k_ms_again:.3f} plain ms (one walk, bounce 0)={plain_ms:.3f} "
-          f"whole closest hit (kernel + record, bounce 1) ms={closest_ms:.3f} "
-          f"eager shading ms per bounce={shade_ms:.3f} on {card}")
+          f"whole closest hit (kernel + record, bounce 1) ms={closest_ms:.3f}"
+          f"; the bounce loop fed its hits, ms per bounce (CUDA events, "
+          f"eager): shading kernel {shade_ms:.3f}, eager plain shading "
+          f"{plain_shade_ms:.3f} on {card}")
+    del hits
+    shade = shade_stage(card, "mesh-184k 512x512", scene, shade_inputs(
+        scene, *rays, r.closest_fn), 64)
     # A parked lane (a finished path, moved far outside the scene) fails the
     # root's slab test and ends its walk there.
     for b in range(1, n_bounces):
@@ -2335,16 +2672,17 @@ def bvh_render_path(card, dev):
     stage = {"ms": stage_ms(times[0]), "plain_ms": plain_ms,
              "bound_ms": times[0]["bound"][0],
              "bound_by": times[0]["bound"][1], "max_abs_err": err}
-    return launches, stage, key_stage, times
+    return launches, stage, key_stage, times, shade
 
 
 def bvh_big_pass(card, dev):
     """One timed pass of the 1,003,522-triangle mesh scene at 1024x1024
     rec4 through ``Renderer`` (after one untimed pass), then the traversal
     alone, unsorted and sorted, on every bounce of that size.  Returns
-    (launches ``{"traverse", "sort_key"}`` of the two passes, the rows of
-    :func:`traverse_times`)."""
+    (launches ``{"traverse", "sort_key", "shade_bounce"}`` of the two
+    passes, the rows of :func:`traverse_times`)."""
     from raytracercore_tpu_torch.bvh import cuda_traverse as ct
+    from raytracercore_tpu_torch.render import shade_kernel as sk
     from raytracercore_tpu_torch.render.renderer import Renderer
 
     t0 = time.perf_counter()
@@ -2360,16 +2698,20 @@ def bvh_big_pass(card, dev):
           "mesh-1M has 1,003,522 triangles and takes the BVH route")
     times = []
     ct.traverse.launches = ct.sort_key.launches = 0
+    sk.shade_bounce.launches = 0
     for _ in range(2):
         t0 = time.perf_counter()
         r.step(1)
         times.append((time.perf_counter() - t0) * 1e3)
     launches = {"traverse": ct.traverse.launches,
-                "sort_key": ct.sort_key.launches}
+                "sort_key": ct.sort_key.launches,
+                "shade_bounce": sk.shade_bounce.launches}
     check(launches == {"traverse": 2 * (BVH_REC + 1),
-                       "sort_key": 2 * (BVH_REC + 1) * r.closest_fn.sort},
-          f"mesh-1M launched the traversal kernel once per bounce, the key "
-          f"kernel before it where the rule sorts ({launches})")
+                       "sort_key": 2 * (BVH_REC + 1) * r.closest_fn.sort,
+                       "shade_bounce": 2 * (BVH_REC + 1)},
+          f"mesh-1M launched the traversal and shading kernels once per "
+          f"bounce, the key kernel before the walk where the rule sorts "
+          f"({launches})")
     film = r.film
     check(bool(torch.isfinite(film.color_sum).all())
           and float(film.samples.sum() + film.misses.sum())
@@ -2468,6 +2810,7 @@ def bvh_train_path(card, dev):
     replay kernels' max abs errors, their times)."""
     from raytracercore_tpu_torch.bvh import cuda_traverse as ct
     from raytracercore_tpu_torch.render import replay_kernel as rk
+    from raytracercore_tpu_torch.render import shade_kernel as sk
     from raytracercore_tpu_torch.render import uniforms_kernel as uk
     from raytracercore_tpu_torch.render.renderer import Renderer
 
@@ -2491,6 +2834,7 @@ def bvh_train_path(card, dev):
         "bvh-train", label, r, r.closest_fn, r.closest_fn,
         {"traverse": (ct.traverse, n_bounces),
          "sort_key": (ct.sort_key, n_bounces * r.closest_fn.sort),
+         "shade_bounce": (sk.shade_bounce, n_bounces),
          "prepare_uniforms_kernel": (uk.prepare_uniforms_kernel, 1),
          "replay_fwd": (rk.replay_fwd, 1), "replay_bwd": (rk.replay_bwd, 1)},
         MESH_TARGET_SPP, card, dev)
@@ -3504,13 +3848,15 @@ def kernel_counters():
     from raytracercore_tpu_torch.intersect import cuda_select as cs
     from raytracercore_tpu_torch.render import fused
     from raytracercore_tpu_torch.render import replay_kernel as rk
+    from raytracercore_tpu_torch.render import shade_kernel as sk
     from raytracercore_tpu_torch.render import uniforms_kernel as uk
 
     return {"trace_fused": fused.trace_fused,
             "prepare_uniforms_kernel": uk.prepare_uniforms_kernel,
             "replay_fwd": rk.replay_fwd, "replay_bwd": rk.replay_bwd,
             "closest_hit_fused": cs.closest_hit_fused,
-            "traverse": ct.traverse, "sort_key": ct.sort_key}
+            "traverse": ct.traverse, "sort_key": ct.sort_key,
+            "shade_bounce": sk.shade_bounce}
 
 
 def zero_counts():
@@ -3864,6 +4210,12 @@ def parallel_phase(card, dev):
                for r in range(2)]
     for r in res:
         add_counts(counts, r["counts"])
+        # trace's bounce loop on each rank: the prims-sharded mesh-722 pass
+        # and the recorders of the mesh-722 and mesh-46k steps.
+        want = 2 * (PAR_REC + 1) + BVH_REC + 1
+        check(r["counts"]["shade_bounce"] == want, f"rank {r['rank']}: the "
+              f"sharded pass and steps launched the shading kernel once a "
+              f"bounce ({r['counts']['shade_bounce']} != {want})")
         print(f"[parallel] gloo rank {r['rank']} of 2 on cuda:0 ({SHARE_NOTE}"
               f"): cornell {PAR_SIZE}² rec{PAR_REC} ms/pass="
               f"{r['pass_ms']:.3f} (mean of {PAR_PASSES}, the megakernel on "
@@ -3890,7 +4242,7 @@ def parallel_phase(card, dev):
           f"world 1 {nccl_s:.1f}, 2 ranks incl. start-up {ranks_s:.1f}, "
           f"debug views {debug_s:.1f}); launches {counts}")
     for k in ("trace_fused", "prepare_uniforms_kernel", "replay_fwd",
-              "replay_bwd", "closest_hit_fused", "traverse"):
+              "replay_bwd", "closest_hit_fused", "traverse", "shade_bounce"):
         check(counts.get(k, 0) > 0, f"parallel phase launched {k}")
     return counts
 
@@ -4006,6 +4358,9 @@ def debug_views(card, dev):
           f"on at most {HEATMAP_OFF_FRAC} of the sampled pixels)")
     check(all(lines[-1].startswith("color=") and len(lines) > 1
               for lines in listing), "trace_pixel lists bounces")
+    check(counts["shade_bounce"] == PAR_REC + 1, "trace_pixel's "
+          "trace(record=True) launched the shading kernel once a bounce "
+          f"({counts['shade_bounce']} != {PAR_REC + 1})")
     check(bool((overlay[..., 3] == 255)[vis].all()) and vis.any(),
           "the prim overlay covers every pixel where the prim is visible")
     check(res["node:1 overlay pixels"] > 0, "the node overlay is not empty")
@@ -4032,6 +4387,7 @@ NODE_NAMES = {
     "closest_hit_fused": r"(?<![A-Za-z_])select_kernel",
     "traverse": r"(?<![A-Za-z_])traverse_kernel",
     "sort_key": r"(?<![A-Za-z_])sort_key_kernel",
+    "shade_bounce": r"(?<![A-Za-z_])shade_bounce_kernel",
 }
 
 
@@ -4121,6 +4477,30 @@ def graph_pass_route(card, label, make, want, tmp, states=False):
               f"(differing planes {diff}; pass {g.pass_index} / "
               f"{e.pass_index})")
     same(f"after {1 + GRAPH_PASSES} passes")
+    plain_note = ""
+    if g.route != "megakernel":
+        # The bounce loop's route against the same passes with the plain
+        # bounce body: the Renderer's graphed film, then the module-level
+        # render_passes graphed.
+        plain_fn = plain_shading_trace_fn(g.closest_fn)
+        size = g.film.shape
+        plain = render_passes(g.arrays, g.camera, Film.create(
+            *size, device=g.device), GRAPH_SEED, 0, g.pass_index,
+            trace_fn=plain_fn, graphs=False)
+        check(films_equal(plain, g.film), f"{label}: graphed film of "
+              f"{g.pass_index} passes bit-equal to the passes with the plain "
+              f"bounce body")
+        got_f = render_passes(g.arrays, g.camera, Film.create(
+            *size, device=g.device), GRAPH_SEED, 3, 2,
+            closest_fn=g.closest_fn)
+        want_f = render_passes(g.arrays, g.camera, Film.create(
+            *size, device=g.device), GRAPH_SEED, 3, 2, trace_fn=plain_fn,
+            graphs=False)
+        check(films_equal(got_f, want_f), f"{label}: module-level "
+              f"render_passes graphed bit-equal to the plain bounce body's")
+        PASS_GRAPHS.clear()
+        plain_note = (" and to the plain bounce body's (the Renderer's and "
+                      "render_passes')")
     check_no_sync(f"{label} graphed pass", lambda: g.step(1))
     e.step(1)
     same("after the pass under the sync check")
@@ -4160,7 +4540,7 @@ def graph_pass_route(card, label, make, want, tmp, states=False):
     busy_g, top_g = device_busy(lambda i: g.step(1), GRAPH_BUSY)
     issue = issue_ms(pg.captured)
     print(f"[graph] {label} pass (route {g.route}): films bit-equal to the "
-          f"eager passes"
+          f"eager passes{plain_note}"
           + (f", again after {', '.join(notes)}" if notes else "")
           + f"; first call ms={first_ms:.1f} (warm-up, capture, replay); "
           f"{kern}; {GRAPH_PASSES} passes each in turn, ms min/p25/median/"
@@ -4212,7 +4592,7 @@ def graph_step_route(card, label, scene, camera, closest_fn, want, tmp,
     restore(pg, og, *saved)
     entry = next(iter(sg.graphs.entries.values()))
     kern = graph_kernels(f"{label} train step", entry.captured, want, tmp)
-    losses, worst_g, params_equal = [], 0.0, True
+    losses, worst_g, worst_p = [], 0.0, 0.0
     for i in range(GRAPH_STEPS):
         seed = pass_seed(GRAPH_SEED, i)
         saved = ({k: v.detach().clone() for k, v in pe.items()},
@@ -4240,6 +4620,15 @@ def graph_step_route(card, label, scene, camera, closest_fn, want, tmp,
         check(not differ, f"{label} step {i}: params after the graphed step "
               f"bit-equal to Adam on the graph's gradient (differing "
               f"{differ})")
+        if "shade_bounce" in want:
+            lp, gp = plain_shading_step_loss(saved[0], scene, camera, target,
+                                             seed, closest_fn)
+            err = max(float((gg[k] - gp[k]).abs().max()) for k in gp)
+            check(torch.equal(lg, lp) and err <= GRAD_TOL * scale,
+                  f"{label} step {i}: graphed loss {float(lg):.9f} bit-equal "
+                  f"to the plain bounce body's {float(lp):.9f}, gradients "
+                  f"within {GRAD_TOL}·max|g| (max err {err:.3e})")
+            worst_p = max(worst_p, err / scale)
         losses.append(float(lg))
     check_no_sync(f"{label} graphed train step",
                   lambda: sg(pg, scene, camera, target, 7))
@@ -4263,7 +4652,11 @@ def graph_step_route(card, label, scene, camera, closest_fn, want, tmp,
           f"{TRAIN_LR}, each from one saved state: losses bit-equal ("
           + " ".join(f"{x:.8f}" for x in losses)
           + f"), worst gradient diff / max|g| {worst_g:.3e}, params "
-          f"bit-equal to Adam on the graph's gradient; first call ms="
+          f"bit-equal to Adam on the graph's gradient"
+          + (f"; losses bit-equal to the plain bounce body's recorder, "
+             f"gradients within {worst_p:.3e}·max|g|"
+             if "shade_bounce" in want else "")
+          + f"; first call ms="
           f"{first_ms:.1f} (warm-up, capture, replay); {kern}{times}; "
           f"route s={time.perf_counter() - t_route:.1f} on {card}")
     if timed:
@@ -4274,9 +4667,10 @@ def graph_step_route(card, label, scene, camera, closest_fn, want, tmp,
 def bvh_kernels(r):
     """The kernels one pass of a BVH-route renderer ``r`` launches: the
     traversal once per BVH and bounce (the key kernel before it where it
-    sorts), the select kernel once a bounce for a dense tail."""
+    sorts), the select kernel once a bounce for a dense tail, the shading
+    kernel once a bounce."""
     n = r.arrays.recursion + 1
-    want = {"traverse": len(r.closest_fn.bvhs) * n}
+    want = {"traverse": len(r.closest_fn.bvhs) * n, "shade_bounce": n}
     if r.closest_fn.sort:
         want["sort_key"] = want["traverse"]
     if r.closest_fn.tail is not None:
@@ -4308,7 +4702,8 @@ def graph_phase(card, dev):
             card, "mesh-722 700x700 rec10",
             lambda gr: Renderer(mesh, device=dev, seed=GRAPH_SEED,
                                 cameras=[mesh_cam], graphs=gr),
-            lambda r: {"closest_hit_fused": bounces}, tmp)
+            lambda r: {"closest_hit_fused": bounces,
+                       "shade_bounce": bounces}, tmp)
         torch.cuda.empty_cache()
         graph_pass_route(
             card, "mesh-184k 512x512 rec4",
@@ -4325,8 +4720,8 @@ def graph_phase(card, dev):
         graph_step_route(card, "mesh-722 700x700 rec10", rm.arrays,
                          rm.camera, None,
                          {"prepare_uniforms_kernel": 1, "replay_fwd": 1,
-                          "replay_bwd": 1, "closest_hit_fused": bounces},
-                         tmp)
+                          "replay_bwd": 1, "closest_hit_fused": bounces,
+                          "shade_bounce": bounces}, tmp)
         # The autograd oracle's step (use_replay=False: the backward of
         # the whole bounce loop) on a small mesh.
         small, small_cam = lit_mesh_scene(1, 1, 128, 4, dev)
@@ -4573,8 +4968,8 @@ def main():
     # --- 6. main path 3: the mesh scene above the megakernel's cap ---------
     with phase("main path 3 (mesh-722)"):
         del arrays, ray_o, ray_d, uniforms, jitter, film0
-        select_launches, (mesh_train_counts, mesh_replay_errs), select_stage = \
-            mesh_path(card, dev)
+        (mesh_launches, (mesh_train_counts, mesh_replay_errs), select_stage,
+         shade_stage_722) = mesh_path(card, dev)
         fwd_err = max(fwd_err, mesh_replay_errs[0])
         bwd_err = max(bwd_err, mesh_replay_errs[1])
 
@@ -4588,8 +4983,8 @@ def main():
         parts = [time.perf_counter()]
         traverse_err = bvh_compare_scenes(card, dev)
         parts.append(time.perf_counter())
-        bvh_launches, traverse_stage, key_stage, rows_184k = bvh_render_path(
-            card, dev)
+        (bvh_launches, traverse_stage, key_stage, rows_184k,
+         shade_stage_184k) = bvh_render_path(card, dev)
         parts.append(time.perf_counter())
         torch.cuda.empty_cache()
         big_launches, rows_1m = bvh_big_pass(card, dev)
@@ -4637,8 +5032,9 @@ def main():
           f"{ct.WIDE_STACK}")
     # No single PyTorch call computes any of these functions (a whole path,
     # Philox channels, a path replay and its adjoint, a closest hit over
-    # three primitive tables, a BVH walk, a Morton key, an issue-rate
-    # probe), so there is no library time to report.
+    # three primitive tables, a BVH walk, a Morton key, a bounce of
+    # shading, an issue-rate probe), so there is no library time to
+    # report.
     def entry(name, source, replaces, launched, err, ms, p_ms, bound_ms):
         if not replaces.startswith("scripts/"):
             replaces = f"raytracercore_tpu/{replaces}"
@@ -4677,7 +5073,8 @@ def main():
               *stage["replay backward"], train_bounds["replay backward"]),
         entry("closest_hit_fused", "select.cu",
               "intersect/pallas_select.py:42",
-              select_launches + mesh_train_counts["closest_hit_fused"]
+              mesh_launches["closest_hit_fused"]
+              + mesh_train_counts["closest_hit_fused"]
               + phase_counts["closest_hit_fused"],
               max(select_err, select_stage["max_abs_err"]),
               select_stage["ms"], select_stage["plain_ms"],
@@ -4694,6 +5091,18 @@ def main():
               bvh_launches["sort_key"] + bvh_train_counts["sort_key"]
               + phase_counts.get("sort_key", 0), key_stage["max_abs_err"],
               key_stage["ms"], key_stage["plain_ms"], key_stage["bound"]),
+        # The counterpart of the XLA fusions of the JAX trace's bounce
+        # body under jit, not of a Pallas kernel; timed on mesh-722 bounce
+        # 1 (mesh-184k's in the shade lines above).
+        entry("shade_bounce", "shade.cu", "render/integrator.py:298",
+              mesh_launches["shade_bounce"] + bvh_launches["shade_bounce"]
+              + mesh_train_counts["shade_bounce"]
+              + bvh_train_counts["shade_bounce"]
+              + phase_counts["shade_bounce"],
+              max(shade_stage_722["max_abs_err"],
+                  shade_stage_184k["max_abs_err"]),
+              shade_stage_722["ms"], shade_stage_722["plain_ms"],
+              (shade_stage_722["bound_ms"], shade_stage_722["bound_by"])),
         entry("issue_probe", "issue_probe.cu",
               "scripts/vpu_issue_bench.py:106",
               probe["launches"], probe["max_abs_err"], probe["ms"],

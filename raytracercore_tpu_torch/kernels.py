@@ -81,6 +81,14 @@ SIGNATURES = {
         + [_I] * 5                     # R n_wide depth K leaf kind
         + [_F, _F]                     # eps_behind, eps_pos²
         + [_P]),                       # stream
+    "rtc_shade": (
+        [_P] * 42                      # 19 inputs (hit, state, prev, u,
+                                       # matf, ambient, air), 11 state
+                                       # outputs, 5 tape and 7 record
+                                       # outputs (null: none)
+        + [_I] * 7                     # R N bounce n_bounces recursion
+                                       # ambient_is_miss is_double
+        + [_P]),                       # stream
     "rtc_sort_key": (
         [_P] * 5                       # 2 rays, root min and max, keys
         + [_I] * 3                     # R morton_bits dir_bits

@@ -91,6 +91,18 @@ class PathTape:
     FLAG_FLIVE = 1 << 5
     CODE_MASK = 0xF
 
+    @classmethod
+    def create(cls, R, n_bounces, dtype, device):
+        """The tape of ``R`` paths that reached no bounce yet: prim -1,
+        flags 0, zero normals (what a bounce after an early exit keeps)."""
+        def zero():
+            return torch.zeros((n_bounces, R), dtype=dtype, device=device)
+        return cls(prim=torch.full((n_bounces, R), -1, dtype=torch.int32,
+                                   device=device),
+                   flags=torch.zeros((n_bounces, R), dtype=torch.int32,
+                                     device=device),
+                   nx=zero(), ny=zero(), nz=zero())
+
 
 def phase(name: str):
     """The profiler scope of one phase of a pass (``camera_rays``,
@@ -195,6 +207,27 @@ class BounceRecords:
     inside: torch.Tensor    # bool
     fresnel: torch.Tensor   # Fresnel ratio (NaN when not evaluated)
 
+    @classmethod
+    def create(cls, R, n_bounces, dtype, device):
+        """Records of ``R`` paths that reached no bounce yet: type Skipped,
+        prim -1, zero geometry, not inside, Fresnel NaN (what a bounce
+        after an early exit keeps)."""
+        return cls(
+            btype=torch.zeros((R, n_bounces), dtype=torch.int32,
+                              device=device),
+            prim=torch.full((R, n_bounces), -1, dtype=torch.int32,
+                            device=device),
+            t=torch.zeros((R, n_bounces), dtype=dtype, device=device),
+            position=torch.zeros((R, n_bounces, 3), dtype=dtype,
+                                 device=device),
+            normal=torch.zeros((R, n_bounces, 3), dtype=dtype,
+                               device=device),
+            inside=torch.zeros((R, n_bounces), dtype=torch.bool,
+                               device=device),
+            fresnel=torch.full((R, n_bounces), float("nan"), dtype=dtype,
+                               device=device))
+
+
 
 @dataclasses.dataclass(frozen=True)
 class PathState:
@@ -207,31 +240,211 @@ class PathState:
     prev: HitRecord        # previous bounce's hit (skip record)
 
 
-def _stack_records(rows, R, n_bounces, dtype, device):
-    """Per-bounce record rows → :class:`BounceRecords`; bounces after an
-    early exit keep the untouched defaults."""
-    none = HitRecord.none(R, dtype, device)
-    pad = (torch.zeros((R,), dtype=torch.int32, device=device), none.prim,
-           none.t, none.position, none.normal, none.inside,
-           torch.full((R,), float("nan"), dtype=dtype, device=device))
-    rows = rows + [pad] * (n_bounces - len(rows))
-    return BounceRecords(*(torch.stack(col, dim=1) for col in zip(*rows)))
+def shade_bounce_reference(hit: HitRecord, state: PathState, d, u, matf,
+                           ambient, air, i: int, recursion: int,
+                           ambient_is_miss: bool, tape: PathTape | None = None,
+                           records: BounceRecords | None = None
+                           ) -> PathState:
+    """Bounce ``i`` of :func:`trace` after its closest hit: the plain
+    version of the shading kernel (``csrc/shade.cu``) and the body autograd
+    differentiates.
+
+    Miss handling, the recursion cap, the material gather, the Fresnel
+    split, pure black, the branch pick, the three directions and the
+    terminal branches give the path state after the bounce (dead lanes
+    parked at ``config.PARKED_ORIGIN``, pointing +x) and the skip record of
+    the next query.  ``hit``: this bounce's closest hit; ``state``: the
+    paths before it; ``d``: the direction the query traced (``state.ray_d``
+    renormalized on every third bounce); ``u``: this bounce's ``[7, R]``
+    uniform channels; ``matf``: :func:`_material_matrix`; ``ambient`` [3]
+    and ``air`` (0-dim): the scene's, in the rays' dtype.
+
+    ``tape`` (``[B, R]``) and ``records`` (``[R, B]``) get row / column
+    ``i`` written in place where given: the tape row on every lane (dead
+    lanes included: prim and flags from the no-hit record and row 0's
+    material), the record row with the defaults of
+    :meth:`BounceRecords.create` on lanes that were not alive."""
+    R = d.shape[0]
+    dtype, device = d.dtype, d.device
+    one = torch.ones((), dtype=dtype, device=device)
+    # Dead lanes are parked far outside any scene, pointing away (+x):
+    # their results are already committed, and a parked ray misses
+    # everything.  (Filled on the device: no copy from host memory.)
+    parked_o = torch.full((3,), PARKED_ORIGIN, dtype=dtype, device=device)
+    parked_d = torch.zeros((3,), dtype=dtype, device=device)
+    parked_d[0].fill_(1.0)  # a fill, not a copy (a graph captures it)
+
+    active = state.alive
+    found = hit.found
+
+    # --- miss handling (Raytracer.cs:81-91) ---------------------------------
+    was_missed = active & ~found
+    result = state.result
+    miss = state.miss
+    if i == 0 or ambient_is_miss:
+        miss = miss | was_missed
+    else:
+        result = torch.where(was_missed[:, None], ambient, result)
+    alive = active & found
+
+    mat = _gather_material(None, hit.prim, matf)
+    emission = mat["emission"]
+
+    # --- recursion complete (Raytracer.cs:100-104) --------------------------
+    if i >= recursion:
+        done = alive
+        result = torch.where(done[:, None], state.tint * emission, result)
+        alive = torch.zeros_like(alive)
+    else:
+        done = torch.zeros_like(alive)
+
+    # --- shading (only meaningful where alive) ------------------------------
+    rough_n = _random_shine(u[0], u[1], u[2], hit.normal, mat["shininess"])
+
+    diff_lum = luminance(mat["diffuse"])
+    spec_lum = luminance(mat["specular"])
+    refr_lum = luminance(mat["refraction"])
+    emis_lum = luminance(emission)
+
+    cos = -vm.dot(rough_n, d)
+
+    # Fresnel split (Raytracer.cs:120-157).
+    can_refract = ((refr_lum > 0) | (spec_lum > 0)) & \
+        (mat["ior"] != 0) & (cos >= 0)
+    ior_in = torch.where(hit.inside, mat["ior"], air)
+    ior_out = torch.where(hit.inside, air, mat["ior"])
+    safe_out = torch.where(ior_out == 0, 1.0, ior_out)
+    ior_ratio = ior_in / safe_out
+    sin_out = ior_ratio * vm.safe_sqrt(1.0 - cos * cos)
+    tir = sin_out >= 1.0
+    cos_out = vm.safe_sqrt(1.0 - sin_out * sin_out)
+    # Fresnel terms evaluated with masked inputs: where refraction is
+    # impossible (cos<0, ior=0, TIR) the raw denominators can pass
+    # through 0 and rs² overflows to inf, which NaNs the backward pass
+    # through torch.where even though the branch is unselected.
+    f_live = can_refract & ~tir
+    cos_f = torch.where(f_live, cos, 1.0)
+    cos_out_f = torch.where(f_live, cos_out, 1.0)
+    rs = ((ior_out * cos_f) - (ior_in * cos_out_f)) / \
+        ((ior_out * cos_f) + (ior_in * cos_out_f))
+    rp = ((ior_in * cos_f) - (ior_out * cos_out_f)) / \
+        ((ior_in * cos_f) + (ior_out * cos_out_f))
+    fresnel = (rs * rs + rp * rp) / 2.0
+
+    spec_lum = torch.where(f_live, spec_lum * fresnel, spec_lum)
+    refr_lum = torch.where(f_live, refr_lum * (1.0 - fresnel), 0.0)
+
+    total_lum = diff_lum + spec_lum + refr_lum + emis_lum
+
+    # Pure black termination (Raytracer.cs:165-169).
+    black = alive & (total_lum <= 0)
+    result = torch.where(black[:, None], state.tint * emission, result)
+    alive = alive & ~black
+
+    # --- stochastic branch selection (Raytracer.cs:177-229) -----------------
+    ray_rand = u[3] * total_lum
+    pick_refr = (refr_lum != 0) & (ray_rand - refr_lum <= 0)
+    r2 = ray_rand - refr_lum
+    pick_spec = ~pick_refr & (spec_lum != 0) & (r2 - spec_lum <= 0)
+    r3 = r2 - spec_lum
+    pick_diff = ~pick_refr & ~pick_spec & (diff_lum != 0) & \
+        (r3 - diff_lum <= 0)
+    pick_emit = ~pick_refr & ~pick_spec & ~pick_diff
+
+    # Transmission (Raytracer.cs:181-193).
+    refr_dir = (rough_n * (-cos_out)[:, None]
+                + (d + rough_n * cos[:, None]) * ior_ratio[:, None])
+    refr_tint = torch.where(hit.inside[:, None], 1.0, mat["refraction"])
+
+    # Specular with rough-normal fail (Raytracer.cs:194-209).
+    spec_dir = vm.reflect(rough_n, d, cos)
+    spec_ok = vm.dot(spec_dir, hit.normal) > 0
+
+    # Diffuse (Raytracer.cs:210-219): z = 2·acos(U)/π around the TRUE
+    # normal (not the rough normal); z precomputed as channel 4.
+    diff_dir = vm.create_horizon_cs(hit.normal, u[4], u[5], u[6])
+
+    # Terminal branches: emission pick, or failed specular.
+    terminal = alive & (pick_emit | (pick_spec & ~spec_ok))
+    result = torch.where(terminal[:, None], state.tint * emission, result)
+    alive = alive & ~terminal
+
+    out_dir = torch.where(pick_refr[:, None], refr_dir,
+                          torch.where(pick_spec[:, None], spec_dir,
+                                      diff_dir))
+    new_tint = torch.where(pick_refr[:, None], refr_tint,
+                           torch.where(pick_spec[:, None],
+                                       mat["specular"], mat["diffuse"]))
+    # Energy compensation (Raytracer.cs:238-240); torch.maximum splits
+    # the derivative at a tie as jnp.maximum does.
+    new_tint = new_tint * torch.maximum(total_lum, one)[:, None]
+
+    bounced = alive
+    sel = bounced[:, None]
+    new_o = torch.where(sel, hit.position, state.ray_o)
+    new_d = torch.where(sel, out_dir, d)
+    new_o = torch.where(alive[:, None], new_o, parked_o)
+    new_d = torch.where(alive[:, None], new_d, parked_d)
+    tint = torch.where(sel, state.tint * new_tint, state.tint)
+
+    prev = HitRecord(
+        prim=torch.where(bounced, hit.prim, state.prev.prim),
+        t=torch.where(bounced, hit.t, state.prev.t),
+        position=torch.where(sel, hit.position, state.prev.position),
+        normal=torch.where(sel, hit.normal, state.prev.normal),
+        inside=torch.where(bounced, hit.inside, state.prev.inside))
+
+    if records is not None or tape is not None:
+        btype = torch.full_like(hit.prim, BounceType.SKIPPED)
+        for code, mask in (
+                (BounceType.MISSED, was_missed),
+                (BounceType.RECURSION_COMPLETE, done),
+                (BounceType.PURE_BLACK, black),
+                (BounceType.EMISSION, terminal & pick_emit),
+                (BounceType.SPECULAR_FAIL, terminal & pick_spec & ~spec_ok),
+                (BounceType.TRANSMITTED, bounced & pick_refr),
+                (BounceType.SPECULAR, bounced & pick_spec),
+                (BounceType.DIFFUSE, bounced & pick_diff)):
+            btype = torch.where(mask, code, btype)
+
+    if tape is not None:
+        flags = (btype
+                 | torch.where(hit.inside, PathTape.FLAG_INSIDE, 0)
+                 | torch.where(f_live, PathTape.FLAG_FLIVE, 0))
+        normal = hit.normal.detach()
+        tape.prim[i] = hit.prim
+        tape.flags[i] = flags.to(torch.int32)
+        tape.nx[i], tape.ny[i], tape.nz[i] = normal.unbind(1)
+
+    if records is not None:
+        nan = torch.full_like(fresnel, float("nan"))
+        fr = torch.where(active & can_refract,
+                         torch.where(tir, 1.0, fresnel), nan)
+        none = HitRecord.none(R, dtype, device)
+        touched = active
+        records.btype[:, i] = torch.where(touched, btype, 0)
+        records.prim[:, i] = torch.where(touched, hit.prim, none.prim)
+        records.t[:, i] = torch.where(touched, hit.t, none.t)
+        records.position[:, i] = torch.where(touched[:, None], hit.position,
+                                             none.position)
+        records.normal[:, i] = torch.where(touched[:, None], hit.normal,
+                                           none.normal)
+        records.inside[:, i] = torch.where(touched, hit.inside, none.inside)
+        records.fresnel[:, i] = fr
+
+    return PathState(ray_o=new_o, ray_d=new_d, tint=tint, alive=alive,
+                     result=result, miss=miss, prev=prev)
 
 
-def _stack_tape(rows, R, n_bounces, dtype, device):
-    """Per-bounce tape rows → :class:`PathTape`; bounces after an early
-    exit hold prim -1, flags 0 and zero normals."""
-    zero = torch.zeros((R,), dtype=dtype, device=device)
-    pad = (torch.full((R,), -1, dtype=torch.int32, device=device),
-           torch.zeros((R,), dtype=torch.int32, device=device),
-           zero, zero, zero)
-    rows = rows + [pad] * (n_bounces - len(rows))
-    return PathTape(*(torch.stack(col) for col in zip(*rows)))
+def _needs_grad(*tensors) -> bool:
+    """True where autograd records and one of ``tensors`` requires grad."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def trace(scene: SceneArrays, ray_o, ray_d, generator=None,
           closest_fn=closest_hit, record: bool = False,
-          early_exit: bool = False, uniforms=None, want_tape: bool = False):
+          early_exit: bool = False, uniforms=None, want_tape: bool = False,
+          shade_fn=None):
     """Trace a batch of camera rays to final colours.
 
     Args:
@@ -256,6 +469,15 @@ def trace(scene: SceneArrays, ray_o, ray_d, generator=None,
         decisions (recorded through the same loop body).  ``trace`` writes
         the hit's prim and flag bits on every lane, dead ones included;
         compare tapes only where a replay reads them.
+      shade_fn: the bounce body after the closest hit, with the signature
+        of :func:`shade_bounce_reference`.  None picks it bounce by bounce
+        by need: where autograd records and an input of the bounce (the
+        materials, the rays, ambient, air IOR, the hit or the path state)
+        requires grad, :func:`shade_bounce_reference` under autograd (the
+        kernel has no backward); else
+        :func:`.shade_kernel.shade_bounce`, which launches the shading
+        kernel on a CUDA device (or raises) and runs the plain version on
+        the CPU.
 
     Returns:
       (color [R, 3], miss [R] bool) — ``miss`` marks Placeholder samples
@@ -263,6 +485,8 @@ def trace(scene: SceneArrays, ray_o, ray_d, generator=None,
       ``record=True`` a :class:`BounceRecords` is appended, and with
       ``want_tape=True`` a :class:`PathTape` is appended (in that order).
     """
+    from . import shade_kernel
+
     if early_exit and graphs.capturing(ray_o.device):
         raise ValueError("trace(early_exit=True) reads the device from the "
                          "host at every bounce, which a CUDA graph cannot "
@@ -271,6 +495,10 @@ def trace(scene: SceneArrays, ray_o, ray_d, generator=None,
     dtype, device = ray_o.dtype, ray_o.device
     recursion = scene.recursion
     n_bounces = recursion + 1
+    records = (BounceRecords.create(R, n_bounces, dtype, device) if record
+               else None)
+    tape = (PathTape.create(R, n_bounces, dtype, device) if want_tape
+            else None)
 
     if scene.debug_geom:
         # Flat geometry view (Raytracer.cs:93-98): first hit's
@@ -284,14 +512,17 @@ def trace(scene: SceneArrays, ray_o, ray_d, generator=None,
                            BounceType.MISSED).to(torch.int32)
         out = (color, ~hit.found)
         if record:
-            nan = torch.full((R,), float("nan"), dtype=dtype, device=device)
-            out += (_stack_records(
-                [(code, hit.prim, hit.t, hit.position, hit.normal,
-                  hit.inside, nan)], R, n_bounces, dtype, device),)
+            records.btype[:, 0] = code
+            records.prim[:, 0] = hit.prim
+            records.t[:, 0] = hit.t
+            records.position[:, 0] = hit.position
+            records.normal[:, 0] = hit.normal
+            records.inside[:, 0] = hit.inside
+            out += (records,)
         if want_tape:
-            zero = torch.zeros((R,), dtype=dtype, device=device)
-            out += (_stack_tape([(hit.prim, code, zero, zero, zero)], R,
-                                n_bounces, dtype, device),)
+            tape.prim[0] = hit.prim
+            tape.flags[0] = code
+            out += (tape,)
         return out
 
     # All randomness for the whole trace, generated up front (bounce i reads
@@ -302,14 +533,7 @@ def trace(scene: SceneArrays, ray_o, ray_d, generator=None,
         uniforms = prepare_uniforms(generator, R, n_bounces, device, dtype)
     ambient = scene.ambient_rgb.to(dtype)
     air = scene.air_refractive_index.to(dtype)
-    one = torch.ones((), dtype=dtype, device=device)
     matf = _material_matrix(scene.materials)  # packed once for all bounces
-    # Dead lanes are parked far outside any scene, pointing away (+x):
-    # their results are already committed, and a parked ray misses
-    # everything.  (Filled on the device: no copy from host memory.)
-    parked_o = torch.full((3,), PARKED_ORIGIN, dtype=dtype, device=device)
-    parked_d = torch.zeros((3,), dtype=dtype, device=device)
-    parked_d[0].fill_(1.0)  # a fill, not a copy (a graph captures it)
 
     state = PathState(
         ray_o=ray_o, ray_d=ray_d,
@@ -318,7 +542,6 @@ def trace(scene: SceneArrays, ray_o, ray_d, generator=None,
         result=torch.zeros((R, 3), dtype=dtype, device=device),
         miss=torch.zeros((R,), dtype=torch.bool, device=device),
         prev=HitRecord.none(R, dtype, device))
-    record_rows, tape_rows = [], []
 
     for i in range(n_bounces):
         if early_exit and not bool(state.alive.any()):
@@ -328,174 +551,20 @@ def trace(scene: SceneArrays, ray_o, ray_d, generator=None,
 
         with phase("closest_hit"):
             hit = closest_fn(scene, state.ray_o, d, state.prev)
-        active = state.alive
-        found = hit.found
-
-        # --- miss handling (Raytracer.cs:81-91) -------------------------
-        was_missed = active & ~found
-        result = state.result
-        miss = state.miss
-        if i == 0 or scene.ambient_is_miss:
-            miss = miss | was_missed
-        else:
-            result = torch.where(was_missed[:, None], ambient, result)
-        alive = active & found
-
-        mat = _gather_material(scene.materials, hit.prim, matf)
-        emission = mat["emission"]
-
-        # --- recursion complete (Raytracer.cs:100-104) ------------------
-        if i >= recursion:
-            done = alive
-            result = torch.where(done[:, None], state.tint * emission,
-                                 result)
-            alive = torch.zeros_like(alive)
-        else:
-            done = torch.zeros_like(alive)
-
-        # --- shading (only meaningful where alive) ----------------------
         u = uniforms[i]  # [7, R] preprocessed channels
-
-        rough_n = _random_shine(u[0], u[1], u[2], hit.normal,
-                                mat["shininess"])
-
-        diff_lum = luminance(mat["diffuse"])
-        spec_lum = luminance(mat["specular"])
-        refr_lum = luminance(mat["refraction"])
-        emis_lum = luminance(emission)
-
-        cos = -vm.dot(rough_n, d)
-
-        # Fresnel split (Raytracer.cs:120-157).
-        can_refract = ((refr_lum > 0) | (spec_lum > 0)) & \
-            (mat["ior"] != 0) & (cos >= 0)
-        ior_in = torch.where(hit.inside, mat["ior"], air)
-        ior_out = torch.where(hit.inside, air, mat["ior"])
-        safe_out = torch.where(ior_out == 0, 1.0, ior_out)
-        ior_ratio = ior_in / safe_out
-        sin_out = ior_ratio * vm.safe_sqrt(1.0 - cos * cos)
-        tir = sin_out >= 1.0
-        cos_out = vm.safe_sqrt(1.0 - sin_out * sin_out)
-        # Fresnel terms evaluated with masked inputs: where refraction is
-        # impossible (cos<0, ior=0, TIR) the raw denominators can pass
-        # through 0 and rs² overflows to inf, which NaNs the backward pass
-        # through torch.where even though the branch is unselected.
-        f_live = can_refract & ~tir
-        cos_f = torch.where(f_live, cos, 1.0)
-        cos_out_f = torch.where(f_live, cos_out, 1.0)
-        rs = ((ior_out * cos_f) - (ior_in * cos_out_f)) / \
-            ((ior_out * cos_f) + (ior_in * cos_out_f))
-        rp = ((ior_in * cos_f) - (ior_out * cos_out_f)) / \
-            ((ior_in * cos_f) + (ior_out * cos_out_f))
-        fresnel = (rs * rs + rp * rp) / 2.0
-
-        spec_lum = torch.where(f_live, spec_lum * fresnel, spec_lum)
-        refr_lum = torch.where(f_live, refr_lum * (1.0 - fresnel), 0.0)
-
-        total_lum = diff_lum + spec_lum + refr_lum + emis_lum
-
-        # Pure black termination (Raytracer.cs:165-169).
-        black = alive & (total_lum <= 0)
-        result = torch.where(black[:, None], state.tint * emission, result)
-        alive = alive & ~black
-
-        # --- stochastic branch selection (Raytracer.cs:177-229) ---------
-        ray_rand = u[3] * total_lum
-        pick_refr = (refr_lum != 0) & (ray_rand - refr_lum <= 0)
-        r2 = ray_rand - refr_lum
-        pick_spec = ~pick_refr & (spec_lum != 0) & (r2 - spec_lum <= 0)
-        r3 = r2 - spec_lum
-        pick_diff = ~pick_refr & ~pick_spec & (diff_lum != 0) & \
-            (r3 - diff_lum <= 0)
-        pick_emit = ~pick_refr & ~pick_spec & ~pick_diff
-
-        # Transmission (Raytracer.cs:181-193).
-        refr_dir = (rough_n * (-cos_out)[:, None]
-                    + (d + rough_n * cos[:, None]) * ior_ratio[:, None])
-        refr_tint = torch.where(hit.inside[:, None], 1.0, mat["refraction"])
-
-        # Specular with rough-normal fail (Raytracer.cs:194-209).
-        spec_dir = vm.reflect(rough_n, d, cos)
-        spec_ok = vm.dot(spec_dir, hit.normal) > 0
-
-        # Diffuse (Raytracer.cs:210-219): z = 2·acos(U)/π around the TRUE
-        # normal (not the rough normal); z precomputed as channel 4.
-        diff_dir = vm.create_horizon_cs(hit.normal, u[4], u[5], u[6])
-
-        # Terminal branches: emission pick, or failed specular.
-        terminal = alive & (pick_emit | (pick_spec & ~spec_ok))
-        result = torch.where(terminal[:, None], state.tint * emission,
-                             result)
-        alive = alive & ~terminal
-
-        out_dir = torch.where(pick_refr[:, None], refr_dir,
-                              torch.where(pick_spec[:, None], spec_dir,
-                                          diff_dir))
-        new_tint = torch.where(pick_refr[:, None], refr_tint,
-                               torch.where(pick_spec[:, None],
-                                           mat["specular"], mat["diffuse"]))
-        # Energy compensation (Raytracer.cs:238-240); torch.maximum splits
-        # the derivative at a tie as jnp.maximum does.
-        new_tint = new_tint * torch.maximum(total_lum, one)[:, None]
-
-        bounced = alive
-        sel = bounced[:, None]
-        new_o = torch.where(sel, hit.position, state.ray_o)
-        new_d = torch.where(sel, out_dir, d)
-        new_o = torch.where(alive[:, None], new_o, parked_o)
-        new_d = torch.where(alive[:, None], new_d, parked_d)
-        tint = torch.where(sel, state.tint * new_tint, state.tint)
-
-        prev = HitRecord(
-            prim=torch.where(bounced, hit.prim, state.prev.prim),
-            t=torch.where(bounced, hit.t, state.prev.t),
-            position=torch.where(sel, hit.position, state.prev.position),
-            normal=torch.where(sel, hit.normal, state.prev.normal),
-            inside=torch.where(bounced, hit.inside, state.prev.inside))
-
-        if record or want_tape:
-            btype = torch.full_like(hit.prim, BounceType.SKIPPED)
-            for code, mask in (
-                    (BounceType.MISSED, was_missed),
-                    (BounceType.RECURSION_COMPLETE, done),
-                    (BounceType.PURE_BLACK, black),
-                    (BounceType.EMISSION, terminal & pick_emit),
-                    (BounceType.SPECULAR_FAIL,
-                     terminal & pick_spec & ~spec_ok),
-                    (BounceType.TRANSMITTED, bounced & pick_refr),
-                    (BounceType.SPECULAR, bounced & pick_spec),
-                    (BounceType.DIFFUSE, bounced & pick_diff)):
-                btype = torch.where(mask, code, btype)
-
-        if want_tape:
-            flags = (btype
-                     | torch.where(hit.inside, PathTape.FLAG_INSIDE, 0)
-                     | torch.where(f_live, PathTape.FLAG_FLIVE, 0))
-            normal = hit.normal.detach()
-            tape_rows.append((hit.prim, flags.to(torch.int32), normal[:, 0],
-                              normal[:, 1], normal[:, 2]))
-
-        if record:
-            nan = torch.full_like(fresnel, float("nan"))
-            fr = torch.where(active & can_refract,
-                             torch.where(tir, 1.0, fresnel), nan)
-            none = HitRecord.none(R, dtype, device)
-            touched = active
-            record_rows.append((
-                torch.where(touched, btype, 0),
-                torch.where(touched, hit.prim, none.prim),
-                torch.where(touched, hit.t, none.t),
-                torch.where(touched[:, None], hit.position, none.position),
-                torch.where(touched[:, None], hit.normal, none.normal),
-                torch.where(touched, hit.inside, none.inside),
-                fr))
-
-        state = PathState(ray_o=new_o, ray_d=new_d, tint=tint, alive=alive,
-                          result=result, miss=miss, prev=prev)
+        shade = shade_fn
+        if shade is None:
+            shade = (shade_bounce_reference if _needs_grad(
+                matf, ambient, air, d, u, state.ray_o, state.tint,
+                state.result, state.prev.t, state.prev.position,
+                state.prev.normal, hit.t, hit.position, hit.normal)
+                else shade_kernel.shade_bounce)
+        state = shade(hit, state, d, u, matf, ambient, air, i, recursion,
+                      scene.ambient_is_miss, tape, records)
 
     out = (state.result, state.miss)
     if record:
-        out += (_stack_records(record_rows, R, n_bounces, dtype, device),)
+        out += (records,)
     if want_tape:
-        out += (_stack_tape(tape_rows, R, n_bounces, dtype, device),)
+        out += (tape,)
     return out
