@@ -3399,17 +3399,18 @@ def scope_split(path, n):
     :data:`SCOPES` found and for ``"outside"`` (host time of the traced
     span outside every scope, and the device time of kernels, copies and
     fills launched outside every scope).  A kernel belongs to the scope
-    its launch (the runtime call with the same correlation id) lies in."""
+    its launch (the runtime call with the same correlation id) lies in;
+    the scopes are the trace's ``rtc.span`` events, on the profiler's
+    clock to within half the anchors' width (``rtcSpanClock``)."""
     import bisect
 
     with open(path) as f:
         events = [e for e in json.load(f)["traceEvents"]
                   if e.get("ph") == "X"]
     scopes = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
-                    if e.get("cat") == "user_annotation"
-                    and e["name"] in SCOPES)
+                    if e.get("cat") == "rtc.span" and e["name"] in SCOPES)
     host = [e for e in events if e.get("cat") in
-            ("cpu_op", "user_annotation") + LAUNCH_CATS]
+            ("cpu_op", "user_annotation", "rtc.span") + LAUNCH_CATS]
     span = (max(e["ts"] + e["dur"] for e in host)
             - min(e["ts"] for e in host))
     out = {}
@@ -3438,12 +3439,12 @@ def scope_split(path, n):
 def scope_cost_us():
     """Host µs of one enter/exit pair, with no profiler recording, of
     ``torch.profiler.record_function`` and of the port's gated
-    ``integrator.phase`` (what a pass pays)."""
-    from raytracercore_tpu_torch.render.integrator import phase
+    ``core.spans.span`` (what a pass pays)."""
+    from raytracercore_tpu_torch.core.spans import span
 
     check(not torch.autograd._profiler_enabled(), "no profiler recording")
     res = []
-    for make in (torch.profiler.record_function, phase):
+    for make in (torch.profiler.record_function, span):
         t0 = time.perf_counter()
         for _ in range(SURF_SCOPE_PAIRS):
             with make("camera_rays"):
@@ -3681,7 +3682,7 @@ def surface_profile(card, dev, host):
                   f"no profiler took {pair_us * SURF_SCOPE_PAIRS / 1e3:.3f} "
                   f"ms, {pair_us:.3f} us a pair "
                   f"= {100 * n_scopes * pair_us / (median * 1e3):.3f} % of "
-                  f"the pass if always entered; the gated phase() "
+                  f"the pass if always entered; the gated span() "
                   f"{gated_us:.3f} us a pair = "
                   f"{100 * n_scopes * gated_us / (median * 1e3):.4f} % on "
                   f"{card}")

@@ -25,6 +25,9 @@ Kernel launches (``kernels.count_launch``) made while a graph is
 captured run nothing: they are kept in the graph's tally
 (:attr:`Captured.launches`) and added to each wrapper's count at every
 replay, so a wrapper's ``launches`` counts kernels that ran.
+
+A feed and a replay are the spans ``graph.feed`` and ``graph.replay``
+(:mod:`.spans`), inside the caller's pass or step.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ from typing import Callable
 import torch
 
 from .. import kernels
+from .spans import span
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -106,13 +110,15 @@ class Captured:
         if len(values) != len(self.inputs):
             raise ValueError(f"{self.label}: {len(values)} inputs fed, the "
                              f"graph takes {len(self.inputs)}")
-        for static, value in zip(self.inputs, values):
-            if value.data_ptr() != static.data_ptr():
-                static.copy_(value)
+        with span("graph.feed"):
+            for static, value in zip(self.inputs, values):
+                if value.data_ptr() != static.data_ptr():
+                    static.copy_(value)
 
     def replay(self) -> None:
         """Launch the graph once on the current stream."""
-        self.graph.replay()
+        with span("graph.replay"):
+            self.graph.replay()
         self.replays += 1
         for wrapper, n in self.launches.items():
             wrapper.launches += n

@@ -29,6 +29,7 @@ import torch
 import torch.distributed as dist
 
 from ..core import graphs as graphs_mod
+from ..core.spans import span
 from ..diff.params import MATERIAL_FIELDS, with_material_params
 from ..intersect.cuda_select import closest_hit_fused
 from ..intersect.dispatch import HitRecord, closest_hit
@@ -380,18 +381,22 @@ class StepGraph:
     def run(self, camera, target, seed: int, jitter=None, uniforms=None):
         """One step seeded ``seed`` (the eager step's draws): feed, replay,
         ``optimizer.step()``; returns the loss (a new tensor).  No host
-        synchronisation."""
+        synchronisation.  Spans: ``graph.feed``, ``train.seed``,
+        ``graph.replay``, ``train.optimizer``, ``train.loss``."""
         self.captured.feed(*camera_tensors(camera), *(
             t for t in (target, jitter, uniforms) if t is not None))
-        if self.drawn_jitter:
-            self.generator.manual_seed(pass_seed(seed, 0))
-        if not self.given_uniforms:
-            fill_seed_key(self.path_key, pass_seed(seed, 1))
+        with span("train.seed"):
+            if self.drawn_jitter:
+                self.generator.manual_seed(pass_seed(seed, 0))
+            if not self.given_uniforms:
+                fill_seed_key(self.path_key, pass_seed(seed, 1))
         self.captured.replay()
-        for p, g in zip(self.params.values(), self.grads):
-            p.grad = g
-        self.optimizer.step()
-        return self.captured.outputs.clone()
+        with span("train.optimizer"):
+            for p, g in zip(self.params.values(), self.grads):
+                p.grad = g
+            self.optimizer.step()
+        with span("train.loss"):
+            return self.captured.outputs.clone()
 
 
 def make_train_step(mesh: Mesh | None, optimizer: torch.optim.Optimizer,
@@ -430,7 +435,9 @@ def make_train_step(mesh: Mesh | None, optimizer: torch.optim.Optimizer,
     uniforms=None) → loss`` (a detached scalar tensor, the whole image's
     loss before the update).  ``target`` is the whole linear ``[H, W, 3]``
     image; ``seed`` keys the step's camera jitter and path uniforms, unless
-    ``jitter`` [H·W, 4] and ``uniforms`` [B, 7, H·W] are given.
+    ``jitter`` [H·W, 4] and ``uniforms`` [B, 7, H·W] are given.  A call
+    is the span ``train.step``, ``optimizer.step()`` in it the span
+    ``train.optimizer`` (:mod:`..core.spans`).
     """
     if mesh is not None and graphs:
         raise ValueError("make_train_step: a sharded step stays eager "
@@ -439,43 +446,48 @@ def make_train_step(mesh: Mesh | None, optimizer: torch.optim.Optimizer,
 
     def step(params: dict, scene, camera, target, seed: int,
              jitter=None, uniforms=None):
-        h, w = target.shape[:2]
-        if mesh is None and _use_graphs(graphs, target.device,
-                                        "make_train_step"):
-            key = StepGraph.key_of(params, scene, camera, target, closest_fn,
-                                   use_replay, jitter, uniforms)
-            sg = cache.get(key, lambda: StepGraph(
-                params, scene, camera, target, optimizer, closest_fn,
-                use_replay, jitter, uniforms))
-            return sg.run(camera, target, seed, jitter, uniforms)
-        if mesh is None:
-            if jitter is None:
-                gen = torch.Generator(device=camera.position.device)
-                gen.manual_seed(pass_seed(seed, 0))
-                jitter = step_jitter(gen, camera, h * w)
-            key = seed_key(pass_seed(seed, 1), target.device)
-            loss = step_backward(params, scene, camera, target, jitter, key,
-                                 uniforms, optimizer, closest_fn, use_replay)
-            optimizer.step()
+        with span("train.step"):
+            h, w = target.shape[:2]
+            if mesh is None and _use_graphs(graphs, target.device,
+                                            "make_train_step"):
+                key = StepGraph.key_of(params, scene, camera, target,
+                                       closest_fn, use_replay, jitter,
+                                       uniforms)
+                sg = cache.get(key, lambda: StepGraph(
+                    params, scene, camera, target, optimizer, closest_fn,
+                    use_replay, jitter, uniforms))
+                return sg.run(camera, target, seed, jitter, uniforms)
+            if mesh is None:
+                if jitter is None:
+                    gen = torch.Generator(device=camera.position.device)
+                    gen.manual_seed(pass_seed(seed, 0))
+                    jitter = step_jitter(gen, camera, h * w)
+                key = seed_key(pass_seed(seed, 1), target.device)
+                loss = step_backward(params, scene, camera, target, jitter,
+                                     key, uniforms, optimizer, closest_fn,
+                                     use_replay)
+                with span("train.optimizer"):
+                    optimizer.step()
+                return loss
+            ray_o, ray_d, uniforms, tgt, path_seed = _rank_inputs(
+                mesh, scene, camera, target, seed, jitter, uniforms)
+            s = with_material_params(scene, params)
+            if use_replay:
+                color, miss = trace_replay(s, ray_o, ray_d, seed=path_seed,
+                                           uniforms=uniforms,
+                                           closest_fn=closest_fn)
+            else:
+                color, miss = trace(s, ray_o, ray_d, None,
+                                    closest_fn=closest_fn, uniforms=uniforms)
+            loss = image_loss(color, miss, tgt, h * w * 3)
+            optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            loss = loss.detach()
+            dist.all_reduce(loss, group=mesh.rays_group)
+            _sum_grads(mesh, params)
+            with span("train.optimizer"):
+                optimizer.step()
             return loss
-        ray_o, ray_d, uniforms, tgt, path_seed = _rank_inputs(
-            mesh, scene, camera, target, seed, jitter, uniforms)
-        s = with_material_params(scene, params)
-        if use_replay:
-            color, miss = trace_replay(s, ray_o, ray_d, seed=path_seed,
-                                       uniforms=uniforms,
-                                       closest_fn=closest_fn)
-        else:
-            color, miss = trace(s, ray_o, ray_d, None, closest_fn=closest_fn,
-                                uniforms=uniforms)
-        loss = image_loss(color, miss, tgt, h * w * 3)
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        loss = loss.detach()
-        dist.all_reduce(loss, group=mesh.rays_group)
-        _sum_grads(mesh, params)
-        optimizer.step()
-        return loss
 
     step.graphs = cache
     return step

@@ -33,7 +33,6 @@ packing.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 
 import torch
@@ -42,6 +41,7 @@ from ..config import PARKED_ORIGIN
 from ..core import graphs
 from ..core import vecmath as vm
 from ..core.color import luminance
+from ..core.spans import span
 from ..intersect.dispatch import HitRecord, closest_hit
 from ..scene.types import SceneArrays
 
@@ -102,18 +102,6 @@ class PathTape:
                    flags=torch.zeros((n_bounces, R), dtype=torch.int32,
                                      device=device),
                    nx=zero(), ny=zero(), nz=zero())
-
-
-def phase(name: str):
-    """The profiler scope of one phase of a pass (``camera_rays``,
-    ``trace_fused``, ``film_accum``; ``closest_hit`` on every bounce of
-    :func:`trace`), the JAX package's ``jax.named_scope`` names:
-    ``torch.profiler.record_function(name)`` while a profiler is
-    recording, else a context that does nothing.  An unprofiled scope
-    would cost host time on paths that the host already bounds."""
-    if torch.autograd._profiler_enabled():
-        return torch.profiler.record_function(name)
-    return contextlib.nullcontext()
 
 
 def preprocess_uniforms(raw):
@@ -503,7 +491,7 @@ def trace(scene: SceneArrays, ray_o, ray_d, generator=None,
     if scene.debug_geom:
         # Flat geometry view (Raytracer.cs:93-98): first hit's
         # spec+diff+emission; primary misses stay misses.
-        with phase("closest_hit"):
+        with span("closest_hit"):
             hit = closest_fn(scene, ray_o, ray_d, None)
         mat = _gather_material(scene.materials, hit.prim)
         color = mat["specular"] + mat["diffuse"] + mat["emission"]
@@ -549,7 +537,7 @@ def trace(scene: SceneArrays, ray_o, ray_d, generator=None,
         # Periodic renormalization (Raytracer.cs:74-75), bounce 0 included.
         d = vm.normalize(state.ray_d) if i % 3 == 0 else state.ray_d
 
-        with phase("closest_hit"):
+        with span("closest_hit"):
             hit = closest_fn(scene, state.ray_o, d, state.prev)
         u = uniforms[i]  # [7, R] preprocessed channels
         shade = shade_fn

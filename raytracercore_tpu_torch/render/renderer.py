@@ -24,16 +24,20 @@ pass, and the graph accumulates into its own film in place
 (:meth:`.film.Film.add_full_frame_`), so a graphed film equals the eager
 one bit for bit.
 
-Each eager pass runs its phases inside the JAX package's profiler scopes
-(``camera_rays``, ``trace_fused``, ``film_accum``; ``closest_hit`` on every
-bounce of ``trace``), entered while a profiler records
-(:func:`.integrator.phase`); :meth:`Renderer.profile` writes such a trace.
-A replay runs no Python, so it enters no scope.
+A step and an image are spans (:mod:`..core.spans`): ``render.step``
+holds ``graph.feed``, one ``graph.replay`` a pass and ``render.sync``, or
+on the eager path the phases under the JAX package's profiler scope names
+(``camera_rays``, ``trace_fused``, ``film_accum``; ``closest_hit`` on
+every bounce of ``trace``); ``render.image`` holds ``film.tonemap`` and
+``film.to_host``.  A replay runs no Python, so nothing inside a graph is
+a span.  :meth:`Renderer.profile` writes a trace of what ``step`` runs,
+with these spans in it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 import time
 from typing import Callable, Optional
@@ -44,6 +48,7 @@ import torch
 from ..config import BVH_AUTO_THRESHOLD, SELECT_MAX_PRIMS
 from ..bvh.builder import build_bvh
 from ..core import graphs as graphs_mod
+from ..core import spans
 from ..core.device import resolve_device
 from ..intersect.cuda_select import closest_hit_fused
 from ..intersect.dispatch import (closest_hit, make_bvh_closest_fn,
@@ -53,7 +58,7 @@ from ..scene.types import (CameraRT, HostScene, SceneArrays, freeze_scene,
 from . import camera as cam_mod
 from . import fused
 from .film import Film
-from .integrator import phase, preprocess_uniforms, trace
+from .integrator import preprocess_uniforms, trace
 
 
 def pass_seed(seed: int, pass_index: int) -> int:
@@ -108,7 +113,7 @@ def _pass(scene, camera, film, jitter, uniforms, closest_fn, trace_fn, tile,
         px, py = cam_mod.pixel_grid(w, h, device=jitter.device)
     color, miss = trace_pixels(scene, camera, px, py, jitter, uniforms,
                                closest_fn, trace_fn)
-    with phase("film_accum"):
+    with spans.span("film_accum"):
         if tile:
             color = cam_mod.untile(color, w, h, tile)
             miss = cam_mod.untile(miss, w, h, tile)
@@ -121,11 +126,11 @@ def trace_pixels(scene: SceneArrays, camera, px, py, jitter, uniforms,
     pixels ``(px, py)`` [R]: camera rays from ``jitter`` [R, 4], then
     ``trace_fn`` or :func:`.integrator.trace` with ``closest_fn`` on
     ``uniforms`` [B, 7, R] (the body of :func:`render_pass`)."""
-    with phase("camera_rays"):
+    with spans.span("camera_rays"):
         ray_o, ray_d = cam_mod.camera_rays(camera, px, py, jitter)
         ray_o, ray_d = ray_o.contiguous(), ray_d.contiguous()
     if trace_fn is not None:
-        with phase("trace_fused"):
+        with spans.span("trace_fused"):
             return trace_fn(scene, ray_o, ray_d, uniforms)
     # No early exit: at full-frame batches some ray nearly always survives
     # to the recursion cap, and the test costs a host read of the device
@@ -315,6 +320,33 @@ def _use_graphs(graphs, device, what: str) -> bool:
     return bool(graphs)
 
 
+def _add_spans(path: str, records, anchors) -> None:
+    """Write the span recorder's ``records`` into the Chrome trace at
+    ``path`` as complete events on the host thread of its ``rtc.anchor``
+    ranges, whose times and ``anchors`` (one for each of the last ranges)
+    map the recorder's clock onto the trace's
+    (:func:`..core.spans.clock_offset`)."""
+    with open(path) as f:
+        trace = json.load(f)
+    events = trace["traceEvents"]
+    marks = sorted((e for e in events if e.get("name") == spans.ANCHOR
+                    and e.get("ph") == "X"
+                    and e.get("cat") == "user_annotation"),
+                   key=lambda e: e["ts"])
+    marks = marks[-len(anchors):]
+    offset, width, drift = spans.clock_offset(
+        anchors, [(e["ts"], e["ts"] + e["dur"]) for e in marks])
+    for name, t0, t1, parent, top in spans.on_profiler_clock(records,
+                                                              offset):
+        events.append({"ph": "X", "cat": "rtc.span", "name": name,
+                       "pid": marks[0]["pid"], "tid": marks[0]["tid"],
+                       "ts": t0, "dur": t1 - t0,
+                       "args": {"parent": parent, "top": top}})
+    trace["rtcSpanClock"] = {"width_us": width, "drift_us": drift}
+    with open(path, "w") as f:
+        json.dump(trace, f)
+
+
 class Renderer:
     """Progressive scene renderer with pause/resume/checkpoint.
 
@@ -444,24 +476,31 @@ class Renderer:
 
     def _advance(self, n: int, graphed: bool) -> None:
         t0 = time.perf_counter()
-        if graphed:
-            key = PassGraph.key_of(self.arrays, self.camera, self.film,
-                                   self.closest_fn, self.trace_fn, 0)
-            pg = self.pass_graphs.get(key, lambda: PassGraph(
-                self.arrays, self.camera, self.film, self.closest_fn,
-                self.trace_fn))
-            self.film = pg.run(self.camera, self.film, self.seed,
-                               self.pass_index, n)
-            self.camera = pg.camera
-        else:
-            self.film = render_passes(self.arrays, self.camera, self.film,
-                                      self.seed, self.pass_index, n,
-                                      closest_fn=self.closest_fn,
-                                      trace_fn=self.trace_fn, graphs=False)
-        self.pass_index += n
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        with spans.span("render.step"):
+            if graphed:
+                pg = self._pass_graph()
+                self.film = pg.run(self.camera, self.film, self.seed,
+                                   self.pass_index, n)
+                self.camera = pg.camera
+            else:
+                self.film = render_passes(
+                    self.arrays, self.camera, self.film, self.seed,
+                    self.pass_index, n, closest_fn=self.closest_fn,
+                    trace_fn=self.trace_fn, graphs=False)
+            self.pass_index += n
+            if self.device.type == "cuda":
+                with spans.span("render.sync"):
+                    torch.cuda.synchronize(self.device)
         self._elapsed += time.perf_counter() - t0
+
+    def _pass_graph(self) -> PassGraph:
+        """The captured pass of the current scene, route, camera mode and
+        film, captured on a miss."""
+        key = PassGraph.key_of(self.arrays, self.camera, self.film,
+                               self.closest_fn, self.trace_fn, 0)
+        return self.pass_graphs.get(key, lambda: PassGraph(
+            self.arrays, self.camera, self.film, self.closest_fn,
+            self.trace_fn))
 
     def run(self, spp: int, status_cb: Optional[Callable] = None,
             status_every: int = 8) -> None:
@@ -490,34 +529,57 @@ class Renderer:
         }
 
     def profile(self, logdir: str, n: int = 4) -> str:
-        """Run ``n`` passes (the film and ``pass_index`` advance as with
-        ``step(n)``) under ``torch.profiler``, with the card's kernels on a
-        CUDA device, and write the Chrome trace into ``logdir``; returns
-        its path.  The passes run the eager body, also on a graphed
-        renderer (a replay enters no scope; its film is the same bit for
-        bit), so the phases appear as the scopes ``camera_rays``,
-        ``trace_fused`` or ``closest_hit`` (one a bounce), and
-        ``film_accum``."""
+        """Run ``n`` passes as ``step(n)`` runs them (the film and
+        ``pass_index`` advance alike) under ``torch.profiler``, with the
+        card's kernels on a CUDA device, and write the Chrome trace into
+        ``logdir``; returns its path.
+
+        Graphed, the pass's graph is looked up, or captured, before the
+        profiler starts (a capture under a profiler raises).  The passes
+        run with the span recorder on, and its spans go into the trace as
+        complete events of category ``rtc.span`` on the host thread:
+        ``render.step`` holding ``graph.feed``, a ``graph.replay`` a pass
+        and ``render.sync``, or on the eager path the phases
+        ``camera_rays``, ``trace_fused`` or ``closest_hit`` (one a bounce)
+        and ``film_accum``.  They are mapped onto the profiler's clock by
+        an ``rtc.anchor`` range before (after one that warms the profiler)
+        and one after the passes (:func:`..core.spans.clock_offset`; the
+        pair's width and the drift between them under the trace's
+        ``rtcSpanClock``)."""
         from torch.profiler import ProfilerActivity, profile
 
         activities = [ProfilerActivity.CPU]
         if self.device.type == "cuda":
             activities.append(ProfilerActivity.CUDA)
+        if self.graphs:
+            self._pass_graph()
         with profile(activities=activities) as prof:
-            self._advance(n, graphed=False)
+            spans.start()
+            spans.anchor()  # the profiler's first range costs more
+            anchors = [spans.anchor()]
+            try:
+                self._advance(n, self.graphs)
+            finally:
+                anchors.append(spans.anchor())
+                records = spans.stop()
         os.makedirs(logdir, exist_ok=True)
         path = os.path.join(
             logdir, f"render_passes_{self.pass_index - n}-"
             f"{self.pass_index - 1}_{os.getpid()}.trace.json")
         prof.export_chrome_trace(path)
+        _add_spans(path, records, anchors)
         return path
 
     def image(self, exposure: float = 1.0) -> np.ndarray:
         """Tonemapped uint8 RGBA frame [H, W, 4] (GetBitmap,
         FullRaytracer.cs:179-205)."""
         s = self.arrays
-        return self.film.to_uint8(s.background_rgb, s.background_alpha,
-                                  exposure).cpu().numpy()
+        with spans.span("render.image"):
+            with spans.span("film.tonemap"):
+                img = self.film.to_uint8(s.background_rgb,
+                                         s.background_alpha, exposure)
+            with spans.span("film.to_host"):
+                return img.cpu().numpy()
 
     # -- checkpoint / resume ----------------------------------------------
     # Same .npz keys as the JAX Renderer, so checkpoints move both ways.
