@@ -3354,7 +3354,8 @@ SURF_F64_SIZE = 256
 SURF_F64_PASSES = 4
 SURF_PROFILE_PASSES = 4
 SURF_SCOPE_PAIRS = 10000  # record_function pairs timed with no profiler
-SCOPES = ("camera_rays", "trace_fused", "closest_hit", "film_accum")
+SCOPES = ("camera_rays", "trace_fused", "closest_hit", "film_accum",
+          "trace_pass")
 FILM_RTOL = 1e-6
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
@@ -3661,13 +3662,14 @@ def surface_profile(card, dev, host):
             check(films_equal(profiled, r.film), f"{label}: profiled film "
                   f"bit-equal to step({SURF_PROFILE_PASSES})")
             split = scope_split(path, SURF_PROFILE_PASSES)
-            want = {"camera_rays", "film_accum",
-                    "trace_fused" if r.route == "megakernel"
-                    else "closest_hit"}
+            # An eager float32 cornell pass is the megakernel's whole
+            # pass, one span; the BVH route's is the chain's phases.
+            want = ({"trace_pass"} if r.route == "megakernel"
+                    else {"camera_rays", "film_accum", "closest_hit"})
             check(want <= set(split), f"{label}: the trace holds the scopes "
                   f"{sorted(want)} ({sorted(split)})")
             median = float(np.median(pass_ms))
-            n_scopes = (3 if r.route == "megakernel"
+            n_scopes = (1 if r.route == "megakernel"
                         else 2 + r.arrays.recursion + 1)
             print(f"[surface] profile {label} (route {r.route}), "
                   f"{SURF_PROFILE_PASSES} passes under torch.profiler, "
@@ -3853,6 +3855,7 @@ def kernel_counters():
     from raytracercore_tpu_torch.render import uniforms_kernel as uk
 
     return {"trace_fused": fused.trace_fused,
+            "trace_pass": fused.trace_pass,
             "prepare_uniforms_kernel": uk.prepare_uniforms_kernel,
             "replay_fwd": rk.replay_fwd, "replay_bwd": rk.replay_bwd,
             "closest_hit_fused": cs.closest_hit_fused,
@@ -4381,7 +4384,9 @@ GRAPH_TARGET = 0.2        # the steps' target colour (gradients need none)
 # by a pattern of the kernel's (mangled) name: the select wrapper's list
 # and finish kernels are not counted, as its count does not count them.
 NODE_NAMES = {
-    "trace_fused": r"(?<![A-Za-z_])trace_fused_kernel",
+    # The megakernel's last template flag is its whole-pass form.
+    "trace_fused": r"(?<![A-Za-z_])trace_fused_kernelI(Lb[01]E){4}Lb0E",
+    "trace_pass": r"(?<![A-Za-z_])trace_fused_kernelI(Lb[01]E){4}Lb1E",
     "prepare_uniforms_kernel": r"(?<![A-Za-z_])uniforms_kernel",
     "replay_fwd": r"(?<![A-Za-z_])replay_fwd_kernel",
     "replay_bwd": r"(?<![A-Za-z_])replay_bwd(_regen)?_kernel",
@@ -4452,6 +4457,8 @@ def graph_pass_route(card, label, make, want, tmp, states=False):
     issue a replay."""
     from raytracercore_tpu_torch.render.film import Film
     from raytracercore_tpu_torch.render.renderer import (PASS_GRAPHS,
+                                                         pass_draws,
+                                                         render_pass,
                                                          render_passes)
 
     t_route = time.perf_counter()
@@ -4479,7 +4486,20 @@ def graph_pass_route(card, label, make, want, tmp, states=False):
               f"{e.pass_index})")
     same(f"after {1 + GRAPH_PASSES} passes")
     plain_note = ""
-    if g.route != "megakernel":
+    if g.route == "megakernel":
+        # The whole pass against its plain version, the chain of camera
+        # rays, uniform channels, megakernel and film add on the same draws.
+        chain = Film.create(*g.film.shape, device=g.device)
+        for k in range(g.pass_index):
+            jitter, uniforms = pass_draws(
+                GRAPH_SEED, k, chain.samples.numel(), g.arrays.recursion + 1,
+                g.device)
+            chain = render_pass(g.arrays, g.camera, chain, jitter, uniforms,
+                                trace_fn=g.trace_fn)
+        check(films_equal(chain, g.film), f"{label}: graphed film of "
+              f"{g.pass_index} whole passes bit-equal to the chain's")
+        plain_note = " and to the chain's (camera rays, channels, film add)"
+    else:
         # The bounce loop's route against the same passes with the plain
         # bounce body: the Renderer's graphed film, then the module-level
         # render_passes graphed.
@@ -4698,7 +4718,7 @@ def graph_phase(card, dev):
             card, "cornell 700x700 rec10",
             lambda gr: Renderer(host, device=dev, seed=GRAPH_SEED,
                                 graphs=gr),
-            lambda r: {"trace_fused": 1}, tmp, states=True)
+            lambda r: {"trace_pass": 1}, tmp, states=True)
         graph_pass_route(
             card, "mesh-722 700x700 rec10",
             lambda gr: Renderer(mesh, device=dev, seed=GRAPH_SEED,
@@ -4878,16 +4898,16 @@ def main():
         r.step(WARM_PASSES)
         warm_s = time.perf_counter() - t0
         r.reset()
-        fused.trace_fused.launches = 0
+        fused.trace_pass.launches = 0
         pass_s = []
         for _ in range(MAIN_PASSES):
             t0 = time.perf_counter()
             r.step(1)
             pass_s.append(time.perf_counter() - t0)
-        launches = fused.trace_fused.launches
+        launches = fused.trace_pass.launches
         st = r.status()
-        print(f"[main] launches of trace_fused during {MAIN_PASSES} passes: "
-              f"{launches}")
+        print(f"[main] launches of trace_pass (the megakernel's whole pass) "
+              f"during {MAIN_PASSES} passes: {launches}")
         check(launches == MAIN_PASSES,
               f"main path launched the megakernel once per pass "
               f"({launches} != {MAIN_PASSES})")
@@ -4949,6 +4969,25 @@ def main():
         print(f"[time] trace_fused kernel: " + occupancy_text(
             "trace_fused_kernel", FUSED_THREADS,
             nbytes(*arrays.fused_tables)))
+
+        # The megakernel's whole pass alone: one launch on a pass's draws
+        # into a film (camera rays, uniform channels and film add inside).
+        from raytracercore_tpu_torch.render.film import Film
+        from raytracercore_tpu_torch.render.renderer import (pass_generator,
+                                                             raw_draws)
+        p_jitter, p_raw = raw_draws(pass_generator(7, 0, dev), 700 * 700, 11)
+        p_film = Film.create(700, 700, device=dev)
+        whole_ms = graph_ms(lambda: fused.trace_pass(
+            arrays, r.camera, p_film, p_jitter, p_raw), 20)
+        pass_kernels = tuple(
+            "trace_fused_kernelILb0E" + "".join(f"Lb{b}E" for b in bits)
+            + "Lb1E" for bits in np.ndindex(2, 2, 2))
+        print(f"[time] trace_pass cornell 700x700 rec10: the whole pass's "
+              f"kernel device ms (CUDA graph)={fmt_ms(whole_ms)} (trace_fused "
+              f"alone {fmt_ms(kernel_ms)}); " + occupancy_text(
+                  pass_kernels, FUSED_THREADS,
+                  nbytes(*arrays.fused_tables) + 19 * 4))
+        del p_jitter, p_raw, p_film
 
         # The whole pass with the plain version, for the end-to-end comparison.
         jitter = torch.rand((700 * 700, 4), device=dev)
@@ -5053,7 +5092,9 @@ def main():
     print(json.dumps({"kernels": [
         entry("trace_fused", "fused.cu", "render/fused.py:56",
               launches + train_launches["trace_fused"]
-              + phase_counts["trace_fused"], max_err, kernel_ms,
+              + phase_counts["trace_fused"]
+              + phase_counts.get("trace_pass", 0),
+              max_err, kernel_ms,
               plain_ms, fused_bound),
         entry("prepare_uniforms_kernel", "uniforms.cu",
               "render/uniforms_kernel.py:64",

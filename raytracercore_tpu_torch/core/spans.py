@@ -5,7 +5,8 @@ Where they are (each a ``with span(name)``):
 
 * ``render.step`` (``Renderer.step``, whole): ``graph.feed``, one
   ``graph.replay`` a pass and ``render.sync`` (the closing synchronize);
-  on the eager path the phases ``camera_rays``, ``trace_fused`` or
+  on the eager path ``trace_pass`` for a pass of the megakernel's
+  whole-pass form, else the phases ``camera_rays``, ``trace_fused`` or
   ``closest_hit`` (one a bounce) and ``film_accum``, the JAX package's
   profiler scope names;
 * ``render.image`` (``Renderer.image``, whole): ``film.tonemap`` and

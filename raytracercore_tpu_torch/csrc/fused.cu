@@ -1,16 +1,34 @@
 // Whole-path megakernel: every camera path traced through every bounce,
-// its final colour (and, optionally, its PathTape) written out.
+// its final colour (and, optionally, its PathTape) written out; or, in its
+// whole-pass form, one progressive pass: camera ray, path and film add.
 //
 // Replaces the TPU kernel raytracercore_tpu/render/fused.py:_make_kernel
 // (launched by _run through pl.pallas_call, public trace_fused).  Its plain
 // version is trace_fused_reference in raytracercore_tpu_torch/render/
 // fused.py; the Python wrapper trace_fused launches this kernel.
 //
-// What bounds it on Hopper: fp32 issue, not memory.  A path reads 6 floats
-// of ray and 7 floats of uniforms per bounce and writes 4 numbers (20 more
-// per bounce with the tape); everything else is arithmetic on registers
-// over the scene's table rows: about rows x 46-63 operations of
-// intersection plus ~150 of shading per bounce.  The build keeps every
+// Two forms, a template flag (PASS) apart:
+//   * rtc_trace_fused (trace_fused): a path reads its camera ray (6 floats)
+//     and 7 floats of preprocessed uniforms ([B,7,R], preprocess_uniforms)
+//     per bounce and writes colour and miss (4 numbers; 20 more per bounce
+//     with the tape).  The tape-on recorder of the train step runs this
+//     form, on the uniforms kernel's channels;
+//   * rtc_trace_pass (trace_pass, PASS): the whole progressive pass of a
+//     float32 film.  A path builds its camera ray from its 4 floats of
+//     jitter (render/camera.py camera_rays), computes the uniform channels
+//     its bounce's branch reads from the 5 raw draws per bounce ([B,5,R],
+//     uniform_channels.cuh), and adds its sample into the film in place
+//     (Film.add_full_frame_: 20 bytes read and written a pixel).  Each
+//     pixel has one path a pass, so the add needs no atomics, and the sums
+//     follow the passes' launch order.  Same operations in the same order
+//     as that chain (render_pass_ with trace_fused), so the films are
+//     bit-equal.
+//
+// What bounds it on Hopper: fp32 issue, not memory.  Everything but those
+// reads and writes is arithmetic on registers over the scene's table rows:
+// about rows x 46-63 operations of intersection plus ~150 of shading per
+// bounce (in the whole pass, ~60 more a path for its camera ray and up to
+// four transcendentals a bounce for its uniform channels).  The build keeps every
 // multiply and add apart (-fmad=false: the plain version's rounding), so
 // the card's 67 TFLOP/s, which counts a fused multiply-add as two
 // operations, is out of reach: the issue-rate probe (issue_probe.cu)
@@ -30,16 +48,17 @@
 //     are written by memsets ahead of the kernel, so a path writes only the
 //     bounces it reaches (regeneration scatters those writes over the
 //     tape);
-//   * the packed tables and the [N,14] material table are copied into
-//     shared memory once per block (at most 64 rows, a few KB), so every row
-//     read in the intersection loops is a broadcast from shared memory;
+//   * the packed tables and the [N,14] material table (and, in the whole
+//     pass, the camera's 19 floats) are copied into shared memory once per
+//     block (at most 64 rows, a few KB), so every row read in the
+//     intersection loops is a broadcast from shared memory;
 //   * ray state lives in registers for the whole path; nothing goes to
 //     device memory between bounces;
 //   * candidates that cannot win (already rejected, or not closer) skip the
 //     rest of their row's work (kernel_body.cuh);
 //   * the static choices (tape, ambient-miss mode, smooth normals, coplanar
-//     triangle branch) are template parameters, so a scene pays only for
-//     the code it uses.
+//     triangle branch, the whole pass) are template parameters, so a scene
+//     pays only for the code it uses.
 // Tried and not kept (PERF.md section 6): the select kernel's float4 rows
 // and staged triangle test with warp votes, two paths per thread, the
 // division-free pre-reject of u in the triangle pass, a minimum of 6 or 7
@@ -56,18 +75,23 @@
 
 #include "kernel_body.cuh"
 #include "shading.cuh"
+#include "uniform_channels.cuh"
 
 namespace rtc {
 
 constexpr int MAT_F = 14;  // emission(3) diffuse(3) specular(3) refraction(3) ior shin
 constexpr int SC_F = 4;    // air_ior, ambient r g b
+// Camera (PASS): position look side up (3 each), w2 h2 ax ay image_plane
+// dof_amount focal_length.
+constexpr int CAM_F = 19;
+constexpr int CAM_TENSORS = 11;
 constexpr int BLOCK = 128;
 constexpr unsigned FULL_MASK = 0xffffffffu;
 
 struct Params {
   const float* ray_o;  // [R,3]
   const float* ray_d;  // [R,3]
-  const float* u;      // [B,7,R]
+  const float* u;      // [B,7,R]; PASS: the raw draws [B,5,R]
   const float* tf;     // [T,21]
   const int* ti;       // [T,4]
   const float* sf;     // [S,28]
@@ -86,6 +110,45 @@ struct Params {
   int* work;           // [1] path counter
   int R, T, S, P, N, n_bounces, recursion;
   float eps_behind, eps2;
+  // PASS only.
+  const float* jitter;             // [R,4]
+  const float* cam[CAM_TENSORS];   // the CameraRT tensors, in CAM_F order
+  float* film_sum;                 // [R,3]
+  float* film_samples;             // [R]
+  float* film_misses;              // [R]
+  int width, cam_mode;             // mode 0 frustum, 1 ortho
+};
+
+// Bounce i's uniform channels of path r (preprocess_uniforms' order): read
+// from the [B,7,R] planes, or (PASS) computed from the [B,5,R] raw draws
+// where the bounce reads them.
+template <bool PASS>
+struct Uniforms {
+  const float* u;  // channel (PASS: raw draw) c at u[c * R]
+  int R;
+  __device__ __forceinline__ Uniforms(const Params& p, int i, int r)
+      : u(p.u + (size_t)i * (PASS ? 5 : 7) * p.R + r), R(p.R) {}
+  __device__ __forceinline__ float shine_ln() const {
+    return PASS ? shine_log(u[0]) : u[0];
+  }
+  __device__ __forceinline__ float shine_cos() const {
+    return PASS ? cos_2pi(u[R]) : u[R];
+  }
+  __device__ __forceinline__ float shine_sin() const {
+    return PASS ? sin_2pi(u[R]) : u[2 * R];
+  }
+  __device__ __forceinline__ float branch() const {
+    return PASS ? u[2 * R] : u[3 * R];
+  }
+  __device__ __forceinline__ float diffuse_z() const {
+    return PASS ? two_acos(u[3 * R]) * INV_PI_F : u[4 * R];
+  }
+  __device__ __forceinline__ float diffuse_cos() const {
+    return PASS ? cos_2pi(u[4 * R]) : u[5 * R];
+  }
+  __device__ __forceinline__ float diffuse_sin() const {
+    return PASS ? sin_2pi(u[4 * R]) : u[6 * R];
+  }
 };
 
 template <bool WANT_TAPE>
@@ -111,14 +174,71 @@ struct Path {
   bool pv_in;
 };
 
-__device__ __forceinline__ void start_path(const Params& p, int r, Path& s) {
+// Camera.GetRay (render/camera.py _get_ray) for fractional pixel
+// coordinates, from the camera `c` (CAM_F order).
+__device__ __forceinline__ void get_ray(const float* c, int mode, float x,
+                                        float y, V3& o, V3& d) {
+  const float w2 = c[12], h2 = c[13], ax = c[14], ay = c[15];
+  if (mode == 0) {  // frustum: d = normalize(look + side off_x + up off_y)
+    const float off_x = ax * ((x - w2) / w2);
+    const float off_y = ay * ((y - h2) / h2);
+    d = {(c[3] + c[6] * off_x) + c[9] * off_y,
+         (c[4] + c[7] * off_x) + c[10] * off_y,
+         (c[5] + c[8] * off_x) + c[11] * off_y};
+    const float n = sqrtf(d.x * d.x + d.y * d.y + d.z * d.z);
+    d = {d.x / n, d.y / n, d.z / n};
+    o = {c[0], c[1], c[2]};
+  } else {  // ortho: o = position + side sx + up sy, d = look
+    const float sx = (x - w2) * ax, sy = (y - h2) * ay;
+    o = {(c[0] + c[6] * sx) + c[9] * sy, (c[1] + c[7] * sx) + c[10] * sy,
+         (c[2] + c[8] * sx) + c[11] * sy};
+    d = {c[3], c[4], c[5]};
+  }
+}
+
+// The camera ray of path r (render/camera.py camera_rays): pixel
+// (r % width, r / width) jittered by jitter[r, 0:2], offset to the image
+// plane, and with depth of field (dof_amount != 0, the same for every path
+// of a launch) re-traced through the lens sample jitter[r, 2:4] and aimed
+// at the undisturbed ray's focus point (Raytracer.cs:262-282).
+__device__ __forceinline__ void camera_ray(const Params& p, const float* c,
+                                           int r, V3& o, V3& d) {
+  const float* j = p.jitter + 4 * (size_t)r;
+  const float x = (float)(r % p.width) + j[0];
+  const float y = (float)(r / p.width) + j[1];
+  const float ip = c[16], dof = c[17];
+  get_ray(c, p.cam_mode, x, y, o, d);
+  o = {o.x + d.x * ip, o.y + d.y * ip, o.z + d.z * ip};
+  if (dof != 0.f) {
+    const float k = c[18] - ip;  // focal_length - image_plane
+    const V3 focus = {o.x + d.x * k, o.y + d.y * k, o.z + d.z * k};
+    const float dist = sqrtf(j[2]) * dof;
+    const float angle = j[3] * TWO_PI_F;
+    const float off_x = cosf(angle) * dist;
+    const float off_y = sinf(angle) * dist;
+    V3 o2, d2;
+    get_ray(c, p.cam_mode, x + off_x, y + off_y, o2, d2);
+    o = {o2.x + d2.x * ip, o2.y + d2.y * ip, o2.z + d2.z * ip};
+    d = {focus.x - o.x, focus.y - o.y, focus.z - o.z};
+    const float n = sqrtf(d.x * d.x + d.y * d.y + d.z * d.z);
+    d = {d.x / n, d.y / n, d.z / n};
+  }
+}
+
+template <bool PASS>
+__device__ __forceinline__ void start_path(const Params& p, const float* s_cam,
+                                           int r, Path& s) {
   s.r = r < p.R ? r : -1;
   s.i = 0;
   s.o = {0.f, 0.f, 0.f};
   s.d = {0.f, 0.f, 1.f};
   if (s.r >= 0) {
-    s.o = {p.ray_o[3 * r], p.ray_o[3 * r + 1], p.ray_o[3 * r + 2]};
-    s.d = {p.ray_d[3 * r], p.ray_d[3 * r + 1], p.ray_d[3 * r + 2]};
+    if constexpr (PASS) {
+      camera_ray(p, s_cam, r, s.o, s.d);
+    } else {
+      s.o = {p.ray_o[3 * r], p.ray_o[3 * r + 1], p.ray_o[3 * r + 2]};
+      s.d = {p.ray_d[3 * r], p.ray_d[3 * r + 1], p.ray_d[3 * r + 2]};
+    }
   }
   s.tint = {1.f, 1.f, 1.f};
   s.result = {0.f, 0.f, 0.f};
@@ -130,19 +250,33 @@ __device__ __forceinline__ void start_path(const Params& p, int r, Path& s) {
 }
 
 // The path's outputs: colour and miss (the tape rows of the bounces it
-// never reached were written ahead of the kernel).
+// never reached were written ahead of the kernel); or (PASS) its sample
+// added into the film as Film.add_full_frame_ adds it: contrib = hit ?
+// colour : 0 into the colour sum, hit into samples, miss into misses.
+template <bool PASS>
 __device__ __forceinline__ void end_path(const Params& p, Path& s) {
-  p.color[3 * s.r] = s.result.x;
-  p.color[3 * s.r + 1] = s.result.y;
-  p.color[3 * s.r + 2] = s.result.z;
-  p.miss[s.r] = s.miss;
+  if constexpr (PASS) {
+    const int r = s.r;
+    const bool hit = !s.miss;
+    float* sum = p.film_sum + 3 * (size_t)r;
+    sum[0] = sum[0] + (hit ? s.result.x : 0.f);
+    sum[1] = sum[1] + (hit ? s.result.y : 0.f);
+    sum[2] = sum[2] + (hit ? s.result.z : 0.f);
+    p.film_samples[r] = p.film_samples[r] + (hit ? 1.f : 0.f);
+    p.film_misses[r] = p.film_misses[r] + (hit ? 0.f : 1.f);
+  } else {
+    p.color[3 * s.r] = s.result.x;
+    p.color[3 * s.r + 1] = s.result.y;
+    p.color[3 * s.r + 2] = s.result.z;
+    p.miss[s.r] = s.miss;
+  }
   s.r = -1;
 }
 
 // Bounce s.i of a live path from its closest hit `best`: miss, material
 // fetch, Fresnel split, branch pick and path update (Raytracer.cs:65-246).
 // Returns false where the path ends at this bounce.
-template <bool WANT_TAPE, bool AMBIENT_IS_MISS>
+template <bool WANT_TAPE, bool AMBIENT_IS_MISS, bool PASS>
 __device__ __forceinline__ bool bounce(const Params& p, const float* s_mf,
                                        const float* s_sc, const Best& best,
                                        Path& s) {
@@ -178,7 +312,7 @@ __device__ __forceinline__ bool bounce(const Params& p, const float* s_mf,
   }
 
   const float air = s_sc[0];
-  const float* u = p.u + (size_t)i * 7 * p.R + r;  // channel c at u[c * R]
+  const Uniforms<PASS> u(p, i, r);
   const float ior = mat[12];
   const float shin = mat[13];
   float l_e = lum(mat[0], mat[1], mat[2]);
@@ -187,8 +321,8 @@ __device__ __forceinline__ bool bounce(const Params& p, const float* s_mf,
   float l_r = lum(mat[9], mat[10], mat[11]);
 
   // RandomShine (Raytracer.cs:51-56): z = exp(ln U / shininess).
-  float z_shine = isinf(shin) ? 1.f : expf(u[0] / shin);
-  V3 rn = create_horizon_cs(best.nrm, z_shine, u[p.R], u[2 * p.R]);
+  float z_shine = isinf(shin) ? 1.f : expf(u.shine_ln() / shin);
+  V3 rn = create_horizon_cs(best.nrm, z_shine, u.shine_cos(), u.shine_sin());
   float cos_i = -(rn.x * d.x + rn.y * d.y + rn.z * d.z);
 
   // Fresnel split (Raytracer.cs:120-157).
@@ -219,7 +353,7 @@ __device__ __forceinline__ bool bounce(const Params& p, const float* s_mf,
     code = PURE_BLACK;  // Raytracer.cs:165-169
   } else {
     // Stochastic branch selection (Raytracer.cs:177-229).
-    float ray_rand = u[3 * p.R] * total;
+    float ray_rand = u.branch() * total;
     bool pick_refr = refr_lum != 0.f && (ray_rand - refr_lum <= 0.f);
     float r2 = ray_rand - refr_lum;
     bool pick_spec = !pick_refr && spec_lum != 0.f && (r2 - spec_lum <= 0.f);
@@ -245,8 +379,8 @@ __device__ __forceinline__ bool bounce(const Params& p, const float* s_mf,
     } else if (pick_diff) {
       // Diffuse (Raytracer.cs:210-219) around the TRUE normal.
       code = DIFFUSE;
-      out_dir = create_horizon_cs(best.nrm, u[4 * p.R], u[5 * p.R],
-                                  u[6 * p.R]);
+      out_dir = create_horizon_cs(best.nrm, u.diffuse_z(), u.diffuse_cos(),
+                                  u.diffuse_sin());
       new_tint = {mat[3], mat[4], mat[5]};
     } else {
       code = EMISSION;
@@ -288,7 +422,7 @@ __device__ __forceinline__ int fetch_path(int* counter, bool want) {
 }
 
 template <bool WANT_TAPE, bool AMBIENT_IS_MISS, bool ANY_SMOOTH,
-          bool COPLANAR>
+          bool COPLANAR, bool PASS>
 __global__ void __launch_bounds__(BLOCK) trace_fused_kernel(Params p) {
   // --- scene tables into shared memory ------------------------------------
   extern __shared__ float smem[];
@@ -308,10 +442,15 @@ __global__ void __launch_bounds__(BLOCK) trace_fused_kernel(Params p) {
   for (int k = threadIdx.x; k < p.T * INT_F; k += blockDim.x) s_ti[k] = p.ti[k];
   for (int k = threadIdx.x; k < p.S * INT_F; k += blockDim.x) s_si[k] = p.si[k];
   for (int k = threadIdx.x; k < p.P * INT_F; k += blockDim.x) s_pi[k] = p.pi[k];
+  float* s_cam = reinterpret_cast<float*>(s_pi + p.P * INT_F);
+  if constexpr (PASS) {
+    for (int k = threadIdx.x; k < CAM_F; k += blockDim.x)
+      s_cam[k] = k < 12 ? p.cam[k / 3][k % 3] : p.cam[k - 8][0];
+  }
   __syncthreads();
 
   Path s;
-  start_path(p, fetch_path(p.work, true), s);
+  start_path<PASS>(p, s_cam, fetch_path(p.work, true), s);
   bool more = s.r >= 0;  // the counter may still hand this lane a path
   while (__any_sync(FULL_MASK, s.r >= 0)) {
     if (s.r >= 0) {
@@ -330,13 +469,13 @@ __global__ void __launch_bounds__(BLOCK) trace_fused_kernel(Params p) {
       sphere_pass(p.S, s_sf, s_si, s.o, s.d, k, p.eps2, best);
       plane_pass(p.P, s_pf, s_pi, s.o, s.d, p.eps_behind, k, p.eps2, best);
       // --- shading; an ended path writes its outputs ----------------------
-      if (!bounce<WANT_TAPE, AMBIENT_IS_MISS>(p, s_mf, s_sc, best, s))
-        end_path(p, s);
+      if (!bounce<WANT_TAPE, AMBIENT_IS_MISS, PASS>(p, s_mf, s_sc, best, s))
+        end_path<PASS>(p, s);
     }
     // Lanes whose path ended take the next one.
     const int r = fetch_path(p.work, more && s.r < 0);
     if (r >= 0) {
-      start_path(p, r, s);
+      start_path<PASS>(p, s_cam, r, s);
       more = s.r >= 0;
     }
   }
@@ -374,9 +513,9 @@ int resident_blocks(const void* kernel, size_t smem, int& blocks) {
   return 0;
 }
 
-template <bool W, bool A, bool S, bool C>
+template <bool W, bool A, bool S, bool C, bool PASS>
 int launch(const Params& p, size_t smem, cudaStream_t stream) {
-  auto kernel = trace_fused_kernel<W, A, S, C>;
+  auto kernel = trace_fused_kernel<W, A, S, C, PASS>;
   int blocks = 0;
   int err = resident_blocks((const void*)kernel, smem, blocks);
   if (!err) err = (int)cudaMemsetAsync(p.work, 0, sizeof(int), stream);
@@ -395,28 +534,29 @@ int launch(const Params& p, size_t smem, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <bool W, bool A, bool S>
+template <bool W, bool A, bool S, bool PASS>
 int pick_c(const Params& p, size_t smem, cudaStream_t st, bool c) {
-  return c ? launch<W, A, S, true>(p, smem, st)
-           : launch<W, A, S, false>(p, smem, st);
+  return c ? launch<W, A, S, true, PASS>(p, smem, st)
+           : launch<W, A, S, false, PASS>(p, smem, st);
 }
 
-template <bool W, bool A>
+template <bool W, bool A, bool PASS>
 int pick_s(const Params& p, size_t smem, cudaStream_t st, bool s, bool c) {
-  return s ? pick_c<W, A, true>(p, smem, st, c)
-           : pick_c<W, A, false>(p, smem, st, c);
+  return s ? pick_c<W, A, true, PASS>(p, smem, st, c)
+           : pick_c<W, A, false, PASS>(p, smem, st, c);
 }
 
-template <bool W>
+template <bool W, bool PASS>
 int pick_a(const Params& p, size_t smem, cudaStream_t st, bool a, bool s,
            bool c) {
-  return a ? pick_s<W, true>(p, smem, st, s, c)
-           : pick_s<W, false>(p, smem, st, s, c);
+  return a ? pick_s<W, true, PASS>(p, smem, st, s, c)
+           : pick_s<W, false, PASS>(p, smem, st, s, c);
 }
 
-size_t smem_bytes(int T, int S, int P, int N) {
+size_t smem_bytes(int T, int S, int P, int N, bool pass) {
   return ((size_t)T * (TRI_F + INT_F) + (size_t)S * (SPH_F + INT_F) +
-          (size_t)P * (PL_F + INT_F) + (size_t)N * MAT_F + SC_F) *
+          (size_t)P * (PL_F + INT_F) + (size_t)N * MAT_F + SC_F +
+          (pass ? CAM_F : 0)) *
          sizeof(float);
 }
 
@@ -439,9 +579,41 @@ extern "C" int rtc_trace_fused(
   rtc::Params p{ray_o, ray_d, u, tf, ti, sf, si, pf, pi, mf, scf,
                 color, miss, tape_prim, tape_flags, tape_nx, tape_ny, tape_nz,
                 work, R, T, S, P, N, n_bounces, recursion, eps_behind, eps2};
-  const size_t smem = rtc::smem_bytes(T, S, P, N);
+  const size_t smem = rtc::smem_bytes(T, S, P, N, false);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool a = ambient_is_miss != 0, s = any_smooth != 0, c = coplanar != 0;
-  return want_tape ? rtc::pick_a<true>(p, smem, st, a, s, c)
-                   : rtc::pick_a<false>(p, smem, st, a, s, c);
+  return want_tape ? rtc::pick_a<true, false>(p, smem, st, a, s, c)
+                   : rtc::pick_a<false, false>(p, smem, st, a, s, c);
+}
+
+// C entry point of the whole pass, loaded with ctypes: one progressive pass
+// of the R = height x width pixels (row-major, `width` a row) added into
+// the float32 film (film_sum [R,3], film_samples [R], film_misses [R]) in
+// place, from the jitter [R,4], the raw draws `raw` [n_bounces,5,R] and
+// the camera's 11 tensors `cam` (position look side up, then the scalars
+// w2 h2 ax ay image_plane dof_amount focal_length; `cam_mode` 0 frustum, 1
+// ortho).  Scratch and return value as rtc_trace_fused.
+extern "C" int rtc_trace_pass(
+    const float* jitter, const float* raw, const float* const* cam,
+    const float* tf, const int* ti, const float* sf, const int* si,
+    const float* pf, const int* pi, const float* mf, const float* scf,
+    float* film_sum, float* film_samples, float* film_misses, int* work,
+    int R, int width, int cam_mode, int T, int S, int P, int N,
+    int n_bounces, int recursion, float eps_behind, float eps2,
+    int ambient_is_miss, int any_smooth, int coplanar, void* stream) {
+  if (R <= 0) return 0;
+  rtc::Params p{nullptr, nullptr, raw, tf, ti, sf, si, pf, pi, mf, scf,
+                nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                nullptr, work, R, T, S, P, N, n_bounces, recursion,
+                eps_behind, eps2, jitter};
+  for (int k = 0; k < rtc::CAM_TENSORS; ++k) p.cam[k] = cam[k];
+  p.film_sum = film_sum;
+  p.film_samples = film_samples;
+  p.film_misses = film_misses;
+  p.width = width;
+  p.cam_mode = cam_mode;
+  const size_t smem = rtc::smem_bytes(T, S, P, N, true);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool a = ambient_is_miss != 0, s = any_smooth != 0, c = coplanar != 0;
+  return rtc::pick_a<false, true>(p, smem, st, a, s, c);
 }

@@ -12,7 +12,8 @@
 //   the words before each replay); counter (r, b, 0, 0) gives u0..u3,
 //   counter (r, b, 1, 0) word 0 gives u4; a word w becomes (w >> 8) * 2^-24.
 // Then the channel transforms of preprocess_uniforms: ln(clip(u0)),
-// cos/sin(2 pi u1), u2, 2 acos(u3) / pi, cos/sin(2 pi u4).
+// cos/sin(2 pi u1), u2, 2 acos(u3) / pi, cos/sin(2 pi u4), written once in
+// uniform_channels.cuh (the megakernel's whole pass computes them too).
 //
 // What bounds it on Hopper: the 28 bytes it writes per (path, bounce); the
 // two Philox calls (20 rounds of two 32x32 multiplies) and five
@@ -29,12 +30,12 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "uniform_channels.cuh"
+
 namespace rtc {
 
 constexpr uint32_t PHILOX_M0 = 0xD2511F53u, PHILOX_M1 = 0xCD9E8D57u;
 constexpr uint32_t PHILOX_W0 = 0x9E3779B9u, PHILOX_W1 = 0xBB67AE85u;
-constexpr float TWO_PI_F = 6.283185307179586f;
-constexpr float PI_F = 3.141592653589793f;
 constexpr int UNIFORMS_BLOCK = 256;
 
 __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0,
@@ -67,16 +68,14 @@ __global__ void __launch_bounds__(UNIFORMS_BLOCK)
   uint4 w4 = philox4x32_10(make_uint4(r, b, 1u, 0u), k0, k1);
   float u0 = to_unit(w.x), u1 = to_unit(w.y), u2 = to_unit(w.z);
   float u3 = to_unit(w.w), u4 = to_unit(w4.x);
-  float t1 = u1 * TWO_PI_F;
-  float t2 = u4 * TWO_PI_F;
   float* o = out + (size_t)b * 7 * n + r;  // channel c at o[c * n]
-  o[0] = logf(fminf(fmaxf(u0, 1e-20f), 1.f));
-  o[(size_t)n] = cosf(t1);
-  o[2 * (size_t)n] = sinf(t1);
+  o[0] = shine_log(u0);
+  o[(size_t)n] = cos_2pi(u1);
+  o[2 * (size_t)n] = sin_2pi(u1);
   o[3 * (size_t)n] = u2;
-  o[4 * (size_t)n] = 2.f * acosf(fminf(fmaxf(u3, 0.f), 1.f)) / PI_F;
-  o[5 * (size_t)n] = cosf(t2);
-  o[6 * (size_t)n] = sinf(t2);
+  o[4 * (size_t)n] = two_acos(u3) / PI_F;
+  o[5 * (size_t)n] = cos_2pi(u4);
+  o[6 * (size_t)n] = sin_2pi(u4);
 }
 
 }  // namespace rtc

@@ -43,6 +43,15 @@ SIGNATURES = {
         + [_I] * 4                     # ambient_is_miss want_tape
                                        # any_smooth coplanar
         + [_P]),                       # stream
+    "rtc_trace_pass": (
+        [_P] * 15                      # jitter, raw, camera (an array of
+                                       # its 11 tensors' pointers),
+                                       # 8 tables, 3 film planes, work
+        + [_I] * 9                     # R width cam_mode T S P N
+                                       # n_bounces recursion
+        + [_F, _F]                     # eps_behind, eps_pos²
+        + [_I] * 3                     # ambient_is_miss any_smooth coplanar
+        + [_P]),                       # stream
     "rtc_uniforms": (
         [_P, _I, _I]                   # out, n, bounces
         + [_P]                         # Philox key: 2 words (lo, hi)

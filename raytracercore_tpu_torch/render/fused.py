@@ -1,8 +1,9 @@
 """The whole-path megakernel (counterpart of
 ``raytracercore_tpu.render.fused``).
 
-One call renders one progressive pass: camera rays enter, final colours
-leave.  Every bounce — closest hit over all primitive tables
+One call traces one progressive pass: camera rays enter, final colours
+leave; or, in its whole-pass form, random draws enter and the film takes
+the pass's samples.  Every bounce — closest hit over all primitive tables
 (Scene.RayTracePrimitives, Scene.cs:65-111), material fetch, Fresnel/TIR
 split, stochastic branch selection and path-state update (the whole of
 ``Raytracer.GetColor``, Raytracer.cs:65-246) — runs inside the kernel, with
@@ -17,11 +18,23 @@ nothing going to device memory between bounces.
   final bounce.
 
 Both consume the preprocessed uniforms of
-:func:`.integrator.prepare_uniforms` (``[bounces, 7, R]``).
+:func:`.integrator.prepare_uniforms` (``[bounces, 7, R]``), as the train
+step's tape-on recorder does with the uniforms kernel's channels.
+
+* :func:`trace_pass` is the whole pass of a float32 film on the card, in
+  one launch of the same kernel (counted in ``trace_pass.launches``): each
+  path builds its camera ray from the ``[R, 4]`` jitter, computes the
+  uniform channels its bounces read from the raw ``[bounces, 5, R]``
+  draws, and adds its sample into the film in place.  Its plain version is
+  the chain it replaces, :func:`.renderer.render_pass_` with
+  :func:`trace_fused` on :func:`.integrator.preprocess_uniforms` of the
+  same draws (camera rays, channels, megakernel, film add), to which it is
+  bit-equal.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -33,12 +46,17 @@ from ..core import vecmath as vm
 from ..core.color import LUM_B, LUM_G, LUM_R
 from ..intersect import kernel_body as kb
 from ..kernels import check_tensor as _check
-from ..scene.types import SceneArrays
+from ..scene.types import CameraRT, SceneArrays
+from .film import Film
 from .integrator import BounceType as BT
 from .integrator import PathTape
 
 MAT_F = 14  # emission(3) diffuse(3) specular(3) refraction(3) ior shin
 SC_F = 4    # air_ior, ambient r g b
+# The camera's tensors as the whole-pass kernel reads them (csrc/fused.cu
+# CAM_F order): the [3] basis, then the scalars.
+CAMERA_FIELDS = ("position", "look", "side", "up", "w2", "h2", "ax", "ay",
+                 "image_plane", "dof_amount", "focal_length")
 
 
 def pack_materials(mats):
@@ -369,13 +387,17 @@ def kernel_tables(scene: SceneArrays):
     return tables
 
 
-def _launch(scene: SceneArrays, ray_o, ray_d, uniforms, want_tape):
-    from .. import kernels
-
+def _refuse_unfit(scene: SceneArrays) -> None:
     if not fits(scene):
         raise ValueError(
             f"scene has more than {MAX_PRIMS} table rows or debug geom: the "
             "megakernel cannot trace it")
+
+
+def _launch(scene: SceneArrays, ray_o, ray_d, uniforms, want_tape):
+    from .. import kernels
+
+    _refuse_unfit(scene)
     dev = ray_o.device
     R = ray_o.shape[0]
     n_bounces = scene.recursion + 1
@@ -405,7 +427,7 @@ def _launch(scene: SceneArrays, ray_o, ray_d, uniforms, want_tape):
         tape_ptrs = [None] * 5
 
     eps_pos = vm.POSITION_EPS_F32
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = _stream(dev)
     err = kernels.load().rtc_trace_fused(
         ray_o.data_ptr(), ray_d.data_ptr(), uniforms.data_ptr(),
         *(t.data_ptr() for t in tables),
@@ -422,6 +444,10 @@ def _launch(scene: SceneArrays, ray_o, ray_d, uniforms, want_tape):
     if want_tape:
         return color, miss != 0, tape
     return color, miss != 0
+
+
+def _stream(device):
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def trace_fused(scene: SceneArrays, ray_o, ray_d, uniforms,
@@ -458,3 +484,75 @@ def trace_fused(scene: SceneArrays, ray_o, ray_d, uniforms,
 # Kernel launches made by trace_fused (reset it to 0 before a run to see
 # that the run went through the kernel).
 trace_fused.launches = 0
+
+
+def _launch_pass(scene: SceneArrays, camera: CameraRT, film: Film, jitter,
+                 raw):
+    from .. import kernels
+
+    _refuse_unfit(scene)
+    if film.color_c is not None:
+        raise ValueError("trace_pass: a compensated film is added by the "
+                         "chain (Film.add_full_frame_), not the kernel")
+    dev = film.samples.device
+    h, w = film.shape
+    R = h * w
+    n_bounces = scene.recursion + 1
+    f32 = torch.float32
+    _check("jitter", jitter, (R, 4), f32, dev)
+    _check("raw", raw, (n_bounces, 5, R), f32, dev)
+    for name, t in zip(("color_sum", "samples", "misses"), film.tensors()):
+        _check(name, t, t.shape, f32, dev)
+    cam = [getattr(camera, name) for name in CAMERA_FIELDS]
+    for name, t in zip(CAMERA_FIELDS, cam):
+        _check(f"camera.{name}", t, t.shape, f32, dev)
+    tables = kernel_tables(scene)
+    if tables[0].device != dev:
+        raise ValueError(f"scene tables on {tables[0].device}, film on {dev}")
+    tf, _, sf, _, pf, _, mf, _ = tables
+
+    work = torch.empty((1,), dtype=torch.int32, device=dev)
+    cam_ptrs = (ctypes.c_void_p * len(cam))(*(t.data_ptr() for t in cam))
+    err = kernels.load().rtc_trace_pass(
+        jitter.data_ptr(), raw.data_ptr(), cam_ptrs,
+        *(t.data_ptr() for t in tables),
+        *(t.data_ptr() for t in film.tensors()), work.data_ptr(),
+        R, w, int(camera.mode), tf.shape[0], sf.shape[0], pf.shape[0],
+        mf.shape[0], n_bounces, scene.recursion,
+        vm.near_enough(f32), vm.POSITION_EPS_F32 * vm.POSITION_EPS_F32,
+        int(scene.ambient_is_miss), int(scene.any_smooth),
+        int(FUSED_COPLANAR_BRANCH), _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"trace_pass kernel launch failed: CUDA error "
+                           f"{err}")
+    kernels.count_launch(trace_pass)
+    return film
+
+
+def trace_pass(scene: SceneArrays, camera: CameraRT, film: Film, jitter,
+               raw) -> Film:
+    """One progressive pass of the megakernel route added into ``film``'s
+    own tensors: +1 sample for every pixel; returns ``film``.
+
+    ``jitter`` [H*W, 4] and ``raw`` [recursion + 1, 5, H*W] are the pass's
+    float32 draws (``torch.rand``, as :func:`.renderer.generator_draws`
+    draws them before it preprocesses ``raw``); ray ``i`` takes row-major
+    pixel ``i``.  ``film``: float32 and not compensated; ``camera``:
+    float32.
+
+    On CUDA tensors this launches the megakernel's whole-pass form
+    (``csrc/fused.cu`` ``rtc_trace_pass``) and raises if it cannot; it
+    never falls back, and it runs on nothing else: its plain version is the
+    chain :func:`.renderer.render_pass_` with :func:`trace_fused` on
+    :func:`.integrator.preprocess_uniforms` ``(raw)``, which the renderer
+    runs wherever this kernel does not (:func:`.renderer.whole_pass`).
+    """
+    if film.samples.device.type != "cuda":
+        raise ValueError(f"trace_pass: the whole-pass kernel runs on a CUDA "
+                         f"device, not {film.samples.device}; the chain "
+                         "render_pass_ is its plain version")
+    return _launch_pass(scene, camera, film, jitter, raw)
+
+
+# Kernel launches made by trace_pass.
+trace_pass.launches = 0

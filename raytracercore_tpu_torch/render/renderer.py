@@ -10,6 +10,14 @@ refinement = calling ``step``
 repeatedly; every pass adds +1 sample/pixel, like the reference's
 wraparound tile loop (Raytracer.cs:302-327).
 
+On a CUDA device a float32, uncompensated, untiled pass of the megakernel
+route is one launch of the megakernel's whole-pass form
+(:func:`.fused.trace_pass`: camera rays, uniform channels and film add
+inside the kernel) after the pass's two draws; every other pass runs the
+chain of camera rays, uniform channels, tracer and film add
+(:func:`render_pass`), which is the whole pass's plain version
+(:func:`whole_pass` decides).
+
 Randomness: pass ``k`` draws its camera jitter and its path uniforms from a
 ``torch.Generator`` on the render device seeded from ``(seed, k)``, so a run
 gives the same film however it is chunked into ``step`` calls.  The
@@ -28,7 +36,8 @@ A step and an image are spans (:mod:`..core.spans`): ``render.step``
 holds ``graph.feed``, one ``graph.replay`` a pass and ``render.sync``, or
 on the eager path the phases under the JAX package's profiler scope names
 (``camera_rays``, ``trace_fused``, ``film_accum``; ``closest_hit`` on
-every bounce of ``trace``); ``render.image`` holds ``film.tonemap`` and
+every bounce of ``trace``; ``trace_pass`` for a whole pass);
+``render.image`` holds ``film.tonemap`` and
 ``film.to_host``.  A replay runs no Python, so nothing inside a graph is
 a span.  :meth:`Renderer.profile` writes a trace of what ``step`` runs,
 with these spans in it.
@@ -139,26 +148,58 @@ def trace_pixels(scene: SceneArrays, camera, px, py, jitter, uniforms,
                  uniforms=uniforms)
 
 
+def pass_generator(seed: int, k: int, device) -> torch.Generator:
+    """A generator on ``device`` seeded with :func:`pass_seed` ``(seed,
+    k)``: the one pass ``k`` of a run seeded ``seed`` draws from."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(pass_seed(seed, k))
+    return gen
+
+
 def pass_draws(seed: int, k: int, n: int, bounces: int, device,
                dtype=torch.float32):
     """The random numbers of pass ``k`` of a run seeded ``seed`` over ``n``
     pixels: ``(jitter [n, 4], uniforms [bounces, 7, n])`` in ``dtype``,
-    drawn from a generator on ``device`` seeded with :func:`pass_seed`
-    ``(seed, k)`` (:func:`generator_draws`)."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed(pass_seed(seed, k))
-    return generator_draws(gen, n, bounces, dtype)
+    drawn from :func:`pass_generator` (:func:`generator_draws`)."""
+    return generator_draws(pass_generator(seed, k, device), n, bounces,
+                           dtype)
+
+
+def raw_draws(gen: torch.Generator, n: int, bounces: int):
+    """``(jitter [n, 4], raw [bounces, 5, n])``, float32 ``torch.rand``
+    draws from ``gen`` on its device, in that order: what a pass draws."""
+    jitter = torch.rand((n, 4), generator=gen, device=gen.device)
+    raw = torch.rand((bounces, 5, n), generator=gen, device=gen.device)
+    return jitter, raw
 
 
 def generator_draws(gen: torch.Generator, n: int, bounces: int,
                     dtype=torch.float32):
     """``(jitter [n, 4], uniforms [bounces, 7, n])`` in ``dtype``, drawn
     from ``gen`` on its device.  The generator always draws f32 uniforms
-    (:func:`.integrator.prepare_uniforms`' stream), so every ``dtype`` sees
-    the same numbers; the uniform channels are computed in ``dtype``."""
-    jitter = torch.rand((n, 4), generator=gen, device=gen.device)
-    raw = torch.rand((bounces, 5, n), generator=gen, device=gen.device)
+    (:func:`raw_draws`, :func:`.integrator.prepare_uniforms`' stream), so
+    every ``dtype`` sees the same numbers; the uniform channels are
+    computed in ``dtype``."""
+    jitter, raw = raw_draws(gen, n, bounces)
     return jitter.to(dtype), preprocess_uniforms(raw.to(dtype))
+
+
+def whole_pass(trace_fn, device, dtype, compensated: bool, tile: int
+               ) -> bool:
+    """Whether a pass runs as one launch of :func:`.fused.trace_pass`
+    (camera rays, uniform channels and film add inside the megakernel):
+    on the megakernel route (``trace_fn`` is :func:`.fused.trace_fused`),
+    on a CUDA device, into a float32 film without compensation, untiled.
+    Every other pass runs the chain :func:`render_pass_`, which is the
+    whole pass's plain version."""
+    return (trace_fn is fused.trace_fused
+            and torch.device(device).type == "cuda"
+            and dtype == torch.float32 and not compensated and not tile)
+
+
+def _whole_pass(film: Film, trace_fn, tile: int) -> bool:
+    return whole_pass(trace_fn, film.samples.device, film.color_sum.dtype,
+                      film.color_c is not None, tile)
 
 
 def pick_route(arrays: SceneArrays, accelerator: str = "auto"):
@@ -215,7 +256,10 @@ class PassGraph:
     (registered with it; :meth:`run` seeds it with :func:`pass_seed`
     before each replay, so the draws are the eager pass's), reads the
     static camera :attr:`camera` and accumulates into the static film
-    :attr:`film` in place (:func:`render_pass_`).  :meth:`run` copies the
+    :attr:`film` in place: where :func:`whole_pass` admits the pass, the
+    two draws and one launch of :func:`.fused.trace_pass` on the raw draws
+    (camera rays, uniform channels and film add in the megakernel); else
+    the chain :func:`render_pass_`.  :meth:`run` copies the
     caller's camera and film into those buffers first, unless they are
     those buffers.  :attr:`key` is what the graph was captured for: a pass
     whose key differs needs another graph."""
@@ -234,14 +278,20 @@ class PassGraph:
         self.film = _clone_film(film)
 
         cam = camera_tensors(self.camera)
+        whole = _whole_pass(film, trace_fn, tile)
 
         def body(*tensors):  # the camera's tensors, then the film's
+            target = Film(*tensors[len(cam):])
+            if whole:
+                jitter, raw = raw_draws(self.generator, n, bounces)
+                fused.trace_pass(scene, self.camera, target, jitter, raw)
+                return
             jitter, uniforms = generator_draws(self.generator, n, bounces,
                                                dtype)
             with torch.no_grad():
-                render_pass_(scene, self.camera, Film(*tensors[len(cam):]),
-                             jitter, uniforms, closest_fn=closest_fn,
-                             trace_fn=trace_fn, tile=tile)
+                render_pass_(scene, self.camera, target, jitter, uniforms,
+                             closest_fn=closest_fn, trace_fn=trace_fn,
+                             tile=tile)
 
         self.captured = graphs_mod.capture(
             body, cam + self.film.tensors(),
@@ -282,7 +332,9 @@ def render_passes(scene: SceneArrays, camera, film: Film, seed: int,
     """``n`` progressive passes, pass ``k`` (``start <= k < start + n``)
     drawing from a generator seeded with :func:`pass_seed` ``(seed, k)``
     (:func:`pass_draws`); ``closest_fn``, ``trace_fn`` and ``tile`` as in
-    :func:`render_pass`.
+    :func:`render_pass`.  A pass that :func:`whole_pass` admits is one
+    launch of :func:`.fused.trace_pass` on the pass's raw draws, graphed
+    or not.
 
     ``graphs``: None replays a captured :class:`PassGraph` (kept in
     :data:`PASS_GRAPHS`) for a film on a CUDA device and runs the eager
@@ -298,9 +350,18 @@ def render_passes(scene: SceneArrays, camera, film: Film, seed: int,
             scene, camera, film, closest_fn, trace_fn, tile))
         return _clone_film(pg.run(camera, film, seed, start, n))
     h, w = film.shape
+    bounces = scene.recursion + 1
+    if _whole_pass(film, trace_fn, tile):
+        film = _clone_film(film)
+        for k in range(start, start + n):
+            jitter, raw = raw_draws(pass_generator(seed, k, device), h * w,
+                                    bounces)
+            with spans.span("trace_pass"):
+                fused.trace_pass(scene, camera, film, jitter, raw)
+        return film
     for k in range(start, start + n):
-        jitter, uniforms = pass_draws(seed, k, h * w, scene.recursion + 1,
-                                      device, film.color_sum.dtype)
+        jitter, uniforms = pass_draws(seed, k, h * w, bounces, device,
+                                      film.color_sum.dtype)
         with torch.no_grad():
             film = render_pass(scene, camera, film, jitter, uniforms,
                                closest_fn=closest_fn, trace_fn=trace_fn,
@@ -539,9 +600,10 @@ class Renderer:
         run with the span recorder on, and its spans go into the trace as
         complete events of category ``rtc.span`` on the host thread:
         ``render.step`` holding ``graph.feed``, a ``graph.replay`` a pass
-        and ``render.sync``, or on the eager path the phases
-        ``camera_rays``, ``trace_fused`` or ``closest_hit`` (one a bounce)
-        and ``film_accum``.  They are mapped onto the profiler's clock by
+        and ``render.sync``, or on the eager path ``trace_pass`` for a
+        whole pass (:func:`whole_pass`), else the phases ``camera_rays``,
+        ``trace_fused`` or ``closest_hit`` (one a bounce) and
+        ``film_accum``.  They are mapped onto the profiler's clock by
         an ``rtc.anchor`` range before (after one that warms the profiler)
         and one after the passes (:func:`..core.spans.clock_offset`; the
         pair's width and the drift between them under the trace's
