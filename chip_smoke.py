@@ -106,6 +106,19 @@ the megakernel, the replay forward and backward and the select kernel at
 the main paths' shapes, each held against its plain version first (the
 replay forward bit-equal, with the bytes of the bounces the paths reach
 and the rate achieved over them); it prints one JSON line.
+
+``--trace-pass`` (:func:`trace_pass_main`) holds the bounce loop's pass
+without eager glue (``integrator.trace_pass``: the camera kernel, then
+each bounce's closest hit and the shading kernel's pass form) against the
+chain it replaces on mesh-722 at 700x700 rec10 and mesh-184k at 512x512
+rec4, films of 8 passes on 3 seeds bit-equal; times both by CUDA-graph
+replay and graphed ``Renderer`` passes, with each kernel's device time a
+pass; prints the new kernels' registers and spills; and, with ``--parent
+CHECKOUT``, diffs the SASS of every function of ``csrc/*.cu`` against the
+parent's (``cuobjdump -sass``), the shading kernel's ``[7, R]`` forms
+mapped to their names before the pass form's flag::
+
+    python3 chip_smoke.py --trace-pass --parent PARENT_CHECKOUT
 """
 
 from __future__ import annotations
@@ -2761,7 +2774,8 @@ def graph_big_pass(card, r):
           "passes 0-1 bit-equal to the eager Renderer's")
     pg = next(iter(PASS_GRAPHS.entries.values()))
     with tempfile.TemporaryDirectory() as tmp:
-        kern = graph_kernels("mesh-1M pass", pg.captured, bvh_kernels(r), tmp)
+        kern = graph_kernels("mesh-1M pass", pg.captured,
+                             {**bvh_kernels(r), "pass_rays": 1}, tmp)
     ms_g, ms_e = interleaved((
         lambda: render_passes(r.arrays, r.camera, got, r.seed, 2, 1, **kw),
         lambda: render_passes(r.arrays, r.camera, got, r.seed, 2, 1,
@@ -3274,6 +3288,246 @@ def times_main(label, card):
 
 
 
+TRACE_PASS_SEEDS = (0, 7, 2**33 + 5)
+TRACE_PASS_FILM_PASSES = 8
+# The functions whose SASS may differ from the parent's: the shading
+# kernel's pass form and the camera kernel are new.
+SASS_NEW = (r"shade_bounce_kernel<float, false, false, true>",
+            r"pass_rays_kernel")
+
+
+def pass_kernels_us(fn, n):
+    """``{kernel name: device us per call}`` of every kernel ``n`` calls of
+    ``fn()`` run, by torch.profiler (the name without its arguments)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not getattr(
+                e, "is_user_annotation", False):
+            name = e.name.split("(")[0].replace("void ", "")
+            out[name] = out.get(name, 0.0) + e.time_range.elapsed_us() / n
+    return out
+
+
+def sass_functions(cu: Path, tmp: Path, tag: str) -> dict:
+    """``{demangled function name: SASS lines}`` of ``cu`` compiled alone
+    to a cubin with the build's flags (``cuobjdump -sass``)."""
+    from raytracercore_tpu_torch import kernels
+
+    cubin = tmp / f"{tag}_{cu.stem}.cubin"
+    flags = [f for f in kernels.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
+    subprocess.run([kernels._nvcc(), *flags, "-cubin", "-o", str(cubin),
+                    str(cu)], check=True, capture_output=True, text=True)
+    cuobjdump = str(Path(kernels._nvcc()).with_name("cuobjdump"))
+    text = subprocess.run([cuobjdump, "-sass", str(cubin)], check=True,
+                          capture_output=True, text=True).stdout
+    funcs, name = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name] = []
+        elif name is not None and line.strip():
+            funcs[name].append(line.strip())
+    names = list(funcs)
+    demangled = subprocess.run(["c++filt"], input="\n".join(names),
+                               capture_output=True, text=True,
+                               check=True).stdout.splitlines()
+    return {re.sub(r"\(.*", "", d): funcs[n]
+            for n, d in zip(names, demangled)}
+
+
+def sass_diff(parent: Path) -> dict:
+    """Every function of the parent's ``csrc/*.cu`` against this tree's by
+    SASS: ``{source: (identical, [differing or missing], [new])}``; the
+    shading kernel's ``[7, R]`` forms (``shade_bounce_kernel<T, tape,
+    records>``) are matched to this tree's ``<T, tape, records, false>``."""
+    here = Path(__file__).resolve().parent
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for cu in sorted((parent / "raytracercore_tpu_torch" / "csrc")
+                         .glob("*.cu")):
+            mine = here / "raytracercore_tpu_torch" / "csrc" / cu.name
+            old = sass_functions(cu, tmp, "parent")
+            new = sass_functions(mine, tmp, "tree")
+            renamed = {}
+            for name, body in new.items():
+                m = re.match(r"(.*shade_bounce_kernel<.*), false>$", name)
+                renamed[m.group(1) + ">" if m else name] = body
+            same = [n for n in old if renamed.get(n) == old[n]]
+            differ = [n for n in old if renamed.get(n) != old[n]]
+            fresh = [n for n in renamed if n not in old]
+            out[cu.name] = (same, differ, fresh)
+    return out
+
+
+def trace_pass_main(card, parent):
+    """``--trace-pass``: the bounce loop's pass without eager glue
+    (``integrator.trace_pass``) against the chain (``render_pass_`` on
+    ``preprocess_uniforms``) on mesh-722 700x700 rec10 (the dense route)
+    and mesh-184k 512x512 rec4 (the BVH route).  Gates: films of
+    ``TRACE_PASS_FILM_PASSES`` passes bit-equal on each of
+    ``TRACE_PASS_SEEDS`` (widest gap 0); one camera launch a pass and one
+    shading launch a bounce; with ``parent``, every parent function's SASS
+    unchanged.  Prints the pass by CUDA-graph replay both ways (twice,
+    interleaved), graphed ``Renderer`` passes both ways with their kernel
+    nodes, each kernel's device us a pass, and the new kernels'
+    registers, spills and occupancy; one JSON line last."""
+    from raytracercore_tpu_torch import kernels
+    from raytracercore_tpu_torch.render import integrator
+    from raytracercore_tpu_torch.render import renderer as rmod
+    from raytracercore_tpu_torch.render import shade_kernel as sk
+    from raytracercore_tpu_torch.render.film import Film
+    from raytracercore_tpu_torch.render.integrator import preprocess_uniforms
+
+    dev = torch.device("cuda", 0)
+    info = kernels.build()
+    kernels.load()
+    BUILD_REGS.update(ptxas_registers(info["log"]))
+    res = {"card": card, "build_s": info["seconds"]}
+    res["occupancy"] = {
+        "shade pass form": occupancy_text("shade_bounce_kernelIfLb0ELb0ELb1E",
+                                          SHADE_THREADS),
+        "shade [7, R] float": occupancy_text(
+            "shade_bounce_kernelIfLb0ELb0ELb0E", SHADE_THREADS),
+        "pass_rays": occupancy_text("pass_rays_kernel", SHADE_THREADS)}
+    print(f"[trace-pass] registers: {res['occupancy']} on {card}",
+          flush=True)
+    if parent:
+        diff = sass_diff(Path(parent).resolve())
+        res["sass"] = {k: {"identical": len(a), "differ": b, "new": c}
+                       for k, (a, b, c) in diff.items()}
+        for src, (same, differ, fresh) in diff.items():
+            print(f"[trace-pass] SASS {src}: {len(same)} functions identical "
+                  f"to the parent's, differ {differ}, new {fresh}")
+            check(not differ, f"{src}: SASS of {differ} differs from the "
+                  f"parent's")
+            check(all(any(re.search(p, n) for p in SASS_NEW) for n in fresh),
+                  f"{src}: unexpected new functions {fresh}")
+
+    cases = (("mesh-722 700x700 rec10",
+              lit_mesh_scene(MESH_GRID, MESH_SUBDIV, 700, 10, dev), "trace"),
+             ("mesh-184k 512x512 rec4",
+              lit_mesh_scene(*BVH_MESH, BVH_SIZE, BVH_REC, dev), "bvh"))
+    for label, (scene, host_cam), route in cases:
+        r = rmod.Renderer(scene, device=dev, seed=0, cameras=[host_cam],
+                          graphs=False)
+        check(r.route == route, f"{label}: route {r.route}, want {route}")
+        arrays, cam, closest_fn = r.arrays, r.camera, r.closest_fn
+        h, w = r.film.shape
+        B = arrays.recursion + 1
+        row = {}
+
+        def draws(seed, k):
+            return rmod.raw_draws(rmod.pass_generator(seed, k, dev), h * w,
+                                  B)
+        gaps = []
+        for seed in TRACE_PASS_SEEDS:
+            want = Film.create(h, w, device=dev)
+            got = Film.create(h, w, device=dev)
+            before = sk.pass_rays.launches, sk.shade_bounce.launches
+            for k in range(TRACE_PASS_FILM_PASSES):
+                jitter, raw = draws(seed, k)
+                with torch.no_grad():
+                    integrator.trace_pass(arrays, cam, got, jitter, raw,
+                                          closest_fn)
+            torch.cuda.synchronize()
+            launched = (sk.pass_rays.launches - before[0],
+                        sk.shade_bounce.launches - before[1])
+            check(launched == (TRACE_PASS_FILM_PASSES,
+                               TRACE_PASS_FILM_PASSES * B),
+                  f"{label}: camera and shading launches {launched}")
+            for k in range(TRACE_PASS_FILM_PASSES):
+                jitter, raw = draws(seed, k)
+                with torch.no_grad():
+                    rmod.render_pass_(arrays, cam, want, jitter,
+                                      preprocess_uniforms(raw),
+                                      closest_fn=closest_fn)
+            gap = max(float((a.double() - b.double()).abs().max())
+                      for a, b in zip(got.tensors(), want.tensors()))
+            gaps.append(gap)
+            check(gap == 0.0, f"{label} seed {seed}: the glue-free pass's "
+                  f"film differs from the chain's by {gap:.3e}")
+        row["widest_gap"] = max(gaps)
+        print(f"[trace-pass] {label}: films of {TRACE_PASS_FILM_PASSES} "
+              f"passes bit-equal to the chain's on seeds "
+              f"{TRACE_PASS_SEEDS} (widest gap {max(gaps)})", flush=True)
+
+        jitter, raw = draws(1, 0)
+        scratch = Film.create(h, w, device=dev)
+
+        def chain():
+            rmod.render_pass_(arrays, cam, scratch, jitter,
+                              preprocess_uniforms(raw),
+                              closest_fn=closest_fn)
+
+        def glue_free():
+            integrator.trace_pass(arrays, cam, scratch, jitter, raw,
+                                  closest_fn)
+        with torch.no_grad():
+            times = {"chain": [], "trace_pass": []}
+            for name in ("chain", "trace_pass", "trace_pass", "chain"):
+                times[name].append(graph_ms(
+                    chain if name == "chain" else glue_free, 20))
+            row["graph_ms"] = times
+            row["kernels_us"] = {
+                "chain": pass_kernels_us(chain, 3),
+                "trace_pass": pass_kernels_us(glue_free, 3)}
+        for name, by in row["kernels_us"].items():
+            ours = sum(v for k, v in by.items() if k.startswith("rtc::"))
+            rest = sum(v for k, v in by.items()
+                       if not k.startswith("rtc::"))
+            print(f"[trace-pass] {label} {name}: {len(by)} kernels, the "
+                  f"port's {ours:.1f} us a pass, torch's {rest:.1f} us; "
+                  + "; ".join(f"{k} {v:.1f}" for k, v in sorted(
+                      by.items(), key=lambda kv: -kv[1])[:12]), flush=True)
+        print(f"[trace-pass] {label}: a pass by CUDA-graph replay, ms "
+              f"(chain, glue-free, glue-free, chain order): {times} on "
+              f"{card}", flush=True)
+
+        # The Renderer's graphed pass with its draws (PassGraph): the
+        # glue-free body against the chain's (the predicate turned off).
+        graphed = {}
+        real = rmod.whole_trace_pass
+        with tempfile.TemporaryDirectory() as tmp:
+            for name in ("chain", "trace_pass", "trace_pass", "chain"):
+                rmod.whole_trace_pass = (real if name == "trace_pass"
+                                         else (lambda *a: False))
+                try:
+                    pg = rmod.PassGraph(arrays, cam,
+                                        Film.create(h, w, device=dev),
+                                        closest_fn)
+                finally:
+                    rmod.whole_trace_pass = real
+                pg.run(cam, pg.film, 3, 0, 2)
+                nodes = sum(pg.captured.kernel_nodes(
+                    str(Path(tmp) / "graph.dot")).values())
+                ms = cuda_ms(pg.captured.replay, 20)
+                graphed.setdefault(name, []).append(
+                    {"ms": ms, "kernel_nodes": nodes,
+                     "issue_ms": issue_ms(pg.captured)})
+                del pg
+                torch.cuda.empty_cache()
+        row["graphed_pass"] = graphed
+        print(f"[trace-pass] {label}: a graphed Renderer pass with its "
+              f"draws (ms by CUDA events over 20 replays, kernel nodes, "
+              f"host ms to issue a replay): {graphed} on {card}",
+              flush=True)
+        res[label] = row
+        del r, arrays, scene
+        torch.cuda.empty_cache()
+    print(json.dumps(res))
+
+
 def bvh_times_main(label, card):
     """``--bvh-times``: the BVH tier's set-up and walk on mesh-184k 512x512
     rec4 and mesh-1M 1024x1024 rec4, through the entry points every tree
@@ -3663,14 +3917,15 @@ def surface_profile(card, dev, host):
                   f"bit-equal to step({SURF_PROFILE_PASSES})")
             split = scope_split(path, SURF_PROFILE_PASSES)
             # An eager float32 cornell pass is the megakernel's whole
-            # pass, one span; the BVH route's is the chain's phases.
+            # pass, one span; the BVH route's is the camera kernel and a
+            # closest hit a bounce (integrator.trace_pass).
             want = ({"trace_pass"} if r.route == "megakernel"
-                    else {"camera_rays", "film_accum", "closest_hit"})
+                    else {"camera_rays", "closest_hit"})
             check(want <= set(split), f"{label}: the trace holds the scopes "
                   f"{sorted(want)} ({sorted(split)})")
             median = float(np.median(pass_ms))
             n_scopes = (1 if r.route == "megakernel"
-                        else 2 + r.arrays.recursion + 1)
+                        else 1 + r.arrays.recursion + 1)
             print(f"[surface] profile {label} (route {r.route}), "
                   f"{SURF_PROFILE_PASSES} passes under torch.profiler, "
                   f"per pass host ms / device ms: "
@@ -3855,7 +4110,7 @@ def kernel_counters():
     from raytracercore_tpu_torch.render import uniforms_kernel as uk
 
     return {"trace_fused": fused.trace_fused,
-            "trace_pass": fused.trace_pass,
+            "trace_pass": fused.trace_pass, "pass_rays": sk.pass_rays,
             "prepare_uniforms_kernel": uk.prepare_uniforms_kernel,
             "replay_fwd": rk.replay_fwd, "replay_bwd": rk.replay_bwd,
             "closest_hit_fused": cs.closest_hit_fused,
@@ -4394,6 +4649,7 @@ NODE_NAMES = {
     "traverse": r"(?<![A-Za-z_])traverse_kernel",
     "sort_key": r"(?<![A-Za-z_])sort_key_kernel",
     "shade_bounce": r"(?<![A-Za-z_])shade_bounce_kernel",
+    "pass_rays": r"(?<![A-Za-z_])pass_rays_kernel",
 }
 
 
@@ -4724,13 +4980,13 @@ def graph_phase(card, dev):
             lambda gr: Renderer(mesh, device=dev, seed=GRAPH_SEED,
                                 cameras=[mesh_cam], graphs=gr),
             lambda r: {"closest_hit_fused": bounces,
-                       "shade_bounce": bounces}, tmp)
+                       "shade_bounce": bounces, "pass_rays": 1}, tmp)
         torch.cuda.empty_cache()
         graph_pass_route(
             card, "mesh-184k 512x512 rec4",
             lambda gr: Renderer(big, device=dev, seed=GRAPH_SEED,
                                 cameras=[big_cam], graphs=gr),
-            bvh_kernels, tmp)
+            lambda r: {**bvh_kernels(r), "pass_rays": 1}, tmp)
         torch.cuda.empty_cache()
         rc = Renderer(host, device=dev, graphs=False)
         graph_step_route(card, "cornell 700x700 rec10", rc.arrays,
@@ -4779,6 +5035,13 @@ def main():
                     help="only time the BVH tier's build, packing and "
                     "walk on mesh-184k and mesh-1M (bvh_times_main), for a "
                     "parent-vs-change comparison in one call")
+    ap.add_argument("--trace-pass", action="store_true",
+                    help="only hold the bounce loop's glue-free pass "
+                    "against the chain on mesh-722 and mesh-184k and time "
+                    "both (trace_pass_main)")
+    ap.add_argument("--parent", default=None,
+                    help="with --trace-pass: the parent checkout whose "
+                    "csrc/*.cu SASS this tree's is diffed against")
     ap.add_argument("--root", default=None,
                     help="with --times or --bvh-times: the checkout whose "
                     "raytracercore_tpu_torch is built and timed (default: "
@@ -4789,11 +5052,17 @@ def main():
     args = ap.parse_args()
     if args.root and not (args.times or args.bvh_times):
         ap.error("--root goes with --times or --bvh-times")
+    if args.parent and not args.trace_pass:
+        ap.error("--parent goes with --trace-pass")
 
     # --- 1. device ---------------------------------------------------------
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device "
                          "(torch.cuda.is_available() is False)")
+    if args.trace_pass:
+        card = card_line()
+        print(card)
+        return trace_pass_main(card, args.parent)
     if args.times or args.bvh_times:
         if args.root:
             sys.path.insert(0, str(Path(args.root).resolve()))

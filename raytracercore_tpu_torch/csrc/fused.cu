@@ -15,14 +15,14 @@
 //     form, on the uniforms kernel's channels;
 //   * rtc_trace_pass (trace_pass, PASS): the whole progressive pass of a
 //     float32 film.  A path builds its camera ray from its 4 floats of
-//     jitter (render/camera.py camera_rays), computes the uniform channels
-//     its bounce's branch reads from the 5 raw draws per bounce ([B,5,R],
-//     uniform_channels.cuh), and adds its sample into the film in place
-//     (Film.add_full_frame_: 20 bytes read and written a pixel).  Each
-//     pixel has one path a pass, so the add needs no atomics, and the sums
-//     follow the passes' launch order.  Same operations in the same order
-//     as that chain (render_pass_ with trace_fused), so the films are
-//     bit-equal.
+//     jitter (camera.cuh, render/camera.py camera_rays), computes the
+//     uniform channels its bounce's branch reads from the 5 raw draws per
+//     bounce ([B,5,R], uniform_channels.cuh), and adds its sample into the
+//     film in place (Film.add_full_frame_: 20 bytes read and written a
+//     pixel).  Each pixel has one path a pass, so the add needs no atomics,
+//     and the sums follow the passes' launch order.  Same operations in the
+//     same order as that chain (render_pass_ with trace_fused), so the
+//     films are bit-equal.
 //
 // What bounds it on Hopper: fp32 issue, not memory.  Everything but those
 // reads and writes is arithmetic on registers over the scene's table rows:
@@ -73,6 +73,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "camera.cuh"
 #include "kernel_body.cuh"
 #include "shading.cuh"
 #include "uniform_channels.cuh"
@@ -81,10 +82,6 @@ namespace rtc {
 
 constexpr int MAT_F = 14;  // emission(3) diffuse(3) specular(3) refraction(3) ior shin
 constexpr int SC_F = 4;    // air_ior, ambient r g b
-// Camera (PASS): position look side up (3 each), w2 h2 ax ay image_plane
-// dof_amount focal_length.
-constexpr int CAM_F = 19;
-constexpr int CAM_TENSORS = 11;
 constexpr int BLOCK = 128;
 constexpr unsigned FULL_MASK = 0xffffffffu;
 
@@ -112,7 +109,7 @@ struct Params {
   float eps_behind, eps2;
   // PASS only.
   const float* jitter;             // [R,4]
-  const float* cam[CAM_TENSORS];   // the CameraRT tensors, in CAM_F order
+  const float* cam[CAM_TENSORS];   // the CameraRT tensors (camera.cuh)
   float* film_sum;                 // [R,3]
   float* film_samples;             // [R]
   float* film_misses;              // [R]
@@ -173,57 +170,6 @@ struct Path {
   V3 pv_pos, pv_nrm;
   bool pv_in;
 };
-
-// Camera.GetRay (render/camera.py _get_ray) for fractional pixel
-// coordinates, from the camera `c` (CAM_F order).
-__device__ __forceinline__ void get_ray(const float* c, int mode, float x,
-                                        float y, V3& o, V3& d) {
-  const float w2 = c[12], h2 = c[13], ax = c[14], ay = c[15];
-  if (mode == 0) {  // frustum: d = normalize(look + side off_x + up off_y)
-    const float off_x = ax * ((x - w2) / w2);
-    const float off_y = ay * ((y - h2) / h2);
-    d = {(c[3] + c[6] * off_x) + c[9] * off_y,
-         (c[4] + c[7] * off_x) + c[10] * off_y,
-         (c[5] + c[8] * off_x) + c[11] * off_y};
-    const float n = sqrtf(d.x * d.x + d.y * d.y + d.z * d.z);
-    d = {d.x / n, d.y / n, d.z / n};
-    o = {c[0], c[1], c[2]};
-  } else {  // ortho: o = position + side sx + up sy, d = look
-    const float sx = (x - w2) * ax, sy = (y - h2) * ay;
-    o = {(c[0] + c[6] * sx) + c[9] * sy, (c[1] + c[7] * sx) + c[10] * sy,
-         (c[2] + c[8] * sx) + c[11] * sy};
-    d = {c[3], c[4], c[5]};
-  }
-}
-
-// The camera ray of path r (render/camera.py camera_rays): pixel
-// (r % width, r / width) jittered by jitter[r, 0:2], offset to the image
-// plane, and with depth of field (dof_amount != 0, the same for every path
-// of a launch) re-traced through the lens sample jitter[r, 2:4] and aimed
-// at the undisturbed ray's focus point (Raytracer.cs:262-282).
-__device__ __forceinline__ void camera_ray(const Params& p, const float* c,
-                                           int r, V3& o, V3& d) {
-  const float* j = p.jitter + 4 * (size_t)r;
-  const float x = (float)(r % p.width) + j[0];
-  const float y = (float)(r / p.width) + j[1];
-  const float ip = c[16], dof = c[17];
-  get_ray(c, p.cam_mode, x, y, o, d);
-  o = {o.x + d.x * ip, o.y + d.y * ip, o.z + d.z * ip};
-  if (dof != 0.f) {
-    const float k = c[18] - ip;  // focal_length - image_plane
-    const V3 focus = {o.x + d.x * k, o.y + d.y * k, o.z + d.z * k};
-    const float dist = sqrtf(j[2]) * dof;
-    const float angle = j[3] * TWO_PI_F;
-    const float off_x = cosf(angle) * dist;
-    const float off_y = sinf(angle) * dist;
-    V3 o2, d2;
-    get_ray(c, p.cam_mode, x + off_x, y + off_y, o2, d2);
-    o = {o2.x + d2.x * ip, o2.y + d2.y * ip, o2.z + d2.z * ip};
-    d = {focus.x - o.x, focus.y - o.y, focus.z - o.z};
-    const float n = sqrtf(d.x * d.x + d.y * d.y + d.z * d.z);
-    d = {d.x / n, d.y / n, d.z / n};
-  }
-}
 
 template <bool PASS>
 __device__ __forceinline__ void start_path(const Params& p, const float* s_cam,
@@ -445,7 +391,7 @@ __global__ void __launch_bounds__(BLOCK) trace_fused_kernel(Params p) {
   float* s_cam = reinterpret_cast<float*>(s_pi + p.P * INT_F);
   if constexpr (PASS) {
     for (int k = threadIdx.x; k < CAM_F; k += blockDim.x)
-      s_cam[k] = k < 12 ? p.cam[k / 3][k % 3] : p.cam[k - 8][0];
+      s_cam[k] = camera_float(p.cam, k);
   }
   __syncthreads();
 

@@ -11,10 +11,31 @@
 // shade_bounce (render/shade_kernel.py) launches this kernel once a bounce
 // from render.integrator.trace.
 //
+// The trace route's glue-free pass (render.integrator.trace_pass, template
+// flag PASS, float32) launches pass_rays_kernel once, then this kernel once
+// a bounce after the closest hit (shade_bounce_pass):
+//   * pass_rays_kernel builds each pixel's camera ray from the [R,4] jitter
+//     (camera.cuh, render/camera.py camera_rays) and writes it with the
+//     direction trace renormalizes at bounce 0;
+//   * bounce 0 starts from trace's initial path state (tint 1, alive,
+//     result 0, no miss, no skip record) instead of reading it;
+//   * the bounce's uniform channels are computed from its raw draws [5,R]
+//     (uniform_channels.cuh) where the [7,R] planes of preprocess_uniforms
+//     are read otherwise;
+//   * the bounce before a renormalizing one (3, 6, 9, ...) writes the next
+//     direction normalized: trace reads the unnormalized one nowhere else;
+//   * the last bounce adds its sample into the float32 film in place
+//     (Film.add_full_frame_; one path a pixel, so no atomics) and writes no
+//     state, which nothing reads.
+// Same operations in the same order as the chain they replace (camera_rays,
+// preprocess_uniforms, trace with this kernel, add_full_frame_), so the
+// films are bit-equal.
+//
 // What bounds it on Hopper: memory.  A ray reads its hit record (33 bytes
 // in f32), its direction, tint, alive, result and miss (38), the t of its
 // hit where the path goes on or else its skip record (4 or 33), 7 uniforms
-// (28) and one material row (56; the table itself, a few KB to a few MB, is
+// (28; the pass form: 5 raw draws, 20, and up to six transcendentals) and
+// one material row (56; the table itself, a few KB to a few MB, is
 // shared by many rays), and writes its state and skip record (83), plus a
 // 20-byte tape row or a 41-byte record row where asked: 190-260 bytes for
 // ~250 floating point operations, far below the card's balance of ~20
@@ -41,7 +62,9 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "camera.cuh"
 #include "shading.cuh"
+#include "uniform_channels.cuh"
 
 namespace rtc {
 
@@ -107,6 +130,14 @@ struct ShadeParams {
   bool* rc_in;
   T* rc_fr;
   int R, N, i, B, recursion, ambient_is_miss;
+  // PASS only: u is bounce i's raw draws [5,R]; at bounce 0 the state
+  // pointers are not read; renorm: the next direction is normalized; a
+  // film (the last bounce): the sample is added into it and no state is
+  // written.
+  float* film_sum;      // [R,3]
+  float* film_samples;  // [R]
+  float* film_misses;   // [R]
+  int renorm;
 };
 
 template <typename T>
@@ -183,7 +214,7 @@ __device__ __forceinline__ double torch_nan<double>() {
   return __longlong_as_double(0x7ff8000000000000LL);
 }
 
-template <typename T, bool TAPE, bool RECORD>
+template <typename T, bool TAPE, bool RECORD, bool PASS>
 __global__ void __launch_bounds__(SHADE_BLOCK)
     shade_bounce_kernel(ShadeParams<T> p) {
   const int r = blockIdx.x * SHADE_BLOCK + threadIdx.x;
@@ -191,15 +222,17 @@ __global__ void __launch_bounds__(SHADE_BLOCK)
   const T one = T(1), zero = T(0);
   const size_t R = p.R;
   const int i = p.i;
+  // PASS, bounce 0: trace's initial path state, not read.
+  const bool start = PASS && i == 0;
 
   const int prim = p.hit_prim[r];
   const bool inside = p.hit_in[r];
   const Vec<T> hpos = load3(p.hit_pos, r), hnrm = load3(p.hit_nrm, r);
   const Vec<T> d = load3(p.d, r);
-  const Vec<T> tint = load3(p.tint, r);
-  Vec<T> result = load3(p.result, r);
-  bool miss = p.miss[r];
-  const bool active = p.alive[r];
+  const Vec<T> tint = start ? Vec<T>{one, one, one} : load3(p.tint, r);
+  Vec<T> result = start ? Vec<T>{zero, zero, zero} : load3(p.result, r);
+  bool miss = start ? false : p.miss[r];
+  const bool active = start ? true : p.alive[r];
   const bool found = prim >= 0;
 
   // --- miss handling (Raytracer.cs:81-91) ---------------------------------
@@ -227,11 +260,39 @@ __global__ void __launch_bounds__(SHADE_BLOCK)
     if (done) result = te;
     alive = false;
   }
+  if constexpr (PASS) {
+    if (p.film_sum != nullptr) {
+      // The last bounce: result and miss are final (every lane is dead
+      // now); Film.add_full_frame_: contrib = hit ? colour : 0 into the
+      // colour sum, hit into samples, miss into misses.
+      const bool hit = !miss;
+      float* sum = p.film_sum + 3 * (size_t)r;
+      sum[0] = sum[0] + (hit ? result.x : 0.f);
+      sum[1] = sum[1] + (hit ? result.y : 0.f);
+      sum[2] = sum[2] + (hit ? result.z : 0.f);
+      p.film_samples[r] = p.film_samples[r] + (hit ? 1.f : 0.f);
+      p.film_misses[r] = p.film_misses[r] + (hit ? 0.f : 1.f);
+      return;
+    }
+  }
 
   // --- shading (computed on every lane, as the plain version does) --------
   const T* u = p.u + r;
-  const T u0 = u[0], u1 = u[R], u2 = u[2 * R], u3 = u[3 * R];
-  const T u4 = u[4 * R], u5 = u[5 * R], u6 = u[6 * R];
+  T u0, u1, u2, u3, u4, u5, u6;
+  if constexpr (PASS) {
+    // The channels of the raw draws (preprocess_uniforms; torch divides
+    // by pi as a product with its f32 reciprocal).
+    u0 = shine_log(u[0]);
+    u1 = cos_2pi(u[R]);
+    u2 = sin_2pi(u[R]);
+    u3 = u[2 * R];
+    u4 = two_acos(u[3 * R]) * INV_PI_F;
+    u5 = cos_2pi(u[4 * R]);
+    u6 = sin_2pi(u[4 * R]);
+  } else {
+    u0 = u[0], u1 = u[R], u2 = u[2 * R], u3 = u[3 * R];
+    u4 = u[4 * R], u5 = u[5 * R], u6 = u[6 * R];
+  }
   const T z_shine = isinf(shin) ? one : exp(u0 / shin);
   const Vec<T> rn = horizon(hnrm, z_shine, u1, u2);
   const T diff_lum = lum3(diff);
@@ -307,7 +368,15 @@ __global__ void __launch_bounds__(SHADE_BLOCK)
   // --- the next ray, parked where the path ended --------------------------
   const T parked = T(PARKED);
   store3(p.o_ray_o, r, alive ? hpos : Vec<T>{parked, parked, parked});
-  store3(p.o_ray_d, r, alive ? out_dir : Vec<T>{one, zero, zero});
+  Vec<T> next_d = alive ? out_dir : Vec<T>{one, zero, zero};
+  if constexpr (PASS) {
+    if (p.renorm) {  // vecmath.normalize: d / sqrt(d . d)
+      const T n = sqrt(next_d.x * next_d.x + next_d.y * next_d.y +
+                       next_d.z * next_d.z);
+      next_d = {next_d.x / n, next_d.y / n, next_d.z / n};
+    }
+  }
+  store3(p.o_ray_d, r, next_d);
   store3(p.o_tint, r, alive ? mul3(tint, new_tint) : tint);
   store3(p.o_result, r, result);
   p.o_alive[r] = alive;
@@ -318,6 +387,12 @@ __global__ void __launch_bounds__(SHADE_BLOCK)
     store3(p.o_pv_pos, r, hpos);
     store3(p.o_pv_nrm, r, hnrm);
     p.o_pv_in[r] = inside;
+  } else if (start) {  // HitRecord.none
+    p.o_pv_prim[r] = -1;
+    p.o_pv_t[r] = zero;
+    store3(p.o_pv_pos, r, Vec<T>{zero, zero, zero});
+    store3(p.o_pv_nrm, r, Vec<T>{zero, zero, zero});
+    p.o_pv_in[r] = false;
   } else {
     p.o_pv_prim[r] = p.pv_prim[r];
     p.o_pv_t[r] = p.pv_t[r];
@@ -366,20 +441,26 @@ int launch(const ShadeParams<T>& p, cudaStream_t stream) {
   const dim3 grid((unsigned)((p.R + SHADE_BLOCK - 1) / SHADE_BLOCK));
   const bool tape = p.tp_prim != nullptr, rec = p.rc_btype != nullptr;
   if (tape && rec) {
-    shade_bounce_kernel<T, true, true><<<grid, SHADE_BLOCK, 0, stream>>>(p);
+    shade_bounce_kernel<T, true, true, false>
+        <<<grid, SHADE_BLOCK, 0, stream>>>(p);
   } else if (tape) {
-    shade_bounce_kernel<T, true, false><<<grid, SHADE_BLOCK, 0, stream>>>(p);
+    shade_bounce_kernel<T, true, false, false>
+        <<<grid, SHADE_BLOCK, 0, stream>>>(p);
   } else if (rec) {
-    shade_bounce_kernel<T, false, true><<<grid, SHADE_BLOCK, 0, stream>>>(p);
+    shade_bounce_kernel<T, false, true, false>
+        <<<grid, SHADE_BLOCK, 0, stream>>>(p);
   } else {
-    shade_bounce_kernel<T, false, false><<<grid, SHADE_BLOCK, 0, stream>>>(p);
+    shade_bounce_kernel<T, false, false, false>
+        <<<grid, SHADE_BLOCK, 0, stream>>>(p);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
+// The parameters from the 42 pointers of rtc_shade (19 inputs, 11 state
+// outputs, 5 tape and 7 record outputs); no film, no renormalization.
 template <typename T>
-int shade(void* const* a, int R, int N, int i, int B, int recursion,
-          int ambient_is_miss, cudaStream_t stream) {
+ShadeParams<T> shade_params(void* const* a, int R, int N, int i, int B,
+                            int recursion, int ambient_is_miss) {
   ShadeParams<T> p;
   p.hit_prim = static_cast<const int*>(a[0]);
   p.hit_t = static_cast<const T*>(a[1]);
@@ -429,23 +510,59 @@ int shade(void* const* a, int R, int N, int i, int B, int recursion,
   p.B = B;
   p.recursion = recursion;
   p.ambient_is_miss = ambient_is_miss;
-  return launch(p, stream);
+  p.film_sum = p.film_samples = p.film_misses = nullptr;
+  p.renorm = 0;
+  return p;
+}
+
+// The CameraRT tensors (camera.cuh order), by value.
+struct CameraPtrs {
+  const float* t[CAM_TENSORS];
+};
+
+// What camera_ray reads of a launch: the jitter, the grid's width, the
+// camera's mode.
+struct RayGrid {
+  const float* jitter;
+  int width, cam_mode;
+};
+
+// Ray r's camera ray (camera.cuh camera_ray, pixel r of the row-major
+// grid `width` wide) and the direction bounce 0 traces: trace's
+// renormalization at bounce 0, vecmath.normalize (d / sqrt(d . d)).
+__global__ void __launch_bounds__(SHADE_BLOCK)
+    pass_rays_kernel(const float* jitter, CameraPtrs cam, float* ray_o,
+                     float* ray_d, int R, int width, int mode) {
+  __shared__ float c[CAM_F];
+  for (int k = threadIdx.x; k < CAM_F; k += blockDim.x)
+    c[k] = camera_float(cam.t, k);
+  __syncthreads();
+  const int r = blockIdx.x * SHADE_BLOCK + threadIdx.x;
+  if (r >= R) return;
+  V3 o, d;
+  camera_ray(RayGrid{jitter, width, mode}, c, r, o, d);
+  const float n = sqrtf(d.x * d.x + d.y * d.y + d.z * d.z);
+  store3(ray_o, r, Vec<float>{o.x, o.y, o.z});
+  store3(ray_d, r, Vec<float>{d.x / n, d.y / n, d.z / n});
 }
 
 }  // namespace rtc
+
+#define RTC_SHADE_POINTERS                                                  \
+  void *a0, void *a1, void *a2, void *a3, void *a4, void *a5, void *a6,     \
+      void *a7, void *a8, void *a9, void *a10, void *a11, void *a12,        \
+      void *a13, void *a14, void *a15, void *a16, void *a17, void *a18,     \
+      void *a19, void *a20, void *a21, void *a22, void *a23, void *a24,     \
+      void *a25, void *a26, void *a27, void *a28, void *a29
 
 // The 42 pointers in the order of render/shade_kernel.py: 19 inputs, 11
 // state outputs, 5 tape and 7 record outputs (a null tape or record pointer
 // turns that output off).  Returns the launch's cudaGetLastError().
 extern "C" int rtc_shade(
-    void* a0, void* a1, void* a2, void* a3, void* a4, void* a5, void* a6,
-    void* a7, void* a8, void* a9, void* a10, void* a11, void* a12, void* a13,
-    void* a14, void* a15, void* a16, void* a17, void* a18, void* a19,
-    void* a20, void* a21, void* a22, void* a23, void* a24, void* a25,
-    void* a26, void* a27, void* a28, void* a29, void* a30, void* a31,
-    void* a32, void* a33, void* a34, void* a35, void* a36, void* a37,
-    void* a38, void* a39, void* a40, void* a41, int R, int N, int i, int B,
-    int recursion, int ambient_is_miss, int is_double, void* stream) {
+    RTC_SHADE_POINTERS, void* a30, void* a31, void* a32, void* a33,
+    void* a34, void* a35, void* a36, void* a37, void* a38, void* a39,
+    void* a40, void* a41, int R, int N, int i, int B, int recursion,
+    int ambient_is_miss, int is_double, void* stream) {
   void* const a[42] = {a0,  a1,  a2,  a3,  a4,  a5,  a6,  a7,  a8,
                        a9,  a10, a11, a12, a13, a14, a15, a16, a17,
                        a18, a19, a20, a21, a22, a23, a24, a25, a26,
@@ -453,8 +570,56 @@ extern "C" int rtc_shade(
                        a36, a37, a38, a39, a40, a41};
   if (R <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_double ? rtc::shade<double>(a, R, N, i, B, recursion,
-                                        ambient_is_miss, s)
-                   : rtc::shade<float>(a, R, N, i, B, recursion,
-                                       ambient_is_miss, s);
+  return is_double
+             ? rtc::launch(rtc::shade_params<double>(a, R, N, i, B, recursion,
+                                                     ambient_is_miss),
+                           s)
+             : rtc::launch(rtc::shade_params<float>(a, R, N, i, B, recursion,
+                                                    ambient_is_miss),
+                           s);
+}
+
+// Bounce i of the trace route's glue-free pass (PASS, float32): the 19
+// inputs and 11 state outputs of rtc_shade, with a15 bounce i's raw draws
+// [5,R]; at bounce 0 the state inputs a6-a14 are not read; a nonzero
+// `renorm` normalizes the next direction; a film (film_sum [R,3],
+// film_samples [R], film_misses [R], the last bounce) takes the sample in
+// place and no state output is written.  Returns cudaGetLastError().
+extern "C" int rtc_shade_pass(RTC_SHADE_POINTERS, float* film_sum,
+                              float* film_samples, float* film_misses, int R,
+                              int N, int i, int B, int recursion,
+                              int ambient_is_miss, int renorm, void* stream) {
+  void* const a[42] = {a0,  a1,  a2,  a3,  a4,  a5,  a6,  a7,  a8,
+                       a9,  a10, a11, a12, a13, a14, a15, a16, a17,
+                       a18, a19, a20, a21, a22, a23, a24, a25, a26,
+                       a27, a28, a29};
+  if (R <= 0) return 0;
+  rtc::ShadeParams<float> p =
+      rtc::shade_params<float>(a, R, N, i, B, recursion, ambient_is_miss);
+  p.film_sum = film_sum;
+  p.film_samples = film_samples;
+  p.film_misses = film_misses;
+  p.renorm = renorm;
+  const dim3 grid((unsigned)((R + rtc::SHADE_BLOCK - 1) / rtc::SHADE_BLOCK));
+  rtc::shade_bounce_kernel<float, false, false, true>
+      <<<grid, rtc::SHADE_BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The camera rays of a pass of R = height x width pixels (row-major, `width`
+// a row) from the jitter [R,4] and the camera's 11 tensors `cam` (position
+// look side up, then w2 h2 ax ay image_plane dof_amount focal_length;
+// `cam_mode` 0 frustum, 1 ortho): ray_o [R,3] and bounce 0's unit
+// direction ray_d [R,3].  Returns cudaGetLastError().
+extern "C" int rtc_pass_rays(const float* jitter, const float* const* cam,
+                             float* ray_o, float* ray_d, int R, int width,
+                             int cam_mode, void* stream) {
+  if (R <= 0) return 0;
+  rtc::CameraPtrs c;
+  for (int k = 0; k < rtc::CAM_TENSORS; ++k) c.t[k] = cam[k];
+  const dim3 grid((unsigned)((R + rtc::SHADE_BLOCK - 1) / rtc::SHADE_BLOCK));
+  rtc::pass_rays_kernel<<<grid, rtc::SHADE_BLOCK, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      jitter, c, ray_o, ray_d, R, width, cam_mode);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -1,8 +1,9 @@
 // The channel transforms of preprocess_uniforms (render/integrator.py), as
 // device functions of one raw uniform each: the uniforms kernel
-// (uniforms.cu) writes all seven channels with them, and the megakernel's
-// whole-pass form (fused.cu) computes, at the point of use, the channels a
-// bounce reads from the raw [B, 5, R] draws.
+// (uniforms.cu) writes all seven channels with them; the megakernel's
+// whole-pass form (fused.cu) and the shading kernel's (shade.cu) compute,
+// at the point of use, the channels a bounce reads from the raw [B, 5, R]
+// draws.
 //
 //   ch0 = ln(clamp(u0, 1e-20, 1))     shine_log
 //   ch1, ch2 = cos/sin(2 pi u1)       cos_2pi, sin_2pi

@@ -98,6 +98,19 @@ SIGNATURES = {
         + [_I] * 7                     # R N bounce n_bounces recursion
                                        # ambient_is_miss is_double
         + [_P]),                       # stream
+    "rtc_shade_pass": (
+        [_P] * 33                      # rtc_shade's 19 inputs (u: the
+                                       # bounce's raw draws) and 11 state
+                                       # outputs, 3 film planes (null: not
+                                       # the last bounce)
+        + [_I] * 7                     # R N bounce n_bounces recursion
+                                       # ambient_is_miss renorm
+        + [_P]),                       # stream
+    "rtc_pass_rays": (
+        [_P] * 4                       # jitter, camera (an array of its 11
+                                       # tensors' pointers), ray_o, ray_d
+        + [_I] * 3                     # R width cam_mode
+        + [_P]),                       # stream
     "rtc_sort_key": (
         [_P] * 5                       # 2 rays, root min and max, keys
         + [_I] * 3                     # R morton_bits dir_bits

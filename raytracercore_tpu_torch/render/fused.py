@@ -75,7 +75,7 @@ def pack_scene(scene: SceneArrays):
     scf = torch.cat([scene.air_refractive_index.reshape(1),
                      scene.ambient_rgb.reshape(3)]).to(torch.float32)
     return tuple(t.detach().contiguous() for t in (
-        *_f32_tables(scene), pack_materials(scene.materials), scf))
+        *_f32_tables(scene), scene.material_rows, scf))
 
 
 def _f32_tables(scene: SceneArrays):

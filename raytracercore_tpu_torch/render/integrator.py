@@ -105,7 +105,8 @@ class PathTape:
 
 
 def preprocess_uniforms(raw):
-    """Per-bounce raw uniforms ``[B, 5, R]`` → the 7 channels ``[B, 7, R]``.
+    """Per-bounce raw uniforms ``[B, 5, R]`` → the 7 channels ``[B, 7, R]``
+    (one bounce's ``[5, R]`` → its ``[7, R]``).
 
     Raw channel order is the integrator's consumption order (shine z, shine
     θ, branch u, diffuse z, diffuse θ; Raytracer.cs:51-56, 177, 215-216);
@@ -117,15 +118,15 @@ def preprocess_uniforms(raw):
       ch4 = 2·acos(u3)/π          — diffuse cone height (Raytracer.cs:215)
       ch5, ch6 = cos/sin(2π·u4)   — diffuse azimuth
     """
-    t1 = raw[:, 1] * TWO_PI
-    t2 = raw[:, 4] * TWO_PI
+    t1 = raw[..., 1, :] * TWO_PI
+    t2 = raw[..., 4, :] * TWO_PI
     return torch.stack([
-        torch.log(torch.clamp(raw[:, 0], 1e-20, 1.0)),
+        torch.log(torch.clamp(raw[..., 0, :], 1e-20, 1.0)),
         torch.cos(t1), torch.sin(t1),
-        raw[:, 2],
-        2.0 * torch.acos(torch.clamp(raw[:, 3], 0.0, 1.0)) / torch.pi,
+        raw[..., 2, :],
+        2.0 * torch.acos(torch.clamp(raw[..., 3, :], 0.0, 1.0)) / torch.pi,
         torch.cos(t2), torch.sin(t2),
-    ], dim=1)
+    ], dim=-2)
 
 
 def prepare_uniforms(generator: torch.Generator, n: int, bounces: int,
@@ -226,6 +227,20 @@ class PathState:
     result: torch.Tensor   # [R, 3] final colour once dead
     miss: torch.Tensor     # [R] bool — sample counts as a miss
     prev: HitRecord        # previous bounce's hit (skip record)
+
+    @classmethod
+    def start(cls, ray_o, ray_d) -> "PathState":
+        """Camera paths before bounce 0: tint 1, alive, result 0, no miss,
+        no skip record."""
+        R = ray_o.shape[0]
+        dtype, device = ray_o.dtype, ray_o.device
+        return cls(
+            ray_o=ray_o, ray_d=ray_d,
+            tint=torch.ones((R, 3), dtype=dtype, device=device),
+            alive=torch.ones((R,), dtype=torch.bool, device=device),
+            result=torch.zeros((R, 3), dtype=dtype, device=device),
+            miss=torch.zeros((R,), dtype=torch.bool, device=device),
+            prev=HitRecord.none(R, dtype, device))
 
 
 def shade_bounce_reference(hit: HitRecord, state: PathState, d, u, matf,
@@ -523,13 +538,7 @@ def trace(scene: SceneArrays, ray_o, ray_d, generator=None,
     air = scene.air_refractive_index.to(dtype)
     matf = _material_matrix(scene.materials)  # packed once for all bounces
 
-    state = PathState(
-        ray_o=ray_o, ray_d=ray_d,
-        tint=torch.ones((R, 3), dtype=dtype, device=device),
-        alive=torch.ones((R,), dtype=torch.bool, device=device),
-        result=torch.zeros((R, 3), dtype=dtype, device=device),
-        miss=torch.zeros((R,), dtype=torch.bool, device=device),
-        prev=HitRecord.none(R, dtype, device))
+    state = PathState.start(ray_o, ray_d)
 
     for i in range(n_bounces):
         if early_exit and not bool(state.alive.any()):
@@ -556,3 +565,54 @@ def trace(scene: SceneArrays, ray_o, ray_d, generator=None,
     if want_tape:
         out += (tape,)
     return out
+
+
+def trace_pass(scene: SceneArrays, camera, film, jitter, raw,
+               closest_fn=closest_hit):
+    """One progressive pass of the bounce loop (the ``trace`` route) added
+    into ``film``'s own tensors, +1 sample for every pixel, from the pass's
+    draws: ``jitter`` [H*W, 4] and the raw ``[recursion + 1, 5, H*W]``
+    (ray ``i`` takes row-major pixel ``i``); returns ``film``.
+
+    The pass without its eager glue: one launch of the camera rays
+    (:func:`.shade_kernel.pass_rays`: :func:`.camera.camera_rays` and the
+    renormalization of bounce 0), then each bounce's ``closest_fn`` and one
+    launch of the shading kernel on the bounce's raw draws
+    (:func:`.shade_kernel.shade_bounce_pass`), which computes the uniform
+    channels where :func:`trace` reads :func:`preprocess_uniforms`' planes,
+    starts bounce 0 from :meth:`PathState.start`, writes the direction of
+    bounces 3, 6, 9, ... already renormalized (``trace`` reads the
+    unnormalized one only to renormalize it), and at the last bounce adds
+    the samples into ``film`` (:meth:`.film.Film.add_full_frame_`).  Bounce
+    0 queries with no skip record, which skips nothing, as the empty record
+    ``trace`` passes.  The shading reads the scene's material rows, packed
+    once (:attr:`..scene.types.SceneArrays.material_rows`), where ``trace``
+    packs :func:`_material_matrix` a pass.  On CUDA tensors the kernels run
+    (a float32, uncompensated film); on CPU tensors their plain versions.  Bit-equal to the chain it replaces,
+    :func:`.renderer.render_pass_` on :func:`preprocess_uniforms` ``(raw)``
+    with ``closest_fn``.  No host synchronisation."""
+    from . import shade_kernel
+
+    if scene.debug_geom:
+        raise ValueError("trace_pass: a debug geom scene traces one flat "
+                         "bounce; render_pass_ runs it")
+    h, w = film.shape
+    recursion = scene.recursion
+    with span("camera_rays"):
+        ray_o, d = shade_kernel.pass_rays(camera, jitter, w)
+    ambient = scene.ambient_rgb.to(d.dtype)
+    air = scene.air_refractive_index.to(d.dtype)
+    matf = scene.material_rows
+    state = None
+    for i in range(recursion + 1):
+        last = i == recursion
+        with span("closest_hit"):
+            hit = closest_fn(scene, ray_o, d,
+                             None if state is None else state.prev)
+        state = shade_kernel.shade_bounce_pass(
+            hit, state, d, raw, matf, ambient, air, i, recursion,
+            scene.ambient_is_miss, film=film if last else None,
+            renorm=(i + 1) % 3 == 0)
+        if not last:
+            ray_o, d = state.ray_o, state.ray_d
+    return film

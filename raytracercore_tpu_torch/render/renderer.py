@@ -13,10 +13,14 @@ wraparound tile loop (Raytracer.cs:302-327).
 On a CUDA device a float32, uncompensated, untiled pass of the megakernel
 route is one launch of the megakernel's whole-pass form
 (:func:`.fused.trace_pass`: camera rays, uniform channels and film add
-inside the kernel) after the pass's two draws; every other pass runs the
-chain of camera rays, uniform channels, tracer and film add
-(:func:`render_pass`), which is the whole pass's plain version
-(:func:`whole_pass` decides).
+inside the kernel) after the pass's two draws (:func:`whole_pass`
+decides); such a pass of the bounce loop's route is the two draws and
+hand-written launches only (:func:`.integrator.trace_pass`: the camera
+kernel, then each bounce's closest hit and shading kernel, which computes
+the uniform channels, renormalizes and at the last bounce adds into the
+film; :func:`whole_trace_pass` decides).  Every other pass runs the chain
+of camera rays, uniform channels, tracer and film add (:func:`render_pass`),
+which is the plain version of both.
 
 Randomness: pass ``k`` draws its camera jitter and its path uniforms from a
 ``torch.Generator`` on the render device seeded from ``(seed, k)``, so a run
@@ -36,7 +40,9 @@ A step and an image are spans (:mod:`..core.spans`): ``render.step``
 holds ``graph.feed``, one ``graph.replay`` a pass and ``render.sync``, or
 on the eager path the phases under the JAX package's profiler scope names
 (``camera_rays``, ``trace_fused``, ``film_accum``; ``closest_hit`` on
-every bounce of ``trace``; ``trace_pass`` for a whole pass);
+every bounce of ``trace``; ``trace_pass`` for the megakernel's whole
+pass; ``camera_rays`` and a ``closest_hit`` a bounce for the bounce loop's
+pass without glue);
 ``render.image`` holds ``film.tonemap`` and
 ``film.to_host``.  A replay runs no Python, so nothing inside a graph is
 a span.  :meth:`Renderer.profile` writes a trace of what ``step`` runs,
@@ -66,6 +72,7 @@ from ..scene.types import (CameraRT, HostScene, SceneArrays, freeze_scene,
                            init_camera)
 from . import camera as cam_mod
 from . import fused
+from . import integrator
 from .film import Film
 from .integrator import preprocess_uniforms, trace
 
@@ -197,9 +204,56 @@ def whole_pass(trace_fn, device, dtype, compensated: bool, tile: int
             and dtype == torch.float32 and not compensated and not tile)
 
 
-def _whole_pass(film: Film, trace_fn, tile: int) -> bool:
-    return whole_pass(trace_fn, film.samples.device, film.color_sum.dtype,
-                      film.color_c is not None, tile)
+def whole_trace_pass(scene: SceneArrays, camera: CameraRT, trace_fn,
+                     device, dtype, compensated: bool, tile: int) -> bool:
+    """Whether a pass runs as :func:`.integrator.trace_pass` (the two draws
+    and hand-written launches only): on the bounce loop's route
+    (``trace_fn`` is None, with any ``closest_fn``), on a CUDA device, into
+    a float32 film without compensation, untiled, with nothing of the
+    scene or camera requiring grad where autograd records (the shading
+    kernel is then the bounce body, as it is in ``trace``), for a scene
+    that is not ``debug geom``.  Every other pass runs the chain
+    :func:`render_pass_`, its plain version."""
+    tensors = _tensors_of(scene) + list(camera_tensors(camera))
+    return (trace_fn is None and not scene.debug_geom
+            and torch.device(device).type == "cuda"
+            and dtype == torch.float32 and not compensated and not tile
+            and not (torch.is_grad_enabled()
+                     and any(t.requires_grad for t in tensors)))
+
+
+def _tensors_of(x) -> list:
+    """The tensor fields of the dataclass ``x``, recursively."""
+    out = []
+    for f in dataclasses.fields(x):
+        v = getattr(x, f.name)
+        if isinstance(v, torch.Tensor):
+            out.append(v)
+        elif dataclasses.is_dataclass(v):
+            out += _tensors_of(v)
+    return out
+
+
+def _pass_kernel(scene: SceneArrays, camera: CameraRT, film: Film,
+                 closest_fn, trace_fn, tile: int):
+    """The whole form of a pass, ``(scene, camera, film, jitter, raw) →
+    film`` on the pass's :func:`raw_draws`: :func:`.fused.trace_pass` (in
+    a span ``trace_pass``) where :func:`whole_pass` admits it,
+    :func:`.integrator.trace_pass` with ``closest_fn`` where
+    :func:`whole_trace_pass` does; else None, the chain."""
+    args = (film.samples.device, film.color_sum.dtype,
+            film.color_c is not None, tile)
+    if whole_pass(trace_fn, *args):
+        def run(scene, camera, film, jitter, raw):
+            with spans.span("trace_pass"):
+                return fused.trace_pass(scene, camera, film, jitter, raw)
+        return run
+    if whole_trace_pass(scene, camera, trace_fn, *args):
+        def run(scene, camera, film, jitter, raw):
+            return integrator.trace_pass(scene, camera, film, jitter, raw,
+                                         closest_fn)
+        return run
+    return None
 
 
 def pick_route(arrays: SceneArrays, accelerator: str = "auto"):
@@ -258,8 +312,10 @@ class PassGraph:
     static camera :attr:`camera` and accumulates into the static film
     :attr:`film` in place: where :func:`whole_pass` admits the pass, the
     two draws and one launch of :func:`.fused.trace_pass` on the raw draws
-    (camera rays, uniform channels and film add in the megakernel); else
-    the chain :func:`render_pass_`.  :meth:`run` copies the
+    (camera rays, uniform channels and film add in the megakernel); where
+    :func:`whole_trace_pass` does, the two draws and
+    :func:`.integrator.trace_pass`'s launches; else the chain
+    :func:`render_pass_`.  :meth:`run` copies the
     caller's camera and film into those buffers first, unless they are
     those buffers.  :attr:`key` is what the graph was captured for: a pass
     whose key differs needs another graph."""
@@ -278,13 +334,14 @@ class PassGraph:
         self.film = _clone_film(film)
 
         cam = camera_tensors(self.camera)
-        whole = _whole_pass(film, trace_fn, tile)
+        whole = _pass_kernel(scene, camera, film, closest_fn, trace_fn, tile)
 
         def body(*tensors):  # the camera's tensors, then the film's
             target = Film(*tensors[len(cam):])
-            if whole:
+            if whole is not None:
                 jitter, raw = raw_draws(self.generator, n, bounces)
-                fused.trace_pass(scene, self.camera, target, jitter, raw)
+                with torch.no_grad():
+                    whole(scene, self.camera, target, jitter, raw)
                 return
             jitter, uniforms = generator_draws(self.generator, n, bounces,
                                                dtype)
@@ -334,7 +391,8 @@ def render_passes(scene: SceneArrays, camera, film: Film, seed: int,
     (:func:`pass_draws`); ``closest_fn``, ``trace_fn`` and ``tile`` as in
     :func:`render_pass`.  A pass that :func:`whole_pass` admits is one
     launch of :func:`.fused.trace_pass` on the pass's raw draws, graphed
-    or not.
+    or not; one that :func:`whole_trace_pass` admits runs
+    :func:`.integrator.trace_pass` on them.
 
     ``graphs``: None replays a captured :class:`PassGraph` (kept in
     :data:`PASS_GRAPHS`) for a film on a CUDA device and runs the eager
@@ -351,13 +409,14 @@ def render_passes(scene: SceneArrays, camera, film: Film, seed: int,
         return _clone_film(pg.run(camera, film, seed, start, n))
     h, w = film.shape
     bounces = scene.recursion + 1
-    if _whole_pass(film, trace_fn, tile):
+    whole = _pass_kernel(scene, camera, film, closest_fn, trace_fn, tile)
+    if whole is not None:
         film = _clone_film(film)
         for k in range(start, start + n):
             jitter, raw = raw_draws(pass_generator(seed, k, device), h * w,
                                     bounces)
-            with spans.span("trace_pass"):
-                fused.trace_pass(scene, camera, film, jitter, raw)
+            with torch.no_grad():
+                whole(scene, camera, film, jitter, raw)
         return film
     for k in range(start, start + n):
         jitter, uniforms = pass_draws(seed, k, h * w, bounces, device,
@@ -601,7 +660,9 @@ class Renderer:
         complete events of category ``rtc.span`` on the host thread:
         ``render.step`` holding ``graph.feed``, a ``graph.replay`` a pass
         and ``render.sync``, or on the eager path ``trace_pass`` for a
-        whole pass (:func:`whole_pass`), else the phases ``camera_rays``,
+        megakernel's whole pass (:func:`whole_pass`), ``camera_rays`` and a
+        ``closest_hit`` a bounce for the bounce loop's
+        (:func:`whole_trace_pass`), else the phases ``camera_rays``,
         ``trace_fused`` or ``closest_hit`` (one a bounce) and
         ``film_accum``.  They are mapped onto the profiler's clock by
         an ``rtc.anchor`` range before (after one that warms the profiler)

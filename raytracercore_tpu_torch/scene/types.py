@@ -324,6 +324,18 @@ class SceneArrays(_Tensors):
         return pack_scene(self)
 
     @functools.cached_property
+    def material_rows(self):
+        """The ``[N, 14]`` float32 material rows (render/fused.py:
+        ``pack_materials``), built once per scene: the megakernel's and
+        the trace route's shading kernel's table.  An infinite shininess
+        stays infinite; the kernels and ``shade_bounce_reference`` shade
+        it as they shade the f32 maximum that
+        ``integrator._material_matrix`` puts there (an unperturbed
+        normal, exactly)."""
+        from ..render.fused import pack_materials
+        return pack_materials(self.materials).detach().contiguous()
+
+    @functools.cached_property
     def select_tables(self):
         """The select kernel's layout of the geometry tables
         (intersect/cuda_select.py: ``pack_select_tables``), built once per
