@@ -150,52 +150,11 @@ def cornell_scene():
     return CORNELL_SCENE
 
 
-# The small scene of the JAX package's megakernel test (every branch of the
-# bounce loop: emissive quad, two-sided plane, glass and mirror spheres).
-FUSED_TEST_SCENE = """
-size 16 16
-recursion 4
-ambient color 0.05 0.05 0.05
-camera 0 1 4  0 1 0  0 1 0  60
-emission 6 6 6
-vertex -1 2.5 -1
-vertex 1 2.5 -1
-vertex -1 2.5 1
-tri 0 1 2 mirrored
-emission 0 0 0
-diffuse .7 .6 .5
-twosided true
-plane -1  0 0 1
-diffuse 0 0 0
-specular .9 .9 .9
-shininess 100000
-refraction .9 .9 .9, 1.52
-sphere -0.8 1 0.5 0.6
-refraction off
-shininess 1000000
-sphere 0.8 1 0.5 0.6
-"""
-
-# The same scene in `ambient miss` mode with a smooth-shaded quad
-# (vertex normals) in front of the back plane: the kernel's other
-# specializations (ambient-miss, smooth normals).
-SMOOTH_SCENE = FUSED_TEST_SCENE.replace(
-    "ambient color 0.05 0.05 0.05", "ambient miss") + """
-diffuse .6 .6 .6
-specular 0 0 0
-shininess 100
-vertexnormal -1.5 0 -.9  -.3 .3 1
-vertexnormal 1.5 0 -.9  .3 .3 1
-vertexnormal -1.5 2.5 -.9  -.3 -.2 1
-vertexnormal 1.5 2.5 -.9  .3 -.2 1
-trinormal 0 1 2
-trinormal 1 3 2
-"""
-
-# The geometry of FUSED_TEST_SCENE with materials whose total luminance
-# exceeds 1, so the energy compensation max(total, 1) passes gradients to
-# Fresnel: IOR and shininess get real gradients (with total < 1
-# everywhere, as in the scenes above, those gradients are exactly 0).
+# The geometry of parallel.worker.FUSED_TEST_SCENE with materials whose
+# total luminance exceeds 1, so the energy compensation max(total, 1)
+# passes gradients to Fresnel: IOR and shininess get real gradients (with
+# total < 1 everywhere, as in the other scenes, those gradients are
+# exactly 0).
 ROUGH_SCENE = """
 size 16 16
 recursion 4
@@ -3497,17 +3456,17 @@ def trace_pass_main(card, parent):
         # The Renderer's graphed pass with its draws (PassGraph): the
         # glue-free body against the chain's (the predicate turned off).
         graphed = {}
-        real = rmod.whole_trace_pass
+        real = rmod.pass_form
         with tempfile.TemporaryDirectory() as tmp:
             for name in ("chain", "trace_pass", "trace_pass", "chain"):
-                rmod.whole_trace_pass = (real if name == "trace_pass"
-                                         else (lambda *a: False))
+                rmod.pass_form = (real if name == "trace_pass"
+                                  else (lambda *a: None))
                 try:
                     pg = rmod.PassGraph(arrays, cam,
                                         Film.create(h, w, device=dev),
                                         closest_fn)
                 finally:
-                    rmod.whole_trace_pass = real
+                    rmod.pass_form = real
                 pg.run(cam, pg.film, 3, 0, 2)
                 nodes = sum(pg.captured.kernel_nodes(
                     str(Path(tmp) / "graph.dot")).values())
@@ -5074,6 +5033,8 @@ def main():
         # The port's own modules; in a directory without the repository this
         # import fails and the run ends here.
         from raytracercore_tpu_torch import kernels
+        from raytracercore_tpu_torch.parallel.worker import (FUSED_TEST_SCENE,
+                                                             SMOOTH_SCENE)
         from raytracercore_tpu_torch.render import fused
         from raytracercore_tpu_torch.render.renderer import (Renderer,
                                                              render_pass)

@@ -38,10 +38,6 @@ SELECT_MAX_PRIMS = 768
 # f32.
 PARKED_ORIGIN = 4e8
 
-# Renderer(accelerator="auto") switches to the BVH above this many
-# triangles: the dense tier's own cap, as in the JAX package.
-BVH_AUTO_THRESHOLD = SELECT_MAX_PRIMS
-
 # Primitive slots per BVH leaf (bvh/builder.py) when the caller names none.
 # One thread walks one ray (csrc/traverse.cu), so a leaf costs a thread its
 # records one after another and small leaves win: on the 184,322-triangle

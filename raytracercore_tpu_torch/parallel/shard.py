@@ -287,34 +287,34 @@ def _sum_grads(mesh: Mesh, params: dict) -> None:
         p.grad = part.view_as(p)
 
 
-def step_backward(params: dict, scene, camera, target, jitter, key,
+def step_backward(params: dict, scene, ray_o, ray_d, target, key,
                   uniforms, optimizer, closest_fn=closest_hit,
-                  use_replay: bool = True):
-    """The forward and backward of one single-device train step on given
-    draws: the body a :class:`StepGraph` captures (and the eager step's,
-    with ``optimizer.step()`` after it).
+                  use_replay: bool = True, n=None):
+    """The forward and backward of a train step on given rays: the body a
+    :class:`StepGraph` captures, the eager single-device step's and a
+    rank's of the sharded step (each with ``optimizer.step()`` after it,
+    the sharded one after its all-reduces).
 
-    Camera rays from ``jitter`` [H·W, 4]; path uniforms ``uniforms`` [B,
-    7, H·W], or from the uniforms kernel keyed by the ``[2]`` int32 tensor
+    Rays ``ray_o``, ``ray_d`` [R, 3]; path uniforms ``uniforms`` [B, 7,
+    R], or from the uniforms kernel keyed by the ``[2]`` int32 tensor
     ``key`` (:func:`..render.uniforms_kernel.seed_key`); then
     :func:`..render.replay.trace_replay` (or ``trace`` with
-    ``use_replay=False``), the L2 loss against ``target`` [H, W, 3],
-    ``optimizer.zero_grad(set_to_none=True)`` and ``backward()``.
-    Returns the detached loss; the gradients are in the params'
-    ``.grad``."""
-    h, w = target.shape[:2]
-    ray_o, ray_d = _rays(camera, h, w, jitter)
+    ``use_replay=False``), the L2 loss against ``target`` (the rays' rows
+    of the image, ``[rows, W, 3]``) over ``n``, the whole image's size
+    (default: the target's), ``optimizer.zero_grad(set_to_none=True)``
+    and ``backward()``.  Returns the detached loss; the gradients are in
+    the params' ``.grad``."""
     s = with_material_params(scene, params)
     if use_replay:
         color, miss = trace_replay(s, ray_o, ray_d, seed=key,
                                    uniforms=uniforms, closest_fn=closest_fn)
     else:
         if uniforms is None:
-            uniforms = prepare_uniforms_keyed(key, h * w,
+            uniforms = prepare_uniforms_keyed(key, ray_o.shape[0],
                                               scene.recursion + 1)
         color, miss = trace(s, ray_o, ray_d, None, closest_fn=closest_fn,
                             uniforms=uniforms)
-    loss = image_loss(color, miss, target, h * w * 3)
+    loss = image_loss(color, miss, target, n)
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
     return loss.detach()
@@ -355,7 +355,8 @@ class StepGraph:
             jit = (step_jitter(self.generator, self.camera, h * w)
                    if self.drawn_jitter else rest.pop(0))
             uni = rest.pop(0) if self.given_uniforms else None
-            return step_backward(params, scene, self.camera, tgt, jit,
+            ray_o, ray_d = _rays(self.camera, h, w, jit)
+            return step_backward(params, scene, ray_o, ray_d, tgt,
                                  self.path_key, uni, optimizer, closest_fn,
                                  use_replay)
 
@@ -457,34 +458,15 @@ def make_train_step(mesh: Mesh | None, optimizer: torch.optim.Optimizer,
                     params, scene, camera, target, optimizer, closest_fn,
                     use_replay, jitter, uniforms))
                 return sg.run(camera, target, seed, jitter, uniforms)
-            if mesh is None:
-                if jitter is None:
-                    gen = torch.Generator(device=camera.position.device)
-                    gen.manual_seed(pass_seed(seed, 0))
-                    jitter = step_jitter(gen, camera, h * w)
-                key = seed_key(pass_seed(seed, 1), target.device)
-                loss = step_backward(params, scene, camera, target, jitter,
-                                     key, uniforms, optimizer, closest_fn,
-                                     use_replay)
-                with span("train.optimizer"):
-                    optimizer.step()
-                return loss
             ray_o, ray_d, uniforms, tgt, path_seed = _rank_inputs(
                 mesh, scene, camera, target, seed, jitter, uniforms)
-            s = with_material_params(scene, params)
-            if use_replay:
-                color, miss = trace_replay(s, ray_o, ray_d, seed=path_seed,
-                                           uniforms=uniforms,
-                                           closest_fn=closest_fn)
-            else:
-                color, miss = trace(s, ray_o, ray_d, None,
-                                    closest_fn=closest_fn, uniforms=uniforms)
-            loss = image_loss(color, miss, tgt, h * w * 3)
-            optimizer.zero_grad(set_to_none=True)
-            loss.backward()
-            loss = loss.detach()
-            dist.all_reduce(loss, group=mesh.rays_group)
-            _sum_grads(mesh, params)
+            loss = step_backward(params, scene, ray_o, ray_d, tgt,
+                                 seed_key(path_seed, target.device),
+                                 uniforms, optimizer, closest_fn, use_replay,
+                                 h * w * 3)
+            if mesh is not None:
+                dist.all_reduce(loss, group=mesh.rays_group)
+                _sum_grads(mesh, params)
             with span("train.optimizer"):
                 optimizer.step()
             return loss

@@ -94,6 +94,48 @@ shininess 1000000
 sphere -1.1 .45 1.1 .45
 """
 
+# The small scene of the JAX package's megakernel test (every branch of the
+# bounce loop: emissive quad, two-sided plane, glass and mirror spheres),
+# shared by chip_smoke.py and the port's tests.
+FUSED_TEST_SCENE = """
+size 16 16
+recursion 4
+ambient color 0.05 0.05 0.05
+camera 0 1 4  0 1 0  0 1 0  60
+emission 6 6 6
+vertex -1 2.5 -1
+vertex 1 2.5 -1
+vertex -1 2.5 1
+tri 0 1 2 mirrored
+emission 0 0 0
+diffuse .7 .6 .5
+twosided true
+plane -1  0 0 1
+diffuse 0 0 0
+specular .9 .9 .9
+shininess 100000
+refraction .9 .9 .9, 1.52
+sphere -0.8 1 0.5 0.6
+refraction off
+shininess 1000000
+sphere 0.8 1 0.5 0.6
+"""
+
+# The same scene in `ambient miss` mode with a smooth-shaded quad
+# (vertex normals) in front of the back plane: the megakernel's other
+# specializations (ambient-miss, smooth normals).
+SMOOTH_SCENE = FUSED_TEST_SCENE.replace(
+    "ambient color 0.05 0.05 0.05", "ambient miss") + """
+diffuse .6 .6 .6
+specular 0 0 0
+shininess 100
+vertexnormal -1.5 0 -.9  -.3 .3 1
+vertexnormal 1.5 0 -.9  .3 .3 1
+vertexnormal -1.5 2.5 -.9  -.3 -.2 1
+vertexnormal 1.5 2.5 -.9  .3 -.2 1
+trinormal 0 1 2
+trinormal 1 3 2
+"""
 
 
 def load_scene(name: str, size: int, recursion: int, device):

@@ -545,7 +545,7 @@ def trace_pass(scene: SceneArrays, camera: CameraRT, film: Film, jitter,
     never falls back, and it runs on nothing else: its plain version is the
     chain :func:`.renderer.render_pass_` with :func:`trace_fused` on
     :func:`.integrator.preprocess_uniforms` ``(raw)``, which the renderer
-    runs wherever this kernel does not (:func:`.renderer.whole_pass`).
+    runs wherever this kernel does not (:func:`.renderer.pass_form`).
     """
     if film.samples.device.type != "cuda":
         raise ValueError(f"trace_pass: the whole-pass kernel runs on a CUDA "

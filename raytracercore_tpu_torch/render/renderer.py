@@ -10,17 +10,17 @@ refinement = calling ``step``
 repeatedly; every pass adds +1 sample/pixel, like the reference's
 wraparound tile loop (Raytracer.cs:302-327).
 
-On a CUDA device a float32, uncompensated, untiled pass of the megakernel
-route is one launch of the megakernel's whole-pass form
-(:func:`.fused.trace_pass`: camera rays, uniform channels and film add
-inside the kernel) after the pass's two draws (:func:`whole_pass`
-decides); such a pass of the bounce loop's route is the two draws and
-hand-written launches only (:func:`.integrator.trace_pass`: the camera
-kernel, then each bounce's closest hit and shading kernel, which computes
-the uniform channels, renormalizes and at the last bounce adds into the
-film; :func:`whole_trace_pass` decides).  Every other pass runs the chain
-of camera rays, uniform channels, tracer and film add (:func:`render_pass`),
-which is the plain version of both.
+On a CUDA device a float32, uncompensated, untiled pass takes a whole form
+after the pass's two draws (:func:`pass_form` decides, and its docstring
+is the table): on the megakernel route one launch of
+:func:`.fused.trace_pass` (camera rays, uniform channels and film add
+inside the kernel); on the bounce loop's route hand-written launches only
+(:func:`.integrator.trace_pass`: the camera kernel, then each bounce's
+closest hit and shading kernel, which computes the uniform channels,
+renormalizes and at the last bounce adds into the film).  Every other pass
+runs the chain of camera rays, uniform channels, tracer and film add
+(:func:`render_pass_`), which is the plain version of both.  The graphed
+and the eager pass run the same body (:func:`_pass_body`).
 
 Randomness: pass ``k`` draws its camera jitter and its path uniforms from a
 ``torch.Generator`` on the render device seeded from ``(seed, k)``, so a run
@@ -41,8 +41,8 @@ holds ``graph.feed``, one ``graph.replay`` a pass and ``render.sync``, or
 on the eager path the phases under the JAX package's profiler scope names
 (``camera_rays``, ``trace_fused``, ``film_accum``; ``closest_hit`` on
 every bounce of ``trace``; ``trace_pass`` for the megakernel's whole
-pass; ``camera_rays`` and a ``closest_hit`` a bounce for the bounce loop's
-pass without glue);
+form; ``camera_rays`` and a ``closest_hit`` a bounce for the bounce loop's
+whole form);
 ``render.image`` holds ``film.tonemap`` and
 ``film.to_host``.  A replay runs no Python, so nothing inside a graph is
 a span.  :meth:`Renderer.profile` writes a trace of what ``step`` runs,
@@ -60,7 +60,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from ..config import BVH_AUTO_THRESHOLD, SELECT_MAX_PRIMS
+from ..config import SELECT_MAX_PRIMS
 from ..bvh.builder import build_bvh
 from ..core import graphs as graphs_mod
 from ..core import spans
@@ -191,35 +191,48 @@ def generator_draws(gen: torch.Generator, n: int, bounces: int,
     return jitter.to(dtype), preprocess_uniforms(raw.to(dtype))
 
 
-def whole_pass(trace_fn, device, dtype, compensated: bool, tile: int
-               ) -> bool:
-    """Whether a pass runs as one launch of :func:`.fused.trace_pass`
-    (camera rays, uniform channels and film add inside the megakernel):
-    on the megakernel route (``trace_fn`` is :func:`.fused.trace_fused`),
-    on a CUDA device, into a float32 film without compensation, untiled.
-    Every other pass runs the chain :func:`render_pass_`, which is the
-    whole pass's plain version."""
-    return (trace_fn is fused.trace_fused
-            and torch.device(device).type == "cuda"
-            and dtype == torch.float32 and not compensated and not tile)
+def pass_form(scene: SceneArrays, camera: CameraRT, trace_fn, device,
+              dtype, compensated: bool, tile: int):
+    """The whole form a pass takes, ``(scene, camera, film, jitter, raw,
+    closest_fn) → film`` on the pass's :func:`raw_draws`, or None: the
+    chain :func:`render_pass_`, which is the plain version of every form.
 
+    A whole form needs a CUDA device and a float32, uncompensated, untiled
+    film; then the route decides:
 
-def whole_trace_pass(scene: SceneArrays, camera: CameraRT, trace_fn,
-                     device, dtype, compensated: bool, tile: int) -> bool:
-    """Whether a pass runs as :func:`.integrator.trace_pass` (the two draws
-    and hand-written launches only): on the bounce loop's route
-    (``trace_fn`` is None, with any ``closest_fn``), on a CUDA device, into
-    a float32 film without compensation, untiled, with nothing of the
-    scene or camera requiring grad where autograd records (the shading
-    kernel is then the bounce body, as it is in ``trace``), for a scene
-    that is not ``debug geom``.  Every other pass runs the chain
-    :func:`render_pass_`, its plain version."""
+    ================================  ===================================
+    route                             form
+    ================================  ===================================
+    megakernel (``trace_fn`` is       :func:`.fused.trace_pass`, in a span
+    :func:`.fused.trace_fused`)       ``trace_pass``
+    bounce loop (``trace_fn`` None,   :func:`.integrator.trace_pass` with
+    select kernel or BVH)             ``closest_fn``, for a scene that is
+                                      not ``debug geom`` with nothing of
+                                      the scene or camera requiring grad
+                                      where autograd records (the shading
+                                      kernel is then the bounce body, as
+                                      it is in ``trace``); else None
+    any other ``trace_fn``            None
+    ================================  ===================================
+    """
+    if not (torch.device(device).type == "cuda" and dtype == torch.float32
+            and not compensated and not tile):
+        return None
+    if trace_fn is fused.trace_fused:
+        return _megakernel_pass
+    if trace_fn is not None or scene.debug_geom:
+        return None
     tensors = _tensors_of(scene) + list(camera_tensors(camera))
-    return (trace_fn is None and not scene.debug_geom
-            and torch.device(device).type == "cuda"
-            and dtype == torch.float32 and not compensated and not tile
-            and not (torch.is_grad_enabled()
-                     and any(t.requires_grad for t in tensors)))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return None
+    return integrator.trace_pass
+
+
+def _megakernel_pass(scene, camera, film, jitter, raw, closest_fn):
+    """:func:`.fused.trace_pass` in a span ``trace_pass`` (the megakernel
+    is its own closest hit: ``closest_fn`` goes unused)."""
+    with spans.span("trace_pass"):
+        return fused.trace_pass(scene, camera, film, jitter, raw)
 
 
 def _tensors_of(x) -> list:
@@ -234,43 +247,47 @@ def _tensors_of(x) -> list:
     return out
 
 
-def _pass_kernel(scene: SceneArrays, camera: CameraRT, film: Film,
-                 closest_fn, trace_fn, tile: int):
-    """The whole form of a pass, ``(scene, camera, film, jitter, raw) →
-    film`` on the pass's :func:`raw_draws`: :func:`.fused.trace_pass` (in
-    a span ``trace_pass``) where :func:`whole_pass` admits it,
-    :func:`.integrator.trace_pass` with ``closest_fn`` where
-    :func:`whole_trace_pass` does; else None, the chain."""
-    args = (film.samples.device, film.color_sum.dtype,
-            film.color_c is not None, tile)
-    if whole_pass(trace_fn, *args):
-        def run(scene, camera, film, jitter, raw):
-            with spans.span("trace_pass"):
-                return fused.trace_pass(scene, camera, film, jitter, raw)
-        return run
-    if whole_trace_pass(scene, camera, trace_fn, *args):
-        def run(scene, camera, film, jitter, raw):
-            return integrator.trace_pass(scene, camera, film, jitter, raw,
-                                         closest_fn)
-        return run
-    return None
+def _pass_body(scene: SceneArrays, camera: CameraRT, film: Film, closest_fn,
+               trace_fn, tile: int) -> Callable:
+    """``add(camera, film, gen)``: one pass drawn from the generator
+    ``gen``, added into ``film`` in place, in the form :func:`pass_form`
+    gives a pass like the one of ``camera`` and ``film`` (decided here,
+    once): the pass's :func:`raw_draws` and the whole form, or its
+    :func:`generator_draws` in the film's dtype and the chain
+    :func:`render_pass_`.  What a :class:`PassGraph` captures and what
+    :func:`render_passes` runs eagerly."""
+    form = pass_form(scene, camera, trace_fn, film.samples.device,
+                     film.color_sum.dtype, film.color_c is not None, tile)
+    h, w = film.shape
+    n, bounces = h * w, scene.recursion + 1
+
+    def add(camera, film, gen):
+        with torch.no_grad():
+            if form is not None:
+                jitter, raw = raw_draws(gen, n, bounces)
+                form(scene, camera, film, jitter, raw, closest_fn)
+            else:
+                jitter, uniforms = generator_draws(gen, n, bounces,
+                                                   film.color_sum.dtype)
+                render_pass_(scene, camera, film, jitter, uniforms,
+                             closest_fn=closest_fn, trace_fn=trace_fn,
+                             tile=tile)
+    return add
 
 
 def pick_route(arrays: SceneArrays, accelerator: str = "auto"):
     """The tracer of a scene, as :class:`Renderer` picks it: ``(closest_fn,
     trace_fn, bvh)`` for :func:`render_pass`.  ``accelerator``: "brute"
-    (dense scan), "bvh", or "auto" — the BVH once the triangle table
-    outgrows the dense tier (``config.BVH_AUTO_THRESHOLD``) or the three
-    tables together outgrow the select kernel (``config.SELECT_MAX_PRIMS``
-    rows, where "brute" raises ``NotImplementedError``).  Within the dense
-    tier, scenes that :func:`.fused.fits` run the megakernel, the others
-    ``trace`` with the select kernel's closest hit."""
+    (dense scan), "bvh", or "auto" — the BVH once the three tables together
+    outgrow the select kernel (``config.SELECT_MAX_PRIMS`` rows, where
+    "brute" raises ``NotImplementedError``).  Within the dense tier, scenes
+    that :func:`.fused.fits` run the megakernel, the others ``trace`` with
+    the select kernel's closest hit."""
     if accelerator not in ("auto", "brute", "bvh"):
         raise ValueError(f"Renderer: unknown accelerator {accelerator!r}")
     rows = n_table_rows(arrays)
-    n_tris = int((arrays.triangles.prim_id >= 0).sum())
-    if accelerator == "bvh" or (accelerator == "auto" and (
-            n_tris > BVH_AUTO_THRESHOLD or rows > SELECT_MAX_PRIMS)):
+    if accelerator == "bvh" or (accelerator == "auto"
+                                and rows > SELECT_MAX_PRIMS):
         bvh = build_bvh(arrays)
         return (make_bvh_closest_fn(bvh, arrays, traversal="kernel"), None,
                 bvh)
@@ -310,45 +327,27 @@ class PassGraph:
     (registered with it; :meth:`run` seeds it with :func:`pass_seed`
     before each replay, so the draws are the eager pass's), reads the
     static camera :attr:`camera` and accumulates into the static film
-    :attr:`film` in place: where :func:`whole_pass` admits the pass, the
-    two draws and one launch of :func:`.fused.trace_pass` on the raw draws
-    (camera rays, uniform channels and film add in the megakernel); where
-    :func:`whole_trace_pass` does, the two draws and
-    :func:`.integrator.trace_pass`'s launches; else the chain
-    :func:`render_pass_`.  :meth:`run` copies the
-    caller's camera and film into those buffers first, unless they are
-    those buffers.  :attr:`key` is what the graph was captured for: a pass
-    whose key differs needs another graph."""
+    :attr:`film` in place, in the form :func:`pass_form` gives the pass
+    (:func:`_pass_body`, as the eager :func:`render_passes`).  :meth:`run`
+    copies the caller's camera and film into those buffers first, unless
+    they are those buffers.  :attr:`key` is what the graph was captured
+    for: a pass whose key differs needs another graph."""
 
     def __init__(self, scene: SceneArrays, camera: CameraRT, film: Film,
                  closest_fn=closest_hit, trace_fn=None, tile: int = 0):
         self.key = PassGraph.key_of(scene, camera, film, closest_fn,
                                     trace_fn, tile)
         self.scene = scene  # held, so that the id in the key stays its own
-        device = film.samples.device
         h, w = film.shape
-        n, bounces = h * w, scene.recursion + 1
-        dtype = film.color_sum.dtype
-        self.generator = torch.Generator(device=device)
+        self.generator = torch.Generator(device=film.samples.device)
         self.camera = _clone_camera(camera)
         self.film = _clone_film(film)
 
         cam = camera_tensors(self.camera)
-        whole = _pass_kernel(scene, camera, film, closest_fn, trace_fn, tile)
+        add = _pass_body(scene, camera, film, closest_fn, trace_fn, tile)
 
         def body(*tensors):  # the camera's tensors, then the film's
-            target = Film(*tensors[len(cam):])
-            if whole is not None:
-                jitter, raw = raw_draws(self.generator, n, bounces)
-                with torch.no_grad():
-                    whole(scene, self.camera, target, jitter, raw)
-                return
-            jitter, uniforms = generator_draws(self.generator, n, bounces,
-                                               dtype)
-            with torch.no_grad():
-                render_pass_(scene, self.camera, target, jitter, uniforms,
-                             closest_fn=closest_fn, trace_fn=trace_fn,
-                             tile=tile)
+            add(self.camera, Film(*tensors[len(cam):]), self.generator)
 
         self.captured = graphs_mod.capture(
             body, cam + self.film.tensors(),
@@ -389,10 +388,8 @@ def render_passes(scene: SceneArrays, camera, film: Film, seed: int,
     """``n`` progressive passes, pass ``k`` (``start <= k < start + n``)
     drawing from a generator seeded with :func:`pass_seed` ``(seed, k)``
     (:func:`pass_draws`); ``closest_fn``, ``trace_fn`` and ``tile`` as in
-    :func:`render_pass`.  A pass that :func:`whole_pass` admits is one
-    launch of :func:`.fused.trace_pass` on the pass's raw draws, graphed
-    or not; one that :func:`whole_trace_pass` admits runs
-    :func:`.integrator.trace_pass` on them.
+    :func:`render_pass`, each pass in the form :func:`pass_form` gives it,
+    graphed or not (:func:`_pass_body`).
 
     ``graphs``: None replays a captured :class:`PassGraph` (kept in
     :data:`PASS_GRAPHS`) for a film on a CUDA device and runs the eager
@@ -407,24 +404,10 @@ def render_passes(scene: SceneArrays, camera, film: Film, seed: int,
         pg = PASS_GRAPHS.get(key, lambda: PassGraph(
             scene, camera, film, closest_fn, trace_fn, tile))
         return _clone_film(pg.run(camera, film, seed, start, n))
-    h, w = film.shape
-    bounces = scene.recursion + 1
-    whole = _pass_kernel(scene, camera, film, closest_fn, trace_fn, tile)
-    if whole is not None:
-        film = _clone_film(film)
-        for k in range(start, start + n):
-            jitter, raw = raw_draws(pass_generator(seed, k, device), h * w,
-                                    bounces)
-            with torch.no_grad():
-                whole(scene, camera, film, jitter, raw)
-        return film
+    add = _pass_body(scene, camera, film, closest_fn, trace_fn, tile)
+    film = _clone_film(film)
     for k in range(start, start + n):
-        jitter, uniforms = pass_draws(seed, k, h * w, bounces, device,
-                                      film.color_sum.dtype)
-        with torch.no_grad():
-            film = render_pass(scene, camera, film, jitter, uniforms,
-                               closest_fn=closest_fn, trace_fn=trace_fn,
-                               tile=tile)
+        add(camera, film, pass_generator(seed, k, device))
     return film
 
 
@@ -659,10 +642,10 @@ class Renderer:
         run with the span recorder on, and its spans go into the trace as
         complete events of category ``rtc.span`` on the host thread:
         ``render.step`` holding ``graph.feed``, a ``graph.replay`` a pass
-        and ``render.sync``, or on the eager path ``trace_pass`` for a
-        megakernel's whole pass (:func:`whole_pass`), ``camera_rays`` and a
-        ``closest_hit`` a bounce for the bounce loop's
-        (:func:`whole_trace_pass`), else the phases ``camera_rays``,
+        and ``render.sync``, or on the eager path ``trace_pass`` for the
+        megakernel's whole form, ``camera_rays`` and a ``closest_hit`` a
+        bounce for the bounce loop's (:func:`pass_form`), else the phases
+        ``camera_rays``,
         ``trace_fused`` or ``closest_hit`` (one a bounce) and
         ``film_accum``.  They are mapped onto the profiler's clock by
         an ``rtc.anchor`` range before (after one that warms the profiler)

@@ -10,8 +10,9 @@ eagerly, against the eager forms and against JAX.
 * the pass body (``render_pass_`` on the draws of a pass graph's
   generator) against ``render_pass`` bit for bit, and against the JAX
   chain at ``test_render_pass_matches_jax_chain``'s tolerances;
-* the step body (``step_backward`` on static buffers + Adam) against
-  ``make_train_step(None, ...)`` bit for bit, and against the JAX step;
+* the step body (camera rays and ``step_backward`` on static buffers +
+  Adam) against ``make_train_step(None, ...)`` bit for bit, and against
+  the JAX step;
 * the refusals (``graphs=True`` off the card, ``early_exit`` under a
   capture, a capture under a recording profiler) and the launch
   accounting of captured graphs;
@@ -196,8 +197,9 @@ def test_step_body_equals_train_step(use_replay):
         gen.manual_seed(pass_seed(seed, 0))
         uk.fill_seed_key(key, pass_seed(seed, 1))
         jitter = shard.step_jitter(gen, tc, h * w)
-        got = shard.step_backward(body_p, ta, tc, static_target, jitter, key,
-                                  None, adam, use_replay=use_replay)
+        ray_o, ray_d, _ = shard.step_rays(tc, h, w, seed, jitter)
+        got = shard.step_backward(body_p, ta, ray_o, ray_d, static_target,
+                                  key, None, adam, use_replay=use_replay)
         adam.step()
         assert torch.equal(got, want)
         for f in MATERIAL_FIELDS:
@@ -220,7 +222,8 @@ def test_step_body_matches_jax():
     tparams = material_params_from_numpy(
         {k: np.asarray(v) for k, v in params.items()}, device="cpu")
     sgd = torch.optim.SGD(tparams.values(), lr=1e-2)
-    loss = shard.step_backward(tparams, ta, tc, target, _t(jitter),
+    ray_o, ray_d, _ = shard.step_rays(tc, 12, 12, 0, _t(jitter))
+    loss = shard.step_backward(tparams, ta, ray_o, ray_d, target,
                                uk.seed_key(0), _t(uniforms), sgd)
     sgd.step()
     assert float(loss) == pytest.approx(float(want_loss), rel=1e-5)

@@ -164,6 +164,7 @@ def test_renderer_rejects_scenes_the_megakernel_cannot_trace():
     ``accelerator="bvh"`` or a scene above the dense tier's cap the BVH
     route; what is still rejected is ``"brute"`` above that cap."""
     from raytracercore_tpu_torch.config import SELECT_MAX_PRIMS
+    from raytracercore_tpu_torch.intersect.dispatch import n_table_rows
 
     _, thost = _small("fused", 8, 2)
     assert Renderer(thost, device="cpu").route == "megakernel"
@@ -183,6 +184,16 @@ def test_renderer_rejects_scenes_the_megakernel_cannot_trace():
     assert float(field.film.samples.sum() + field.film.misses.sum()) == 16
     with pytest.raises(NotImplementedError, match="SELECT_MAX_PRIMS"):
         Renderer(tloader.parse(big), device="cpu", accelerator="brute")
+    # The boundary: a scene of SELECT_MAX_PRIMS table rows (the spheres, a
+    # padding triangle row and a padding plane row) stays in the dense
+    # tier, one more row takes the BVH.
+    for rows, route in ((SELECT_MAX_PRIMS, "trace"),
+                        (SELECT_MAX_PRIMS + 1, "bvh")):
+        text = "size 4 4\ncamera 0 0 5  0 0 0  0 1 0  40\n" + "".join(
+            f"sphere {i} 0 0 .1\n" for i in range(rows - 2))
+        r = Renderer(tloader.parse(text), device="cpu")
+        assert n_table_rows(r.arrays) == rows
+        assert r.route == route, rows
 
 
 def test_cli_render_and_bench(tmp_path):

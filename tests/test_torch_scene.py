@@ -12,12 +12,11 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import SMOOTH_SCENE
 from raytracercore_tpu.intersect import kernel_body as jkb
 from raytracercore_tpu.scene import loader as jloader
 from raytracercore_tpu.scene import types as jtypes
 from raytracercore_tpu_torch.intersect import kernel_body as tkb
-from raytracercore_tpu_torch.parallel.worker import CORNELL_SCENE
+from raytracercore_tpu_torch.parallel.worker import CORNELL_SCENE, SMOOTH_SCENE
 from raytracercore_tpu_torch.scene import loader as tloader
 from raytracercore_tpu_torch.scene import types as ttypes
 from test_fused import SCENE as FUSED_SCENE

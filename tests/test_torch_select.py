@@ -224,7 +224,6 @@ def test_caps_follow_the_jax_package():
     from raytracercore_tpu import config as jconfig
     assert config.SELECT_MAX_PRIMS >= 768
     assert config.SELECT_MAX_PRIMS == jconfig.PALLAS_MAX_PRIMS
-    assert config.BVH_AUTO_THRESHOLD == config.SELECT_MAX_PRIMS
     # The worst-case row (a sphere) times the cap fits twice in the 227 KB
     # of shared memory a block may take on an H100.
     assert 2 * config.SELECT_MAX_PRIMS * (28 * 4 + 4 * 4) <= 232448

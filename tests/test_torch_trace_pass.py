@@ -14,18 +14,20 @@ Every other pass runs the chain ``camera_rays`` → ``preprocess_uniforms``
 → ``trace`` → ``Film.add_full_frame_`` (``render_pass_``), its plain
 version.
 
-CPU tests: the route predicate, the raw draws' channels against
-``preprocess_uniforms``, the plain form's film against ``render_pass_`` on
-a cut of mesh-722 (dense and BVH routes), the eager and graphed pass
-bodies' dispatch, and the launchers with the kernel library mocked.  Tests
-marked ``cuda`` run the kernels and skip without a card; this file imports
-no JAX, so on the card they run with
+CPU tests: which pass takes which form (``renderer.pass_form``, on every
+route), the raw draws' channels against ``preprocess_uniforms``, the plain
+form's film against ``render_pass_`` on a cut of mesh-722 (dense and BVH
+routes), the eager and graphed pass bodies' dispatch, and the launchers
+with the kernel library mocked.  Tests marked ``cuda`` run the kernels
+and skip without a card; this file imports no JAX, so on the card they
+run with
 ``python -m pytest --noconftest -m cuda tests/test_torch_trace_pass.py``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import pytest
 import torch
@@ -34,6 +36,7 @@ from raytracercore_tpu_torch import kernels
 from raytracercore_tpu_torch.core import spans
 from raytracercore_tpu_torch.core import vecmath as vm
 from raytracercore_tpu_torch.intersect.cuda_select import closest_hit_fused
+from raytracercore_tpu_torch.parallel.worker import CORNELL_SCENE
 from raytracercore_tpu_torch.render import fused, integrator
 from raytracercore_tpu_torch.render import renderer as rmod
 from raytracercore_tpu_torch.render import shade_kernel as sk
@@ -41,8 +44,8 @@ from raytracercore_tpu_torch.render.film import Film
 from raytracercore_tpu_torch.render.integrator import (PathState,
                                                        preprocess_uniforms,
                                                        shade_bounce_reference)
-from raytracercore_tpu_torch.scene import meshgen
-from raytracercore_tpu_torch.scene.types import init_camera
+from raytracercore_tpu_torch.scene import loader, meshgen
+from raytracercore_tpu_torch.scene.types import freeze_scene, init_camera
 
 F32, F64 = torch.float32, torch.float64
 SEEDS = (0, 7, 2**33 + 5)
@@ -138,25 +141,54 @@ def flat(x) -> list:
     return out
 
 
-# --- which passes take the glue-free pass ---------------------------------
+# --- which passes take which form ----------------------------------------
 
+@functools.lru_cache(maxsize=None)
+def routed(route):
+    """A small scene of ``route`` as ``pick_route`` gives it: ``(arrays,
+    camera, trace_fn)`` — the Cornell scene on the megakernel, mesh-82
+    (one icosphere) on the select kernel (``"trace"``) or on the BVH."""
+    if route == "megakernel":
+        host = loader.parse(CORNELL_SCENE)
+        host.width = host.height = 8
+        arrays = freeze_scene(host, device="cpu")
+        camera = init_camera(host.cameras[0], 8, 8, device="cpu")
+    else:
+        arrays, _, camera = mesh(grid=1, width=8, height=8)
+    _, trace_fn, bvh = rmod.pick_route(
+        arrays, "bvh" if route == "bvh" else "auto")
+    assert (trace_fn is fused.trace_fused) == (route == "megakernel")
+    assert (bvh is not None) == (route == "bvh")
+    return arrays, camera, trace_fn
+
+
+@pytest.mark.parametrize("grad", [False, True])
 @pytest.mark.parametrize("device", ["cpu", "cuda"])
-@pytest.mark.parametrize("route", ["megakernel", "trace"])
+@pytest.mark.parametrize("route", ["megakernel", "trace", "bvh"])
 @pytest.mark.parametrize("tile", [0, 8])
 @pytest.mark.parametrize("compensated", [False, True])
 @pytest.mark.parametrize("dtype", [F32, F64])
-def test_whole_trace_pass_route_choice(dtype, compensated, tile, route,
-                                       device):
-    """Only a ``trace``-route pass on a CUDA device into a float32,
-    uncompensated film, untiled, takes the glue-free pass; the megakernel
-    route keeps its own whole pass, and no pass takes both."""
-    arrays, _, camera = mesh(grid=1, width=8, height=8)
-    trace_fn = fused.trace_fused if route == "megakernel" else None
-    want = (dtype == F32 and not compensated and tile == 0
-            and route == "trace" and device == "cuda")
-    args = (device, dtype, compensated, tile)
-    assert rmod.whole_trace_pass(arrays, camera, trace_fn, *args) is want
-    assert not (want and rmod.whole_pass(trace_fn, *args))
+def test_pass_form_route_choice(dtype, compensated, tile, route, device,
+                                grad):
+    """Only a pass on a CUDA device into a float32, uncompensated film,
+    untiled, takes a whole form: the megakernel's on its route, the bounce
+    loop's (select kernel or BVH) unless a scene tensor requires grad
+    while autograd records; every other pass runs the chain (None)."""
+    arrays, camera, trace_fn = routed(route)
+    if grad:
+        diffuse = arrays.materials.diffuse.clone().requires_grad_(True)
+        arrays = dataclasses.replace(arrays, materials=dataclasses.replace(
+            arrays.materials, diffuse=diffuse))
+    whole = (dtype == F32 and not compensated and tile == 0
+             and device == "cuda")
+    if not whole:
+        want = None
+    elif route == "megakernel":
+        want = rmod._megakernel_pass
+    else:
+        want = None if grad else integrator.trace_pass
+    assert rmod.pass_form(arrays, camera, trace_fn, device, dtype,
+                          compensated, tile) is want
 
 
 def test_whole_trace_pass_refuses_debug_geom_and_grad():
@@ -165,18 +197,19 @@ def test_whole_trace_pass_refuses_debug_geom_and_grad():
     ``torch.no_grad`` the same scene takes the glue-free pass."""
     arrays, _, camera = mesh(grid=1, width=8, height=8)
     args = (None, "cuda", F32, False, 0)
-    assert rmod.whole_trace_pass(arrays, camera, *args)
+    glue_free = integrator.trace_pass
+    assert rmod.pass_form(arrays, camera, *args) is glue_free
     geom = dataclasses.replace(arrays, debug_geom=True)
-    assert not rmod.whole_trace_pass(geom, camera, *args)
+    assert rmod.pass_form(geom, camera, *args) is None
     diffuse = arrays.materials.diffuse.clone().requires_grad_(True)
     fit = dataclasses.replace(arrays, materials=dataclasses.replace(
         arrays.materials, diffuse=diffuse))
-    assert not rmod.whole_trace_pass(fit, camera, *args)
+    assert rmod.pass_form(fit, camera, *args) is None
     with torch.no_grad():
-        assert rmod.whole_trace_pass(fit, camera, *args)
+        assert rmod.pass_form(fit, camera, *args) is glue_free
     moved = dataclasses.replace(
         camera, position=camera.position.clone().requires_grad_(True))
-    assert not rmod.whole_trace_pass(arrays, moved, *args)
+    assert rmod.pass_form(arrays, moved, *args) is None
 
 
 # --- the raw draws' channels ------------------------------------------------
@@ -293,9 +326,10 @@ def test_plain_pass_pieces_equal_trace_bounce_by_bounce():
 # --- the eager and graphed bodies ------------------------------------------
 
 def _trace_pass_where_admitted(monkeypatch):
-    """Admit every bounce-loop pass to the glue-free pass (which runs its
-    plain form on CPU tensors); returns the list of ``(jitter, raw)`` the
-    passes were given."""
+    """Decide each pass's form as for a film on the card, so a bounce-loop
+    pass takes the glue-free pass (which runs its plain form on CPU
+    tensors); returns the list of ``(jitter, raw)`` the passes were
+    given."""
     calls = []
     real = integrator.trace_pass
 
@@ -303,17 +337,22 @@ def _trace_pass_where_admitted(monkeypatch):
         calls.append((jitter, raw))
         return real(scene, camera, film, jitter, raw, closest_fn)
 
-    monkeypatch.setattr(rmod, "whole_trace_pass", lambda *args: True)
+    real_form = rmod.pass_form
+
+    def on_the_card(scene, camera, trace_fn, device, *rest):
+        return real_form(scene, camera, trace_fn, "cuda", *rest)
+
+    monkeypatch.setattr(rmod, "pass_form", on_the_card)
     monkeypatch.setattr(integrator, "trace_pass", trace_pass)
     return calls
 
 
 def test_render_passes_runs_the_glue_free_pass_where_admitted(monkeypatch):
-    """Eager ``render_passes`` on a pass that ``whole_trace_pass`` admits
-    runs ``trace_pass`` once a pass on the pass's float32 draws (spans
-    ``camera_rays`` and a ``closest_hit`` a bounce, no ``film_accum`` and
-    no ``trace_pass``, the megakernel's), on a copy of the caller's film;
-    the film is the chain's, bit for bit."""
+    """Eager ``render_passes`` on a pass that ``pass_form`` gives the
+    glue-free pass runs ``trace_pass`` once a pass on the pass's float32
+    draws (spans ``camera_rays`` and a ``closest_hit`` a bounce, no
+    ``film_accum`` and no ``trace_pass``, the megakernel's), on a copy of
+    the caller's film; the film is the chain's, bit for bit."""
     arrays, _, cam = mesh(width=8, height=6, recursion=4)
     film = Film.create(6, 8, device="cpu")
     want = rmod.render_passes(arrays, cam, film, 5, 2, 2,
@@ -337,8 +376,8 @@ def test_render_passes_runs_the_glue_free_pass_where_admitted(monkeypatch):
 
 
 def test_pass_graph_body_runs_the_glue_free_pass(monkeypatch):
-    """The pass graph's body of a bounce-loop pass that
-    ``whole_trace_pass`` admits, run eagerly on its generator seeded for
+    """The pass graph's body of a bounce-loop pass that ``pass_form``
+    gives the glue-free pass, run eagerly on its generator seeded for
     pass ``k``, gives ``trace_pass`` the draws ``raw_draws`` makes and
     adds the chain's samples into the graph's film."""
     arrays, _, cam = mesh(width=8, height=6, recursion=4)

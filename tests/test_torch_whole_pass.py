@@ -9,9 +9,10 @@ and adds the samples into the film.  Every other pass runs the chain
 ``Film.add_full_frame_`` (``render_pass_``), the whole pass's plain
 version.
 
-CPU tests: the route predicate, a CPU ``Renderer`` on the chain (spans and
-film), the eager and graphed pass bodies' dispatch with the kernel
-replaced by the chain, and the launcher with the kernel library mocked.
+CPU tests: a CPU ``Renderer`` on the chain (spans and film), the eager and
+graphed pass bodies' dispatch with the kernel replaced by the chain, and
+the launcher with the kernel library mocked (which pass takes which form
+is ``renderer.pass_form``, tested in ``test_torch_trace_pass.py``).
 Tests marked ``cuda`` run the kernel and skip without a card; this file
 imports no JAX, so on the card they run with
 ``python -m pytest --noconftest -m cuda tests/test_torch_whole_pass.py``.
@@ -78,22 +79,14 @@ def films_equal(a: Film, b: Film) -> bool:
     return all(torch.equal(x, y) for x, y in zip(a.tensors(), b.tensors()))
 
 
-# --- which passes take the whole-pass kernel ------------------------------
+def on_the_card(pass_form):
+    """``pass_form`` deciding as for a film on a CUDA device."""
+    def decide(scene, camera, trace_fn, device, *rest):
+        return pass_form(scene, camera, trace_fn, "cuda", *rest)
+    return decide
 
-@pytest.mark.parametrize("device", ["cpu", "cuda"])
-@pytest.mark.parametrize("route", ["megakernel", "trace"])
-@pytest.mark.parametrize("tile", [0, 8])
-@pytest.mark.parametrize("compensated", [False, True])
-@pytest.mark.parametrize("dtype", [F32, F64])
-def test_whole_pass_route_choice(dtype, compensated, tile, route, device):
-    """Only a megakernel pass on a CUDA device into a float32,
-    uncompensated film, untiled, takes the whole-pass kernel."""
-    trace_fn = fused.trace_fused if route == "megakernel" else None
-    want = (dtype == F32 and not compensated and tile == 0
-            and route == "megakernel" and device == "cuda")
-    assert rmod.whole_pass(trace_fn, device, dtype, compensated,
-                           tile) is want
 
+# --- the chain off the card -----------------------------------------------
 
 @pytest.mark.parametrize("compensated", [False, True])
 def test_cpu_renderer_runs_the_chain(compensated):
@@ -128,8 +121,9 @@ def test_cpu_renderer_runs_the_chain(compensated):
 
 
 def _chain_in_place_of_the_kernel(monkeypatch):
-    """Admit every pass and run the chain where the kernel would run;
-    returns the list of ``(jitter, raw)`` the whole passes were given."""
+    """Decide each pass's form as for a film on the card and run the
+    chain where the kernel would run; returns the list of ``(jitter,
+    raw)`` the whole passes were given."""
     calls = []
 
     def trace_pass(scene, camera, film, jitter, raw):
@@ -139,16 +133,17 @@ def _chain_in_place_of_the_kernel(monkeypatch):
                           trace_fn=fused.trace_fused)
         return film
 
-    monkeypatch.setattr(rmod, "whole_pass", lambda *args: True)
+    monkeypatch.setattr(rmod, "pass_form", on_the_card(rmod.pass_form))
     monkeypatch.setattr(fused, "trace_pass", trace_pass)
     return calls
 
 
 def test_render_passes_gives_a_whole_pass_its_draws(monkeypatch):
-    """Eager ``render_passes`` on a pass that ``whole_pass`` admits calls
-    ``trace_pass`` once a pass with the pass's float32 draws (jitter
-    ``[R, 4]``, raw ``[B, 5, R]``), in a span ``trace_pass``, on a copy of
-    the caller's film; the film is the chain's, bit for bit."""
+    """Eager ``render_passes`` on a pass that ``pass_form`` gives the
+    megakernel's whole form calls ``trace_pass`` once a pass with the
+    pass's float32 draws (jitter ``[R, 4]``, raw ``[B, 5, R]``), in a span
+    ``trace_pass``, on a copy of the caller's film; the film is the
+    chain's, bit for bit."""
     _, arrays, camera = cornell()
     h, w = arrays.height, arrays.width
     film = Film.create(h, w, device="cpu")
