@@ -24,7 +24,8 @@ the first three at 700×700, recursion 10:
 4. the forward render of a 184,322-triangle mesh scene at 512×512,
    recursion 4, above the dense tier (``Renderer`` → the native BVH
    builder → the bounce loop, one launch of the traversal kernel per
-   bounce), in three forms: the default, the other ``sort=`` (the rays of
+   bounce, which writes the bounce's final hit record in its epilogue), in
+   three forms: the default, the other ``sort=`` (the rays of
    every BVH query ordered by the key kernel and ``torch.sort``, the
    traversal kernel reading that order) with a bit-equal film, and 32×32
    tiles with the sort, bit-equal to the row-major pass on the reordered
@@ -50,7 +51,11 @@ coherence: the key kernel bit-equal to its plain version, the sorted
 traversal bit-equal to the unsorted one (all 12 outputs and both
 counters) on three leaf kinds, mesh-184k and mesh-1M, where the kernel
 (a walk of 4-wide nodes) is also held bit-equal to its plain version and
-to the binary skip-link walk (the 12 outputs, the records tested), each
+to the binary skip-link walk (the 12 outputs, the records tested); its
+record form, the one the main path launches, is held bit-equal to the
+plain chain (``record_reference`` on the plain walk) tree after tree,
+merged into the tree before where two trees hit, and every traversal
+launch of the main paths is counted as one that wrote the record; each
 bounce of
 both scenes timed sorted and unsorted with its parts and the warp
 efficiency of both launch orders, and one mesh-46k train step sorted
@@ -1919,22 +1924,25 @@ def differing_fields(got, want, fields):
 
 
 def traverse_case(label, bvh, o, d, skip):
-    """The traversal kernel on one query through ``bvh.select``, unsorted
-    and sorted, against its plain version (the wide walk,
-    ``select(reference=True)``): all 12 outputs and both counters bit for
-    bit; and against the binary skip-link walk ``traverse_reference`` on
-    ``bvh.nodes``: the 12 outputs and the records tested bit for bit (its
-    first counter counts binary nodes visited, the kernel's the root test
-    and the wide nodes fetched).  Returns (max abs error of the floats
-    where a hit was found, the kernel's counters, the binary walk's)."""
+    """The traversal kernel's detail form on one query through
+    ``bvh.select``, unsorted and sorted, against its plain version (the
+    wide walk ``traverse_wide_reference``): all 12 outputs and both
+    counters bit for bit; and against the binary skip-link walk
+    ``traverse_reference`` on ``bvh.nodes``: the 12 outputs and the records
+    tested bit for bit (its first counter counts binary nodes visited, the
+    kernel's the root test and the wide nodes fetched).  Returns (max abs
+    error of the floats where a hit was found, the kernel's counters, the
+    binary walk's, the wide plain walk's ``TraverseOut``)."""
     from raytracercore_tpu_torch.bvh import cuda_traverse as ct
     from raytracercore_tpu_torch.core import vecmath as vm
 
     eps = (vm.near_enough(torch.float32), vm.POSITION_EPS_F32)
     got = select_flat(bvh.select(o, d, skip, *eps, want_detail=True,
                                  want_stats=True))
-    ref = select_flat(bvh.select(o, d, skip, *eps, want_detail=True,
-                                 want_stats=True, reference=True))
+    plain = ct.traverse_wide_reference(
+        bvh.wide, bvh.leaves, bvh.leaf_kind, o.float().contiguous(),
+        d.float().contiguous(), bvh._skip(skip), *eps, want_stats=True)
+    ref = traverse_flat(plain)
     srt = select_flat(bvh.select(o, d, skip, *eps, want_detail=True,
                                  want_stats=True, sort=True))
     binary = traverse_flat(ct.traverse_reference(
@@ -1976,7 +1984,64 @@ def traverse_case(label, bvh, o, d, skip):
           f"bit-equal to the binary walk ({bin_differing})")
     check(not sort_differing, f"{label} {bvh.leaf_kind}: the sorted "
           f"traversal bit-equal to the unsorted one ({sort_differing})")
-    return max_err, got["stats"], binary["stats"]
+    return max_err, got["stats"], binary["stats"], plain
+
+
+RECORD_FIELDS = ("prim", "t", "position", "normal", "inside")
+
+
+def record_tri(scene, bvh):
+    """The triangle table whose vertex normals a tree's record epilogue
+    reads (``make_bvh_closest_fn``'s rule): a triangle tree's, where the
+    scene has smooth rows; else None."""
+    if bvh.leaf_kind == "tri" and bool(scene.triangles.smooth.any()):
+        return scene.triangles
+    return None
+
+
+def record_case(label, bvh, o, d, skip, plain, tri, prior):
+    """The traversal kernel's record form (``bvh.record``: the bounce's
+    final hit record written in the kernel's epilogue, the smooth normals
+    re-interpolated where ``tri`` is given, merged into ``prior``),
+    unsorted and sorted, against its plain version: ``record_reference``
+    (the chain of torch ops) on the wide plain walk ``plain`` of the same
+    query, all five fields bit for bit.  Returns (max abs error of the
+    floats where a hit was found, the kernel's record, the rays on which
+    both ``prior`` and this tree hit)."""
+    from raytracercore_tpu_torch.bvh import cuda_traverse as ct
+    from raytracercore_tpu_torch.core import vecmath as vm
+
+    eps = (vm.near_enough(torch.float32), vm.POSITION_EPS_F32)
+    rec = bvh.record(o, d, skip, *eps, tri=tri, prior=prior)
+    srt = bvh.record(o, d, skip, *eps, tri=tri, prior=prior, sort=True)
+    ref = ct.record_reference(plain, tri, prior)
+    torch.cuda.synchronize()
+    got, srt, ref = ({f: getattr(x, f) for f in RECORD_FIELDS}
+                     for x in (rec, srt, ref))
+    differing = [f for f in RECORD_FIELDS if not bits_equal(got[f], ref[f])]
+    sort_differing = [f for f in RECORD_FIELDS
+                      if not bits_equal(srt[f], got[f])]
+    hit = ref["prim"] >= 0
+    both = (int(((prior.prim >= 0) & (plain.row >= 0)).sum())
+            if prior is not None else 0)
+    max_err = 0.0
+    for f in ("t", "position", "normal"):
+        check(bool(torch.isfinite(got[f][hit]).all()),
+              f"{label}: record outputs finite")
+        if bool(hit.any()):
+            max_err = max(max_err, float(
+                (got[f][hit] - ref[f][hit]).abs().max()))
+    print(f"[traverse] {label} {bvh.leaf_kind} record form (smooth "
+          f"{tri is not None}, merged into a prior record "
+          f"{prior is not None}, both hit on {both} rays): R={o.shape[0]} "
+          f"found={float(hit.float().mean()):.4f} kernel==plain chain on "
+          f"the 5 fields={not differing} {differing or ''} sorted kernel=="
+          f"unsorted={not sort_differing} {sort_differing or ''}")
+    check(not differing, f"{label} {bvh.leaf_kind}: the record epilogue "
+          f"bit-equal to its plain version ({differing})")
+    check(not sort_differing, f"{label} {bvh.leaf_kind}: the sorted record "
+          f"bit-equal to the unsorted one ({sort_differing})")
+    return max_err, rec, both
 
 
 def key_case(label, bvh, o, d):
@@ -2028,26 +2093,39 @@ def parked_warps(o, visited, order=None):
 
 def compare_traverse(label, scene, closest, queries, bounces=(0, 1, 2, 3),
                      oracle_bounces=(0, 1)):
-    """Traversal kernel against its plain version (all 12 outputs and the
-    two counters, bit for bit, through ``select`` of every BVH that
-    ``closest``, a ``make_bvh_closest_fn`` closure, walks) on the
-    closest-hit queries of a trace: bounce 0 without a skip record and with
-    the empty one the trace passes, later bounces with their previous hit,
-    then the lane variants (:func:`lane_variants`) of bounce 1; and the
-    closure's merged record against the grid oracle on a sample of
-    ``ORACLE_SAMPLE`` rays.  Returns the max abs error over the float
-    outputs."""
+    """Traversal kernel against its plain version on the closest-hit
+    queries of a trace, on every BVH that ``closest``, a
+    ``make_bvh_closest_fn`` closure, walks, in its order: the detail form
+    (:func:`traverse_case`: all 12 outputs and the two counters, bit for
+    bit) and the record form the closure runs (:func:`record_case`: the
+    five fields bit for bit, each tree's record merged into the one
+    before); bounce 0 without a skip record and with the empty one the
+    trace passes, later bounces with their previous hit, then the lane
+    variants (:func:`lane_variants`) of bounce 1; and the closure's merged
+    record against the grid oracle on a sample of ``ORACLE_SAMPLE`` rays.
+    Where the closure walks more than one tree, a merge on rays that both
+    trees hit must be among the cases.  Returns the record form's max abs
+    error over the float outputs."""
     R = queries[0][0].shape[0]
-    max_err = 0.0
+    max_err, merged = 0.0, 0
+
+    def walk_trees(name, o, d, skip):
+        nonlocal max_err, merged
+        prior = None
+        for bvh in closest.bvhs:
+            _, stats, _, plain = traverse_case(name, bvh, o, d, skip)
+            err, prior, both = record_case(name, bvh, o, d, skip, plain,
+                                           record_tri(scene, bvh), prior)
+            max_err, merged = max(max_err, err), merged + both
+            yield stats
+
     cases = [(0, None)] + [(b, queries[b][2]) for b in bounces
                            if b < len(queries)]
     for b, skip in cases:
         o, d, _ = queries[b]
-        for bvh in closest.bvhs:
-            err = traverse_case(
-                f"{label} bounce {b} skip={skip is not None}", bvh, o, d,
-                skip)[0]
-            max_err = max(max_err, err)
+        for _ in walk_trees(f"{label} bounce {b} skip={skip is not None}",
+                            o, d, skip):
+            pass
         if b in oracle_bounces:
             gen = torch.Generator(device=o.device)
             gen.manual_seed(b)
@@ -2062,16 +2140,15 @@ def compare_traverse(label, scene, closest, queries, bounces=(0, 1, 2, 3),
                            max_curvature(scene))
     b = min(1, len(queries) - 1)
     for name, query in lane_variants(queries[b], 61 + b):
-        for bvh in closest.bvhs:
-            err, stats, _ = traverse_case(f"{label} bounce {b} {name}",
-                                          bvh, *query)
-            max_err = max(max_err, err)
+        for stats in walk_trees(f"{label} bounce {b} {name}", *query):
             dead = parked(query[0])
             if bool(dead.any()):
                 check(int(stats[dead, 0].max()) == 1
                       and int(stats[dead, 1].max()) == 0,
                       f"{label} {name}: a parked lane visits the root, "
                       f"nothing else")
+    check(len(closest.bvhs) == 1 or merged > 0, f"{label}: a merge on "
+          f"rays that both trees hit compared ({merged} rays)")
     return max_err
 
 
@@ -2100,8 +2177,8 @@ def traverse_times(label, bvh, queries, card):
 
         def call(sort=False, query=query):
             return bvh.select(*query, *eps, want_detail=True, sort=sort)
-        _, stats, bin_stats = traverse_case(f"{label} bounce {b}", bvh,
-                                            *query)
+        _, stats, bin_stats, _ = traverse_case(f"{label} bounce {b}", bvh,
+                                               *query)
         key = ct.sort_key(o, d, bvh.root_min, bvh.root_max)
         order = bvh.ray_order(o, d)
         sk = bvh._skip(skip)
@@ -2302,10 +2379,12 @@ def bvh_compare_scenes(card, dev):
         seen.update(kinds)
         rays = camera_rays_and_uniforms(scene, host_cam, COMPARE_SIZE, 41,
                                         dev)
-        ct.traverse.launches = cs.closest_hit_fused.launches = 0
+        ct.traverse.launches = ct.traverse_record.launches = 0
+        cs.closest_hit_fused.launches = 0
         queries = closest_hit_queries(scene, *rays, closest_fn=closest)
-        check(ct.traverse.launches == len(queries) * len(kinds),
-              f"{name}: one traversal launch per BVH and bounce")
+        check(ct.traverse.launches == ct.traverse_record.launches
+              == len(queries) * len(kinds), f"{name}: one traversal "
+              f"launch per BVH and bounce, each writing the record")
         has_tail = closest.tail is not None
         tails += has_tail
         check(cs.closest_hit_fused.launches == len(queries) * has_tail,
@@ -2478,14 +2557,15 @@ def bvh_render_path(card, dev):
     r.step(WARM_PASSES)
     warm_s = time.perf_counter() - t0
     r.reset()
-    ct.traverse.launches = ct.sort_key.launches = 0
-    sk.shade_bounce.launches = 0
+    ct.traverse.launches = ct.traverse_record.launches = 0
+    ct.sort_key.launches = sk.shade_bounce.launches = 0
     pass_s = []
     for _ in range(BVH_PASSES):
         t0 = time.perf_counter()
         r.step(1)
         pass_s.append(time.perf_counter() - t0)
     launches = {"traverse": ct.traverse.launches,
+                "traverse_record": ct.traverse_record.launches,
                 "sort_key": ct.sort_key.launches,
                 "shade_bounce": sk.shade_bounce.launches}
     st = r.status()
@@ -2494,11 +2574,12 @@ def bvh_render_path(card, dev):
           f"({n_bounces} bounces per pass, one BVH; sort by the rule: "
           f"{sort_on}, {bvhs[0].n_nodes} nodes x {bvhs[0].K} records a leaf)")
     check(launches == {"traverse": BVH_PASSES * n_bounces,
+                       "traverse_record": BVH_PASSES * n_bounces,
                        "sort_key": BVH_PASSES * n_bounces * sort_on,
                        "shade_bounce": BVH_PASSES * n_bounces},
-          f"main path 4 launched the traversal and shading kernels once per "
-          f"bounce, the key kernel before the walk where the rule sorts "
-          f"({launches})")
+          f"main path 4 launched the traversal (writing the record) and "
+          f"shading kernels once per bounce, the key kernel before the walk "
+          f"where the rule sorts ({launches})")
     film = r.film
     film_default = film   # Film.add_full_frame makes a new film
     check(all(bool(torch.isfinite(t).all()) for t in
@@ -2546,6 +2627,11 @@ def bvh_render_path(card, dev):
                   lambda: bvhs[0].select(*queries[1], *eps,
                                          want_detail=True, sort=True))
     bvh = bvhs[0]
+    tri = record_tri(scene, bvh)
+    check(tri is not None, "mesh-184k: the record epilogue reads the "
+          "smooth normals")
+    check_no_sync("the record form CudaBVH.record, mesh-184k bounce 1",
+                  lambda: bvh.record(*queries[1], *eps, tri=tri))
     # The key kernel against its plain version on every bounce's rays and
     # the lane variants of bounce 1, then timed on bounce 1's.
     key_err = max(key_case(f"mesh-184k 512x512 bounce {b}", bvh, o, d)
@@ -2571,7 +2657,22 @@ def bvh_render_path(card, dev):
         return bvh.select(*queries[b], *eps, want_detail=True, **kw)
     times = traverse_times("mesh-184k 512x512", bvh, queries, card)
     k_ms_again = cuda_ms(lambda: run(0), 10)
-    plain_ms = cuda_ms(lambda: run(0, reference=True), 1)
+    # The kernels line's traversal entry is the record form, the one the
+    # main path launches: bounce 0 by CUDA-graph replay, and its plain
+    # version (the wide walk, then the chain of torch ops).
+    o0, d0, skip0 = queries[0]
+    rec_ms = [graph_ms(lambda q=q: bvh.record(*q, *eps, tri=tri), 20)
+              for q in queries]
+    plain_ms = cuda_ms(lambda: ct.record_reference(ct.traverse_wide_reference(
+        bvh.wide, bvh.leaves, bvh.leaf_kind, o0.float().contiguous(),
+        d0.float().contiguous(), bvh._skip(skip0), *eps), tri), 1)
+    print(f"[time] traversal kernel mesh-184k 512x512, record form (smooth "
+          f"normals in the epilogue): device ms per bounce (CUDA graph) "
+          + " ".join(fmt_ms(x) for x in rec_ms)
+          + "; detail form " + " ".join(fmt_ms(t["device_ms"])
+                                        for t in times)
+          + f"; plain record ms (one walk and the chain, bounce 0)="
+          f"{plain_ms:.3f} on {card}")
     with torch.no_grad():
         hits = [r.closest_fn(scene, *q) for q in queries]
 
@@ -2586,8 +2687,8 @@ def bvh_render_path(card, dev):
         lambda: shading_only(shade_bounce_reference), 5) / n_bounces
     closest_ms = cuda_ms(lambda: r.closest_fn(scene, *queries[1]), 10)
     print(f"[time] traversal kernel mesh-184k 512x512: bounce 0 again ms="
-          f"{k_ms_again:.3f} plain ms (one walk, bounce 0)={plain_ms:.3f} "
-          f"whole closest hit (kernel + record, bounce 1) ms={closest_ms:.3f}"
+          f"{k_ms_again:.3f} whole closest hit (the record form, bounce 1) "
+          f"ms={closest_ms:.3f}"
           f"; the bounce loop fed its hits, ms per bounce (CUDA events, "
           f"eager): shading kernel {shade_ms:.3f}, eager plain shading "
           f"{plain_shade_ms:.3f} on {card}")
@@ -2641,8 +2742,9 @@ def bvh_render_path(card, dev):
           f"({sums.get(bvh.K, float('nan')):.3f} ms); the default within "
           f"10 % of the fastest: "
           f"{sums.get(bvh.K, float('inf')) <= 1.1 * sums[best]}")
-    stage = {"ms": stage_ms(times[0]), "plain_ms": plain_ms,
-             "bound_ms": times[0]["bound"][0],
+    rec0_ms = (rec_ms[0] if rec_ms[0] is not None else
+               cuda_ms(lambda: bvh.record(*queries[0], *eps, tri=tri), 10))
+    stage = {"ms": rec0_ms, "plain_ms": plain_ms, "bound_ms": times[0]["bound"][0],
              "bound_by": times[0]["bound"][1], "max_abs_err": err}
     return launches, stage, key_stage, times, shade
 
@@ -2669,21 +2771,23 @@ def bvh_big_pass(card, dev):
     check(n_tris == 1003522 and r.route == "bvh",
           "mesh-1M has 1,003,522 triangles and takes the BVH route")
     times = []
-    ct.traverse.launches = ct.sort_key.launches = 0
-    sk.shade_bounce.launches = 0
+    ct.traverse.launches = ct.traverse_record.launches = 0
+    ct.sort_key.launches = sk.shade_bounce.launches = 0
     for _ in range(2):
         t0 = time.perf_counter()
         r.step(1)
         times.append((time.perf_counter() - t0) * 1e3)
     launches = {"traverse": ct.traverse.launches,
+                "traverse_record": ct.traverse_record.launches,
                 "sort_key": ct.sort_key.launches,
                 "shade_bounce": sk.shade_bounce.launches}
     check(launches == {"traverse": 2 * (BVH_REC + 1),
+                       "traverse_record": 2 * (BVH_REC + 1),
                        "sort_key": 2 * (BVH_REC + 1) * r.closest_fn.sort,
                        "shade_bounce": 2 * (BVH_REC + 1)},
-          f"mesh-1M launched the traversal and shading kernels once per "
-          f"bounce, the key kernel before the walk where the rule sorts "
-          f"({launches})")
+          f"mesh-1M launched the traversal (writing the record) and shading "
+          f"kernels once per bounce, the key kernel before the walk where "
+          f"the rule sorts ({launches})")
     film = r.film
     check(bool(torch.isfinite(film.color_sum).all())
           and float(film.samples.sum() + film.misses.sum())
@@ -2691,6 +2795,8 @@ def bvh_big_pass(card, dev):
           "pixel per pass")
     graphed = graph_big_pass(card, r)
     add_counts(launches, {k: graphed[k] for k in launches})
+    check(launches["traverse_record"] == launches["traverse"],
+          f"mesh-1M: every traversal launch wrote the record ({launches})")
     bvh = r.closest_fn.bvhs[0]
     R = BVH_BIG_SIZE ** 2
     print(f"[bvh] mesh-1M ({n_tris} triangles, {bvh.n_nodes} nodes, leaf "
@@ -2806,6 +2912,7 @@ def bvh_train_path(card, dev):
     counts = train_steps(
         "bvh-train", label, r, r.closest_fn, r.closest_fn,
         {"traverse": (ct.traverse, n_bounces),
+         "traverse_record": (ct.traverse_record, n_bounces),
          "sort_key": (ct.sort_key, n_bounces * r.closest_fn.sort),
          "shade_bounce": (sk.shade_bounce, n_bounces),
          "prepare_uniforms_kernel": (uk.prepare_uniforms_kernel, 1),
@@ -2830,13 +2937,16 @@ def sorted_step(card, dev, r):
     seed = pass_seed(TRAIN_SEED, 500)
     want = one_step(None, r.arrays, r.camera, seed, dev,
                     closest_fn=fns[False], adam=True)
-    ct.traverse.launches = ct.sort_key.launches = 0
+    ct.traverse.launches = ct.traverse_record.launches = 0
+    ct.sort_key.launches = 0
     got = one_step(None, r.arrays, r.camera, seed, dev,
                    closest_fn=fns[True], adam=True)
     launches = {"traverse": ct.traverse.launches,
+                "traverse_record": ct.traverse_record.launches,
                 "sort_key": ct.sort_key.launches}
     n_bounces = r.arrays.recursion + 1
-    check(launches == {"traverse": n_bounces, "sort_key": n_bounces},
+    check(launches == {"traverse": n_bounces, "traverse_record": n_bounces,
+                       "sort_key": n_bounces},
           f"mesh-46k sorted step: one key and one traversal launch per "
           f"bounce ({launches})")
     differ = [f"{what} {k}" for what, i in (("gradient", 1), ("param", 2))
@@ -4073,7 +4183,8 @@ def kernel_counters():
             "prepare_uniforms_kernel": uk.prepare_uniforms_kernel,
             "replay_fwd": rk.replay_fwd, "replay_bwd": rk.replay_bwd,
             "closest_hit_fused": cs.closest_hit_fused,
-            "traverse": ct.traverse, "sort_key": ct.sort_key,
+            "traverse": ct.traverse,
+            "traverse_record": ct.traverse_record, "sort_key": ct.sort_key,
             "shade_bounce": sk.shade_bounce}
 
 
@@ -4606,6 +4717,8 @@ NODE_NAMES = {
     "replay_bwd": r"(?<![A-Za-z_])replay_bwd(_regen)?_kernel",
     "closest_hit_fused": r"(?<![A-Za-z_])select_kernel",
     "traverse": r"(?<![A-Za-z_])traverse_kernel",
+    # The record epilogue: the third template argument (MODE) not 0.
+    "traverse_record": r"(?<![A-Za-z_])traverse_kernelILi\d+ELb[01]ELi[1-9]",
     "sort_key": r"(?<![A-Za-z_])sort_key_kernel",
     "shade_bounce": r"(?<![A-Za-z_])shade_bounce_kernel",
     "pass_rays": r"(?<![A-Za-z_])pass_rays_kernel",
@@ -4904,9 +5017,10 @@ def bvh_kernels(r):
     """The kernels one pass of a BVH-route renderer ``r`` launches: the
     traversal once per BVH and bounce (the key kernel before it where it
     sorts), the select kernel once a bounce for a dense tail, the shading
-    kernel once a bounce."""
+    kernel once a bounce; every traversal launch writes the record."""
     n = r.arrays.recursion + 1
-    want = {"traverse": len(r.closest_fn.bvhs) * n, "shade_bounce": n}
+    want = {"traverse": len(r.closest_fn.bvhs) * n,
+            "traverse_record": len(r.closest_fn.bvhs) * n, "shade_bounce": n}
     if r.closest_fn.sort:
         want["sort_key"] = want["traverse"]
     if r.closest_fn.tail is not None:
@@ -4978,6 +5092,8 @@ def graph_phase(card, dev):
     counts = read_counts()
     print(f"[graph] launches of the graph phase (eager and graphed, replays "
           f"counted kernel by kernel) {counts}")
+    check(counts["traverse_record"] == counts["traverse"], "graph phase: "
+          f"every traversal launch wrote the record ({counts})")
     return counts
 
 

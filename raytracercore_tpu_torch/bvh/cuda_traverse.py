@@ -22,6 +22,11 @@ layer gathers nothing from the primitive tables.
 * :func:`traverse` — the wrapper: on CUDA tensors it launches
   ``csrc/traverse.cu`` (counted in ``traverse.launches``) or raises, on CPU
   tensors it runs the plain version;
+* :func:`traverse_record` — the same walk ending in the bounce's final hit
+  record (the record epilogue, counted in ``traverse_record.launches``
+  and in ``traverse.launches``), merged into a prior record where one is given; its plain version
+  :func:`record_reference` is the chain of torch ops that builds the
+  record from :func:`traverse`'s outputs;
 * :func:`traverse_wide_reference` — the plain version: the kernel's wide
   walk as a lockstep torch walk with per-ray stacks, the kernel's leaf
   tests in the kernel's operation order, all 12 outputs and the optional
@@ -36,7 +41,8 @@ layer gathers nothing from the primitive tables.
   version;
 * :class:`CudaBVH`, :class:`CudaSphereBVH`, :class:`CudaEllipsoidBVH` — the
   packed tree of one table (binary nodes, wide nodes, leaves) with the
-  ``select`` entry that ``dispatch.make_bvh_closest_fn`` calls.
+  ``record`` entry that ``dispatch.make_bvh_closest_fn`` calls and the
+  ``select`` entry of the debug views and the checks.
 
 Ray coherence (``select(sort=True)``, the JAX package's ``sort=``): the
 rays are ordered by their key (``torch.sort``, stable) and the traversal
@@ -331,6 +337,38 @@ class TraverseOut(NamedTuple):
     u: torch.Tensor          # [R] f32 (triangles; 0 for spheres)
     v: torch.Tensor          # [R] f32
     stats: torch.Tensor | None  # [R, 2] int32: nodes visited, records tested
+
+
+def _detail(out: TraverseOut) -> dict:
+    """The winner's detail of ``select(want_detail=True)`` from the
+    walk's planes."""
+    return {"prim": out.prim, "pos": out.position, "nrm": out.normal,
+            "inside": (out.flags & FLAG_INSIDE) != 0,
+            "inside_geo": (out.flags & FLAG_INSIDE_GEO) != 0,
+            "smooth": (out.flags & FLAG_SMOOTH) != 0,
+            "u": out.u, "v": out.v}
+
+
+@torch.no_grad()
+def record_reference(out: TraverseOut, tri=None, prior=None):
+    """The plain version of the record epilogue: the bounce's final hit
+    record (``dispatch.HitRecord``) from the walk's outputs ``out``, by the
+    chain of torch ops of ``dispatch``: ``_tri_smooth_fixup`` where ``tri``
+    (the triangle table whose vertex normals smooth winners read) is
+    given, ``_rec_from_detail``, then ``_merge2`` into ``prior`` (a record
+    of this bounce, or None), which keeps the prior record unless this
+    winner is strictly closer; prim -1 where neither has a hit.  A record's
+    hit is ``prim >= 0``."""
+    from ..intersect import dispatch
+
+    det = _detail(out)
+    if tri is not None:
+        det = dispatch._tri_smooth_fixup(tri, torch.clamp(out.row, min=0),
+                                         det)
+    rec = dispatch._rec_from_detail(out.row >= 0, out.t, det)
+    if prior is not None:
+        rec = dispatch._merge2(dispatch._rec_dict(prior), rec)
+    return dispatch._hit_from_rec(rec)
 
 
 # ---------------------------------------------------------------------------
@@ -782,11 +820,15 @@ def traverse_wide_reference(wide: WideNodes, leaves, leaf_kind: str, ray_o,
 # The kernel
 # ---------------------------------------------------------------------------
 
-def _launch(wide, leaves, leaf_kind, ray_o, ray_d, skip, eps_behind,
-            eps_pos, want_stats, order=None) -> TraverseOut:
-    from .. import kernels
+def _stream(device) -> int:
+    """The handle of ``device``'s current CUDA stream."""
+    return torch.cuda.current_stream(device).cuda_stream
 
-    kind, F = LEAF_KINDS[leaf_kind]
+
+def _walk_args(wide, leaves, leaf_kind, ray_o, ray_d, skip, order):
+    """The checks and the leading pointers (nodes, leaves, rays, skip
+    record, order) that both C entries take."""
+    _, F = LEAF_KINDS[leaf_kind]
     dev = ray_o.device
     R = ray_o.shape[0]
     f32, i32 = torch.float32, torch.int32
@@ -812,6 +854,27 @@ def _launch(wide, leaves, leaf_kind, ray_o, ray_d, skip, eps_behind,
                                             skip.normal, skip.inside)]
     if order is not None:
         _check("order", order, (R,), torch.int64, dev)
+    return (wide.table.data_ptr(), leaves.data_ptr(), ray_o.data_ptr(),
+            ray_d.data_ptr(), *skip_ptrs,
+            None if order is None else order.data_ptr())
+
+
+def _walk_sizes(wide, leaves, leaf_kind, ray_o):
+    """R, n_wide, depth, K and the leaf kind, as both C entries take
+    them."""
+    kind, F = LEAF_KINDS[leaf_kind]
+    return (ray_o.shape[0], wide.table.shape[0], wide.depth,
+            leaves.shape[1] // F, kind)
+
+
+def _launch(wide, leaves, leaf_kind, ray_o, ray_d, skip, eps_behind,
+            eps_pos, want_stats, order=None) -> TraverseOut:
+    from .. import kernels
+
+    ptrs = _walk_args(wide, leaves, leaf_kind, ray_o, ray_d, skip, order)
+    dev = ray_o.device
+    R = ray_o.shape[0]
+    f32, i32 = torch.float32, torch.int32
 
     def empty(shape, dtype):
         return torch.empty(shape, dtype=dtype, device=dev)
@@ -821,16 +884,61 @@ def _launch(wide, leaves, leaf_kind, ray_o, ray_d, skip, eps_behind,
         flags=empty((R,), i32), u=empty((R,), f32), v=empty((R,), f32),
         stats=empty((R, 2), i32) if want_stats else None)
     err = kernels.load().rtc_traverse(
-        wide.table.data_ptr(), leaves.data_ptr(), ray_o.data_ptr(),
-        ray_d.data_ptr(), *skip_ptrs,
-        None if order is None else order.data_ptr(),
-        *(None if t is None else t.data_ptr() for t in out),
-        R, wide.table.shape[0], wide.depth, leaves.shape[1] // F, kind,
-        eps_behind, eps_pos * eps_pos,
-        torch.cuda.current_stream(dev).cuda_stream)
+        *ptrs, *(None if t is None else t.data_ptr() for t in out),
+        *_walk_sizes(wide, leaves, leaf_kind, ray_o), eps_behind,
+        eps_pos * eps_pos, _stream(dev))
     if err != 0:
         raise RuntimeError(f"traversal kernel launch failed: CUDA error {err}")
     kernels.count_launch(traverse)
+    return out
+
+
+def _launch_record(wide, leaves, leaf_kind, ray_o, ray_d, skip, eps_behind,
+                   eps_pos, tri, prior, order):
+    from .. import kernels
+    from ..intersect.dispatch import HitRecord
+
+    ptrs = _walk_args(wide, leaves, leaf_kind, ray_o, ray_d, skip, order)
+    dev = ray_o.device
+    R = ray_o.shape[0]
+    f32, i32 = torch.float32, torch.int32
+    if tri is None:
+        normal_ptrs = [None] * 3
+    else:
+        if leaf_kind != "tri":
+            raise ValueError("traverse_record: smooth normals are a "
+                             "triangle table's")
+        n_rows = tri.n0.shape[0]
+        for name in ("n0", "n1", "n2"):
+            _check(f"tri.{name}", getattr(tri, name), (n_rows, 3), f32, dev)
+        normal_ptrs = [tri.n0.data_ptr(), tri.n1.data_ptr(),
+                       tri.n2.data_ptr()]
+    if prior is None:
+        prior_ptrs = [None] * 5
+    else:
+        _check("prior.prim", prior.prim, (R,), i32, dev)
+        _check("prior.t", prior.t, (R,), f32, dev)
+        _check("prior.position", prior.position, (R, 3), f32, dev)
+        _check("prior.normal", prior.normal, (R, 3), f32, dev)
+        _check("prior.inside", prior.inside, (R,), torch.bool, dev)
+        prior_ptrs = [t.data_ptr() for t in (prior.prim, prior.t,
+                                             prior.position, prior.normal,
+                                             prior.inside)]
+
+    def empty(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=dev)
+    out = HitRecord(prim=empty((R,), i32), t=empty((R,), f32),
+                    position=empty((R, 3), f32), normal=empty((R, 3), f32),
+                    inside=empty((R,), torch.bool))
+    err = kernels.load().rtc_traverse_record(
+        *ptrs, *normal_ptrs, *prior_ptrs, out.prim.data_ptr(),
+        out.t.data_ptr(), out.position.data_ptr(), out.normal.data_ptr(),
+        out.inside.data_ptr(), *_walk_sizes(wide, leaves, leaf_kind, ray_o),
+        int(tri is not None), eps_behind, eps_pos * eps_pos, _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"traversal kernel launch failed: CUDA error {err}")
+    kernels.count_launch(traverse)
+    kernels.count_launch(traverse_record)
     return out
 
 
@@ -859,6 +967,38 @@ def traverse(wide: WideNodes, leaves, leaf_kind: str, ray_o, ray_d, skip,
 # Launches of the traversal kernel (set it to 0 before a run to see that
 # the run went through the kernel).
 traverse.launches = 0
+
+
+def traverse_record(wide: WideNodes, leaves, leaf_kind: str, ray_o, ray_d,
+                    skip, eps_behind: float, eps_pos: float, tri=None,
+                    prior=None, order=None):
+    """The bounce's final hit record (``dispatch.HitRecord``) from the walk
+    of one packed BVH: :func:`record_reference` of :func:`traverse`'s
+    outputs, with ``tri`` (the triangle table, for its smooth rows' vertex
+    normals, or None) and ``prior`` (a record this one merges into, or
+    None).  On CUDA tensors where the tables and the prior record are
+    float32 the kernel writes the record itself (counted in
+    ``traverse.launches`` and ``traverse_record.launches``); a float64
+    scene's smooth normals take the chain on the kernel's outputs, as
+    CPU tensors take it on the plain walk's."""
+    if leaf_kind not in LEAF_KINDS:
+        raise ValueError(f"traverse: unknown leaf kind {leaf_kind!r}")
+    planes = (([] if tri is None else [tri.n0, tri.n1, tri.n2])
+              + ([] if prior is None else [prior.t, prior.position,
+                                           prior.normal]))
+    if ray_o.device.type == "cuda" and all(x.dtype == torch.float32
+                                           for x in planes):
+        return _launch_record(wide, leaves, leaf_kind, ray_o, ray_d, skip,
+                              eps_behind, eps_pos, tri, prior, order)
+    return record_reference(
+        traverse(wide, leaves, leaf_kind, ray_o, ray_d, skip, eps_behind,
+                 eps_pos, order=order), tri, prior)
+
+
+# The traversal launches that wrote the final record (each is counted in
+# traverse.launches too): where a BVH route's run reads less here than
+# there, the eager chain built a record.
+traverse_record.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -1016,15 +1156,25 @@ class CudaBVH:
             float(eps_behind), float(eps_pos), want_stats, order)
         res = (torch.clamp(out.row, min=0), out.row >= 0, out.t)
         if want_detail:
-            res += ({"prim": out.prim, "pos": out.position,
-                     "nrm": out.normal,
-                     "inside": (out.flags & FLAG_INSIDE) != 0,
-                     "inside_geo": (out.flags & FLAG_INSIDE_GEO) != 0,
-                     "smooth": (out.flags & FLAG_SMOOTH) != 0,
-                     "u": out.u, "v": out.v},)
+            res += (_detail(out),)
         if want_stats:
             res += (out.stats,)
         return res
+
+    def record(self, ray_o, ray_d, skip, eps_behind, eps_pos, tri=None,
+               prior=None, sort: bool = False):
+        """The bounce's final hit record from this tree
+        (:func:`traverse_record`: ``tri`` the triangle table of a tree
+        with smooth rows, ``prior`` the record to merge into), the rays
+        walked in the order of :meth:`ray_order` where ``sort``."""
+        f32 = torch.float32
+        o = ray_o.detach().to(f32).contiguous()
+        d = ray_d.detach().to(f32).contiguous()
+        order = self.ray_order(o, d) if sort else None
+        return traverse_record(self.wide, self.leaves, self.leaf_kind, o, d,
+                               self._skip(skip), float(eps_behind),
+                               float(eps_pos), tri=tri, prior=prior,
+                               order=order)
 
 
 class CudaSphereBVH(CudaBVH):

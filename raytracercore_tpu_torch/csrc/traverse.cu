@@ -52,8 +52,9 @@
 //     written out here because that pass loops over the 21-float table rows
 //     and evaluates smooth normals, while a leaf record has its own layout
 //     and the kernel commits the flat normal with (u, v) and the smooth
-//     flag (the caller re-interpolates the winner's normal).  V3, Skip,
-//     make_skip and skip_match are kernel_body.cuh's.
+//     flag (the record epilogue, or the caller of the detail planes,
+//     re-interpolates the winner's normal).  V3, Skip, make_skip and
+//     skip_match are kernel_body.cuh's.
 //   * untransformed spheres (8 floats): the quadratic on the re-normalized
 //     direction, both roots filtered on their own, the near root preferred,
 //     t returned in the world metric |d| * t.
@@ -105,6 +106,28 @@
 // the root box, in PallasBVH._sort_key's operations and order (correctly
 // rounded division, no contraction, truncation to int as astype(int32)).
 //
+// The record epilogue (rtc_traverse_record; MODE_RECORD): in place of the
+// detail planes, the thread writes the bounce's final hit record (prim, t,
+// position, normal, inside) that dispatch.make_bvh_closest_fn returns, so
+// that no eager op follows the launch.  It is the plain version's chain of
+// torch ops on the detail (cuda_traverse.record_reference, which calls
+// dispatch._tri_smooth_fixup, _rec_from_detail and _merge2) written for one
+// ray, in that chain's operation order, and bit-equal to it:
+//   * MODE_SMOOTH (the triangle table has smooth rows): a smooth winner's
+//     normal is re-interpolated from its committed (u, v) and the three
+//     vertex normals of its row, gathered once a ray after the walk; the
+//     sum n0 u + n1 v + n2 (u + v) left to right, vm.normalize as
+//     a / maximum(sqrt(dot(a, a)), 1e-30) with torch.maximum's NaN, the
+//     face normal un-flipped by a multiply with +-1, reflected through the
+//     face where the hit is inside the geometry;
+//   * t is 0 where there is no hit or t is not finite (_fin);
+//   * MODE_MERGE (a prior record is given: the triangle record before a
+//     sphere BVH's, and so on): the prior record is kept unless this
+//     walk's winner is strictly closer (_merge2: b.any & (~a.any | b.t <
+//     a.t)), a record's hit being prim >= 0;
+//   * prim is -1 where neither has a hit.
+// The detail instantiations (MODE 0) are the walk and stores as before.
+//
 // Floating point: fp32, built with -fmad=false and no fast math, in the
 // plain version's operation order; rsqrt is written 1.0f / sqrtf.
 
@@ -149,7 +172,22 @@ struct TraverseParams {
   int* stats;                      // [R,2] or null
   int R, K;
   float eps_behind, eps2;
+  // The record epilogue (MODE_RECORD): prim, t, pos and nrm above take the
+  // record; row, flags, u, v and stats are null.
+  const float* n0;                 // [N,3] vertex normals (MODE_SMOOTH)
+  const float* n1;                 // [N,3]
+  const float* n2;                 // [N,3]
+  const int* pv_prim;              // [R]   prior record (MODE_MERGE)
+  const float* pv_t;               // [R]
+  const float* pv_pos;             // [R,3]
+  const float* pv_nrm;             // [R,3]
+  const unsigned char* pv_inside;  // [R]   bool
+  unsigned char* inside;           // [R]   bool, the record's
 };
+
+// The epilogue of a launch: MODE 0 writes the detail planes; MODE_RECORD
+// the final record, with MODE_SMOOTH and MODE_MERGE as above.
+constexpr int MODE_RECORD = 1, MODE_SMOOTH = 2, MODE_MERGE = 4;
 
 // The running winner with its detail.
 struct Winner {
@@ -373,6 +411,71 @@ __device__ __forceinline__ void spht_record(const float4* rec, const Ray& ray,
   }
 }
 
+// torch.maximum(x, c): NaN where x is NaN (fmaxf would return c).
+__device__ __forceinline__ float nan_max(float x, float c) {
+  return (x != x || x > c) ? x : c;
+}
+
+// _tri_smooth_fixup for one smooth winner: the normal interpolated from
+// the vertex normals of its row at its (u, v), normalized, reflected
+// through the face where the hit is inside the geometry.
+__device__ __forceinline__ V3 smooth_normal(const TraverseParams& p,
+                                            const Winner& best) {
+  const float* a = p.n0 + 3 * (size_t)best.row;
+  const float* b = p.n1 + 3 * (size_t)best.row;
+  const float* c = p.n2 + 3 * (size_t)best.row;
+  const float u = best.u, v = best.v, uv = u + v;
+  V3 n = {__ldg(a) * u + __ldg(b) * v + __ldg(c) * uv,
+          __ldg(a + 1) * u + __ldg(b + 1) * v + __ldg(c + 1) * uv,
+          __ldg(a + 2) * u + __ldg(b + 2) * v + __ldg(c + 2) * uv};
+  const float len = nan_max(sqrtf(n.x * n.x + n.y * n.y + n.z * n.z), 1e-30f);
+  n = {n.x / len, n.y / len, n.z / len};
+  if ((best.flags & FLAG_IN_GEO) == 0) return n;
+  // The committed normal is the face normal times -1 here: un-flip it.
+  const V3 fn = {best.nrm.x * -1.f, best.nrm.y * -1.f, best.nrm.z * -1.f};
+  const float d2 = 2.f * (n.x * fn.x + n.y * fn.y + n.z * fn.z);
+  return {n.x - fn.x * d2, n.y - fn.y * d2, n.z - fn.z * d2};
+}
+
+// The final record of ray r from the walk's winner (see the header).
+template <int MODE>
+__device__ __forceinline__ void write_record(const TraverseParams& p, int r,
+                                             const Winner& best) {
+  const bool any = best.row >= 0;
+  V3 nrm = best.nrm;
+  if constexpr ((MODE & MODE_SMOOTH) != 0) {
+    if ((best.flags & FLAG_SMOOTH) != 0) nrm = smooth_normal(p, best);
+  }
+  float t = any ? best.t : 0.f;
+  t = isfinite(t) ? t : 0.f;
+  int prim = best.prim;
+  V3 pos = best.pos;
+  bool inside = (best.flags & FLAG_IN) != 0;
+  bool hit = any;
+  if constexpr ((MODE & MODE_MERGE) != 0) {
+    const int a_prim = p.pv_prim[r];
+    const float a_t = p.pv_t[r];
+    const bool a_any = a_prim >= 0;
+    if (!(any && (!a_any || t < a_t))) {
+      prim = a_prim;
+      t = a_t;
+      pos = {p.pv_pos[3 * r], p.pv_pos[3 * r + 1], p.pv_pos[3 * r + 2]};
+      nrm = {p.pv_nrm[3 * r], p.pv_nrm[3 * r + 1], p.pv_nrm[3 * r + 2]};
+      inside = p.pv_inside[r] != 0;
+    }
+    hit = any || a_any;
+  }
+  p.prim[r] = hit ? prim : -1;
+  p.t[r] = t;
+  p.pos[3 * r] = pos.x;
+  p.pos[3 * r + 1] = pos.y;
+  p.pos[3 * r + 2] = pos.z;
+  p.nrm[3 * r] = nrm.x;
+  p.nrm[3 * r + 1] = nrm.y;
+  p.nrm[3 * r + 2] = nrm.z;
+  p.inside[r] = inside;
+}
+
 // The wide walk: node `ref` is 2W float4 = the W children's six box planes
 // as structure of arrays (minx[W] miny[W] minz[W] maxx[W] maxy[W] maxz[W]),
 // their references (inner wide node >= 1, leaf -(slot + 1), empty 0) and
@@ -380,8 +483,9 @@ __device__ __forceinline__ void spht_record(const float4* rec, const Ray& ray,
 // tests; the passing children but the first go on the stack with their
 // near, the last first, and the first is walked next without a second
 // test (best.t has not moved since).  A popped entry is walked only if its
-// near is still <= best.t.
-template <int KIND, bool STATS>
+// near is still <= best.t.  MODE: the epilogue (MODE_RECORD and its flags,
+// or 0 for the detail planes).
+template <int KIND, bool STATS, int MODE>
 __global__ void __launch_bounds__(TRAVERSE_BLOCK)
     traverse_kernel(TraverseParams p) {
   constexpr int W = WIDE_WIDTH;
@@ -506,6 +610,10 @@ __global__ void __launch_bounds__(TRAVERSE_BLOCK)
     }
     if (!found) break;
   }
+  if constexpr ((MODE & MODE_RECORD) != 0) {
+    write_record<MODE>(p, r, best);
+    return;
+  }
   p.row[r] = best.row;
   p.t[r] = best.t;
   p.prim[r] = best.prim;
@@ -528,10 +636,33 @@ template <int KIND>
 int launch_traverse(const TraverseParams& p, cudaStream_t stream) {
   dim3 grid((p.R + TRAVERSE_BLOCK - 1) / TRAVERSE_BLOCK);
   if (p.stats != nullptr)
-    traverse_kernel<KIND, true><<<grid, TRAVERSE_BLOCK, 0, stream>>>(p);
+    traverse_kernel<KIND, true, 0><<<grid, TRAVERSE_BLOCK, 0, stream>>>(p);
   else
-    traverse_kernel<KIND, false><<<grid, TRAVERSE_BLOCK, 0, stream>>>(p);
+    traverse_kernel<KIND, false, 0><<<grid, TRAVERSE_BLOCK, 0, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int KIND, int MODE>
+int launch_record_mode(const TraverseParams& p, cudaStream_t stream) {
+  dim3 grid((p.R + TRAVERSE_BLOCK - 1) / TRAVERSE_BLOCK);
+  traverse_kernel<KIND, false, MODE><<<grid, TRAVERSE_BLOCK, 0, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Smooth normals are a triangle table's: the sphere kinds take no
+// MODE_SMOOTH.
+template <int KIND>
+int launch_record(const TraverseParams& p, bool smooth, cudaStream_t stream) {
+  const bool merge = p.pv_prim != nullptr;
+  if constexpr (KIND == KIND_TRI) {
+    if (smooth)
+      return merge ? launch_record_mode<KIND, MODE_RECORD | MODE_SMOOTH |
+                                                  MODE_MERGE>(p, stream)
+                   : launch_record_mode<KIND, MODE_RECORD | MODE_SMOOTH>(
+                         p, stream);
+  }
+  return merge ? launch_record_mode<KIND, MODE_RECORD | MODE_MERGE>(p, stream)
+               : launch_record_mode<KIND, MODE_RECORD>(p, stream);
 }
 
 constexpr int SORT_KEY_BLOCK = 256;
@@ -623,6 +754,51 @@ extern "C" int rtc_traverse(
       return rtc::launch_traverse<rtc::KIND_SPH>(p, s);
     case rtc::KIND_SPHT:
       return rtc::launch_traverse<rtc::KIND_SPHT>(p, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// C entry point, loaded with ctypes: the walk of rtc_traverse with the
+// record epilogue.  Writes the final record `prim` [R] int32, `t` [R],
+// `pos` [R,3], `nrm` [R,3], `inside` [R] bool.  `smooth` nonzero (triangle
+// leaves only): re-interpolate smooth winners' normals from the vertex
+// normals `n0`, `n1`, `n2` ([N,3] rows of the leaves' table).  `pv_prim`
+// null: no prior record; else the prior record (`pv_*`, the same planes)
+// is kept unless this walk's winner is strictly closer.  Returns as
+// rtc_traverse does, and cudaErrorInvalidValue for smooth normals without
+// their tables or on sphere leaves.
+extern "C" int rtc_traverse_record(
+    const float* wide, const float* leaves, const float* ray_o,
+    const float* ray_d, const int* sk_prim, const float* sk_pos,
+    const float* sk_nrm, const unsigned char* sk_inside,
+    const long long* order, const float* n0, const float* n1,
+    const float* n2, const int* pv_prim, const float* pv_t,
+    const float* pv_pos, const float* pv_nrm,
+    const unsigned char* pv_inside, int* prim, float* t, float* pos,
+    float* nrm, unsigned char* inside, int R, int n_wide, int depth, int K,
+    int kind, int smooth, float eps_behind, float eps2, void* stream) {
+  if (R <= 0) return 0;
+  if (n_wide <= 0 || K <= 0 || depth < 0 || depth > rtc::WIDE_STACK)
+    return (int)cudaErrorInvalidValue;
+  if (smooth && (kind != rtc::KIND_TRI || n0 == nullptr || n1 == nullptr ||
+                 n2 == nullptr))
+    return (int)cudaErrorInvalidValue;
+  rtc::TraverseParams p{reinterpret_cast<const float4*>(wide),
+                        reinterpret_cast<const float4*>(leaves),
+                        ray_o, ray_d, sk_prim, sk_pos, sk_nrm, sk_inside,
+                        order, nullptr, t, prim, pos, nrm, nullptr, nullptr,
+                        nullptr, nullptr, R, K, eps_behind, eps2,
+                        n0, n1, n2, pv_prim, pv_t, pv_pos, pv_nrm,
+                        pv_inside, inside};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (kind) {
+    case rtc::KIND_TRI:
+      return rtc::launch_record<rtc::KIND_TRI>(p, smooth != 0, s);
+    case rtc::KIND_SPH:
+      return rtc::launch_record<rtc::KIND_SPH>(p, false, s);
+    case rtc::KIND_SPHT:
+      return rtc::launch_record<rtc::KIND_SPHT>(p, false, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

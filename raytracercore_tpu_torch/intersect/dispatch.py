@@ -452,13 +452,27 @@ def _rec_from_detail(any_, t, det):
             "position": det["pos"], "normal": det["nrm"]}
 
 
-def _tri_smooth_fixup(scene, row, det):
+def _rec_dict(hit: HitRecord):
+    """A record → the :func:`_merge2` shape; its hit is ``prim >= 0``."""
+    return {"t": hit.t, "any": hit.prim >= 0, "prim": hit.prim,
+            "inside": hit.inside, "position": hit.position,
+            "normal": hit.normal}
+
+
+def _hit_from_rec(rec) -> HitRecord:
+    """The :func:`_merge2` shape → a record, prim -1 where nothing hit."""
+    prim = torch.where(rec["any"], rec["prim"], -1)
+    return HitRecord(prim=prim.to(torch.int32), t=rec["t"],
+                     position=rec["position"], normal=rec["normal"],
+                     inside=rec["inside"])
+
+
+def _tri_smooth_fixup(tri, row, det):
     """Re-interpolate the winner's SMOOTH normal (Triangle.GetNormal,
     Triangle.cs:209-224) from the kernel's committed (u, v): only the
-    three per-vertex normal rows are gathered — the smooth flag rides the
-    kernel's flag bits and the face normal is the committed flat normal
-    un-flipped (nrm = fn·flip)."""
-    tri = scene.triangles
+    three per-vertex normal rows of the triangle table ``tri`` are
+    gathered — the smooth flag rides the kernel's flag bits and the face
+    normal is the committed flat normal un-flipped (nrm = fn·flip)."""
     safe = row.long()
     u, v = det["u"][:, None], det["v"][:, None]
     n_int = tri.n0[safe] * u + tri.n1[safe] * v + tri.n2[safe] * (u + v)
@@ -486,14 +500,18 @@ def make_bvh_closest_fn(bvh, scene: SceneArrays | None = None,
                  geometry has gradients.
       "kernel" — the detail route (needs ``scene``, on the device the rays
                  will be on, for the leaf packing): every accelerated tier
-                 returns its winner's full record from the traversal kernel
-                 (:mod:`..bvh.cuda_traverse`: the CUDA kernel on CUDA
-                 tensors, its plain version on CPU tensors).  Untransformed
-                 and transformed spheres get BVHs of their own from
-                 ``config.SPHERE_BVH_MIN_ROWS`` rows on; the spheres that
-                 stay dense and the planes (the dense tail) go through the
-                 select kernel in one launch, as a sub-scene with an empty
-                 triangle table.  Records merge with a strict ``t <`` in the
+                 returns the bounce's record from the traversal kernel
+                 (:meth:`..bvh.cuda_traverse.CudaBVH.record`: on CUDA
+                 tensors the kernel writes the final record in its
+                 epilogue, the smooth normals re-interpolated and the
+                 record merged into the tier before it; on CPU tensors the
+                 plain walk and the chain of torch ops it replaces).
+                 Untransformed and transformed spheres get BVHs of their
+                 own from ``config.SPHERE_BVH_MIN_ROWS`` rows on; the
+                 spheres that stay dense and the planes (the dense tail)
+                 go through the select kernel in one launch, as a
+                 sub-scene with an empty triangle table, and merge
+                 eagerly.  Records merge with a strict ``t <`` in the
                  order triangles → sphere BVH → ellipsoid BVH → dense tail.
                  Geometry is stop-gradient: the material-gradient train
                  path never differentiates geometry, and forward rendering
@@ -619,29 +637,23 @@ def make_bvh_closest_fn(bvh, scene: SceneArrays | None = None,
         with torch.no_grad():
             o_sg, d_sg = ray_o.detach(), ray_d.detach()
             skip_sg = None if skip is None else skip.detach()
-            row, any_t, t_t, det = tri_bvh.select(
-                o_sg, d_sg, skip_sg, eps_behind, eps_pos, want_detail=True,
+            rec = tri_bvh.record(
+                o_sg, d_sg, skip_sg, eps_behind, eps_pos,
+                tri=scene_arg.triangles if any_smooth else None,
                 sort=do_sort)
-            if any_smooth:
-                det = _tri_smooth_fixup(scene_arg, row, det)
-            rec = _rec_from_detail(any_t, t_t, det)
             for b in sphere_bvhs:
-                _, any_b, t_b, det_b = b.select(
-                    o_sg, d_sg, skip_sg, eps_behind, eps_pos,
-                    want_detail=True, sort=do_sort)
-                rec = _merge2(rec, _rec_from_detail(any_b, t_b, det_b))
+                rec = b.record(o_sg, d_sg, skip_sg, eps_behind, eps_pos,
+                               prior=rec, sort=do_sort)
             if tail is not None:
                 hit = closest_hit_fused(tail, o_sg, d_sg, skip_sg)
-                rec = _merge2(rec, {
+                rec = _hit_from_rec(_merge2(_rec_dict(rec), {
                     "t": hit.t.to(torch.float32), "any": hit.prim >= 0,
                     "prim": hit.prim, "inside": hit.inside,
                     "position": hit.position.to(torch.float32),
-                    "normal": hit.normal.to(torch.float32)})
-        prim = torch.where(rec["any"], rec["prim"], -1)
-        return HitRecord(prim=prim.to(torch.int32), t=rec["t"].to(dtype),
-                         position=rec["position"].to(dtype),
-                         normal=rec["normal"].to(dtype),
-                         inside=rec["inside"])
+                    "normal": hit.normal.to(torch.float32)}))
+        return HitRecord(prim=rec.prim, t=rec.t.to(dtype),
+                         position=rec.position.to(dtype),
+                         normal=rec.normal.to(dtype), inside=rec.inside)
 
     closest_kernel.bvhs = [tri_bvh, *sphere_bvhs]
     closest_kernel.tail = tail

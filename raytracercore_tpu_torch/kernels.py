@@ -90,6 +90,16 @@ SIGNATURES = {
         + [_I] * 5                     # R n_wide depth K leaf kind
         + [_F, _F]                     # eps_behind, eps_pos²
         + [_P]),                       # stream
+    "rtc_traverse_record": (
+        [_P] * 22                      # wide nodes, leaves, 2 rays, 4 skip
+                                       # (null: none), order (null:
+                                       # identity), 3 vertex normal tables
+                                       # (null: no smooth rows), 5 prior
+                                       # record (null: none), 5 record
+                                       # outputs
+        + [_I] * 6                     # R n_wide depth K leaf kind smooth
+        + [_F, _F]                     # eps_behind, eps_pos²
+        + [_P]),                       # stream
     "rtc_shade": (
         [_P] * 42                      # 19 inputs (hit, state, prev, u,
                                        # matf, ambient, air), 11 state

@@ -255,12 +255,12 @@ def test_closest_fn_sorted_records_equal_unsorted(ellipsoid, monkeypatch):
     assert kinds == ["tri", "spht" if ellipsoid else "sph"]
     assert closest.sort and not unsorted.sort
     seen = []
-    select = ct.CudaBVH.select
+    record = ct.CudaBVH.record
 
     def spy(self, *args, **kw):
         seen.append((self.leaf_kind, kw.get("sort")))
-        return select(self, *args, **kw)
-    monkeypatch.setattr(ct.CudaBVH, "select", spy)
+        return record(self, *args, **kw)
+    monkeypatch.setattr(ct.CudaBVH, "record", spy)
 
     camera = ttypes.init_camera(host_cam, 16, 16, device="cpu")
     o, d = tcam.center_rays(camera, *tcam.pixel_grid(16, 16, device="cpu"))
