@@ -100,8 +100,8 @@ def run(ctx):
                             total_passes, kept_passes, ctx.device)
     ctx.counts.update(
         rays_per_pass=h * w, bounces_per_path=want["bounces"],
-        frames=len(frames), passes=passes, scene_tables=inputs.tables,
-        image_s=spans.durations("image"))
+        frames=len(frames), frame_s=frames, passes=passes,
+        scene_tables=inputs.tables, image_s=spans.durations("image"))
     return {"end_to_end": e2e, "attempted": len(frames), "failed": 0,
             "numbers": compare(got, got_image, want)}
 

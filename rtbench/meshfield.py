@@ -106,36 +106,49 @@ def make(grid: int, subdiv: int, seed: int, recursion: int, width: int,
                                              np.array([[0.0, 0.0, 0.0]])])
     emission = np.zeros((T, 3))
     emission[-1] = [14.0, 13.0, 12.0]
-    two_sided = np.zeros(T, bool)
-    two_sided[-1] = True  # the light, as chip_smoke.lit_mesh_scene
+    triangles = {"v0": v0, "e1": e1, "e2": e2, "normal": normal, "n0": n0,
+                 "n1": n1, "n2": n2, "mirror": mirror, "smooth": smooth,
+                 "prim_id": np.arange(T, dtype=np.int32)}
+    spheres = {"center": np.zeros((1, 3)), "radius": np.ones(1),
+               "obj_to_world": np.eye(4)[None],
+               "world_to_obj": np.eye(4)[None], "normal_mat": np.eye(3)[None],
+               "transformed": np.zeros(1, bool),
+               "prim_id": np.array([-1], np.int32)}
+    return (field_tables(triangles, spheres, diffuse, emission, recursion,
+                         width, height), field_camera(half))
 
-    tables = {
-        "triangles": {"v0": v0, "e1": e1, "e2": e2, "normal": normal,
-                      "n0": n0, "n1": n1, "n2": n2, "mirror": mirror,
-                      "smooth": smooth,
-                      "prim_id": np.arange(T, dtype=np.int32)},
-        "spheres": {"center": np.zeros((1, 3)), "radius": np.ones(1),
-                    "obj_to_world": np.eye(4)[None],
-                    "world_to_obj": np.eye(4)[None],
-                    "normal_mat": np.eye(3)[None],
-                    "transformed": np.zeros(1, bool),
-                    "prim_id": np.array([-1], np.int32)},
+
+def field_tables(triangles: dict, spheres: dict, diffuse, emission,
+                 recursion: int, width: int, height: int) -> dict:
+    """The tables of a generated field: its triangle and sphere tables, no
+    planes (one masked row), diffuse materials ``diffuse`` and
+    ``emission`` (one row a primitive, the light last and two-sided) and
+    the generators' scene settings."""
+    n = len(diffuse)
+    two_sided = np.zeros(n, bool)
+    two_sided[-1] = True  # the light, as chip_smoke.lit_mesh_scene
+    return {
+        "triangles": triangles, "spheres": spheres,
         "planes": {"normal": np.array([[0.0, 0.0, 1.0]]),
                    "origin_dist": np.zeros(1),
                    "prim_id": np.array([-1], np.int32)},
         "materials": {"emission": emission, "diffuse": diffuse,
-                      "specular": np.zeros((T, 3)),
-                      "refraction": np.zeros((T, 3)),
-                      "refractive_index": np.ones(T),
-                      "shininess": np.full(T, 100.0),
-                      "two_sided": two_sided, "invert": np.zeros(T, bool)},
+                      "specular": np.zeros((n, 3)),
+                      "refraction": np.zeros((n, 3)),
+                      "refractive_index": np.ones(n),
+                      "shininess": np.full(n, 100.0),
+                      "two_sided": two_sided, "invert": np.zeros(n, bool)},
         "background_rgb": np.zeros(3), "background_alpha": 0.0,
         "ambient_rgb": np.full(3, 0.12), "air_refractive_index": 1.000293,
         "width": width, "height": height, "recursion": recursion,
-        "ambient_is_miss": False, "debug_geom": False, "n_prims": T,
+        "ambient_is_miss": False, "debug_geom": False, "n_prims": n,
         "any_smooth": True}
-    camera = {"position": np.array([0.0, -half - 14.0, half * 0.9 + 7.0]),
-              "look_at": np.array([0.0, 0.0, 1.0]),
-              "up": np.array([0.0, 0.0, 1.0]), "fov": np.deg2rad(55.0),
-              "image_plane": 0.0, "dof_amount": 0.0, "focal_length": 0.0}
-    return tables, camera
+
+
+def field_camera(half: float) -> dict:
+    """The generators' frustum camera over a field of half-width
+    ``half``."""
+    return {"position": np.array([0.0, -half - 14.0, half * 0.9 + 7.0]),
+            "look_at": np.array([0.0, 0.0, 1.0]),
+            "up": np.array([0.0, 0.0, 1.0]), "fov": np.deg2rad(55.0),
+            "image_plane": 0.0, "dof_amount": 0.0, "focal_length": 0.0}

@@ -81,8 +81,7 @@ def steps(tables, camera, target, step_seeds, lr: float, device,
     scene = tb.load(tables, device, dtype)
     h, w = scene.height, scene.width
     cam = tb.camera(camera, w, h, device, dtype)
-    clusters = (tr.TriangleClusters(scene.tri, scene.n_tri)
-                if scene.n_tri > tr.CLUSTER else None)
+    clusters = tr.scene_clusters(scene)
     leaves = {f: scene.mats[f].detach().clone().requires_grad_(True)
               for f in FIELDS}
     start = {f: v.detach().clone() for f, v in leaves.items()}

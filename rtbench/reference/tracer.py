@@ -11,9 +11,9 @@ program's kernels to the last bits on nearly every path.  Nothing of the
 program is imported: every table, draw and ray is worked out again here.
 
 The closest hit tests every ray against every table row in ``[R, N]``
-grids.  A triangle table of more than ``CLUSTER`` rows is cut into
-clusters of consecutive rows, each bounded by a box; a ray tests the rows
-of the clusters whose box it enters, which is exact because the box
+grids.  A triangle or sphere table of more than ``CLUSTER`` rows is cut
+into clusters of consecutive rows, each bounded by a box; a ray tests the
+rows of the clusters whose box it enters, which is exact because the box
 bounds every row of its cluster.  Ties go to the first table (triangles,
 spheres, planes) and within it to the first row.
 
@@ -33,7 +33,7 @@ TWO_PI = 6.283185307179586
 NEAR_ENOUGH = 1e-7       # behind-ray tolerance (float32)
 POSITION_EPS = 1e-4      # skip-record position tolerance (relative)
 F32_TINY = 1.1754943508222875e-38
-CLUSTER = 256            # triangle rows a cluster holds
+CLUSTER = 256            # table rows a cluster holds
 GRID_CELLS = 1 << 23     # (ray, row) cells one grid may hold
 
 
@@ -284,30 +284,24 @@ def _skip_rows(skip, idx):
         "n": tuple(_col(a[idx]) for a in skip["n"])}
 
 
-class TriangleClusters:
-    """Boxes over clusters of ``CLUSTER`` consecutive triangle rows."""
+class _Clusters:
+    """Boxes over clusters of ``CLUSTER`` consecutive table rows, from the
+    boxes of the ``n`` rows in use (per axis ``[n]``), widened by a slack;
+    kept in float32."""
 
-    def __init__(self, tri: dict, n_rows: int):
-        self.n = n_rows
-        self.k = -(-n_rows // CLUSTER)
-        pad = self.k * CLUSTER - n_rows
-        corners = []
-        for a in "xyz":
-            v0 = tri["v0" + a][:n_rows].float()
-            e1 = tri["e1" + a][:n_rows].float()
-            e2 = tri["e2" + a][:n_rows].float()
-            # A mirrored row spans the parallelogram up to v0 + e1 + e2.
-            pts = torch.stack([v0, v0 + e1, v0 + e2, v0 + e1 + e2])
-            lo = torch.nn.functional.pad(pts.amin(0), (0, pad),
-                                         value=float("inf"))
-            hi = torch.nn.functional.pad(pts.amax(0), (0, pad),
-                                         value=float("-inf"))
+    def __init__(self, row_lo, row_hi):
+        self.n = row_lo[0].shape[0]
+        self.k = -(-self.n // CLUSTER)
+        pad = self.k * CLUSTER - self.n
+        self.lo, self.hi = [], []
+        for lo, hi in zip(row_lo, row_hi):
+            lo = torch.nn.functional.pad(lo, (0, pad), value=float("inf"))
+            hi = torch.nn.functional.pad(hi, (0, pad), value=float("-inf"))
             lo = lo.view(self.k, CLUSTER).amin(1)
             hi = hi.view(self.k, CLUSTER).amax(1)
             slack = 1e-3 * (hi - lo) + 1e-4 * (lo.abs() + hi.abs()) + 1e-6
-            corners.append((lo - slack, hi + slack))
-        self.lo = [c[0] for c in corners]
-        self.hi = [c[1] for c in corners]
+            self.lo.append((lo - slack).float())
+            self.hi.append((hi + slack).float())
 
     def pairs(self, o, d):
         """``(ray, cluster)`` index pairs of the boxes each ray enters
@@ -335,10 +329,63 @@ class TriangleClusters:
         return torch.cat(rays), torch.cat(clus)
 
 
-def _best_clustered(clusters, cols, o, d, skip):
-    """:func:`_best_dense` for a large triangle table through its
-    clusters: the closest row of every (ray, cluster) pair, then per ray
-    the closest pair, and among equally close pairs the lowest row."""
+class TriangleClusters(_Clusters):
+    """Boxes over the first ``n_rows`` triangle rows (those in use), in
+    float32."""
+
+    def __init__(self, tri: dict, n_rows: int):
+        lo, hi = [], []
+        for a in "xyz":
+            v0 = tri["v0" + a][:n_rows].float()
+            e1 = tri["e1" + a][:n_rows].float()
+            e2 = tri["e2" + a][:n_rows].float()
+            # A mirrored row spans the parallelogram up to v0 + e1 + e2.
+            pts = torch.stack([v0, v0 + e1, v0 + e2, v0 + e1 + e2])
+            lo.append(pts.amin(0))
+            hi.append(pts.amax(0))
+        super().__init__(lo, hi)
+
+
+class SphereClusters(_Clusters):
+    """Boxes over every sphere row, each worked out in float64 from the
+    row's centre, radius and object-to-world matrix: around the matrix
+    applied to the centre, the half-extent on world axis ``i`` is the
+    radius times the length of row ``i`` of the matrix's 3x3 part, which
+    bounds the ball's image exactly."""
+
+    def __init__(self, sph: dict):
+        o = [sph[f"o{k}"].double() for k in range(12)]
+        c = [sph["c" + a].double() for a in "xyz"]
+        r = sph["radius"].double()
+        lo, hi = [], []
+        for i in range(3):
+            row = o[4 * i:4 * i + 4]
+            centre = row[0] * c[0] + row[1] * c[1] + row[2] * c[2] + row[3]
+            ext = r * torch.sqrt(row[0] * row[0] + row[1] * row[1]
+                                 + row[2] * row[2])
+            lo.append(centre - ext)
+            hi.append(centre + ext)
+        super().__init__(lo, hi)
+
+
+def scene_clusters(scene: Scene) -> dict:
+    """The clusters :func:`closest_hit` scans a scene's tables through:
+    ``{"tri": TriangleClusters, "sph": SphereClusters}``, each only where
+    its table has more than ``CLUSTER`` rows (smaller tables are scanned
+    whole)."""
+    out = {}
+    if scene.n_tri > CLUSTER:
+        out["tri"] = TriangleClusters(scene.tri, scene.n_tri)
+    if scene.sph["prim"].shape[0] > CLUSTER:
+        out["sph"] = SphereClusters(scene.sph)
+    return out
+
+
+def _best_clustered(clusters, test, cols, o, d, skip):
+    """:func:`_best_dense` for a large table through its clusters, by the
+    row test ``test``: the closest row of every (ray, cluster) pair, then
+    per ray the closest pair, and among equally close pairs the lowest
+    row."""
     R = o[0].shape[0]
     dev = o[0].device
     ray_i, clu_i = clusters.pairs(o, d)
@@ -352,8 +399,8 @@ def _best_clustered(clusters, cols, o, d, skip):
         oc = tuple(_col(a[r]) for a in o)
         dc = tuple(_col(a[r]) for a in d)
         sk = None if skip is None else _skip_rows(skip, r)
-        ok, t, _ = _tri_test(_rows(cols, row), oc, dc,
-                             _skip(dc, sk, POSITION_EPS), False)
+        ok, t, _ = test(_rows(cols, row), oc, dc,
+                        _skip(dc, sk, POSITION_EPS), False)
         t = torch.where(ok & ~torch.isnan(t), t, torch.inf)
         tb, ib = torch.min(t, dim=1)
         ts.append(tb)
@@ -375,14 +422,19 @@ def _best_clustered(clusters, cols, o, d, skip):
 def closest_hit(scene: Scene, o, d, skip, clusters=None):
     """The closest surviving hit of rays ``o, d`` (3-tuples of ``[R]``):
     ``{"prim", "found", "p", "n", "inside"}``; ``skip`` is the previous
-    bounce's hit (None on bounce 0)."""
+    bounce's hit (None on bounce 0); ``clusters`` is
+    :func:`scene_clusters`'s, or None to scan every table whole."""
     R = o[0].shape[0]
-    if clusters is not None:
-        t_tri, r_tri = _best_clustered(clusters, scene.tri, o, d, skip)
-    else:
-        t_tri, r_tri = _best_dense(_tri_test, scene.tri, o, d, skip)
-    t_sph, r_sph = _best_dense(_sph_test, scene.sph, o, d, skip)
-    t_pln, r_pln = _best_dense(_pln_test, scene.pln, o, d, skip)
+    best = {}
+    for kind, test in _TESTS.items():
+        cols = getattr(scene, kind)
+        if clusters and kind in clusters:
+            best[kind] = _best_clustered(clusters[kind], test, cols, o, d,
+                                         skip)
+        else:
+            best[kind] = _best_dense(test, cols, o, d, skip)
+    (t_tri, r_tri), (t_sph, r_sph), (t_pln, r_pln) = (
+        best["tri"], best["sph"], best["pln"])
     is_tri = (r_tri >= 0) & ~(t_sph < t_tri) & ~(t_pln < t_tri)
     is_sph = ~is_tri & (r_sph >= 0) & ~(t_pln < t_sph)
     is_pln = ~is_tri & ~is_sph & (r_pln >= 0)

@@ -22,8 +22,7 @@ def film_at(inputs_tables, camera, seed: int, pix, passes: int,
     reached)}`` at pixels ``pix`` (numpy int64) after ``passes`` passes."""
     scene = tb.load(inputs_tables, device, dtype)
     cam = tb.camera(camera, scene.width, scene.height, device, dtype)
-    clusters = (tr.TriangleClusters(scene.tri, scene.n_tri)
-                if scene.n_tri > tr.CLUSTER else None)
+    clusters = tr.scene_clusters(scene)
     matf = tr.material_matrix(scene.mats)
     n_px = scene.width * scene.height
     pix_t = torch.as_tensor(pix, device=device)

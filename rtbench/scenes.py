@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 
-from . import meshfield
+from . import meshfield, spherefield
 from .reference import scene_text
 
 
@@ -36,6 +36,11 @@ def make(config: dict) -> SceneInputs:
     if scene["kind"] == "icosphere_field":
         tables, camera = meshfield.make(
             scene["grid"], scene["subdiv"], scene["seed"],
+            config["recursion"], width, height)
+        return SceneInputs(tables, camera, None)
+    if scene["kind"] == "sphere_field":
+        tables, camera = spherefield.make(
+            scene["grid"], scene["seed"], scene["ellipsoid"],
             config["recursion"], width, height)
         return SceneInputs(tables, camera, None)
     raise ValueError(f"unknown scene kind {scene['kind']!r}")
