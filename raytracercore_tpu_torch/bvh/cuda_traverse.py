@@ -23,10 +23,9 @@ layer gathers nothing from the primitive tables.
   ``csrc/traverse.cu`` (counted in ``traverse.launches``) or raises, on CPU
   tensors it runs the plain version;
 * :func:`traverse_record` — the same walk ending in the bounce's final hit
-  record (the record epilogue, counted in ``traverse_record.launches``
-  and in ``traverse.launches``), merged into a prior record where one is given; its plain version
-  :func:`record_reference` is the chain of torch ops that builds the
-  record from :func:`traverse`'s outputs;
+  record (the record epilogue), merged into a prior record where one is
+  given; its plain version :func:`record_reference` is the chain of torch
+  ops that builds the record from :func:`traverse`'s outputs;
 * :func:`traverse_wide_reference` — the plain version: the kernel's wide
   walk as a lockstep torch walk with per-ray stacks, the kernel's leaf
   tests in the kernel's operation order, all 12 outputs and the optional
@@ -43,6 +42,19 @@ layer gathers nothing from the primitive tables.
   packed tree of one table (binary nodes, wide nodes, leaves) with the
   ``record`` entry that ``dispatch.make_bvh_closest_fn`` calls and the
   ``select`` entry of the debug views and the checks.
+
+The launch counters, each kept by ``kernels.count_launch`` (a launch under
+a graph's capture counts at each replay, so they count launches that ran):
+
+* ``traverse.launches`` — every launch of the traversal kernel;
+* ``traverse_record.launches`` — those that wrote the final record;
+* ``traverse_record.by_kind["tri" | "sph" | "spht"].launches`` — the
+  record launches by leaf kind (triangles, untransformed spheres,
+  ellipsoids);
+* ``traverse_record.merges.launches`` — the record launches that merged
+  into a prior record (the sphere and ellipsoid trees after the triangle
+  tree);
+* ``sort_key.launches`` — the key kernel's launches.
 
 Ray coherence (``select(sort=True)``, the JAX package's ``sort=``): the
 rays are ordered by their key (``torch.sort``, stable) and the traversal
@@ -440,13 +452,17 @@ def _tri_test(m, ray, sk, eps_behind, eps2):
 
 
 def _sph_test(m, ray, sk, eps_behind, eps2):
-    """One packed untransformed sphere per ray: the quadratic of
-    Sphere.DoRayTrace (Sphere.cs:175-209) on the RE-NORMALIZED direction,
-    both roots with two-sided / invert filtering and the skip rule per
-    root, the near root preferred; t comes back in the world metric
-    ``|d| · t_n̂``."""
-    ox, oy, oz = ray[:3]
-    nx, ny, nz, dn_len = ray[6:10]
+    """One packed untransformed sphere per ray: the dense test
+    (``csrc/kernel_body.cuh`` ``sphere_pass`` / ``sphere_root``, the plain
+    ``intersect.kernel_body.sphere_pass``) with the identity transform
+    folded away, which changes no bit on finite inputs.  The quadratic of
+    Sphere.DoRayTrace (Sphere.cs:175-209) on the direction times ``1 /
+    |d|`` (prepared by :class:`_Walk`), each root's position ``o + n̂ ·
+    t``, world-metric ``t = d·(pos - o)``, the normal ``(pos - c) · (1 /
+    r)`` normalized and negated on the far root; two-sided / invert and
+    the skip rule per root, the near root preferred."""
+    ox, oy, oz, dx, dy, dz = ray[:6]
+    nx, ny, nz = ray[6:9]
     cx, cy, cz, r = m(0), m(1), m(2), m(3)
     row = m(4).to(torch.int32)
     inv_f = m(5) != 0
@@ -461,31 +477,45 @@ def _sph_test(m, ray, sk, eps_behind, eps2):
     radix = torch.sqrt(torch.where(has, disc, 0.0))
     any_hit = has & (radix >= -b) & (row >= 0)
     both = radix < b
-    t_near = (b - radix) * 0.5
-    t_far = (b + radix) * 0.5
-    inside_near, inside_far = inv_f, ~inv_f
-
-    def skipm(t, inside):
-        return _skip_match(sk, prim, ox + nx * t, oy + ny * t, oz + nz * t,
-                           inside, eps2)
-
-    near_ok = (any_hit & both & (two_s | ~inside_near)
-               & ~skipm(t_near, inside_near))
-    far_ok = any_hit & (two_s | ~inside_far) & ~skipm(t_far, inside_far)
-    ok = near_ok | far_ok
-    t_pick = torch.where(near_ok, t_near, t_far)
-    tt = t_pick * dn_len
-    hx = ox + nx * t_pick
-    hy = oy + ny * t_pick
-    hz = oz + nz * t_pick
     inv_r = 1.0 / r
-    gflip = torch.where(near_ok, inv_r, -inv_r)
-    ifl = (torch.where(near_ok, inside_near, inside_far).to(torch.int32)
-           * FLAG_INSIDE + (~near_ok).to(torch.int32) * FLAG_INSIDE_GEO)
+
+    def eval_root(t_obj, valid, far_root: bool):
+        wx = ox + nx * t_obj
+        wy = oy + ny * t_obj
+        wz = oz + nz * t_obj
+        tw = dx * (wx - ox) + dy * (wy - oy) + dz * (wz - oz)
+        inside = ~inv_f if far_root else inv_f
+        valid = (valid & (two_s | ~inside)
+                 & ~_skip_match(sk, prim, wx, wy, wz, inside, eps2))
+        qx = (wx - cx) * inv_r
+        qy = (wy - cy) * inv_r
+        qz = (wz - cz) * inv_r
+        nrl = 1.0 / torch.sqrt(torch.clamp(qx * qx + qy * qy + qz * qz,
+                                           min=1e-30))
+        flip = -nrl if far_root else nrl
+        return tw, valid, (wx, wy, wz), (qx * flip, qy * flip,
+                                         qz * flip), inside
+
+    t_n, near_ok, pos_n, nrm_n, in_n = eval_root((b - radix) * 0.5,
+                                                 any_hit & both, False)
+    t_f, far_ok, pos_f, nrm_f, in_f = eval_root((b + radix) * 0.5, any_hit,
+                                                True)
+    return _pick_root(near_ok, far_ok, (t_n, pos_n, nrm_n, in_n),
+                      (t_f, pos_f, nrm_f, in_f), row, prim)
+
+
+def _pick_root(near_ok, far_ok, near, far, row, prim):
+    """A sphere leaf's result from its two roots (each ``(t, pos, nrm,
+    inside)``): the near root where it survived, else the far one."""
+    def pk(a, b2):
+        return torch.where(near_ok, a, b2)
+    tt = pk(near[0], far[0])
+    ifl = (pk(near[3], far[3]).to(torch.int32) * FLAG_INSIDE
+           + (~near_ok).to(torch.int32) * FLAG_INSIDE_GEO)
     zero = torch.zeros_like(tt)
-    return ok, tt, row, (prim, hx, hy, hz, (hx - cx) * gflip,
-                         (hy - cy) * gflip, (hz - cz) * gflip, ifl, zero,
-                         zero)
+    return near_ok | far_ok, tt, row, (
+        prim, *(pk(a, b2) for a, b2 in zip(near[1], far[1])),
+        *(pk(a, b2) for a, b2 in zip(near[2], far[2])), ifl, zero, zero)
 
 
 def _spht_test(m, ray, sk, eps_behind, eps2):
@@ -551,18 +581,8 @@ def _spht_test(m, ray, sk, eps_behind, eps2):
                                                  any_hit & both, False)
     t_f, far_ok, pos_f, nrm_f, in_f = eval_root((b + radix) * 0.5, any_hit,
                                                 True)
-    ok = near_ok | far_ok
-
-    def pk(a, b2):
-        return torch.where(near_ok, a, b2)
-    tt = pk(t_n, t_f)
-    ifl = (pk(in_n, in_f).to(torch.int32) * FLAG_INSIDE
-           + (~near_ok).to(torch.int32) * FLAG_INSIDE_GEO)
-    zero = torch.zeros_like(tt)
-    return ok, tt, row, (prim, pk(pos_n[0], pos_f[0]), pk(pos_n[1], pos_f[1]),
-                         pk(pos_n[2], pos_f[2]), pk(nrm_n[0], nrm_f[0]),
-                         pk(nrm_n[1], nrm_f[1]), pk(nrm_n[2], nrm_f[2]),
-                         ifl, zero, zero)
+    return _pick_root(near_ok, far_ok, (t_n, pos_n, nrm_n, in_n),
+                      (t_f, pos_f, nrm_f, in_f), row, prim)
 
 
 _LEAF_TESTS = {"tri": _tri_test, "sph": _sph_test, "spht": _spht_test}
@@ -589,10 +609,10 @@ def _in_order(walk, order, ray_o, ray_d, skip):
 
 class _Walk:
     """What the two plain walks share: the rays with their inverse
-    direction (and, for sphere leaves, the re-normalized direction), the
-    skip record's planes, the running winner with its detail and the
-    counters; :meth:`slab` and :meth:`leaves` are the kernel's box and leaf
-    tests."""
+    direction (and, for untransformed sphere leaves, the normalized
+    direction), the skip record's planes, the running winner with its
+    detail and the counters; :meth:`slab` and :meth:`leaves` are the
+    kernel's box and leaf tests."""
 
     def __init__(self, leaves, leaf_kind, ray_o, ray_d, skip, eps_behind,
                  eps_pos):
@@ -609,14 +629,14 @@ class _Walk:
         ray = [o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2]]
         self.inv = [torch.where(c != 0, 1.0 / torch.where(c == 0, 1.0, c),
                                 BIG_INV) for c in ray[3:6]]
-        if leaf_kind != "tri":
-            # Normalized direction for the sphere test: on tangent rays the
-            # discriminant's sign flips with sub-ulp |d| deviations.
-            dn_len = torch.sqrt(torch.clamp(
+        if leaf_kind == "sph":
+            # The dense sphere test's normalized direction, d times 1 / |d|:
+            # on tangent rays the discriminant's sign flips with sub-ulp
+            # deviations of the direction.
+            inv_len = 1.0 / torch.sqrt(torch.clamp(
                 ray[3] * ray[3] + ray[4] * ray[4] + ray[5] * ray[5],
                 min=1e-30))
-            ray += [ray[3] / dn_len, ray[4] / dn_len, ray[5] / dn_len,
-                    dn_len]
+            ray += [ray[3] * inv_len, ray[4] * inv_len, ray[5] * inv_len]
         self.ray = ray
         self.sk = None
         if skip is not None:
@@ -939,6 +959,9 @@ def _launch_record(wide, leaves, leaf_kind, ray_o, ray_d, skip, eps_behind,
         raise RuntimeError(f"traversal kernel launch failed: CUDA error {err}")
     kernels.count_launch(traverse)
     kernels.count_launch(traverse_record)
+    kernels.count_launch(traverse_record.by_kind[leaf_kind])
+    if prior is not None:
+        kernels.count_launch(traverse_record.merges)
     return out
 
 
@@ -995,10 +1018,26 @@ def traverse_record(wide: WideNodes, leaves, leaf_kind: str, ray_o, ray_d,
                  eps_pos, order=order), tri, prior)
 
 
+class LaunchCount:
+    """The launches of one form of a kernel, in ``launches``, kept by
+    ``kernels.count_launch`` as a wrapper's count is."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.launches = 0
+
+    def __repr__(self):
+        return f"LaunchCount({self.name!r}, launches={self.launches})"
+
+
 # The traversal launches that wrote the final record (each is counted in
 # traverse.launches too): where a BVH route's run reads less here than
-# there, the eager chain built a record.
+# there, the eager chain built a record.  Of them, by leaf kind, and those
+# that merged into a prior record.
 traverse_record.launches = 0
+traverse_record.by_kind = {kind: LaunchCount(f"traverse_record.{kind}")
+                           for kind in LEAF_KINDS}
+traverse_record.merges = LaunchCount("traverse_record.merges")
 
 
 # ---------------------------------------------------------------------------

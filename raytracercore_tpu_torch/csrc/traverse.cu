@@ -55,9 +55,19 @@
 //     flag (the record epilogue, or the caller of the detail planes,
 //     re-interpolates the winner's normal).  V3, Skip, make_skip and
 //     skip_match are kernel_body.cuh's.
-//   * untransformed spheres (8 floats): the quadratic on the re-normalized
-//     direction, both roots filtered on their own, the near root preferred,
-//     t returned in the world metric |d| * t.
+//   * untransformed spheres (8 floats): the arithmetic of sphere_pass /
+//     sphere_root in kernel_body.cuh with the identity transform folded
+//     away (under -fmad=false 1 * x + 0 * y + 0 * z + 0 is x, so the
+//     folded form equals the general one bit for bit on finite inputs):
+//     the direction times 1 / |d|, each root's position o + n * t_obj,
+//     world t = d . (pos - o), both roots filtered on their own, the near
+//     root preferred; the normal (pos - c) * (1 / r) normalized and
+//     negated on the far root, made once for the winner after the walk.  Held to the dense scan bit for bit: at 500-
+//     1,100 units the float32 quadratic keeps few digits, so any other
+//     operation order moves t and the winner.  (The dense scan also keeps
+//     the quadratic's false hits of rays that pass just outside a sphere;
+//     where such a ray passes outside the sphere's box too, the walk never
+//     reaches the leaf.)
 //   * transformed spheres (32 floats): the object-space quadratic with
 //     per-root world position, world-metric t and world normal: the
 //     arithmetic of sphere_pass / sphere_root in kernel_body.cuh.
@@ -200,8 +210,7 @@ struct Winner {
 // What a ray carries through the walk.
 struct Ray {
   V3 o, d;
-  V3 n;          // re-normalized direction (sphere leaves)
-  float dn_len;  // |d|
+  V3 n;  // normalized direction (untransformed sphere leaves)
 };
 
 __device__ __forceinline__ void tri_record(const float4* rec, const Ray& ray,
@@ -276,7 +285,7 @@ __device__ __forceinline__ void sph_record(const float4* rec, const Ray& ray,
   const bool inv_f = r1.y != 0.f;
   const bool two_s = r1.z != 0.f;
   const int prim = (int)r1.w;
-  const V3 o = ray.o, n = ray.n;
+  const V3 o = ray.o, d = ray.d, n = ray.n;
 
   float fx = o.x - cx, fy = o.y - cy, fz = o.z - cz;
   float b = -2.f * (fx * n.x + fy * n.y + fz * n.z);
@@ -290,6 +299,7 @@ __device__ __forceinline__ void sph_record(const float4* rec, const Ray& ray,
   const float t_far = (b + radix) * 0.5f;
   const bool inside_near = inv_f, inside_far = !inv_f;
 
+  // sphere_root's filters on each root's position, the near root first.
   bool near_ok = both && (two_s || !inside_near);
   if (near_ok)
     near_ok = !skip_match(k, prim, o.x + n.x * t_near, o.y + n.y * t_near,
@@ -299,26 +309,40 @@ __device__ __forceinline__ void sph_record(const float4* rec, const Ray& ray,
     far_ok = !skip_match(k, prim, o.x + n.x * t_far, o.y + n.y * t_far,
                          o.z + n.z * t_far, inside_far, eps2);
   if (!(near_ok || far_ok)) return;
-  const float t_pick = near_ok ? t_near : t_far;
-  const float tt = t_pick * ray.dn_len;
-  if (!(tt < best.t)) return;
 
-  // Hit detail (Sphere.GetHit, Sphere.cs:156-173): position along the
-  // normalized direction, normal (pos - c) / r, negated on the far root.
-  float hx = o.x + n.x * t_pick;
-  float hy = o.y + n.y * t_pick;
-  float hz = o.z + n.z * t_pick;
-  const float inv_r = 1.f / r;
-  const float gflip = near_ok ? inv_r : -inv_r;
+  // The surviving root as sphere_root makes it: the position and world t
+  // d . (pos - o).  Its normal is a function of the winner alone, made
+  // once after the walk (sph_normal): until then the candidate's centre
+  // rides in nrm and its radius in u.
+  const float t_pick = near_ok ? t_near : t_far;
+  float wx = o.x + n.x * t_pick;
+  float wy = o.y + n.y * t_pick;
+  float wz = o.z + n.z * t_pick;
+  const float tt = d.x * (wx - o.x) + d.y * (wy - o.y) + d.z * (wz - o.z);
+  if (!(tt < best.t)) return;
   best.t = tt;
   best.row = row;
   best.prim = prim;
   best.flags = ((near_ok ? inside_near : inside_far) ? FLAG_IN : 0) |
                (near_ok ? 0 : FLAG_IN_GEO);
-  best.pos = {hx, hy, hz};
-  best.nrm = {(hx - cx) * gflip, (hy - cy) * gflip, (hz - cz) * gflip};
-  best.u = 0.f;
+  best.pos = {wx, wy, wz};
+  best.nrm = {cx, cy, cz};
+  best.u = r;
   best.v = 0.f;
+}
+
+// sphere_root's normal of the sphere leaves' winner, from its position and
+// the centre and radius that sph_record left in nrm and u: (pos - c) *
+// (1 / r), normalized, negated on the far root; u back to 0.
+__device__ __forceinline__ void sph_normal(Winner& best) {
+  const float inv_r = 1.f / best.u;
+  float qx = (best.pos.x - best.nrm.x) * inv_r;
+  float qy = (best.pos.y - best.nrm.y) * inv_r;
+  float qz = (best.pos.z - best.nrm.z) * inv_r;
+  float nrl = 1.f / sqrtf(fmaxf(qx * qx + qy * qy + qz * qz, 1e-30f));
+  const float flip = (best.flags & FLAG_IN_GEO) != 0 ? -nrl : nrl;
+  best.nrm = {qx * flip, qy * flip, qz * flip};
+  best.u = 0.f;
 }
 
 // One root of a transformed sphere; false when the root is filtered.
@@ -499,13 +523,21 @@ __global__ void __launch_bounds__(TRAVERSE_BLOCK)
   ray.d = {p.ray_d[3 * r], p.ray_d[3 * r + 1], p.ray_d[3 * r + 2]};
   const V3 o = ray.o, d = ray.d;
   ray.n = d;
-  ray.dn_len = 1.f;
   if (KIND != KIND_TRI) {
-    // The dense path re-normalizes (Ray.Transform, Ray.cs:43-50), and on
-    // tangent rays the discriminant's sign flips with sub-ulp |d|
-    // deviations.
-    ray.dn_len = sqrtf(fmaxf(d.x * d.x + d.y * d.y + d.z * d.z, 1e-30f));
-    ray.n = {d.x / ray.dn_len, d.y / ray.dn_len, d.z / ray.dn_len};
+    const float len = sqrtf(fmaxf(d.x * d.x + d.y * d.y + d.z * d.z, 1e-30f));
+    if (KIND == KIND_SPH) {
+      // The dense test's normalized direction (sphere_pass: Ray.Transform,
+      // Ray.cs:43-50), d times 1 / |d|: on tangent rays the discriminant's
+      // sign flips with sub-ulp deviations of the direction.
+      const float inv_len = 1.f / len;
+      ray.n = {d.x * inv_len, d.y * inv_len, d.z * inv_len};
+    } else {
+      // Not read by the ellipsoid leaves, which normalize in object space;
+      // kept, as the quotient, because without it the compiler allocates
+      // the ellipsoid walk's registers otherwise (its SASS is the one that
+      // was measured).
+      ray.n = {d.x / len, d.y / len, d.z / len};
+    }
   }
   const float ix = d.x != 0.f ? 1.f / d.x : BIG_INV;
   const float iy = d.y != 0.f ? 1.f / d.y : BIG_INV;
@@ -609,6 +641,9 @@ __global__ void __launch_bounds__(TRAVERSE_BLOCK)
       }
     }
     if (!found) break;
+  }
+  if constexpr (KIND == KIND_SPH) {
+    if (best.row >= 0) sph_normal(best);
   }
   if constexpr ((MODE & MODE_RECORD) != 0) {
     write_record<MODE>(p, r, best);
