@@ -264,11 +264,15 @@ KEY_MAX = (1 << 27) - 1
 BUILD_REGS = {}
 STACK_DEPTHS = []   # every wide tree's stack depth (record_stack_depths)
 FUSED_THREADS = TRAVERSE_THREADS = 128
-UNIFORMS_THREADS = SELECT_THREADS = LIST_THREADS = 256
+UNIFORMS_THREADS = SELECT_THREADS = LIST_THREADS = TONEMAP_THREADS = 256
+# The main paths' image() stages (image_stage), by path.
+IMAGE_STAGES = {}
 # Peak rates of one H100 SXM (NVIDIA's data sheet): fp32 outside the tensor
 # cores, and device memory.
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
+# PCIe Gen5 x16, one direction: the tonemap kernel's store to host memory.
+PEAK_PCIE_BYTES = 64e9
 # fp32 operations per table row up to the row's first exit, which every
 # (ray, row) pair runs, counted from csrc/kernel_body.cuh: a triangle's
 # Moller-Trumbore (two cross products, four dot products, one division and
@@ -356,6 +360,68 @@ def cuda_ms(fn, n):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
+
+
+def image_stage(card, r, label):
+    """``r.image()`` on a main path's CUDA float32 film, the tonemap
+    kernel's route: one ``tonemap_pack`` launch an image, 0 differing bytes
+    against the chain ``Film.to_uint8`` and its copy at exposure 1 and 1.5;
+    the kernel's device ms (launches queued behind a wait on the card, so
+    that the host's issue rate does not count), the chain's (a CUDA graph,
+    its copy to the host aside), the host ms of an image on each route, and
+    the kernel's bound: the film read from device memory, the image stored
+    across PCIe.  Kept in ``IMAGE_STAGES[label]`` and returned."""
+    from raytracercore_tpu_torch.render import tonemap_kernel as tk
+
+    film, s = r.film, r.arrays
+    bg, ba = s.background_rgb, s.background_alpha
+    h, w = film.shape
+    check(tk.takes(film), f"{label}: the film takes the tonemap kernel")
+    differ, launched = {}, []
+    for exposure in (1.0, 1.5):
+        want = film.to_uint8(bg, ba, exposure).cpu().numpy()
+        tk.tonemap_pack.launches = 0
+        got = r.image(exposure)
+        launched.append(tk.tonemap_pack.launches)
+        differ[exposure] = int((got != want).sum())
+    check(launched == [1, 1], f"{label}: one tonemap_pack launch an image() "
+          f"({launched})")
+    check(differ == {1.0: 0, 1.5: 0}, f"{label}: image() bit-equal to "
+          f"Film.to_uint8 (differing bytes by exposure: {differ})")
+
+    def host_ms(fn, n=20):
+        times = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times))
+
+    chain_host = host_ms(lambda: film.to_uint8(bg, ba, 1.0).cpu().numpy())
+    image_host = host_ms(r.image)
+    packer = tk.Packer(film, bg, ba)
+    packer()
+    torch.cuda.synchronize()
+    n = 200
+    torch.cuda._sleep(100_000_000)
+    ms = cuda_ms(packer, n)
+    plain_ms = graph_ms(lambda: film.to_uint8(bg, ba, 1.0), 20)
+    hbm = nbytes(*film.tensors(), bg, ba)
+    pcie = h * w * 4
+    bnd = max((hbm / PEAK_BYTES * 1e3, "bytes"),
+              (pcie / PEAK_PCIE_BYTES * 1e3, "PCIe bytes"))
+    print(f"[time] tonemap_pack_kernel {label} {w}x{h}: differing bytes "
+          f"{differ}; kernel device ms={ms:.5f} (into pinned memory) "
+          f"plain ms={fmt_ms(plain_ms)} (the chain, graphed, its copy "
+          f"aside); host ms an image: image() {image_host:.4f}, the chain "
+          f"and its pageable copy {chain_host:.4f}; bound ms={bnd[0]:.5f} "
+          f"({bnd[1]}: {hbm / (h * w):.0f} B a pixel read, 4 B stored to "
+          f"the host) on {card}; "
+          + occupancy_text("tonemap_pack_kernel", TONEMAP_THREADS))
+    IMAGE_STAGES[label] = {"ms": ms, "plain_ms": plain_ms, "bound": bnd,
+                           "launches": sum(launched),
+                           "differ": max(differ.values())}
+    return IMAGE_STAGES[label]
 
 
 def bound(ops, n_bytes):
@@ -1502,6 +1568,7 @@ def mesh_path(card, dev):
           "mesh film is finite")
     check(float(film.samples.sum() + film.misses.sum())
           == MAIN_PASSES * 700 * 700, "mesh: one sample per pixel per pass")
+    image_stage(card, r, "mesh-722")
     img = r.image()
     check(img.shape == (700, 700, 4) and img.dtype == np.uint8,
           "mesh image is 700x700 RGBA uint8")
@@ -2587,6 +2654,7 @@ def bvh_render_path(card, dev):
           "mesh-184k film is finite")
     check(float(film.samples.sum() + film.misses.sum()) == BVH_PASSES * R,
           "mesh-184k: one sample per pixel per pass")
+    image_stage(card, r, "mesh-184k")
     img = r.image()
     check(img.shape == (BVH_SIZE, BVH_SIZE, 4) and img.dtype == np.uint8,
           "mesh-184k image is 512x512 RGBA uint8")
@@ -4728,14 +4796,18 @@ NODE_NAMES = {
 def graph_kernels(label, captured, want, tmp):
     """Gate: the kernels one replay of ``captured`` runs — the graph's
     kernel nodes (its DOT dump) and the launches recorded while it was
-    captured — are ``want`` ``{wrapper: n}``, the route's.  Returns the
-    text printed beside the route (kernel nodes in all, ours per
-    replay)."""
+    captured, by wrapper (the counts of a kernel's forms, each launch
+    also in its wrapper's count, aside) — are ``want`` ``{wrapper: n}``,
+    the route's.  Returns the text printed beside the route (kernel nodes
+    in all, ours per replay)."""
+    from raytracercore_tpu_torch.kernels import LaunchCount
+
     nodes = captured.kernel_nodes(str(Path(tmp) / "graph.dot"))
     ours = {name: sum(n for k, n in nodes.items() if re.search(pat, k))
             for name, pat in NODE_NAMES.items()}
     ours = {k: v for k, v in ours.items() if v}
-    tally = {w.__name__: n for w, n in captured.launches.items()}
+    tally = {w.__name__: n for w, n in captured.launches.items()
+             if not isinstance(w, LaunchCount)}
     check(ours == want and tally == want,
           f"{label}: kernels a replay runs: the graph's kernel nodes {ours}, "
           f"the launches recorded at the capture {tally}, the route's "
@@ -5263,6 +5335,7 @@ def main():
               "film is finite")
         check(float(film.samples.sum() + film.misses.sum())
               == MAIN_PASSES * 700 * 700, "one sample per pixel per pass")
+        image_stage(card, r, "cornell")
         img = r.image()
         check(img.shape == (700, 700, 4) and img.dtype == np.uint8,
               "image is 700x700 RGBA uint8")
@@ -5495,6 +5568,16 @@ def main():
               "scripts/vpu_issue_bench.py:106",
               probe["launches"], probe["max_abs_err"], probe["ms"],
               probe["plain_ms"], probe["bound"]),
+        # The counterpart of the XLA fusion of Film.to_uint8 in the JAX
+        # Renderer.image, not of a Pallas kernel; timed on main path 1's
+        # film (cornell 700x700), its error the most differing bytes of
+        # the three main paths' images.
+        entry("tonemap_pack", "tonemap.cu", "render/renderer.py:233",
+              sum(v["launches"] for v in IMAGE_STAGES.values()),
+              max(v["differ"] for v in IMAGE_STAGES.values()),
+              IMAGE_STAGES["cornell"]["ms"],
+              IMAGE_STAGES["cornell"]["plain_ms"],
+              IMAGE_STAGES["cornell"]["bound"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -85,7 +85,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..kernels import check_tensor as _check
+from ..kernels import LaunchCount, check_tensor as _check
 from .builder import BVHArrays
 
 TRI_F = 16   # packed floats per leaf triangle (see pack_leaf_tris)
@@ -1016,18 +1016,6 @@ def traverse_record(wide: WideNodes, leaves, leaf_kind: str, ray_o, ray_d,
     return record_reference(
         traverse(wide, leaves, leaf_kind, ray_o, ray_d, skip, eps_behind,
                  eps_pos, order=order), tri, prior)
-
-
-class LaunchCount:
-    """The launches of one form of a kernel, in ``launches``, kept by
-    ``kernels.count_launch`` as a wrapper's count is."""
-
-    def __init__(self, name: str):
-        self.name = name
-        self.launches = 0
-
-    def __repr__(self):
-        return f"LaunchCount({self.name!r}, launches={self.launches})"
 
 
 # The traversal launches that wrote the final record (each is counted in

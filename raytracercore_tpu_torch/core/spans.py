@@ -10,7 +10,11 @@ Where they are (each a ``with span(name)``):
   ``closest_hit`` (one a bounce) and ``film_accum``, the JAX package's
   profiler scope names;
 * ``render.image`` (``Renderer.image``, whole): ``film.tonemap`` and
-  ``film.to_host``;
+  ``film.to_host``.  On a film of CUDA float32 planes ``film.tonemap`` is
+  one launch of the tonemap kernel, which stores the image into pinned
+  host memory, and ``film.to_host`` the synchronize of the stream; on
+  every other film ``film.tonemap`` is the chain ``Film.to_uint8`` and
+  ``film.to_host`` its copy to the host;
 * ``train.step`` (``make_train_step``'s step, whole): ``graph.feed``,
   ``train.seed``, ``graph.replay``, ``train.optimizer`` (the gradients
   re-pointed and ``optimizer.step()``) and ``train.loss`` (the output's

@@ -125,6 +125,12 @@ SIGNATURES = {
         [_P] * 5                       # 2 rays, root min and max, keys
         + [_I] * 3                     # R morton_bits dir_bits
         + [_P]),                       # stream
+    "rtc_tonemap_pack": (
+        [_P] * 7                       # 3 film planes, compensation (null:
+                                       # none), background rgb and alpha,
+                                       # out (pinned host memory)
+        + [_I, _F]                     # n exposure
+        + [_P]),                       # stream
 }
 
 _loaded: dict = {}
@@ -145,6 +151,18 @@ def count_launch(wrapper) -> None:
         wrapper.launches += 1
     else:
         tally[wrapper] = tally.get(wrapper, 0) + 1
+
+
+class LaunchCount:
+    """The launches of one kernel, or of one form of it, in ``launches``,
+    kept by :func:`count_launch` as a wrapper's count is."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.launches = 0
+
+    def __repr__(self):
+        return f"LaunchCount({self.name!r}, launches={self.launches})"
 
 
 def check_tensor(name, t, shape, dtype, device):

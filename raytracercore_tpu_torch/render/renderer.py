@@ -43,8 +43,10 @@ on the eager path the phases under the JAX package's profiler scope names
 every bounce of ``trace``; ``trace_pass`` for the megakernel's whole
 form; ``camera_rays`` and a ``closest_hit`` a bounce for the bounce loop's
 whole form);
-``render.image`` holds ``film.tonemap`` and
-``film.to_host``.  A replay runs no Python, so nothing inside a graph is
+``render.image`` holds ``film.tonemap`` (on a CUDA float32 film one
+launch of the tonemap kernel into pinned host memory, else the chain
+``Film.to_uint8``) and ``film.to_host`` (the stream's synchronize, or the
+chain's copy).  A replay runs no Python, so nothing inside a graph is
 a span.  :meth:`Renderer.profile` writes a trace of what ``step`` runs,
 with these spans in it.
 """
@@ -73,6 +75,7 @@ from ..scene.types import (CameraRT, HostScene, SceneArrays, freeze_scene,
 from . import camera as cam_mod
 from . import fused
 from . import integrator
+from . import tonemap_kernel
 from .film import Film
 from .integrator import preprocess_uniforms, trace
 
@@ -557,6 +560,8 @@ class Renderer:
                                 compensated=self.compensated)
         self.pass_index = 0
         self._elapsed = 0.0
+        # (film, its tonemap Packer or None: the chain), made by image().
+        self._packer = (None, None)
 
     def next_camera(self) -> bool:
         """Cycle cameras; returns True on wraparound (Scene.cs:127-135).
@@ -678,12 +683,34 @@ class Renderer:
 
     def image(self, exposure: float = 1.0) -> np.ndarray:
         """Tonemapped uint8 RGBA frame [H, W, 4] (GetBitmap,
-        FullRaytracer.cs:179-205)."""
-        s = self.arrays
+        FullRaytracer.cs:179-205), an array of its own at every call.
+
+        Two routes, by what :func:`.tonemap_kernel.takes` observes in the
+        film.  A film of CUDA float32 planes (compensated or not): under
+        ``film.tonemap`` one launch of the tonemap kernel
+        (:class:`.tonemap_kernel.Packer`, kept while the film stays the
+        same object, as a graphed film does), which stores the image
+        straight into a fresh pinned host tensor; under ``film.to_host``
+        the synchronize of the stream.  Every other film (the CPU,
+        float64): under ``film.tonemap`` the chain
+        :meth:`.film.Film.to_uint8`, the kernel's plain version, and under
+        ``film.to_host`` its copy to the host.  The two are bit-equal."""
+        s, film = self.arrays, self.film
         with spans.span("render.image"):
+            if self._packer[0] is not film:
+                self._packer = (film, tonemap_kernel.Packer(
+                    film, s.background_rgb, s.background_alpha)
+                    if tonemap_kernel.takes(film) else None)
+            packer = self._packer[1]
+            if packer is not None:
+                with spans.span("film.tonemap"):
+                    img = packer(exposure)
+                with spans.span("film.to_host"):
+                    packer.synchronize()
+                    return img.numpy()
             with spans.span("film.tonemap"):
-                img = self.film.to_uint8(s.background_rgb,
-                                         s.background_alpha, exposure)
+                img = film.to_uint8(s.background_rgb, s.background_alpha,
+                                    exposure)
             with spans.span("film.to_host"):
                 return img.cpu().numpy()
 
